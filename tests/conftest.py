@@ -60,6 +60,9 @@ def pytest_configure(config):
         "markers",
         "chaos: fault-injection test driven by the deterministic chaos "
         "harness (ray_tpu/_private/chaos.py); fast ones stay in tier-1")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's kernels); skips without one")
 
 
 @pytest.fixture

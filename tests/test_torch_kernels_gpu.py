@@ -1,0 +1,115 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here is marked ``gpu`` and skips without a CUDA device.
+The file imports neither JAX nor ``ray_tpu``, so it also runs on a
+machine that has only PyTorch:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.models.paged_kv import GARBAGE_BLOCK, quantize_kv
+from ray_tpu_torch.ops import paged_decode_attention as tpda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode "
+                    "(run `pytest -m gpu` on the card)")
+    return torch.device("cuda")
+
+
+def _paged_case(dev, kind, hq, hkv, d, bs, positions, nb_slot, seed=0,
+                q_kind=None):
+    """q, arena (each slot's logical blocks at permuted physical ids) and
+    tables whose dead tail entries repeat the last live block; slot -1
+    stands for a freed slot, its whole row on the garbage block."""
+    rng = np.random.default_rng(seed)
+    b = len(positions)
+    nblocks = b * nb_slot + 1
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k = rng.standard_normal((nblocks, bs, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((nblocks, bs, hkv, d)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, nblocks)).reshape(b, nb_slot)
+    pos = np.array([max(p, 0) for p in positions], np.int32)
+    for i, p in enumerate(positions):
+        if p < 0:
+            tables[i] = GARBAGE_BLOCK
+        else:
+            live = min(p // bs + 1, nb_slot)
+            tables[i, live:] = tables[i, live - 1]
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    tq = torch.from_numpy(q).to(dev, dt[q_kind or ("fp32" if kind == "fp32"
+                                                    else "bf16")])
+    tk, tv = (torch.from_numpy(a).to(dev) for a in (k, v))
+    ks = vs = None
+    if kind == "int8":
+        tk, ks = quantize_kv(tk)
+        tv, vs = quantize_kv(tv)
+    else:
+        tk, tv = tk.to(dt[kind]), tv.to(dt[kind])
+    return (tq, tk, tv, torch.from_numpy(tables.astype(np.int32)).to(dev),
+            torch.from_numpy(pos).to(dev)), dict(k_scale=ks, v_scale=vs)
+
+
+# (kind, q kind, hq, hkv, d, bs, positions, table entries per slot): the
+# Llama-3-8B decode shape, every group tile (G = 1, 2, 4, 8 and G = 3, 12,
+# which split a kv head's group over blocks), block sizes 16-128, head
+# dims 40-256 (int8 rows of 40 bytes; fp32 at 256 takes one smem stage),
+# positions at block edges, past the table (all entries live) and a
+# freed slot (-1).
+CASES = {
+    "llama3-bf16": ("bf16", None, 32, 8, 128, 64,
+                    (0, 63, 64, 700, 1023, 1500, 2047, -1), 32),
+    "llama3-fp32": ("fp32", None, 32, 8, 128, 64,
+                    (0, 63, 64, 700, 1023, 1500, 2047, -1), 32),
+    "llama3-int8": ("int8", None, 32, 8, 128, 64,
+                    (0, 63, 64, 700, 1023, 1500, 2047, -1), 32),
+    "q-fp32-arena-bf16": ("bf16", "fp32", 32, 8, 128, 64, (5, 130, 511), 8),
+    "g1-bs16": ("bf16", None, 8, 8, 128, 16, (15, 16, 17, 200), 16),
+    "g2-overrun": ("fp32", None, 4, 2, 64, 32, (31, 32, 127, 500), 4),
+    "g3": ("bf16", None, 24, 8, 128, 64, (0, 100, 300), 6),
+    "g8-bs128": ("bf16", None, 64, 8, 128, 128, (127, 128, 1000), 8),
+    "g12-int8": ("int8", None, 48, 4, 128, 64, (64, 333), 6),
+    "d40-int8": ("int8", None, 8, 2, 40, 32, (1, 95, 96), 4),
+    "d256-fp32": ("fp32", None, 16, 4, 256, 64, (63, 700), 12),
+    "d256-bf16": ("bf16", None, 16, 2, 256, 64, (0, 64, 767), 12),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_paged_kernel_matches_plain(cuda_device, name):
+    kind, q_kind, hq, hkv, d, bs, positions, nb = CASES[name]
+    args, kw = _paged_case(cuda_device, kind, hq, hkv, d, bs, positions,
+                           nb, q_kind=q_kind)
+    before = tpda.paged_decode_attention.launches
+    out = tpda.paged_decode_attention(*args, **kw)
+    assert tpda.paged_decode_attention.launches == before + 1
+    ref = tpda.paged_decode_attention(*args, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    # fp32: the same math in another summation order. bf16 outputs: one
+    # bf16 rounding (2^-8 relative) of nearly equal fp32 values.
+    atol, rtol = (1e-5, 0.0) if out.dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_rejects_what_it_does_not_take(cuda_device):
+    args, kw = _paged_case(cuda_device, "bf16", 8, 2, 128, 64, (5,), 2)
+    q, k, v, tables, pos = args
+    with pytest.raises(ValueError, match="table entries"):
+        tpda.paged_decode_attention(
+            q, k, v, tables.repeat(1, tpda.MAX_TABLE_ENTRIES), pos)
+    with pytest.raises(ValueError, match="d % 8"):
+        tpda.paged_decode_attention(q[..., :100], k[..., :100].contiguous(),
+                                    v[..., :100].contiguous(), tables, pos)
+    with pytest.raises(ValueError, match="int8"):
+        tpda.paged_decode_attention(q, k, v, tables, pos,
+                                    k_scale=k[..., 0].float(),
+                                    v_scale=v[..., 0].float())
