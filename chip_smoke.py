@@ -26,7 +26,27 @@ Phases, any failure exits non-zero with no result line:
 6. kernel vs plain inside the engine: the same widths at 2 layers in
    fp32, greedy tokens with the kernel and with ``use_decode_kernel=False``
    must be identical (a divergence passes only if the top-2 logit margin
-   there is below 1e-4).
+   there is below 1e-4);
+7. flash kernels vs plain: the forward, dq and dk/dv kernels against
+   ``flash_fwd_reference``/``flash_bwd_reference`` at the Llama-3-8B
+   training attention shape (B=2, S=2048, Hq=32, KVH=8, D=128), causal in
+   bf16 and fp32, non-causal, and cross-length causal (Sq=1024, Sk=2048);
+   out, lse, dq, dk and dv each within the tolerances in FLASH_CASES;
+8. flash timing: each kernel, its plain version (one plain backward
+   computes dq, dk and dv) and ``scaled_dot_product_attention`` forward
+   and backward (a yardstick only; the port never calls it), CUDA events
+   with L2 flushed; the bound is the larger of the live (q, key) pairs'
+   flops over the dtype's peak and the bytes moved over 3.35 TB/s;
+9. kernel vs plain inside the model: Llama-3-8B widths at 2 layers in
+   fp32, one sequence of 512 tokens: loss_fn and every param leaf's grad
+   with the kernels and with ``attention_kernel=False``;
+10. end to end, training: ``ShardedTrainer`` on Llama-3-8B widths at 16 of
+   its 32 layers (bf16, remat "full"), a 2 x 2048-token batch from
+   ``synthetic_batch`` seed 0, ``default_optimizer(warmup_steps=5,
+   total_steps=1000)``, 12 steps on that batch: every loss finite, the
+   last below the first, and per step 2 L forward launches (remat replays
+   the forward), L dq and L dk/dv launches; then step time, tokens/s,
+   MFU, peak memory and one profiled step's device time by kernel.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -43,6 +63,25 @@ import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+FLASH_SHAPE = dict(B=2, HQ=32, KVH=8, D=128)
+# (name, dtype, causal, sq, sk, atol, rtol) for out, dq, dk, dv: fp32 is
+# the same math in another summation order; bf16 outputs round once to
+# bf16 (~2^-8 relative). lse is fp32 in every case: FLASH_LSE_ATOL.
+FLASH_CASES = [("bf16", "bf16", True, 2048, 2048, 2e-2, 2e-2),
+               ("fp32", "fp32", True, 2048, 2048, 1e-4, 1e-4),
+               ("noncausal-bf16", "bf16", False, 2048, 2048, 2e-2, 2e-2),
+               ("cross-bf16", "bf16", True, 1024, 2048, 2e-2, 2e-2)]
+FLASH_LSE_ATOL = 1e-4
+FLASH_TIMED = ("bf16", "fp32")
+FLASH_REPLACES = {"fwd": "ray_tpu/ops/attention.py:74",
+                  "dq": "ray_tpu/ops/attention.py:170",
+                  "dkv": "ray_tpu/ops/attention.py:207"}
+# Model parity (phase 9): loss within this relative error, each grad leaf
+# within this share of its largest entry (fp32 attention in another
+# summation order, carried through two layers).
+MODEL_LOSS_RTOL = 1e-5
+MODEL_GRAD_TOL = 1e-4
+TRAIN = dict(layers=16, batch=2, seq=2048, steps=12, warmup=5, total=1000)
 # (name, q dtype, arena kind, atol, rtol): fp32 is exact math in another
 # summation order; bf16/int8 outputs round to bf16 (~2^-8 relative).
 CASES = [("bf16", "bf16", "bf16", 2e-2, 2e-2),
@@ -345,6 +384,293 @@ def engine_parity(torch):
           f" over {len(prompts)} requests x 16 tokens")
 
 
+def reset_launch_counts():
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.ops.paged_decode_attention import \
+        paged_decode_attention
+
+    paged_decode_attention.launches = 0
+    for name in flash_attention.launches:
+        flash_attention.launches[name] = 0
+
+
+def flash_inputs(torch, kind, sq, sk, seed):
+    s = FLASH_SHAPE
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[kind]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(n, heads):
+        return torch.randn((s["B"], n, heads, s["D"]), generator=gen,
+                           device="cuda").to(dtype)
+    return rnd(sq, s["HQ"]), rnd(sk, s["KVH"]), rnd(sk, s["KVH"]), \
+        rnd(sq, s["HQ"])
+
+
+def flash_bounds(kind, causal, sq, sk):
+    """Least time of each kernel for these inputs: the live (query, key)
+    pairs' flops (4 D a pair forward, 6 D for dq, 8 D for dk/dv) over the
+    dtype's peak, or each input read once and each output written once
+    over 3.35 TB/s, whichever is larger."""
+    s = FLASH_SHAPE
+    offs = sk - sq
+    per_head = (sum(min(sk, max(0, r + offs + 1)) for r in range(sq))
+                if causal else sq * sk)
+    pairs = s["B"] * s["HQ"] * per_head
+    item = 2 if kind == "bf16" else 4
+    q = s["B"] * sq * s["HQ"] * s["D"] * item
+    kv = s["B"] * sk * s["KVH"] * s["D"] * item
+    row = s["B"] * s["HQ"] * sq * 4                # lse or delta, fp32
+    work = {"fwd": (4 * s["D"] * pairs, q + 2 * kv + q + row),
+            "dq": (6 * s["D"] * pairs, 2 * q + 2 * kv + 2 * row + q),
+            "dkv": (8 * s["D"] * pairs, 2 * q + 2 * kv + 2 * row + 2 * kv)}
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops = ops / PEAK_OPS_PER_S[kind]
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def close(torch, got, want, atol, rtol):
+    err = (got.float() - want.float()).abs()
+    bad = err > atol + rtol * want.float().abs()
+    ok = bool(torch.isfinite(got.float()).all()) and not bool(bad.any())
+    return float(err.max()), ok, int(bad.sum())
+
+
+def flash_phases(torch):
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as fa
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    results = {}
+    for i, (name, kind, causal, sq, sk, atol, rtol) in enumerate(
+            FLASH_CASES):
+        q, k, v, do = flash_inputs(torch, kind, sq, sk, seed=10 + i)
+        scale = FLASH_SHAPE["D"] ** -0.5
+        kw = dict(scale=scale, causal=causal)
+        out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+        ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
+        grads = fa.flash_bwd_cuda(q, k, v, ref_out, ref_lse, do, **kw)
+        ref_grads = fa.flash_bwd_reference(q, k, v, ref_out, ref_lse, do,
+                                           **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for label, got, want, a, r in (
+                [("out", out, ref_out, atol, rtol),
+                 ("lse", lse, ref_lse, FLASH_LSE_ATOL, 0.0)]
+                + [(n, g, w, atol, rtol) for n, g, w in
+                   zip(("dq", "dk", "dv"), grads, ref_grads)]):
+            err, ok, n_bad = close(torch, got, want, a, r)
+            errs[label] = err
+            if not ok:
+                fail(f"flash kernel disagrees with plain version ({name}, "
+                     f"{label}): max_abs_err={err}, {n_bad} elements out "
+                     f"(atol {a}, rtol {r})")
+        print(f"[flash] {name} (Sq={sq}, Sk={sk}, causal={causal}): "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" (atol {atol}, rtol {rtol}; lse atol {FLASH_LSE_ATOL})")
+        res = dict(max_abs_err={"fwd": max(errs["out"], errs["lse"]),
+                                "dq": errs["dq"],
+                                "dkv": max(errs["dk"], errs["dv"])})
+        del out, lse, grads, ref_grads
+        if name in FLASH_TIMED:
+            delta = fa._delta(ref_out, do)
+            bwd = (q, k, v, do, ref_lse, delta)
+            res["ms"] = {
+                "fwd": time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v,
+                                                                **kw),
+                               flush, iters=20),
+                "dq": time_ms(torch, lambda: fa.flash_dq_cuda(*bwd, **kw),
+                              flush, iters=20),
+                "dkv": time_ms(torch, lambda: fa.flash_dkv_cuda(*bwd, **kw),
+                               flush, iters=20)}
+            plain_fwd = time_ms(torch, lambda: fa.flash_fwd_reference(
+                q, k, v, **kw), flush, iters=10)
+            plain_bwd = time_ms(torch, lambda: fa.flash_bwd_reference(
+                q, k, v, ref_out, ref_lse, do, **kw), flush, iters=10)
+            res["plain_ms"] = {"fwd": plain_fwd, "dq": plain_bwd,
+                               "dkv": plain_bwd}
+            qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+            sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), flush,
+                iters=20)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+            sdpa_fb = time_ms(torch, lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                               enable_gqa=True),
+                (qg, kg, vg), dot), flush, iters=20)
+            res["library_ms"] = {"fwd": sdpa_fwd, "dq": sdpa_fb - sdpa_fwd,
+                                 "dkv": sdpa_fb - sdpa_fwd,
+                                 "fwd_bwd": sdpa_fb}
+            res["bound"] = flash_bounds(kind, causal, sq, sk)
+            print(f"[flash-timing] {name}: " + "; ".join(
+                f"{n} kernel {res['ms'][n]:.4f} ms, plain "
+                f"{res['plain_ms'][n]:.4f}, library "
+                f"{res['library_ms'][n]:.4f}, bound "
+                f"{res['bound'][n][0]:.4f} ({res['bound'][n][1]})"
+                for n in ("fwd", "dq", "dkv")))
+        results[name] = res
+        del q, k, v, do, ref_out, ref_lse
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
+def _param_leaves(params):
+    return [t for v in params.values()
+            for t in (v.values() if isinstance(v, dict) else [v])]
+
+
+def model_parity(torch):
+    """Phase 9: loss_fn and every grad leaf, kernels against plain."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    cfg = dataclasses.replace(
+        llama.LlamaConfig.llama3_8b(dtype=torch.float32), num_layers=2)
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(2), device="cuda")
+    leaves = [p.requires_grad_(True) for p in _param_leaves(params)]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    got = {}
+    for kernel in (None, False):
+        before = dict(flash_attention.launches)
+        loss, _ = llama.loss_fn(params, {"tokens": tokens},
+                                dataclasses.replace(cfg,
+                                                    attention_kernel=kernel))
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        launched = {n: flash_attention.launches[n] - before[n]
+                    for n in before}
+        if (kernel is None) != (launched["fwd"] > 0 and launched["dq"] > 0
+                                and launched["dkv"] > 0):
+            fail(f"model parity: kernel={kernel} launched {launched}")
+        got[kernel] = (float(loss.detach()), grads)
+    (l1, g1), (l0, g0) = got[None], got[False]
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+                for a, b in zip(g1, g0))
+    print(f"[model-parity] fp32 Llama-3-8B widths, 2 layers, 512 tokens: "
+          f"loss kernel {l1:.8f} plain {l0:.8f}; worst grad leaf "
+          f"max|diff|/max|grad| {worst:.3e} (limits: loss rtol "
+          f"{MODEL_LOSS_RTOL}, grads {MODEL_GRAD_TOL})")
+    if not (abs(l1 - l0) <= MODEL_LOSS_RTOL * abs(l0)
+            and worst <= MODEL_GRAD_TOL):
+        fail("model parity: kernel and plain loss_fn disagree")
+    del params, leaves, got, g1, g0, grads
+    torch.cuda.empty_cache()
+
+
+def train_flops(cfg, n_params, batch, seq):
+    """bench.py's ``_train_flops``: 6 P per token plus causal attention,
+    12 L H D S^2 / 2 per sequence."""
+    return (6 * n_params * batch * seq + 12 * cfg.num_layers * cfg.num_heads
+            * cfg.head_dim * seq * seq * batch // 2)
+
+
+def profile_step(torch, trainer, state, batch, step_ms):
+    """Device time of one train step by kernel (torch.profiler, device
+    rows only), grouped: the three flash kernels, GEMMs, the rest; the
+    idle share is against ``step_ms``, the unprofiled step (the profiler
+    slows the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = trainer.train_step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    groups = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
+              "gemm": 0.0, "other": 0.0}
+    for key, ms, _ in rows:
+        low = key.lower()
+        if "flash_fwd_kernel" in key:
+            groups["flash_fwd"] += ms
+        elif "flash_dq_kernel" in key:
+            groups["flash_dq"] += ms
+        elif "flash_dkv_kernel" in key:
+            groups["flash_dkv"] += ms
+        elif any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
+            groups["gemm"] += ms
+        else:
+            groups["other"] += ms
+    busy = sum(groups.values())
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    return state, dict(wall_ms_profiled=wall_ms, device_busy_ms=busy,
+                       idle_share=1.0 - busy / step_ms,
+                       groups_ms=groups,
+                       top=[(k[:60], ms, n) for k, ms, n in top])
+
+
+def train_end_to_end(torch, card):
+    """Phase 10: the training main path at Llama-3-8B widths."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (ShardedTrainer,
+                                               default_optimizer,
+                                               synthetic_batch)
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    t = TRAIN
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_layers=t["layers"])
+    trainer = ShardedTrainer(cfg, optimizer=default_optimizer(
+        warmup_steps=t["warmup"], total_steps=t["total"]))
+    t0 = time.perf_counter()
+    state = trainer.init_state(0)
+    batch = synthetic_batch(t["batch"], t["seq"], cfg.vocab_size, seed=0)
+    torch.cuda.synchronize()
+    n_params = llama.num_params(cfg)
+    print(f"[train] Llama-3-8B widths, {cfg.num_layers} of 32 layers: "
+          f"{n_params / 1e9:.3f} B params, bf16, remat "
+          f"{cfg.remat_policy!r}; init {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], []
+    reset_launch_counts()
+    for _ in range(t["steps"]):
+        before = dict(flash_attention.launches)
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(float(metrics["loss"]))      # syncs the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({n: flash_attention.launches[n] - before[n]
+                         for n in before})
+    launches = dict(flash_attention.launches)
+    L = cfg.num_layers
+    want = {"fwd": 2 * L, "dq": L, "dkv": L}
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} (want finite, last below first)")
+    if any(d != want for d in per_step):
+        fail(f"train: launches per step {per_step}, want {want}")
+    step_s = float(np.median(step_ms[2:])) / 1e3
+    tokens = t["batch"] * t["seq"]
+    stats = dict(
+        layers=L, params=n_params, losses=losses, step_ms=step_ms,
+        step_ms_median_3_12=step_s * 1e3, tokens_per_s=tokens / step_s,
+        mfu=train_flops(cfg, n_params, t["batch"], t["seq"]) / step_s
+        / PEAK_OPS_PER_S["bf16"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        grad_norm_last=float(metrics["grad_norm"]),
+        launches_per_step=want, launches=launches, card=card)
+    print(f"[train] {json.dumps(stats)}")
+    state, prof = profile_step(torch, trainer, state, batch, step_s * 1e3)
+    print(f"[train-profile] one step: {json.dumps(prof)}")
+    del state, trainer, batch
+    torch.cuda.empty_cache()
+    return stats
+
+
 def main():
     import torch
 
@@ -376,8 +702,12 @@ def main():
               f"bytes")
 
     timing = kernel_phases(torch)
+    reset_launch_counts()
     runs = end_to_end(torch, card)
     engine_parity(torch)
+    flash = flash_phases(torch)
+    model_parity(torch)
+    train = train_end_to_end(torch, card)
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(
@@ -390,6 +720,20 @@ def main():
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
         bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
         card=card, variants=timing)]}
+    main_flash = flash["bf16"]
+    for n in ("fwd", "dq", "dkv"):
+        record["kernels"].append(dict(
+            name=f"flash_{n}", route="cuda",
+            source="ray_tpu_torch/ops/csrc/flash_attention.cu",
+            replaces=FLASH_REPLACES[n], launches=train["launches"][n],
+            max_abs_err=main_flash["max_abs_err"][n],
+            ms=main_flash["ms"][n], plain_ms=main_flash["plain_ms"][n],
+            bound_ms=main_flash["bound"][n][0],
+            bound_by=main_flash["bound"][n][1],
+            library_ms=main_flash["library_ms"][n], card=card,
+            variants={name: {key: (val[n] if isinstance(val, dict)
+                                   else val) for key, val in res.items()}
+                      for name, res in flash.items()}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's model and serving path.
+"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's model, serving and
+training path.
 
 The package mirrors ``ray_tpu``'s module paths (``ops/...``,
 ``models/...``) so each function has an obvious counterpart, and keeps

@@ -238,11 +238,6 @@ def _bucket_floor(n: int) -> int:
     return 0 if n <= 0 else 1 << (n.bit_length() - 1)
 
 
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue A, {item}")
-
-
 def _resolve_paged(paged: Optional[bool]) -> bool:
     """Explicit arg > ``RAY_TPU_PAGED_KV`` env > on. The dense plane is
     not ported."""
@@ -250,8 +245,8 @@ def _resolve_paged(paged: Optional[bool]) -> bool:
         paged = env_flag("RAY_TPU_PAGED_KV")
     if paged is None or paged:
         return True
-    raise _not_in_slice("the dense paged=False plane",
-                        "item 5 (the dense _decode_kernel and its engine)")
+    raise llama.not_ported("the dense paged=False plane",
+                           "item 5 (the dense _decode_kernel and its engine)")
 
 
 def _resolve_prefix_cache(prefix_cache: Optional[bool]) -> bool:
@@ -260,8 +255,8 @@ def _resolve_prefix_cache(prefix_cache: Optional[bool]) -> bool:
     if prefix_cache is None:
         prefix_cache = env_flag("RAY_TPU_PREFIX_CACHE")
     if prefix_cache:
-        raise _not_in_slice("prefix_cache=True",
-                            "item 4 (engine features: the prefix cache)")
+        raise llama.not_ported("prefix_cache=True",
+                               "item 4 (engine features: the prefix cache)")
     return False
 
 
@@ -274,8 +269,8 @@ def _resolve_spec_k(spec_k: Optional[int]) -> int:
     if spec_k < 0:
         raise ValueError(f"spec_k must be >= 0, got {spec_k}")
     if spec_k:
-        raise _not_in_slice("speculative decoding (spec_k > 0)",
-                            "item 4 (engine features: speculative decode)")
+        raise llama.not_ported("speculative decoding (spec_k > 0)",
+                               "item 4 (engine features: speculative decode)")
     return 0
 
 
@@ -289,9 +284,9 @@ def _resolve_role(role: Optional[str]) -> str:
             f"role must be one of ('prefill', 'decode', 'both'), "
             f"got {role!r}")
     if role != "both":
-        raise _not_in_slice(f"role={role!r}",
-                            "item 4 (engine features: the prefill/decode "
-                            "split)")
+        raise llama.not_ported(f"role={role!r}",
+                               "item 4 (engine features: the prefill/decode "
+                               "split)")
     return role
 
 
@@ -353,9 +348,9 @@ class ContinuousBatcher:
         self.max_len = max_len
         self.eos_token = eos_token
         if int(sync_every) > 1:
-            raise _not_in_slice("buffered decode (sync_every > 1)",
-                                "item 4 (engine features: buffered "
-                                "decode)")
+            raise llama.not_ported("buffered decode (sync_every > 1)",
+                                   "item 4 (engine features: buffered "
+                                   "decode)")
         self.sync_every = 1
         self.sampling = SamplingParams.coerce(sampling)
         self.paged = _resolve_paged(paged)

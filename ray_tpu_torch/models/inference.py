@@ -32,22 +32,10 @@ def _attend_cached(q, cache_k, cache_v, q_positions, scale):
 
 
 def lm_head_logits(x, params, config: llama.LlamaConfig):
-    """Final-norm hidden states [B, S, E] -> fp32 logits [B, S, V].
-
-    The product runs in the params' storage dtype with fp32
-    accumulation AND fp32 output, as JAX's ``preferred_element_type``
-    does: a bf16 ``matmul`` would round the logits to bf16 and break
-    greedy ties. On CUDA that is ``torch.mm(..., out_dtype=float32)``;
-    the CPU backend lacks that overload, so the CPU upcasts the operands
-    (exact for bf16 inputs, same fp32 sums)."""
-    c = config
-    b, s, e = x.shape
-    x2 = x.reshape(b * s, e).to(c.dtype)
-    w = params["lm_head"].to(c.dtype)
-    if c.dtype == torch.float32:
-        out = x2 @ w
-    elif x2.is_cuda:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        out = x2.float() @ w.float()
-    return out.reshape(b, s, -1)
+    """Final-norm hidden states [B, S, E] -> fp32 logits [B, S, V]
+    (:func:`ray_tpu_torch.models.llama.head_logits`): the product runs
+    in the params' storage dtype with fp32 accumulation AND fp32 output,
+    as JAX's ``preferred_element_type`` does; a bf16 ``matmul`` would
+    round the logits to bf16 and break greedy ties."""
+    return llama.head_logits(x.to(config.dtype),
+                             params["lm_head"].to(config.dtype))

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.models import llama, training
 from ray_tpu_torch.models.paged_kv import GARBAGE_BLOCK, quantize_kv
+from ray_tpu_torch.ops import attention as tfa
 from ray_tpu_torch.ops import paged_decode_attention as tpda
 
 
@@ -97,6 +99,119 @@ def test_paged_kernel_matches_plain(cuda_device, name):
     atol, rtol = (1e-5, 0.0) if out.dtype == torch.float32 else (2e-2, 2e-2)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol,
                                rtol=rtol)
+
+
+def _flash_case(dev, dtype, b, sq, sk, hq, hkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((b, sk, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    return [torch.from_numpy(a).to(dev, dtype) for a in (q, k, v, do)]
+
+
+# (dtype, causal, b, sq, sk, hq, hkv, d): GQA groups 1/2/4/8, D 64 and
+# 128, cross-length causal (bottom-right mask), lengths that are not a
+# multiple of the 64-row tile, and the Llama-3-8B head layout.
+FLASH_CASES = {
+    "g1-causal-fp32": (torch.float32, True, 2, 256, 256, 4, 4, 128),
+    "g2-causal-bf16": (torch.bfloat16, True, 2, 256, 256, 4, 2, 128),
+    "g4-noncausal-fp32": (torch.float32, False, 1, 192, 320, 8, 2, 128),
+    "g8-causal-bf16": (torch.bfloat16, True, 1, 512, 512, 8, 1, 128),
+    "d64-causal-fp32": (torch.float32, True, 2, 128, 128, 4, 2, 64),
+    "d64-noncausal-bf16": (torch.bfloat16, False, 1, 96, 160, 4, 1, 64),
+    "cross-causal-fp32": (torch.float32, True, 1, 128, 384, 4, 2, 128),
+    "cross-causal-bf16": (torch.bfloat16, True, 2, 64, 256, 8, 2, 128),
+    "ragged-causal-fp32": (torch.float32, True, 1, 100, 100, 4, 2, 128),
+    "ragged-cross-bf16": (torch.bfloat16, True, 1, 72, 200, 4, 4, 64),
+    "llama3-causal-bf16": (torch.bfloat16, True, 1, 1024, 1024, 32, 8, 128),
+}
+
+
+def _flash_tol(dtype):
+    # fp32: the same fp32 math in another summation order. bf16 outputs:
+    # one bf16 rounding (2^-8 relative) of nearly equal fp32 values.
+    return (2e-5, 2e-5) if dtype == torch.float32 else (2e-2, 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda_device, name):
+    dtype, causal, b, sq, sk, hq, hkv, d = FLASH_CASES[name]
+    q, k, v, do = _flash_case(cuda_device, dtype, b, sq, sk, hq, hkv, d)
+    scale = d ** -0.5
+    before = dict(tfa.flash_attention.launches)
+    out, lse = tfa.flash_fwd_cuda(q, k, v, scale=scale, causal=causal)
+    grads = tfa.flash_bwd_cuda(q, k, v, out, lse, do, scale=scale,
+                               causal=causal)
+    assert {n: tfa.flash_attention.launches[n] - before[n]
+            for n in before} == {"fwd": 1, "dq": 1, "dkv": 1}
+    ref_out, ref_lse = tfa.flash_fwd_reference(q, k, v, scale=scale,
+                                               causal=causal)
+    ref_grads = tfa.flash_bwd_reference(q, k, v, ref_out, ref_lse, do,
+                                        scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    atol, rtol = _flash_tol(dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+    for got, ref in zip((out,) + grads, (ref_out,) + ref_grads):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_launches_kernels(cuda_device):
+    q, k, v, do = _flash_case(cuda_device, torch.bfloat16, 2, 256, 256, 8,
+                              2, 128)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = dict(tfa.flash_attention.launches)
+    out = tfa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert {n: tfa.flash_attention.launches[n] - before[n]
+            for n in before} == {"fwd": 1, "dq": 1, "dkv": 1}
+    ref = tfa.flash_attention(q, k, v, causal=True, use_kernel=False)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), do)
+    torch.cuda.synchronize()
+    for got, want in zip((out,) + grads, (ref,) + ref_grads):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_trainer_on_card_launches_kernels_and_matches_cpu(cuda_device):
+    # fp32 train steps through the kernels on the card against the plain
+    # versions on the CPU from the same weights: the same math in
+    # another summation order (attention, cuBLAS), 1e-4 relative.
+    cfg = llama.LlamaConfig.tiny(
+        dtype=torch.float32, vocab_size=512, hidden_size=256,
+        intermediate_size=512, num_heads=4, num_kv_heads=2, head_dim=128,
+        remat=True)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        trainer = training.ShardedTrainer(
+            cfg, device=dev, optimizer=training.default_optimizer(
+                warmup_steps=1, total_steps=10, learning_rate=1e-2))
+        state = trainer.state_from_params(params)
+        batch = training.synthetic_batch(2, 128, cfg.vocab_size, device=dev)
+        losses[str(dev)] = []
+        for _ in range(3):
+            before = dict(tfa.flash_attention.launches)
+            state, metrics = trainer.train_step(state, batch)
+            losses[str(dev)].append(float(metrics["loss"]))
+            launched = {n: tfa.flash_attention.launches[n] - before[n]
+                        for n in before}
+            want = 0 if str(dev) == "cpu" else cfg.num_layers
+            assert launched == {"fwd": 2 * want, "dq": want, "dkv": want}
+    np.testing.assert_allclose(losses[str(cuda_device)], losses["cpu"],
+                               rtol=1e-4)
+    assert losses["cpu"][2] < losses["cpu"][0]
+
+
+def test_flash_use_kernel_on_cpu_raises():
+    q, k, v, _ = _flash_case("cpu", torch.float32, 1, 128, 128, 4, 2, 128)
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        tfa.flash_attention(q, k, v, use_kernel=True)
 
 
 @pytest.mark.gpu
