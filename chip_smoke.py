@@ -46,7 +46,32 @@ Phases, any failure exits non-zero with no result line:
    total_steps=1000)``, 12 steps on that batch: every loss finite, the
    last below the first, and per step 2 L forward launches (remat replays
    the forward), L dq and L dk/dv launches; then step time, tokens/s,
-   MFU, peak memory and one profiled step's device time by kernel.
+   MFU, peak memory and one profiled step's device time by kernel;
+11. dense kernel vs plain: the dense decode-attention kernel against
+   ``decode_attention_reference`` at the Llama-3-8B decode shape (B=8,
+   Hq=32, KVH=8, D=128, S_max=2048, the phase-3 positions): bf16 and fp32
+   caches, a per-layer view of a [2, B, S, KVH, D] cache, and S_max=1000
+   (a ragged last tile); tolerances in DENSE_CASES;
+12. dense timing: kernel, plain version and ``scaled_dot_product_attention``
+   over the transposed contiguous cache with the ``pos >= col`` mask (a
+   yardstick only; the port never calls it), CUDA events with L2 flushed;
+   the bound is the live K/V + q + out + positions bytes over 3.35 TB/s;
+13. dense end to end: ``ContinuousBatcher(paged=False)`` serving
+   Llama-3-8B at full width and depth (the phase-5 weights, 8 slots,
+   max_len 2048): the phase-5 prompts, 32 new tokens each, every request
+   32 in-vocab tokens, the dense kernel launched num_layers times per
+   tick and the paged kernel never; tick, tokens/s, TTFT p50, peak
+   memory, a profile of 5 ticks, and how many requests agree token for
+   token with the paged run (printed, not a gate: bf16 dense and paged
+   prefill reduce over different key lengths);
+14. dense parity inside the engine: in phase 6's 2-layer fp32 model the
+   dense engine with the kernel and with ``use_decode_kernel=False``, the
+   paged engine with its kernel, and ``LlamaGenerator.generate`` for one
+   prompt give the same greedy tokens (a divergence passes only if the
+   top-2 logit margin there is below 1e-4).
+
+Phases 11-12 run after phases 3-4, and 13-14 inside phases 5-6, where
+their models already live.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -90,6 +115,15 @@ CASES = [("bf16", "bf16", "bf16", 2e-2, 2e-2),
 SHAPE = dict(B=8, HQ=32, KVH=8, D=128, BS=64, NB=32)
 POSITIONS = [0, 63, 64, 700, 1023, 1500, 2047, 0]   # last slot: freed
 FREED_SLOT = 7
+# Dense kernel cases (name, cache dtype, S_max, layer view, atol, rtol):
+# fp32 is exact math in another summation order; bf16 outputs round once
+# to bf16 (~2^-8 relative).
+DENSE_CASES = [("bf16", "bf16", 2048, False, 2e-2, 2e-2),
+               ("fp32", "fp32", 2048, False, 1e-5, 0.0),
+               ("layer-view-bf16", "bf16", 2048, True, 2e-2, 2e-2),
+               ("ragged-1000-bf16", "bf16", 1000, False, 2e-2, 2e-2)]
+DENSE_TIMED = ("bf16", "fp32")
+TOP2_MARGIN = 1e-4
 
 
 def fail(msg):
@@ -221,10 +255,98 @@ def kernel_phases(torch):
     return results
 
 
+def dense_bound(c):
+    """Least time for the work these inputs need: live K/V rows,
+    positions, q and out, each moved once; and 4*Hq*D operations per live
+    token."""
+    s = SHAPE
+    s_max = c["k"].shape[1]
+    live = sum(min(p + 1, s_max) for p in POSITIONS)
+    nbytes = (live * s["KVH"] * s["D"] * c["k"].element_size() * 2
+              + s["B"] * 4 + 2 * c["q"].numel() * c["q"].element_size())
+    ops = live * 4 * s["HQ"] * s["D"]
+    kind = "bf16" if c["k"].element_size() == 2 else "fp32"
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[kind]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", live, nbytes)
+
+
+def dense_case(torch, kind, s_max, layer_view, seed):
+    s = SHAPE
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[kind]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lead = (2,) if layer_view else ()
+    shape = lead + (s["B"], s_max, s["KVH"], s["D"])
+    k = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    v = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    if layer_view:
+        k, v = k[1], v[1]       # what the engine hands in: cache.k[li]
+    q = torch.randn((s["B"], s["HQ"], s["D"]), generator=gen,
+                    device="cuda").to(dt)
+    return dict(q=q, k=k, v=v, pos=torch.tensor(POSITIONS,
+                                                dtype=torch.int32,
+                                                device="cuda"))
+
+
+def dense_kernel_phases(torch):
+    """Phases 11-12: the dense kernel against its plain version, and its
+    time beside the plain version's, SDPA's and the bound."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    results = {}
+    for i, (name, kind, s_max, layer_view, atol, rtol) in enumerate(
+            DENSE_CASES):
+        c = dense_case(torch, kind, s_max, layer_view, seed=20 + i)
+        args = (c["q"], c["k"], c["v"], c["pos"])
+        out = decode_attention(*args, use_kernel=True)
+        ref = decode_attention_reference(*args)
+        torch.cuda.synchronize()
+        err, ok, n_bad = close(torch, out, ref, atol, rtol)
+        print(f"[dense-kernel] {name} (S_max={s_max}, strides "
+              f"{tuple(c['k'].stride())}): max_abs_err={err:.3e} "
+              f"(atol {atol}, rtol {rtol})")
+        if not ok or out.dtype != ref.dtype:
+            fail(f"dense kernel disagrees with plain version ({name}): "
+                 f"max_abs_err={err}, {n_bad} elements out")
+        res = dict(max_abs_err=err)
+        if name in DENSE_TIMED:
+            res["ms"] = time_ms(torch, lambda: decode_attention(
+                *args, use_kernel=True), flush)
+            res["plain_ms"] = time_ms(torch, lambda: decode_attention_reference(
+                *args), flush)
+            q4 = c["q"][:, :, None, :]
+            kd = c["k"].transpose(1, 2).contiguous()
+            vd = c["v"].transpose(1, 2).contiguous()
+            cols = torch.arange(s_max, device="cuda")
+            mask = (c["pos"][:, None] >= cols[None, :])[:, None, None, :]
+            res["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q4, kd, vd, attn_mask=mask, enable_gqa=True), flush)
+            (res["bound_ms"], res["bound_by"], res["live_tokens"],
+             res["bytes"]) = dense_bound(c)
+            print(f"[dense-timing] {name}: kernel {res['ms']:.4f} ms, "
+                  f"plain {res['plain_ms']:.4f} ms, library "
+                  f"{res['library_ms']:.4f} ms, bound "
+                  f"{res['bound_ms']:.4f} ms ({res['bound_by']}; "
+                  f"{res['live_tokens']} live tokens, {res['bytes']} "
+                  f"bytes)")
+        results[name] = res
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
 def serve(torch, cfg, params, prompts, max_new, **kw):
     """Drive the engine over ``prompts`` after a one-request warm-up;
-    returns (outputs by request, stats)."""
+    returns (outputs by request, stats). Every launch count is set to 0
+    just before the measured run and read just after it."""
     from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+    from ray_tpu_torch.ops.decode_attention import decode_attention
     from ray_tpu_torch.ops.paged_decode_attention import \
         paged_decode_attention
 
@@ -238,13 +360,14 @@ def serve(torch, cfg, params, prompts, max_new, **kw):
     torch.cuda.reset_peak_memory_stats()
     ticks0, pre0 = eng.base_tick_count, eng.prefill_seconds
     dec0 = eng.decoded_tokens
-    paged_decode_attention.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
     out = eng.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = paged_decode_attention.launches
+    launches = {"paged": paged_decode_attention.launches,
+                "dense": decode_attention.launches}
     ticks = eng.base_tick_count - ticks0
     decode_s = wall - (eng.prefill_seconds - pre0)
     stats = dict(
@@ -255,11 +378,21 @@ def serve(torch, cfg, params, prompts, max_new, **kw):
         decode_tok_s=(eng.decoded_tokens - dec0) / decode_s,
         prefill_s=eng.prefill_seconds - pre0,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-        kernel=eng.use_decode_kernel)
+        kernel=eng.use_decode_kernel, paged=eng.paged)
     return [out[r] for r in rids], stats
 
 
-def profile_ticks(torch, cfg, params, prompts, n_ticks=5):
+def check_launches(st, num_layers, what):
+    """The engine's own decode kernel launched num_layers times a tick,
+    the other decode kernel never."""
+    own, other = ("paged", "dense") if st["paged"] else ("dense", "paged")
+    if (not st["kernel"] or st["launches"][own] != num_layers * st["ticks"]
+            or st["launches"][other]):
+        fail(f"{what}: launches {st['launches']} for {st['ticks']} ticks "
+             f"x {num_layers} layers (want {own} only)")
+
+
+def profile_ticks(torch, cfg, params, prompts, n_ticks=5, **kw):
     """Device time of decode ticks with 8 active slots, by kernel, from
     torch.profiler (CUPTI): busy ms per tick and the top kernels. Only
     device-side rows (kernels, copies) count: an operator's row carries
@@ -270,7 +403,7 @@ def profile_ticks(torch, cfg, params, prompts, n_ticks=5):
     from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
 
     eng = ContinuousBatcher(cfg, params=params, num_slots=8, max_len=2048,
-                            block_size=64)
+                            block_size=64, **kw)
     for p in prompts[:8]:
         eng.submit(p, max_new_tokens=n_ticks + 3)
     eng.step()                                   # admission + one tick
@@ -285,7 +418,7 @@ def profile_ticks(torch, cfg, params, prompts, n_ticks=5):
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(r[1] for r in rows)
-    attn_us = sum(r[1] for r in rows if "paged_decode_kernel" in r[0])
+    attn_us = sum(r[1] for r in rows if "_decode_kernel" in r[0])
     top = sorted(rows, key=lambda r: -r[1])[:6]
     return dict(
         ticks=n_ticks, device_busy_ms_per_tick=busy_us / n_ticks / 1e3,
@@ -317,21 +450,26 @@ def end_to_end(torch, card):
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
                for n in lens]
     print(f"[e2e] prompt lengths {sorted(int(x) for x in lens)}")
-    runs = {}
+    runs, outputs = {}, {}
     for name, ps, kw in [("bf16", prompts, {}),
-                         ("int8", prompts[:4], {"kv_dtype": "int8"})]:
+                         ("int8", prompts[:4], {"kv_dtype": "int8"}),
+                         ("dense", prompts, {"paged": False})]:
         outs, st = serve(torch, cfg, params, ps, 32, **kw)
         check_outputs(outs, 32, cfg.vocab_size, f"e2e {name}")
-        if not st["kernel"] or st["launches"] != cfg.num_layers * st["ticks"]:
-            fail(f"e2e {name}: {st['launches']} kernel launches for "
-                 f"{st['ticks']} ticks x {cfg.num_layers} layers")
+        check_launches(st, cfg.num_layers, f"e2e {name}")
         st["card"] = card
-        print(f"[e2e] {name} arena: {json.dumps(st)}")
-        runs[name] = st
-    prof = profile_ticks(torch, cfg, params, prompts)
-    prof["idle_share"] = 1.0 - prof["device_busy_ms_per_tick"] / runs[
-        "bf16"]["tick_ms"]
-    print(f"[profile] bf16 decode tick, 8 slots: {json.dumps(prof)}")
+        if name == "dense":
+            st["agree_with_paged"] = sum(
+                a == b for a, b in zip(outs, outputs["bf16"]))
+        print(f"[e2e] {name} {'cache' if name == 'dense' else 'arena'}: "
+              f"{json.dumps(st)}")
+        runs[name], outputs[name] = st, outs
+    for name, kw in [("bf16", {}), ("dense", {"paged": False})]:
+        prof = profile_ticks(torch, cfg, params, prompts, **kw)
+        prof["idle_share"] = 1.0 - prof["device_busy_ms_per_tick"] / runs[
+            name]["tick_ms"]
+        print(f"[profile] {name} decode tick, 8 slots: {json.dumps(prof)}")
+        runs[name]["profile"] = prof
     del params
     torch.cuda.empty_cache()
     return runs
@@ -345,10 +483,42 @@ def _leaves(params):
             yield v
 
 
-def engine_parity(torch):
-    from ray_tpu_torch.models import llama
+def top2_margin(torch, params, cfg, seq):
+    """The top-2 logit gap of the next token after ``seq`` (fp32 full
+    forward)."""
     from ray_tpu_torch.models.continuous_batching import \
         _prefill_forward_paged
+
+    with torch.no_grad():
+        logits, _ = _prefill_forward_paged(
+            params, torch.tensor([seq], device="cuda"),
+            torch.arange(len(seq), device="cuda"), None, None, cfg,
+            False, last_idx=torch.tensor([len(seq) - 1], device="cuda"))
+    top2 = logits[0, 0].topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def check_agree(torch, params, cfg, prompts, got, want, what):
+    """Greedy tokens ``got`` against ``want`` request by request; a
+    divergence passes only at a top-2 margin below TOP2_MARGIN."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
+        margin = top2_margin(torch, params, cfg, prompts[i] + b[:j])
+        print(f"[parity] {what}: request {i} diverges at token {j}: "
+              f"top-2 margin {margin:.3e}")
+        if margin >= TOP2_MARGIN:
+            fail(f"{what} disagree (request {i}, token {j}, margin "
+                 f"{margin})")
+    print(f"[parity] fp32 2-layer engine, {what}: greedy tokens "
+          f"{'identical' if got == want else 'differ only at ties'} over "
+          f"{len(want)} requests x {len(want[0])} tokens")
+
+
+def engine_parity(torch):
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.inference import LlamaGenerator
 
     cfg = dataclasses.replace(
         llama.LlamaConfig.llama3_8b(dtype=torch.float32), num_layers=2)
@@ -358,38 +528,35 @@ def engine_parity(torch):
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
                for n in (30, 200, 450, 700)]
     got = {}
-    for use_kernel in (True, False):
-        got[use_kernel], _ = serve(torch, cfg, params, prompts, 16,
-                                   use_decode_kernel=use_kernel)
-    for i, (a, b) in enumerate(zip(got[True], got[False])):
-        if a == b:
-            continue
-        j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
-        seq = prompts[i] + a[:j]
-        with torch.no_grad():
-            logits, _ = _prefill_forward_paged(
-                params, torch.tensor([seq], device="cuda"),
-                torch.arange(len(seq), device="cuda"), None, None, cfg,
-                False, last_idx=torch.tensor([len(seq) - 1],
-                                             device="cuda"))
-        top2 = logits[0, 0].topk(2).values
-        margin = float(top2[0] - top2[1])
-        print(f"[parity] request {i} diverges at token {j}: top-2 "
-              f"margin {margin:.3e}")
-        if margin >= 1e-4:
-            fail(f"kernel and plain engines disagree (request {i}, "
-                 f"token {j}, margin {margin})")
-    print(f"[parity] fp32 2-layer engine: kernel and plain greedy tokens "
-          f"{'identical' if got[True] == got[False] else 'differ only at ties'}"
-          f" over {len(prompts)} requests x 16 tokens")
+    for name, kw in [("paged", {}), ("paged-plain",
+                                     {"use_decode_kernel": False}),
+                     ("dense", {"paged": False}),
+                     ("dense-plain", {"paged": False,
+                                      "use_decode_kernel": False})]:
+        got[name], st = serve(torch, cfg, params, prompts, 16, **kw)
+        if kw.get("use_decode_kernel", True):
+            check_launches(st, cfg.num_layers, f"parity {name}")
+    check_agree(torch, params, cfg, prompts, got["paged-plain"],
+                got["paged"], "paged kernel and plain engines")
+    for name in ("dense", "dense-plain"):
+        check_agree(torch, params, cfg, prompts, got[name], got["paged"],
+                    f"{name} and paged-kernel engines")
+    gen = LlamaGenerator(cfg, params=params, max_len=2048, device="cuda")
+    one = gen.generate([prompts[0]], max_new_tokens=16)[0].tolist()
+    check_agree(torch, params, cfg, prompts[:1], [one], got["paged"][:1],
+                "LlamaGenerator and paged-kernel engine")
+    del params, gen
+    torch.cuda.empty_cache()
 
 
 def reset_launch_counts():
     from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.ops.decode_attention import decode_attention
     from ray_tpu_torch.ops.paged_decode_attention import \
         paged_decode_attention
 
     paged_decode_attention.launches = 0
+    decode_attention.launches = 0
     for name in flash_attention.launches:
         flash_attention.launches[name] = 0
 
@@ -671,6 +838,13 @@ def train_end_to_end(torch, card):
     return stats
 
 
+def timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -701,20 +875,20 @@ def main():
               f"{min(regs)}-{max(regs)}, spill stores up to {max(spills)} "
               f"bytes")
 
-    timing = kernel_phases(torch)
-    reset_launch_counts()
-    runs = end_to_end(torch, card)
-    engine_parity(torch)
-    flash = flash_phases(torch)
-    model_parity(torch)
-    train = train_end_to_end(torch, card)
+    timing = timed("phases 3-4", kernel_phases, torch)
+    dense = timed("phases 11-12", dense_kernel_phases, torch)
+    runs = timed("phases 5, 13", end_to_end, torch, card)
+    timed("phases 6, 14", engine_parity, torch)
+    flash = timed("phases 7-8", flash_phases, torch)
+    timed("phase 9", model_parity, torch)
+    train = timed("phase 10", train_end_to_end, torch, card)
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(
         name="paged_decode_attention", route="cuda",
         source="ray_tpu_torch/ops/csrc/paged_decode_attention.cu",
         replaces="ray_tpu/ops/paged_decode_attention.py:90",
-        launches=runs["bf16"]["launches"],
+        launches=runs["bf16"]["launches"]["paged"],
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], kernel_ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
@@ -734,6 +908,16 @@ def main():
             variants={name: {key: (val[n] if isinstance(val, dict)
                                    else val) for key, val in res.items()}
                       for name, res in flash.items()}))
+    main_dense = dense["bf16"]
+    record["kernels"].insert(1, dict(
+        name="decode_attention", route="cuda",
+        source="ray_tpu_torch/ops/csrc/decode_attention.cu",
+        replaces="ray_tpu/ops/decode_attention.py:98",
+        launches=runs["dense"]["launches"]["dense"],
+        max_abs_err=main_dense["max_abs_err"], ms=main_dense["ms"],
+        plain_ms=main_dense["plain_ms"], bound_ms=main_dense["bound_ms"],
+        bound_by=main_dense["bound_by"],
+        library_ms=main_dense["library_ms"], card=card, variants=dense))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

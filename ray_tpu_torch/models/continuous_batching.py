@@ -1,22 +1,31 @@
-"""Continuous batching over a paged KV arena (port of the paged data plane
-of ``ray_tpu/models/continuous_batching.py``).
+"""Continuous batching over a KV cache (port of the paged and dense data
+planes of ``ray_tpu/models/continuous_batching.py``).
 
 The engine owns a fixed pool of slots; requests prefill into a free slot
 and join the very next decode tick, and finished requests free their
 slot (and arena blocks) at once. The decode tick runs every slot each
-step (freed slots compute masked garbage on the garbage block); per-slot
-absolute positions drive RoPE, the arena write and the attention mask;
-prompts prefill in batches padded to power-of-two buckets. Attention in
-the tick goes through :func:`~ray_tpu_torch.ops.paged_decode_attention.
-paged_decode_attention` — the CUDA kernel on the card.
+step (freed slots compute masked garbage); per-slot absolute positions
+drive RoPE, the cache write and the attention mask; prompts prefill in
+batches padded to power-of-two buckets.
 
-PyTorch runs eagerly and the arena is updated in place, where the JAX
-package threads a donated functional cache through jitted programs.
+Two data planes, chosen by ``paged``:
+
+* paged (the default): a shared arena of fixed-size blocks with per-slot
+  block tables; tick attention goes through
+  :func:`~ray_tpu_torch.ops.paged_decode_attention.paged_decode_attention`;
+* dense (``paged=False``): one ``[L, num_slots, max_len, KVH, D]``
+  stripe per slot (:class:`~ray_tpu_torch.models.inference.KVCache`);
+  tick attention goes through
+  :func:`~ray_tpu_torch.ops.decode_attention.decode_attention`.
+
+Either way the attention is the CUDA kernel on the card. PyTorch runs
+eagerly and the cache is updated in place, where the JAX package
+threads a donated functional cache through jitted programs.
 
 Not in this slice (each raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it): the dense ``paged=False`` plane, the
-prefix cache (off by default here, on in the JAX package), buffered
-``sync_every > 1`` decode, speculative decode and disaggregated roles.
+ROADMAP.md item that ports it): the prefix cache (off by default here,
+on in the JAX package), buffered ``sync_every > 1`` decode, speculative
+decode and disaggregated roles.
 """
 
 from __future__ import annotations
@@ -29,16 +38,17 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ray_tpu_torch.models import llama
-from ray_tpu_torch.models.inference import _attend_cached, lm_head_logits
+from ray_tpu_torch.models.inference import (KVCache, _attend_cached,
+                                            _forward_cached, _layer, _mlp,
+                                            _proj, lm_head_logits)
 from ray_tpu_torch.models.paged_kv import (GARBAGE_BLOCK, BlockAllocator,
                                            PagedKVCache, quantize_kv,
                                            resolve_kv_dtype)
 from ray_tpu_torch.models.sampling import (SamplingParams, sample_tokens,
                                            step_key)
-from ray_tpu_torch.ops.decode_attention import env_flag
+from ray_tpu_torch.ops.decode_attention import decode_attention, env_flag
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.paged_decode_attention import paged_decode_attention
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
@@ -53,6 +63,23 @@ def _apply_rope_batched(x, cos, sin):
     c = cos[:, None, None, :]
     s = sin[:, None, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dtype)
+
+
+def _slot_rows(positions, s_max: int):
+    """Each slot's write row in a dense ``[B, S_max, ...]`` cache viewed
+    flat over tokens: ``b * S_max + position``, the position clamped
+    into the cache as JAX's ``dynamic_update_slice`` clamps."""
+    b = positions.shape[0]
+    rows = torch.arange(b, device=positions.device) * s_max
+    return rows + positions.long().clamp(0, s_max - 1)
+
+
+def _scatter_slot(cache, new, rows):
+    """Dense scatter, IN PLACE: cache [B, S_max, KVH, D]; new [B, KVH, D]
+    written one row per slot at ``rows`` [B] (:func:`_slot_rows` of the
+    slots' positions, computed once a tick for every layer). Returns
+    ``cache``."""
+    return _scatter_arena(cache, new, rows)
 
 
 def _scatter_arena(arena, new, flat_pos):
@@ -84,27 +111,6 @@ def _next_tokens(logits, step: int, sampling: SamplingParams,
 _PREFILL_SALT = 1  # prefill sampling stream, distinct from decode's
 
 
-def _layer(params, li: int) -> Dict[str, torch.Tensor]:
-    """Layer ``li``'s weights: views into the stacked ``[L, ...]``
-    tensors."""
-    return {k: v[li] for k, v in params["layers"].items()}
-
-
-def _proj(h, w):
-    """``einsum("bse,e...->bs...")`` as one matrix product: h [B, S, E],
-    w [E, ...] -> [B, S, ...]."""
-    b, s, e = h.shape
-    return (h.reshape(b * s, e) @ w.reshape(e, -1)).reshape(
-        b, s, *w.shape[1:])
-
-
-def _mlp(x, layer, c):
-    h = rms_norm(x, layer["mlp_norm"], c.rms_eps)
-    gate = _proj(h, layer["w_gate"].to(c.dtype))
-    up = _proj(h, layer["w_up"].to(c.dtype))
-    return x + _proj(F.silu(gate) * up, layer["w_down"].to(c.dtype))
-
-
 def _layer_qkv(x, layer, cos, sin, c):
     """Per-layer projections of the tick: attn-norm, Q/K/V, RoPE on Q and
     K (V unrotated). x [B, 1, E]; cos/sin [B, D//2]."""
@@ -123,6 +129,34 @@ def _layer_finish(x, o, layer, c):
     x = x + (o.reshape(b, -1) @ layer["wo"].to(c.dtype).reshape(
         -1, c.hidden_size))[:, None, :]
     return _mlp(x, layer, c)
+
+
+def _decode_tick(params, tokens, positions, cache: KVCache, step: int,
+                 config: llama.LlamaConfig, use_kernel: bool = False,
+                 sampling: SamplingParams = SamplingParams()):
+    """One decode step for every slot over the dense cache: tokens [B] at
+    per-slot absolute ``positions`` [B]. Writes each slot's new K/V into
+    ``cache`` in place and returns (next_tokens [B], positions + 1,
+    cache, step + 1). ``use_kernel`` routes attention through the dense
+    CUDA kernel (True) or its plain version (False)."""
+    c = config
+    cos, sin = rope_frequencies(c.head_dim, 0, c.rope_theta,
+                                positions=positions)
+    x = params["embed"].to(c.dtype)[tokens.long()][:, None, :]
+    scale = c.head_dim ** -0.5
+    rows = _slot_rows(positions, cache.k.shape[2])
+    for li in range(c.num_layers):
+        layer = _layer(params, li)
+        q, k, v = _layer_qkv(x, layer, cos, sin, c)
+        ck = _scatter_slot(cache.k[li], k[:, 0], rows)
+        cv = _scatter_slot(cache.v[li], v[:, 0], rows)
+        o = decode_attention(q[:, 0], ck, cv, positions, scale,
+                             use_kernel=use_kernel)
+        x = _layer_finish(x, o.to(x.dtype), layer, c)
+    x = rms_norm(x, params["final_norm"], c.rms_eps)
+    logits = lm_head_logits(x, params, c)
+    next_tokens = _next_tokens(logits, step, sampling)
+    return next_tokens, positions + 1, cache, step + 1
 
 
 def _decode_tick_paged(params, tokens, positions, tables, limits,
@@ -239,14 +273,13 @@ def _bucket_floor(n: int) -> int:
 
 
 def _resolve_paged(paged: Optional[bool]) -> bool:
-    """Explicit arg > ``RAY_TPU_PAGED_KV`` env > on. The dense plane is
-    not ported."""
+    """Explicit arg > ``RAY_TPU_PAGED_KV`` env > on (the paged arena is
+    the default data plane)."""
     if paged is None:
         paged = env_flag("RAY_TPU_PAGED_KV")
-    if paged is None or paged:
+    if paged is None:
         return True
-    raise llama.not_ported("the dense paged=False plane",
-                           "item 5 (the dense _decode_kernel and its engine)")
+    return bool(paged)
 
 
 def _resolve_prefix_cache(prefix_cache: Optional[bool]) -> bool:
@@ -294,7 +327,8 @@ def _resolve_decode_kernel(use_decode_kernel: Optional[bool],
                            device: torch.device) -> bool:
     """Explicit arg > ``RAY_TPU_DECODE_KERNEL`` env > auto (the CUDA
     kernel on a CUDA device, the plain version on the CPU). Asking for
-    the kernel on the CPU raises."""
+    the kernel on the CPU raises. The paged engine dispatches the paged
+    kernel, the dense engine the dense one."""
     if use_decode_kernel is None:
         use_decode_kernel = env_flag("RAY_TPU_DECODE_KERNEL")
     if use_decode_kernel is None:
@@ -331,15 +365,19 @@ class ContinuousBatcher:
         from ``seed`` on the device).
 
         ``use_decode_kernel`` routes tick attention through the CUDA
-        paged kernel (default on CUDA) or the plain version (False).
+        kernel (default on CUDA) or the plain version (False).
 
-        The cache is a shared arena of ``block_size``-token blocks
-        with per-slot block tables; admission reserves each request's
-        blocks all-or-nothing, so a request can wait on arena space.
-        ``kv_dtype`` ('bf16' = the model dtype, or 'int8' with per-token
-        per-head scales) selects arena storage; ``num_blocks`` sizes the
-        arena (default: every slot at ``max_len`` plus the garbage
-        block). ``sampling`` is a
+        ``paged`` (default on; ``RAY_TPU_PAGED_KV=0`` turns it off)
+        selects the data plane. Paged: a shared arena of ``block_size``-
+        token blocks with per-slot block tables; admission reserves each
+        request's blocks all-or-nothing, so a request can wait on arena
+        space. ``kv_dtype`` ('bf16' = the model dtype, or 'int8' with
+        per-token per-head scales) selects arena storage; ``num_blocks``
+        sizes the arena (default: every slot at ``max_len`` plus the
+        garbage block). Dense (``paged=False``): one ``max_len`` stripe
+        per slot in the model dtype; ``block_size``, ``kv_dtype``,
+        ``num_blocks`` and ``prefix_cache`` are ignored, as in JAX.
+        ``sampling`` is a
         :class:`~ray_tpu_torch.models.sampling.SamplingParams` or dict;
         the default is greedy."""
         self.config = config
@@ -356,15 +394,17 @@ class ContinuousBatcher:
         self.paged = _resolve_paged(paged)
         self.role = _resolve_role(role)
         self.spec_k = _resolve_spec_k(spec_k)
-        self.prefix_cache = _resolve_prefix_cache(prefix_cache)
         self.block_size = int(block_size)
-        if self.block_size < 8 or self.block_size & (self.block_size - 1):
+        if self.paged and (self.block_size < 8
+                           or self.block_size & (self.block_size - 1)):
             # Prompt buckets are powers of two; a non-pow2 block would
             # break the prefill block reshape.
             raise ValueError(
                 f"block_size must be a power of two >= 8, "
                 f"got {self.block_size}")
-        self.kv_dtype = resolve_kv_dtype(kv_dtype)
+        self.kv_dtype = resolve_kv_dtype(kv_dtype) if self.paged else None
+        self.prefix_cache = self.paged and _resolve_prefix_cache(
+            prefix_cache)
         self.use_decode_kernel = _resolve_decode_kernel(use_decode_kernel,
                                                         self.device)
         if self.device.type == "cuda" and config.dtype == torch.bfloat16:
@@ -382,14 +422,18 @@ class ContinuousBatcher:
             params = llama.init_params(config, gen, device=self.device)
         self.params = params
         self.token_callback = token_callback
-        self.max_blocks = -(-max_len // self.block_size)
-        self.num_blocks = int(num_blocks if num_blocks is not None
-                              else num_slots * self.max_blocks + 1)
-        self.cache = PagedKVCache.create(config, self.num_blocks,
-                                         self.block_size, self.kv_dtype,
-                                         device=self.device)
-        self.allocator = BlockAllocator(self.num_blocks)
-        self._slot_blocks: Dict[int, List[int]] = {}
+        if self.paged:
+            self.max_blocks = -(-max_len // self.block_size)
+            self.num_blocks = int(num_blocks if num_blocks is not None
+                                  else num_slots * self.max_blocks + 1)
+            self.cache = PagedKVCache.create(config, self.num_blocks,
+                                             self.block_size, self.kv_dtype,
+                                             device=self.device)
+            self.allocator = BlockAllocator(self.num_blocks)
+            self._slot_blocks: Dict[int, List[int]] = {}
+        else:
+            self.cache = KVCache.create(config, num_slots, max_len,
+                                        device=self.device)
         self._free: List[int] = list(range(num_slots))
         self._slots: Dict[int, Dict[str, Any]] = {}   # slot -> request
         # Decode state on the device between ticks, uploaded only when
@@ -409,7 +453,7 @@ class ContinuousBatcher:
     def submit(self, prompt_tokens: List[int],
                max_new_tokens: int = 32) -> int:
         """Queue a request; returns its id. It joins the next tick with a
-        free slot and enough free arena blocks."""
+        free slot (and, paged, enough free arena blocks)."""
         if len(prompt_tokens) + max_new_tokens > self.max_len:
             raise ValueError(
                 f"prompt ({len(prompt_tokens)}) + max_new_tokens "
@@ -419,8 +463,9 @@ class ContinuousBatcher:
             rid = next(self._rid)
             self._finished[rid] = []
             return rid
-        need = self._blocks_needed(len(prompt_tokens), max_new_tokens)
-        if need > self.num_blocks - 1:
+        need = (self._blocks_needed(len(prompt_tokens), max_new_tokens)
+                if self.paged else 0)
+        if self.paged and need > self.num_blocks - 1:
             # A reservation larger than the whole arena would wedge the
             # FIFO head forever.
             raise ValueError(
@@ -434,9 +479,10 @@ class ContinuousBatcher:
 
     def _release_slot(self, slot: int) -> None:
         self._free.append(slot)
-        blocks = self._slot_blocks.pop(slot, None)
-        if blocks:
-            self.allocator.free(blocks)
+        if self.paged:
+            blocks = self._slot_blocks.pop(slot, None)
+            if blocks:
+                self.allocator.free(blocks)
 
     def cancel(self, rid: int) -> bool:
         """Drop a request: frees its slot and blocks, or its queue spot,
@@ -464,7 +510,10 @@ class ContinuousBatcher:
         """Arena occupancy: used/total blocks, live tokens, and the
         fragmentation ratio (reserved-but-unwritten share of used
         blocks). ``cached``/``shared`` stay 0 until the prefix cache is
-        ported."""
+        ported. Dense engines report zeros."""
+        if not self.paged:
+            return {"used": 0, "total": 0, "cached": 0, "shared": 0,
+                    "live_tokens": 0, "frag_ratio": 0.0}
         used = self.allocator.used_count
         live = sum(st["pos"] for st in self._slots.values())
         cap = used * self.block_size
@@ -487,43 +536,52 @@ class ContinuousBatcher:
             return
         # Drain every admissible request first, grouped by pow-2 prompt
         # bucket, so an admission burst costs one prefill per bucket.
-        # Each request reserves all its blocks up front (FIFO: when the
-        # head does not fit the arena, admission stops).
+        # Paged engines reserve each request's blocks up front (FIFO:
+        # when the head does not fit the arena, admission stops).
         bs = self.block_size
-        padded_cap = self.max_blocks * bs
+        padded_cap = self.max_blocks * bs if self.paged else self.max_len
         groups: Dict[int, List] = {}
         while self._waiting and self._free:
             req = self._waiting[0]
-            got = self.allocator.alloc(
-                self._blocks_needed(len(req["prompt"]), req["max_new"]))
-            if got is None:
-                break
-            padded_len = max(min(_bucket(len(req["prompt"])), padded_cap),
-                             bs)                  # at least one block
+            blocks: List[int] = []
+            padded_len = min(_bucket(len(req["prompt"])), padded_cap)
+            if self.paged:
+                got = self.allocator.alloc(
+                    self._blocks_needed(len(req["prompt"]), req["max_new"]))
+                if got is None:
+                    break
+                blocks = got
+                padded_len = max(padded_len, bs)  # at least one block
             self._waiting.popleft()
             slot = self._free.pop()
-            self._slot_blocks[slot] = got
-            groups.setdefault(padded_len, []).append((req, slot, got))
+            if self.paged:
+                self._slot_blocks[slot] = blocks
+            groups.setdefault(padded_len, []).append((req, slot, blocks))
         for padded_len, group in groups.items():
             n = len(group)
             # The batch dim buckets to a power of two as well. Padding
-            # rows REPEAT the last request: its duplicate block writes
+            # rows REPEAT the last request: its duplicate cache writes
             # carry identical bytes, and its first token is dropped.
             n_pad = min(_bucket(n, floor=1), self.num_slots)
-            npb = padded_len // bs
             tokens = np.zeros((n_pad, padded_len), np.int64)
             last_idx = np.zeros(n_pad, np.int64)
+            slots = np.zeros(n_pad, np.int64)
+            npb = padded_len // bs if self.paged else 0
             tables_w = np.full((n_pad, npb), GARBAGE_BLOCK, np.int64)
             for i in range(n_pad):
-                req, _slot, blocks = group[min(i, n - 1)]
+                req, slot, blocks = group[min(i, n - 1)]
                 tokens[i, :len(req["prompt"])] = req["prompt"]
                 last_idx[i] = len(req["prompt"]) - 1
+                slots[i] = slot
                 # Bucket padding past the reservation writes masked
                 # garbage to block 0.
                 k = min(len(blocks), npb)
                 tables_w[i, :k] = blocks[:k]
             t0 = time.perf_counter()
-            first = self._prefill(tokens, tables_w, last_idx)
+            if self.paged:
+                first = self._prefill(tokens, tables_w, last_idx)
+            else:
+                first = self._prefill_dense(tokens, slots, last_idx)
             first = first.cpu().numpy()          # N ints: the device sync
             self.prefill_seconds += time.perf_counter() - t0
             self.prefill_batches += 1
@@ -542,12 +600,18 @@ class ContinuousBatcher:
                 self._maybe_finish(slot)
         self._dirty = True  # device tokens/positions need re-upload
 
+    def _first_tokens(self, logits):
+        first = _next_tokens(logits, self._prefill_count, self.sampling,
+                             salt=_PREFILL_SALT)
+        self._prefill_count += 1
+        return first
+
     def _prefill(self, tokens, tables_w, last_idx):
-        """Batched bucketed prefill of N prompts ([N, S] padded): run the
-        forward, write each row's K/V into its blocks IN PLACE (rows of
-        ``tables_w`` [N, S // bs]; overflow entries name the garbage
-        block, where duplicate writes keep an arbitrary winner), and
-        return the N first tokens on the device."""
+        """Batched bucketed paged prefill of N prompts ([N, S] padded):
+        run the forward, write each row's K/V into its blocks IN PLACE
+        (rows of ``tables_w`` [N, S // bs]; overflow entries name the
+        garbage block, where duplicate writes keep an arbitrary winner),
+        and return the N first tokens on the device."""
         dev = self.device
         cache = self.cache
         bs = self.block_size
@@ -565,10 +629,25 @@ class ContinuousBatcher:
             blocks = part.reshape(part.shape[0], n * (s_pad // bs), bs,
                                   *part.shape[3:])
             arena.index_copy_(1, flat_tables, blocks.to(arena.dtype))
-        first = _next_tokens(logits, self._prefill_count, self.sampling,
-                             salt=_PREFILL_SALT)
-        self._prefill_count += 1
-        return first
+        return self._first_tokens(logits)
+
+    def _prefill_dense(self, tokens, slots, last_idx):
+        """Batched bucketed dense prefill of N prompts ([N, S] padded)
+        into cache stripes ``slots`` [N]: gather those stripes, run
+        :func:`_forward_cached` over them at positions ``arange(S)``,
+        write them back IN PLACE (a padding row repeats its request's
+        slot and writes the same values), and return the N first tokens
+        on the device."""
+        dev = self.device
+        idx = torch.from_numpy(slots).to(dev)
+        stripes = KVCache(k=self.cache.k[:, idx], v=self.cache.v[:, idx])
+        logits, stripes = _forward_cached(
+            self.params, torch.from_numpy(tokens).to(dev),
+            torch.arange(tokens.shape[1], device=dev), stripes, self.config,
+            last_idx=torch.from_numpy(last_idx).to(dev))
+        self.cache.k[:, idx] = stripes.k
+        self.cache.v[:, idx] = stripes.v
+        return self._first_tokens(logits)
 
     def _maybe_finish(self, slot: int) -> None:
         st = self._slots.get(slot)
@@ -587,26 +666,33 @@ class ContinuousBatcher:
         for slot, st in self._slots.items():
             tokens[slot] = st["last"]
             positions[slot] = st["pos"]
-        tables = np.zeros((self.num_slots, self.max_blocks), np.int32)
-        limits = np.zeros(self.num_slots, np.int32)
-        for slot, blocks in self._slot_blocks.items():
-            tables[slot] = self._table_row(blocks)
-            limits[slot] = len(blocks) * self.block_size
         dev = self.device
         self._d_tokens = torch.from_numpy(tokens).to(dev)
         self._d_positions = torch.from_numpy(positions).to(dev)
-        self._d_tables = torch.from_numpy(tables).to(dev)
-        self._d_limits = torch.from_numpy(limits).to(dev)
+        if self.paged:
+            tables = np.zeros((self.num_slots, self.max_blocks), np.int32)
+            limits = np.zeros(self.num_slots, np.int32)
+            for slot, blocks in self._slot_blocks.items():
+                tables[slot] = self._table_row(blocks)
+                limits[slot] = len(blocks) * self.block_size
+            self._d_tables = torch.from_numpy(tables).to(dev)
+            self._d_limits = torch.from_numpy(limits).to(dev)
         self._dirty = False
 
     def _run_tick(self):
         """Dispatch one decode tick; returns the [B] token vector."""
-        (self._d_tokens, self._d_positions, self.cache,
-         _) = _decode_tick_paged(
-            self.params, self._d_tokens, self._d_positions,
-            self._d_tables, self._d_limits, self.cache,
-            self._applied_steps, self.config,
-            use_kernel=self.use_decode_kernel, sampling=self.sampling)
+        kw = dict(use_kernel=self.use_decode_kernel, sampling=self.sampling)
+        if self.paged:
+            (self._d_tokens, self._d_positions, self.cache,
+             _) = _decode_tick_paged(
+                self.params, self._d_tokens, self._d_positions,
+                self._d_tables, self._d_limits, self.cache,
+                self._applied_steps, self.config, **kw)
+        else:
+            (self._d_tokens, self._d_positions, self.cache,
+             _) = _decode_tick(
+                self.params, self._d_tokens, self._d_positions, self.cache,
+                self._applied_steps, self.config, **kw)
         self.base_tick_count += 1
         return self._d_tokens
 

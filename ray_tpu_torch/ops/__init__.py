@@ -1,2 +1,3 @@
-"""Tensor ops of the port: norms, RoPE, decode attention and the paged
-decode-attention CUDA kernel (``csrc/``, built by ``_build``)."""
+"""Tensor ops of the port: norms, RoPE, and the attention ops whose CUDA
+kernels (``csrc/``, built by ``_build``) replace the TPU kernels: dense
+and paged decode attention, flash attention."""

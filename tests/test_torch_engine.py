@@ -254,7 +254,6 @@ def test_submit_validation(params):
     ({"sync_every": 4}, "buffered decode"),
     ({"spec_k": 2}, "speculative decode"),
     ({"role": "prefill"}, "prefill/decode split"),
-    ({"paged": False}, "_decode_kernel"),
 ])
 def test_unported_features_raise(params, kwargs, item):
     _, tp = params

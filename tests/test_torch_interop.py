@@ -104,6 +104,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch, ray_tpu_torch.interop\n"
         "import ray_tpu_torch.models.continuous_batching\n"
         "import ray_tpu_torch.ops.paged_decode_attention\n"
+        "import ray_tpu_torch.ops.decode_attention\n"
+        "import ray_tpu_torch.models.inference\n"
         "import ray_tpu_torch.models.training\n"
         "import ray_tpu_torch.ops.attention\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "

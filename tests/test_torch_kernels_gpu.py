@@ -13,6 +13,7 @@ import torch
 from ray_tpu_torch.models import llama, training
 from ray_tpu_torch.models.paged_kv import GARBAGE_BLOCK, quantize_kv
 from ray_tpu_torch.ops import attention as tfa
+from ray_tpu_torch.ops import decode_attention as tda
 from ray_tpu_torch.ops import paged_decode_attention as tpda
 
 
@@ -228,3 +229,133 @@ def test_paged_kernel_rejects_what_it_does_not_take(cuda_device):
         tpda.paged_decode_attention(q, k, v, tables, pos,
                                     k_scale=k[..., 0].float(),
                                     v_scale=v[..., 0].float())
+
+
+def _dense_case(dev, kind, hq, hkv, d, s_max, positions, view, seed=0):
+    """q and a dense cache [B, S_max, KVH, D] seen through ``view``:
+    "contiguous"; "layer", the [1] view of an [L=2, B, S, KVH, D] cache
+    (as the engine passes cache.k[li]); "slot", every other slot of a
+    [2B, ...] cache (a batch stride twice the view's own); "head", every
+    other kv head of a [B, S, 2 KVH, D] cache (a head stride of 2 D)."""
+    rng = np.random.default_rng(seed)
+    b = len(positions)
+    shape = {"contiguous": (b, s_max, hkv, d), "layer": (2, b, s_max, hkv, d),
+             "slot": (2 * b, s_max, hkv, d), "head": (b, s_max, 2 * hkv, d)}
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[kind]
+    k, v = (torch.from_numpy(rng.standard_normal(shape[view]).astype(
+        np.float32)).to(dev, dt) for _ in range(2))
+    pick = {"contiguous": lambda t: t, "layer": lambda t: t[1],
+            "slot": lambda t: t[::2], "head": lambda t: t[:, :, ::2]}
+    k, v = pick[view](k), pick[view](v)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(
+        np.float32)).to(dev, dt)
+    return q, k, v, torch.tensor(positions, dtype=torch.int32, device=dev)
+
+
+# (kind, hq, hkv, d, S_max, positions, view): the Llama-3-8B decode shape
+# and its engine view, every group tile (G = 1, 2, 4, 8, and G = 3, 12,
+# which split a kv head's group over blocks), D 64 and 128 (and 256 in
+# fp32, which takes one smem stage), ragged S_max (no multiple of 64),
+# positions 0, at tile edges, at S_max - 1 and past it, and strided views.
+DENSE_CASES = {
+    "llama3-bf16": ("bf16", 32, 8, 128, 2048,
+                    (0, 63, 64, 700, 1023, 1500, 2047, 0), "contiguous"),
+    "llama3-fp32": ("fp32", 32, 8, 128, 2048,
+                    (0, 63, 64, 700, 1023, 1500, 2047, 0), "contiguous"),
+    "llama3-layer-view-bf16": ("bf16", 32, 8, 128, 2048,
+                               (5, 130, 2047, 999), "layer"),
+    "g1-d64-fp32": ("fp32", 8, 8, 64, 256, (0, 127, 255), "contiguous"),
+    "g2-ragged-bf16": ("bf16", 4, 2, 128, 1000, (63, 64, 999, 5000),
+                       "contiguous"),
+    "g3-bf16": ("bf16", 24, 8, 128, 300, (0, 100, 299), "contiguous"),
+    "g8-d64-bf16": ("bf16", 64, 8, 64, 512, (1, 511, 300), "slot"),
+    "g12-fp32": ("fp32", 48, 4, 128, 200, (64, 199), "head"),
+    "g4-ragged-d64-fp32": ("fp32", 8, 2, 64, 77, (0, 76, 40), "layer"),
+    "d256-fp32": ("fp32", 16, 4, 256, 130, (63, 129), "contiguous"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(DENSE_CASES))
+def test_dense_kernel_matches_plain(cuda_device, name):
+    kind, hq, hkv, d, s_max, positions, view = DENSE_CASES[name]
+    q, k, v, pos = _dense_case(cuda_device, kind, hq, hkv, d, s_max,
+                               positions, view)
+    before = tda.decode_attention.launches
+    out = tda.decode_attention(q, k, v, pos)
+    assert tda.decode_attention.launches == before + 1
+    ref = tda.decode_attention(q, k, v, pos, use_kernel=False)
+    assert tda.decode_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    # fp32: the same math in another summation order. bf16 outputs: one
+    # bf16 rounding (2^-8 relative) of nearly equal fp32 values.
+    atol, rtol = (1e-5, 0.0) if out.dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_dense_kernel_q_and_cache_dtypes_may_differ(cuda_device):
+    q, k, v, pos = _dense_case(cuda_device, "bf16", 16, 4, 128, 256,
+                               (10, 255), "contiguous")
+    out = tda.decode_attention(q.float(), k, v, pos)
+    ref = tda.decode_attention_reference(q.float(), k, v, pos)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0.0)
+
+
+@pytest.mark.gpu
+def test_dense_kernel_rejects_what_it_does_not_take(cuda_device):
+    q, k, v, pos = _dense_case(cuda_device, "bf16", 8, 2, 128, 64, (5,),
+                               "contiguous")
+    before = tda.decode_attention.launches
+    with pytest.raises(ValueError, match="d % 8"):
+        tda.decode_attention(q[..., :100], k[..., :100].contiguous(),
+                             v[..., :100].contiguous(), pos)
+    with pytest.raises(ValueError, match="cache dtype"):
+        tda.decode_attention(q, k.to(torch.int8), v.to(torch.int8), pos)
+    with pytest.raises(ValueError, match="cache dtype"):
+        tda.decode_attention(q, k, v.float(), pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        tda.decode_attention(q, k.transpose(2, 3).contiguous()
+                             .transpose(2, 3), v.transpose(2, 3)
+                             .contiguous().transpose(2, 3), pos)
+    with pytest.raises(ValueError, match="strides"):
+        tda.decode_attention(q, k, torch.cat([v, v], dim=2)[:, :, :2], pos)
+    with pytest.raises(ValueError, match="aligned"):
+        tda.decode_attention(q[..., :8], k[..., 4:12], v[..., 4:12], pos)
+    with pytest.raises(ValueError, match="on"):
+        tda.decode_attention(q, k, v, pos.cpu())
+    assert tda.decode_attention.launches == before
+
+
+@pytest.mark.gpu
+def test_dense_engine_on_card_launches_kernel_and_matches_cpu(cuda_device):
+    # A tiny fp32 dense engine on the card (the kernel) against the same
+    # engine on the CPU (the plain version), greedy, from one set of
+    # weights: num_layers launches per tick, the same tokens.
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32, head_dim=64)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (5, 30, 70)]
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        dev_params = {k: ({n: t.to(dev) for n, t in v.items()}
+                          if isinstance(v, dict) else v.to(dev))
+                      for k, v in params.items()}
+        eng = ContinuousBatcher(cfg, params=dev_params, num_slots=2,
+                                max_len=128, paged=False, device=dev)
+        before = tda.decode_attention.launches
+        rids = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        done = eng.run_to_completion()
+        launched = tda.decode_attention.launches - before
+        want = 0 if str(dev) == "cpu" else cfg.num_layers * \
+            eng.base_tick_count
+        assert launched == want
+        outs[str(dev)] = [done[r] for r in rids]
+    assert outs[str(cuda_device)] == outs["cpu"]
