@@ -11,9 +11,11 @@ two versions of each of the TPU's three kernels live here:
   out and lse) and :func:`flash_bwd_reference` (``_dq_kernel`` and
   ``_dkv_kernel``: dq, dk, dv), the same formulas in fp32 on whole
   sequences. The CPU path, and the yardstick the kernels are held to;
-* the CUDA kernels of ``csrc/flash_attention.cu``, launched on CUDA
-  tensors. ``flash_attention.launches`` counts the launches of each
-  (``"fwd"``, ``"dq"``, ``"dkv"``).
+* the CUDA kernels, launched on CUDA tensors: for bf16 the forward and
+  dk/dv run on the tensor cores (``csrc/flash_attention_sm90.cu``) and
+  dq on the CUDA cores; for fp32 all three run on the CUDA cores
+  (``csrc/flash_attention.cu``). ``flash_attention.launches`` counts the
+  launches of each (``"fwd"``, ``"dq"``, ``"dkv"``).
 
 A ``torch.autograd.Function`` carries them, saving ``(q, k, v, out,
 lse)`` like the JAX ``_flash`` custom_vjp; its backward computes
@@ -127,21 +129,44 @@ def flash_bwd_reference(q, k, v, out, lse, do, *, scale: float,
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/flash_attention.cu)
+# CUDA kernels (csrc/flash_attention.cu, csrc/flash_attention_sm90.cu)
 # ---------------------------------------------------------------------------
 
-def _kernel_fns():
-    lib = _build.load("flash_attention")
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dims = [i] * 6 + [f, i, i, vp]      # batch hq hkv sq sk d scale causal
-    for name, n_ptr in (("ray_tpu_flash_fwd", 5),          # dtype stream
-                        ("ray_tpu_flash_bwd_dq", 7),
-                        ("ray_tpu_flash_bwd_dkv", 8)):
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = [vp] * n_ptr + dims
-            fn.restype = ctypes.c_int
-    return lib
+# (kernel, dtype) -> (source, C function, pointer arguments). bf16 forward
+# and dk/dv take the tensor-core source, which has no dtype argument.
+_ROUTES = {
+    ("fwd", torch.float32): ("flash_attention", "ray_tpu_flash_fwd", 5),
+    ("dq", torch.float32): ("flash_attention", "ray_tpu_flash_bwd_dq", 7),
+    ("dkv", torch.float32): ("flash_attention", "ray_tpu_flash_bwd_dkv", 8),
+    ("fwd", torch.bfloat16): ("flash_attention_sm90",
+                              "ray_tpu_flash_fwd_sm90", 5),
+    ("dq", torch.bfloat16): ("flash_attention", "ray_tpu_flash_bwd_dq", 7),
+    ("dkv", torch.bfloat16): ("flash_attention_sm90",
+                              "ray_tpu_flash_bwd_dkv_sm90", 8),
+}
+
+
+def kernel_route(which: str, dtype: torch.dtype):
+    """The (source, C function) that runs kernel ``which`` (``"fwd"``,
+    ``"dq"``, ``"dkv"``) on ``dtype`` inputs."""
+    source, fn, _ = _ROUTES[(which, dtype)]
+    return source, fn
+
+
+def _kernel_fn(which, dtype):
+    """The loaded C function for ``which`` on ``dtype``, and whether it
+    takes a dtype code."""
+    source, name, n_ptr = _ROUTES[(which, dtype)]
+    lib = _build.load(source)
+    fn = getattr(lib, name)
+    with_dtype = source == "flash_attention"
+    if fn.argtypes is None:
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # batch hq hkv sq sk d scale causal [dtype] stream
+        fn.argtypes = ([vp] * n_ptr + [i] * 6 + [f, i]
+                       + ([i] if with_dtype else []) + [vp])
+        fn.restype = ctypes.c_int
+    return lib, name, with_dtype
 
 
 def _prepare(*tensors):
@@ -172,45 +197,37 @@ def _check(q, k, v, *more):
             f"{KERNEL_HEAD_DIMS})")
 
 
-def _launch(lib, name, *args):
-    err = getattr(lib, name)(*args)
+def _launch(which, q, ptrs, sizes, scale, causal):
+    """Launch kernel ``which`` for ``q``'s dtype on the current stream;
+    a refused launch raises."""
+    lib, name, with_dtype = _kernel_fn(which, q.dtype)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, name)(
+            *ptrs, *sizes, float(scale), int(causal),
+            *([_DTYPE_CODES[q.dtype]] if with_dtype else []), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel {name} launch failed: "
                            f"{_build.error_string(lib, err)} ({err})")
+    flash_attention.launches[which] += 1
+
+
+def _sizes(q, k):
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    return b, hq, hkv, sq, sk, d
 
 
 def flash_fwd_cuda(q, k, v, *, scale: float, causal: bool):
     """Launch the forward kernel: (out, lse) as :func:`flash_fwd_reference`."""
     _check(q, k, v)
     q, k, v = _prepare(q, k, v)
-    b, sq, hq, d = q.shape
-    _, sk, hkv, _ = k.shape
+    b, hq, _, sq, _, _ = sizes = _sizes(q, k)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    lib = _kernel_fns()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch(lib, "ray_tpu_flash_fwd", q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, hq, hkv,
-                sq, sk, d, float(scale), int(causal), _DTYPE_CODES[q.dtype],
-                stream)
-    flash_attention.launches["fwd"] += 1
+    _launch("fwd", q, [t.data_ptr() for t in (q, k, v, out, lse)], sizes,
+            scale, causal)
     return out, lse
-
-
-def _bwd_launch(which, q, k, v, do, lse, delta, outs, scale, causal):
-    """One backward kernel (``"dq"`` or ``"dkv"``) writing ``outs``."""
-    b, sq, hq, d = q.shape
-    _, sk, hkv, _ = k.shape
-    lib = _kernel_fns()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch(lib, f"ray_tpu_flash_bwd_{which}", q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), *(t.data_ptr() for t in outs), b, hq, hkv,
-                sq, sk, d, float(scale), int(causal), _DTYPE_CODES[q.dtype],
-                stream)
-    flash_attention.launches[which] += 1
 
 
 def flash_dq_cuda(q, k, v, do, lse, delta, *, scale: float, causal: bool):
@@ -219,7 +236,8 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, scale: float, causal: bool):
     q, k, v, do, lse, delta = _prepare(q, k, v, do, lse.float(),
                                        delta.float())
     dq = torch.empty_like(q)
-    _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), scale, causal)
+    _launch("dq", q, [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)],
+            _sizes(q, k), scale, causal)
     return dq
 
 
@@ -229,7 +247,9 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, scale: float, causal: bool):
     q, k, v, do, lse, delta = _prepare(q, k, v, do, lse.float(),
                                        delta.float())
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), scale, causal)
+    _launch("dkv", q, [t.data_ptr() for t in (q, k, v, do, lse, delta, dk,
+                                                dv)], _sizes(q, k), scale,
+            causal)
     return dk, dv
 
 

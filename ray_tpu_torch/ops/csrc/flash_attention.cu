@@ -1,9 +1,12 @@
 // Flash attention for Hopper (sm_90a): the forward, dQ and dK/dV kernels.
 //
 // Replaces the TPU kernels of ray_tpu/ops/attention.py:
-//   _fwd_kernel  (launched by _fwd)  -> flash_fwd_kernel
-//   _dq_kernel   (launched by _bwd)  -> flash_dq_kernel
-//   _dkv_kernel  (launched by _bwd)  -> flash_dkv_kernel
+//   _fwd_kernel  (launched by _fwd)  -> flash_fwd_kernel  (fp32)
+//   _dq_kernel   (launched by _bwd)  -> flash_dq_kernel   (fp32 and bf16)
+//   _dkv_kernel  (launched by _bwd)  -> flash_dkv_kernel  (fp32)
+// bf16 forward and dk/dv run on the tensor cores instead
+// (flash_attention_sm90.cu); this file builds no bf16 instantiation of
+// them.
 // with the same arithmetic: q is upcast to fp32 and multiplied by `scale`
 // before the product, s = (q*scale) K^T in fp32, causal masking aligned
 // bottom-right (row r sees key c iff r + (sk - sq) >= c) with masked scores
@@ -16,16 +19,16 @@
 // Layouts: q, out, dO and dq are [B, Sq, Hq, D]; k, v, dk and dv are
 // [B, Sk, KVH, D], all contiguous; lse and delta are fp32 [B, Hq, Sq] (the
 // TPU's trailing 1 of [B, Hq, Sq, 1] was a tiling artefact). Query head h
-// reads kv head h / (Hq / KVH) (GQA). Inputs are fp32 or bf16; all math is
-// fp32 on CUDA cores.
+// reads kv head h / (Hq / KVH) (GQA). Inputs are fp32 (every kernel) or
+// bf16 (dq); all math is fp32 on CUDA cores.
 //
 // What bounds it: at the Llama-3-8B training shape (B=2, S=2048, Hq=32,
 // KVH=8, D=128, causal) the work is ~69 GFLOP per forward against ~50 MB of
 // inputs and outputs, about 1,400 flops per byte, so the card's arithmetic
 // rate bounds it, not HBM. These kernels run that arithmetic as fp32 FMAs
-// (67 TFLOP/s peak), not on the tensor cores (989 TFLOP/s bf16): right and
-// simple first; mma/wgmma tiles are the lever for the PR that makes them
-// fast.
+// (67 TFLOP/s peak), which is fp32's own rate; bf16 forward and dk/dv have
+// tensor-core kernels (flash_attention_sm90.cu), and bf16 dq is the next
+// to move there.
 //
 // Design. The TPU walks the sequential innermost grid axis with the running
 // softmax (or the dq / dk / dv sums) in VMEM scratch; CUDA blocks run in no
@@ -54,6 +57,8 @@
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -481,10 +486,14 @@ cudaError_t launch(Which which, const Args& a, cudaStream_t stream) {
   cudaError_t err;
   switch (which) {
     case kFwd: {
-      auto kernel = flash_fwd_kernel<T, D>;
-      if ((err = prepare(kernel, fwd_smem<D>())) != cudaSuccess) return err;
-      kernel<<<q_grid, kThreads, fwd_smem<D>(), stream>>>(
-          q, k, v, static_cast<T*>(a.out), a.lse_out, p);
+      if constexpr (!std::is_same<T, float>::value) {
+        return cudaErrorInvalidValue;      // bf16: flash_attention_sm90.cu
+      } else {
+        auto kernel = flash_fwd_kernel<T, D>;
+        if ((err = prepare(kernel, fwd_smem<D>())) != cudaSuccess) return err;
+        kernel<<<q_grid, kThreads, fwd_smem<D>(), stream>>>(
+            q, k, v, static_cast<T*>(a.out), a.lse_out, p);
+      }
       break;
     }
     case kDq: {
@@ -495,12 +504,16 @@ cudaError_t launch(Which which, const Args& a, cudaStream_t stream) {
       break;
     }
     case kDkv: {
-      auto kernel = flash_dkv_kernel<T, D>;
-      if ((err = prepare(kernel, dkv_smem<D>())) != cudaSuccess) return err;
-      const dim3 grid((p.sk + kBK - 1) / kBK, p.hkv, a.batch);
-      kernel<<<grid, kThreads, dkv_smem<D>(), stream>>>(
-          q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.dk),
-          static_cast<T*>(a.dv), p);
+      if constexpr (!std::is_same<T, float>::value) {
+        return cudaErrorInvalidValue;      // bf16: flash_attention_sm90.cu
+      } else {
+        auto kernel = flash_dkv_kernel<T, D>;
+        if ((err = prepare(kernel, dkv_smem<D>())) != cudaSuccess) return err;
+        const dim3 grid((p.sk + kBK - 1) / kBK, p.hkv, a.batch);
+        kernel<<<grid, kThreads, dkv_smem<D>(), stream>>>(
+            q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.dk),
+            static_cast<T*>(a.dv), p);
+      }
       break;
     }
     default:
@@ -552,7 +565,8 @@ extern "C" {
 // Each launches on `stream` with no synchronisation and no allocation, and
 // returns the launch's cudaError_t (0 on success). All tensors contiguous,
 // in the layouts of the header; d is 64 or 128; dtype 0 = fp32, 1 = bf16
-// (for every tensor but lse and delta, which are fp32).
+// (for every tensor but lse and delta, which are fp32; bf16 for dq only:
+// the forward and dk/dv return cudaErrorInvalidValue for it).
 int ray_tpu_flash_fwd(const void* q, const void* k, const void* v,
                       void* out, float* lse, int batch, int hq, int hkv,
                       int sq, int sk, int d, float scale, int causal,

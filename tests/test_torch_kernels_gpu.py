@@ -113,7 +113,9 @@ def _flash_case(dev, dtype, b, sq, sk, hq, hkv, d, seed=0):
 
 # (dtype, causal, b, sq, sk, hq, hkv, d): GQA groups 1/2/4/8, D 64 and
 # 128, cross-length causal (bottom-right mask), lengths that are not a
-# multiple of the 64-row tile, and the Llama-3-8B head layout.
+# multiple of the 64-row tile, the Llama-3-8B head layout and its full
+# training attention shape. bf16 runs the tensor-core forward and dk/dv,
+# fp32 the CUDA-core kernels.
 FLASH_CASES = {
     "g1-causal-fp32": (torch.float32, True, 2, 256, 256, 4, 4, 128),
     "g2-causal-bf16": (torch.bfloat16, True, 2, 256, 256, 4, 2, 128),
@@ -126,6 +128,10 @@ FLASH_CASES = {
     "ragged-causal-fp32": (torch.float32, True, 1, 100, 100, 4, 2, 128),
     "ragged-cross-bf16": (torch.bfloat16, True, 1, 72, 200, 4, 4, 64),
     "llama3-causal-bf16": (torch.bfloat16, True, 1, 1024, 1024, 32, 8, 128),
+    "llama3-train-causal-bf16": (torch.bfloat16, True, 2, 2048, 2048, 32, 8,
+                                 128),
+    "g4-d64-ragged-bf16": (torch.bfloat16, True, 2, 200, 200, 8, 2, 64),
+    "g4-d64-ragged-cross-bf16": (torch.bfloat16, True, 1, 77, 333, 8, 2, 64),
 }
 
 
@@ -158,6 +164,45 @@ def test_flash_kernels_match_plain(cuda_device, name):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         torch.testing.assert_close(got.float(), ref.float(), atol=atol,
                                    rtol=rtol)
+
+
+# The kernel each dtype launches, by the name the profiler sees: bf16
+# forward and dk/dv on the tensor cores, everything else on CUDA cores.
+FLASH_KERNEL_NAMES = {
+    torch.bfloat16: {"fwd": "flash_fwd_kernel_sm90", "dq": "flash_dq_kernel",
+                     "dkv": "flash_dkv_kernel_sm90"},
+    torch.float32: {"fwd": "flash_fwd_kernel", "dq": "flash_dq_kernel",
+                    "dkv": "flash_dkv_kernel"},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_flash_dtype_launches_its_kernel(cuda_device, dtype):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do = _flash_case(cuda_device, dtype, 1, 128, 128, 4, 2, 128)
+    kw = dict(scale=128 ** -0.5, causal=True)
+    out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+    delta = tfa._delta(out, do)
+    torch.cuda.synchronize()
+    for which, launch in (
+            ("fwd", lambda: tfa.flash_fwd_cuda(q, k, v, **kw)),
+            ("dq", lambda: tfa.flash_dq_cuda(q, k, v, do, lse, delta, **kw)),
+            ("dkv", lambda: tfa.flash_dkv_cuda(q, k, v, do, lse, delta,
+                                               **kw))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            launch()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and "flash_" in e.key]
+        want = FLASH_KERNEL_NAMES[dtype][which]
+        assert len(names) == 1 and want in names[0], (which, names)
+        assert ("_sm90" in names[0]) == want.endswith("_sm90"), names
+        assert tfa.kernel_route(which, dtype)[1].endswith("_sm90") == \
+            want.endswith("_sm90")
 
 
 @pytest.mark.gpu
