@@ -8,21 +8,31 @@ Phases, any failure exits non-zero with no result line:
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles every kernel in ``ray_tpu_torch/ops/csrc`` (one
    ``nvcc`` per source, started together) and prints the build seconds;
-3. kernel vs plain: the paged decode-attention kernel against
-   ``paged_attention_reference`` at Llama-3-8B decode shapes (Hq=32,
-   KVH=8, D=128, bs=64, B=8, 32 table entries) with ragged positions
-   straddling block edges, dead tail entries repeating the last live
-   block and one freed slot on the garbage block; bf16, fp32 and int8
-   arenas, tolerances stated in CASES;
+3. kernel vs plain: the split-K paged decode-attention kernel (split
+   and combine kernels, one call) against ``paged_attention_reference``
+   at Llama-3-8B decode shapes (Hq=32, KVH=8, D=128, bs=64, B=8, 32 table
+   entries) with ragged positions straddling block edges, dead tail
+   entries repeating the last live block and one freed slot on the
+   garbage block; bf16, fp32 and int8 arenas, and long-table bf16 and
+   fp32 cases (128 entries, positions up to 8191); tolerances stated in
+   CASES;
 4. timing: kernel, plain version and ``scaled_dot_product_attention``
    over the pre-gathered dense K/V (a yardstick only; the port never
    calls it), CUDA events around each launch with L2 flushed before it;
    the bound is the live K/V + q + out + table bytes over 3.35 TB/s;
+   beside each time the layout the host chose (splits, chunk tokens),
+   the live blocks (those whose chunk holds a token, counted from the
+   positions) and host microseconds a call over 32 back-to-back calls
+   (``host_us``). No phase before the served runs of phases 5 and 13
+   starts torch.profiler: after a profiling session the host's launches
+   run slower, which would bias the tick times measured after it;
 5. end to end: ``ContinuousBatcher`` serving Llama-3-8B at full width and
    depth with random weights (8 slots, max_len 2048, block 64): 12
    requests, 32 new tokens each; every request must return 32 in-vocab
    tokens and the kernel must have launched num_layers times per decode
-   tick; then 4 requests on an int8 arena;
+   tick; then 4 requests on an int8 arena; then a profile of 5 ticks
+   (device time a tick, top kernels, each attention kernel's device
+   microseconds a launch);
 6. kernel vs plain inside the engine: the same widths at 2 layers in
    fp32, greedy tokens with the kernel and with ``use_decode_kernel=False``
    must be identical (a divergence passes only if the top-2 logit margin
@@ -32,15 +42,15 @@ Phases, any failure exits non-zero with no result line:
    training attention shape (B=2, S=2048, Hq=32, KVH=8, D=128), causal in
    bf16 and fp32, non-causal, and cross-length causal (Sq=1024, Sk=2048);
    out, lse, dq, dk and dv each within the tolerances in FLASH_CASES.
-   bf16 runs the tensor-core forward and dk/dv
-   (``flash_attention_sm90.cu``) and the CUDA-core dq; fp32 runs all
-   three CUDA-core kernels (``flash_attention.cu``);
+   bf16 runs all three on the tensor cores (``flash_attention_sm90.cu``:
+   forward, dq and dk/dv); fp32 runs all three CUDA-core kernels
+   (``flash_attention.cu``);
 8. flash timing: each kernel, its plain version (one plain backward
    computes dq, dk and dv) and ``scaled_dot_product_attention`` forward
    and backward (a yardstick only; the port never calls it), CUDA events
    with L2 flushed, for bf16 and fp32 (so both routes); the bound is the
    larger of the live (q, key) pairs' flops over the dtype's peak and the
-   bytes moved over 3.35 TB/s;
+   bytes moved over 3.35 TB/s; bf16 times the tensor-core dq;
 9. kernel vs plain inside the model: Llama-3-8B widths at 2 layers in
    fp32, one sequence of 512 tokens: loss_fn and every param leaf's grad
    with the kernels and with ``attention_kernel=False``;
@@ -50,10 +60,9 @@ Phases, any failure exits non-zero with no result line:
    total_steps=1000)``, 12 steps on that batch: every loss finite, the
    last below the first and below TRAIN["last_loss_below"], and per step
    2 L forward launches (remat replays the forward), L dq and L dk/dv
-   launches, in bf16, so the tensor-core forward and dk/dv and the
-   CUDA-core dq; then step time, tokens/s, MFU, peak memory and one
-   profiled step's device time by kernel, which fails if a flash group
-   reads 0 ms;
+   launches, in bf16, so the three tensor-core kernels; then step time,
+   tokens/s, MFU, peak memory and one profiled step's device time by
+   kernel, which fails if a flash group reads 0 ms;
 11. dense kernel vs plain: the dense decode-attention kernel against
    ``decode_attention_reference`` at the Llama-3-8B decode shape (B=8,
    Hq=32, KVH=8, D=128, S_max=2048, the phase-3 positions): bf16 and fp32
@@ -82,10 +91,17 @@ their models already live.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --paged-host-us ROOT`` instead measures only the
+host microseconds a paged call takes (``host_us``, the phase-3 cases at
+32 table entries) with the ``ray_tpu_torch`` package under ROOT, so two
+checkouts' wrappers can be compared on one card; it prints one
+``[host]`` JSON line.
 """
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -115,14 +131,18 @@ MODEL_LOSS_RTOL = 1e-5
 MODEL_GRAD_TOL = 1e-4
 TRAIN = dict(layers=16, batch=2, seq=2048, steps=12, warmup=5, total=1000,
              last_loss_below=0.5)
-# (name, q dtype, arena kind, atol, rtol): fp32 is exact math in another
-# summation order; bf16/int8 outputs round to bf16 (~2^-8 relative).
-CASES = [("bf16", "bf16", "bf16", 2e-2, 2e-2),
-         ("fp32", "fp32", "fp32", 1e-5, 0.0),
-         ("int8", "bf16", "int8", 2e-2, 2e-2)]
+# (name, q dtype, arena kind, table entries, positions, atol, rtol): fp32
+# is exact math in another summation order; bf16/int8 outputs round to
+# bf16 (~2^-8 relative).
 SHAPE = dict(B=8, HQ=32, KVH=8, D=128, BS=64, NB=32)
 POSITIONS = [0, 63, 64, 700, 1023, 1500, 2047, 0]   # last slot: freed
+LONG_POSITIONS = [0, 63, 2047, 4095, 4096, 6000, 8191, 0]
 FREED_SLOT = 7
+CASES = [("bf16", "bf16", "bf16", 32, POSITIONS, 2e-2, 2e-2),
+         ("fp32", "fp32", "fp32", 32, POSITIONS, 1e-5, 0.0),
+         ("int8", "bf16", "int8", 32, POSITIONS, 2e-2, 2e-2),
+         ("long-bf16", "bf16", "bf16", 128, LONG_POSITIONS, 2e-2, 2e-2),
+         ("long-fp32", "fp32", "fp32", 128, LONG_POSITIONS, 1e-5, 0.0)]
 # Dense kernel cases (name, cache dtype, S_max, layer view, atol, rtol):
 # fp32 is exact math in another summation order; bf16 outputs round once
 # to bf16 (~2^-8 relative).
@@ -147,21 +167,22 @@ def card_line():
     return out.stdout.strip() or f"nvidia-smi rc={out.returncode}"
 
 
-def make_case(torch, kind, q_kind, seed):
+def make_case(torch, kind, q_kind, seed, nb=SHAPE["NB"],
+              positions=POSITIONS):
     from ray_tpu_torch.models.paged_kv import quantize_kv
 
     s = SHAPE
     dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    nblocks = s["B"] * s["NB"] + 1
+    nblocks = s["B"] * nb + 1
     perm = (torch.randperm(nblocks - 1, generator=gen, device="cuda")
             + 1).tolist()
-    tables = torch.zeros((s["B"], s["NB"]), dtype=torch.int32)
-    for b, p in enumerate(POSITIONS):
+    tables = torch.zeros((s["B"], nb), dtype=torch.int32)
+    for b, p in enumerate(positions):
         if b == FREED_SLOT:
             continue                       # whole row on the garbage block
-        live = p // s["BS"] + 1
-        ids = perm[b * s["NB"]:b * s["NB"] + live]
+        live = min(p // s["BS"] + 1, nb)
+        ids = perm[b * nb:b * nb + live]
         tables[b, :live] = torch.tensor(ids)
         tables[b, live:] = ids[-1]
     shape = (nblocks, s["BS"], s["KVH"], s["D"])
@@ -176,8 +197,8 @@ def make_case(torch, kind, q_kind, seed):
     else:
         k, v = k.to(dt[kind]), v.to(dt[kind])
     return dict(q=q, k=k, v=v, ks=ks, vs=vs, tables=tables.to("cuda"),
-                pos=torch.tensor(POSITIONS, dtype=torch.int32,
-                                 device="cuda"))
+                pos=torch.tensor(positions, dtype=torch.int32,
+                                 device="cuda"), positions=positions, nb=nb)
 
 
 def bound(kind, c):
@@ -185,7 +206,7 @@ def bound(kind, c):
     their int8 scales), the live table entries, positions, q and out, each
     moved once; and 4*Hq*D operations per live token."""
     s = SHAPE
-    live = [min(p + 1, s["NB"] * s["BS"]) for p in POSITIONS]
+    live = [min(p + 1, c["nb"] * s["BS"]) for p in c["positions"]]
     item = c["k"].element_size()
     nbytes = sum(live) * s["KVH"] * s["D"] * item * 2
     if kind == "int8":
@@ -197,6 +218,39 @@ def bound(kind, c):
     t_ops = ops / PEAK_OPS_PER_S[kind]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def split_layout(torch, c):
+    """The layout the wrapper hands the kernel for this case's shapes
+    (``paged_layout``: split count and chunk tokens), and the split blocks
+    whose chunk holds one of the slot's tokens, counted here from the
+    positions (the kernel does not report them). Printed, not recorded."""
+    from ray_tpu_torch.ops import paged_decode_attention as pda
+
+    s = SHAPE
+    gt, splits, chunk = pda.paged_layout(
+        s["B"], s["HQ"], s["KVH"], c["nb"], s["BS"],
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    live = sum(-(-min(p + 1, c["nb"] * s["BS"]) // chunk)
+               for p in c["positions"])
+    return splits, chunk, live * s["HQ"] // gt
+
+
+def host_us(torch, fn, calls=32, bursts=20):
+    """Host microseconds a call takes to return (its checks, allocations
+    and launches; the device's work queues up behind): the median over
+    ``bursts`` of ``calls`` back-to-back calls with no sync between them,
+    over ``calls``. 32 calls are one paged tick's attention."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(bursts):
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(per_call))
 
 
 def time_ms(torch, fn, flush, iters=50):
@@ -223,9 +277,9 @@ def kernel_phases(torch):
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     results = {}
-    for kind, q_kind, atol, rtol in [(c[0], c[1], c[3], c[4])
-                                     for c in CASES]:
-        c = make_case(torch, kind, q_kind, seed=len(results))
+    for name, q_kind, kind, nb, positions, atol, rtol in CASES:
+        c = make_case(torch, kind, q_kind, seed=len(results), nb=nb,
+                      positions=positions)
         args = (c["q"], c["k"], c["v"], c["tables"], c["pos"])
         kw = dict(k_scale=c["ks"], v_scale=c["vs"])
         out = paged_decode_attention(*args, use_kernel=True, **kw)
@@ -234,10 +288,10 @@ def kernel_phases(torch):
         err = (out.float() - ref.float()).abs()
         bad = err > atol + rtol * ref.float().abs()
         max_err = float(err.max())
-        print(f"[kernel] {kind}: max_abs_err={max_err:.3e} "
-              f"(atol {atol}, rtol {rtol})")
+        print(f"[kernel] {name} ({nb} table entries): max_abs_err="
+              f"{max_err:.3e} (atol {atol}, rtol {rtol})")
         if not torch.isfinite(out.float()).all() or bool(bad.any()):
-            fail(f"kernel disagrees with plain version ({kind}): "
+            fail(f"kernel disagrees with plain version ({name}): "
                  f"max_abs_err={max_err}, {int(bad.sum())} elements out")
         kernel_ms = time_ms(torch, lambda: paged_decode_attention(
             *args, use_kernel=True, **kw), flush)
@@ -253,12 +307,18 @@ def kernel_phases(torch):
             library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q4, kd, vd, attn_mask=mask, enable_gqa=True), flush)
         bound_ms, bound_by = bound(kind, c)
-        results[kind] = dict(max_abs_err=max_err, ms=kernel_ms,
+        splits, chunk, blocks = split_layout(torch, c)
+        call_host_us = host_us(torch, lambda: paged_decode_attention(
+            *args, use_kernel=True, **kw))
+        results[name] = dict(max_abs_err=max_err, ms=kernel_ms,
                              plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
-        print(f"[timing] {kind}: kernel {kernel_ms:.4f} ms, plain "
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             host_us=call_host_us)
+        print(f"[timing] {name}: kernel {kernel_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {library_ms} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+              f"{bound_ms:.4f} ms ({bound_by}); {splits} splits of "
+              f"{chunk} tokens, {blocks} live blocks; host us a call "
+              f"{call_host_us:.2f}")
     del flush
     return results
 
@@ -426,11 +486,20 @@ def profile_ticks(torch, cfg, params, prompts, n_ticks=5, **kw):
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(r[1] for r in rows)
-    attn_us = sum(r[1] for r in rows if "_decode_kernel" in r[0])
+    attn = {}                    # attention kernel -> [device us, launches]
+    for name, us, n in rows:
+        kernel = re.search(r"(paged_split|paged_combine|dense_decode)_kernel",
+                           name)
+        if kernel:
+            acc = attn.setdefault(kernel.group(0), [0.0, 0])
+            acc[0] += us
+            acc[1] += n
     top = sorted(rows, key=lambda r: -r[1])[:6]
     return dict(
         ticks=n_ticks, device_busy_ms_per_tick=busy_us / n_ticks / 1e3,
-        attention_ms_per_tick=attn_us / n_ticks / 1e3,
+        attention_ms_per_tick=sum(us for us, _ in attn.values())
+        / n_ticks / 1e3,
+        attention_us_per_launch={k: us / n for k, (us, n) in attn.items()},
         kernels_per_tick=sum(r[2] for r in rows) / n_ticks,
         top=[(name[:60], us / n_ticks / 1e3) for name, us, _ in top])
 
@@ -769,14 +838,14 @@ def profile_step(torch, trainer, state, batch, step_ms):
             if e.device_type == DeviceType.CUDA]
     groups = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
               "gemm": 0.0, "other": 0.0}
+    flash_names = {}
     for key, ms, _ in rows:
         low = key.lower()
-        if "flash_fwd_kernel" in key:
-            groups["flash_fwd"] += ms
-        elif "flash_dq_kernel" in key:
-            groups["flash_dq"] += ms
-        elif "flash_dkv_kernel" in key:
-            groups["flash_dkv"] += ms
+        flash = re.search(r"flash_(fwd|dq|dkv)_kernel\w*", key)
+        if flash:
+            groups[f"flash_{flash.group(1)}"] += ms
+            flash_names.setdefault(f"flash_{flash.group(1)}",
+                                   set()).add(flash.group(0))
         elif any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
             groups["gemm"] += ms
         else:
@@ -792,6 +861,8 @@ def profile_step(torch, trainer, state, batch, step_ms):
     return state, dict(wall_ms_profiled=wall_ms, device_busy_ms=busy,
                        idle_share=1.0 - busy / step_ms,
                        groups_ms=groups,
+                       flash_kernels={g: sorted(n)
+                                      for g, n in flash_names.items()},
                        top=[(k[:60], ms, n) for k, ms, n in top])
 
 
@@ -854,11 +925,56 @@ def train_end_to_end(torch, card):
     return stats
 
 
+def build_report(log):
+    """``nvcc -Xptxas -v`` output by kernel family (the kernel's name
+    without its template arguments): (registers, spill store bytes) of
+    each instantiation."""
+    out, family = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            # The mangled name's identifier that ends in "kernel" (or
+            # "kernel_sm90"): the one its decimal length prefix fits.
+            name, family = m.group(1), m.group(1)
+            for k in re.finditer(r"kernel(?:_sm90)?(?=[IE])", name):
+                end = k.end()
+                family = next((name[end - n:end] for n in range(1, end)
+                               if name[:end - n].endswith(str(n))), family)
+            out.setdefault(family, ([], []))
+        elif family and "spill stores" in line:
+            out[family][1].append(int(re.search(
+                r"(\d+) bytes spill stores", line).group(1)))
+        elif family and "Used" in line and "registers" in line:
+            out[family][0].append(int(re.search(
+                r"Used (\d+) registers", line).group(1)))
+    return out
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
     print(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def paged_host_us(torch, root):
+    """``--paged-host-us ROOT``: host microseconds a paged call takes with
+    ROOT's ``ray_tpu_torch``, for each phase-3 case at 32 table entries."""
+    sys.path.insert(0, os.path.abspath(root))
+    from ray_tpu_torch.ops.paged_decode_attention import (
+        paged_decode_attention)
+
+    out = {}
+    for name, q_kind, kind, nb, positions, _, _ in CASES:
+        if nb != SHAPE["NB"]:
+            continue
+        c = make_case(torch, kind, q_kind, seed=0, nb=nb,
+                      positions=positions)
+        args = (c["q"], c["k"], c["v"], c["tables"], c["pos"])
+        kw = dict(k_scale=c["ks"], v_scale=c["vs"])
+        out[name] = host_us(torch, lambda: paged_decode_attention(
+            *args, use_kernel=True, **kw))
+    print("[host] " + json.dumps(dict(root=root, us_per_call=out)))
 
 
 def main():
@@ -867,6 +983,10 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
              "one CUDA GPU")
+    if sys.argv[1:2] == ["--paged-host-us"]:
+        print(card_line())
+        paged_host_us(torch, sys.argv[2])
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -884,12 +1004,10 @@ def main():
     for name in _build.sources():
         with open(_build.lib_path(name)[:-3] + ".log") as f:
             log = f.read()
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores",
-                                             log)]
-        print(f"[build] {name}: {len(regs)} kernels, registers "
-              f"{min(regs)}-{max(regs)}, spill stores up to {max(spills)} "
-              f"bytes")
+        for family, (regs, spills) in build_report(log).items():
+            print(f"[build] {name}: {family}: {len(regs)} kernels, "
+                  f"registers {min(regs)}-{max(regs)}, spill stores up to "
+                  f"{max(spills)} bytes")
 
     from ray_tpu_torch.ops import attention as fa
 

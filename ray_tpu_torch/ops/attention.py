@@ -11,10 +11,10 @@ two versions of each of the TPU's three kernels live here:
   out and lse) and :func:`flash_bwd_reference` (``_dq_kernel`` and
   ``_dkv_kernel``: dq, dk, dv), the same formulas in fp32 on whole
   sequences. The CPU path, and the yardstick the kernels are held to;
-* the CUDA kernels, launched on CUDA tensors: for bf16 the forward and
-  dk/dv run on the tensor cores (``csrc/flash_attention_sm90.cu``) and
-  dq on the CUDA cores; for fp32 all three run on the CUDA cores
-  (``csrc/flash_attention.cu``). ``flash_attention.launches`` counts the
+* the CUDA kernels, launched on CUDA tensors: for bf16 all three run on
+  the tensor cores (``csrc/flash_attention_sm90.cu``); for fp32 all three
+  run on the CUDA cores (``csrc/flash_attention.cu``), since tensor cores
+  would make them tf32. ``flash_attention.launches`` counts the
   launches of each (``"fwd"``, ``"dq"``, ``"dkv"``).
 
 A ``torch.autograd.Function`` carries them, saving ``(q, k, v, out,
@@ -132,15 +132,16 @@ def flash_bwd_reference(q, k, v, out, lse, do, *, scale: float,
 # CUDA kernels (csrc/flash_attention.cu, csrc/flash_attention_sm90.cu)
 # ---------------------------------------------------------------------------
 
-# (kernel, dtype) -> (source, C function, pointer arguments). bf16 forward
-# and dk/dv take the tensor-core source, which has no dtype argument.
+# (kernel, dtype) -> (source, C function, pointer arguments). bf16 takes
+# the tensor-core source, which has no dtype argument.
 _ROUTES = {
     ("fwd", torch.float32): ("flash_attention", "ray_tpu_flash_fwd", 5),
     ("dq", torch.float32): ("flash_attention", "ray_tpu_flash_bwd_dq", 7),
     ("dkv", torch.float32): ("flash_attention", "ray_tpu_flash_bwd_dkv", 8),
     ("fwd", torch.bfloat16): ("flash_attention_sm90",
                               "ray_tpu_flash_fwd_sm90", 5),
-    ("dq", torch.bfloat16): ("flash_attention", "ray_tpu_flash_bwd_dq", 7),
+    ("dq", torch.bfloat16): ("flash_attention_sm90",
+                             "ray_tpu_flash_bwd_dq_sm90", 7),
     ("dkv", torch.bfloat16): ("flash_attention_sm90",
                               "ray_tpu_flash_bwd_dkv_sm90", 8),
 }

@@ -1,13 +1,13 @@
-// Flash attention for Hopper (sm_90a): the forward, dQ and dK/dV kernels.
+// Flash attention for Hopper (sm_90a) on the CUDA cores: the fp32 forward,
+// dQ and dK/dV kernels.
 //
-// Replaces the TPU kernels of ray_tpu/ops/attention.py:
-//   _fwd_kernel  (launched by _fwd)  -> flash_fwd_kernel  (fp32)
-//   _dq_kernel   (launched by _bwd)  -> flash_dq_kernel   (fp32 and bf16)
-//   _dkv_kernel  (launched by _bwd)  -> flash_dkv_kernel  (fp32)
-// bf16 forward and dk/dv run on the tensor cores instead
-// (flash_attention_sm90.cu); this file builds no bf16 instantiation of
-// them.
-// with the same arithmetic: q is upcast to fp32 and multiplied by `scale`
+// Replaces, for fp32 inputs, the TPU kernels of ray_tpu/ops/attention.py:
+//   _fwd_kernel  (launched by _fwd)  -> flash_fwd_kernel
+//   _dq_kernel   (launched by _bwd)  -> flash_dq_kernel
+//   _dkv_kernel  (launched by _bwd)  -> flash_dkv_kernel
+// bf16 inputs run all three on the tensor cores instead
+// (flash_attention_sm90.cu); this file builds no bf16 instantiation.
+// The arithmetic is the TPU's: q is upcast to fp32 and multiplied by `scale`
 // before the product, s = (q*scale) K^T in fp32, causal masking aligned
 // bottom-right (row r sees key c iff r + (sk - sq) >= c) with masked scores
 // set to -0.7 * FLT_MAX (DEFAULT_MASK_VALUE), an fp32 online softmax (running
@@ -19,16 +19,15 @@
 // Layouts: q, out, dO and dq are [B, Sq, Hq, D]; k, v, dk and dv are
 // [B, Sk, KVH, D], all contiguous; lse and delta are fp32 [B, Hq, Sq] (the
 // TPU's trailing 1 of [B, Hq, Sq, 1] was a tiling artefact). Query head h
-// reads kv head h / (Hq / KVH) (GQA). Inputs are fp32 (every kernel) or
-// bf16 (dq); all math is fp32 on CUDA cores.
+// reads kv head h / (Hq / KVH) (GQA). Inputs are fp32; all math is fp32 on
+// CUDA cores.
 //
 // What bounds it: at the Llama-3-8B training shape (B=2, S=2048, Hq=32,
 // KVH=8, D=128, causal) the work is ~69 GFLOP per forward against ~50 MB of
 // inputs and outputs, about 1,400 flops per byte, so the card's arithmetic
 // rate bounds it, not HBM. These kernels run that arithmetic as fp32 FMAs
-// (67 TFLOP/s peak), which is fp32's own rate; bf16 forward and dk/dv have
-// tensor-core kernels (flash_attention_sm90.cu), and bf16 dq is the next
-// to move there.
+// (67 TFLOP/s peak), which is fp32's own rate: tensor cores would make it
+// tf32, other arithmetic. bf16 has the tensor-core kernels.
 //
 // Design. The TPU walks the sequential innermost grid axis with the running
 // softmax (or the dq / dk / dv sums) in VMEM scratch; CUDA blocks run in no
@@ -44,21 +43,17 @@
 //   and written once in k's dtype: no per-q-head [B, Hq, Sk, D] fp32
 //   intermediate and no group sum afterwards (ray_tpu/ops/attention.py:310),
 //   and no atomics.
-// Tiles are staged in shared memory as fp32 (bf16 widened on load, q scaled
-// on load); thread (ty, tx) of a 16 x 16 grid owns score rows ty + 16 i and
+// Tiles are staged in shared memory as fp32 (q scaled on load); thread (ty, tx) of a 16 x 16 grid owns score rows ty + 16 i and
 // columns tx + 16 j (i, j < 4), and output rows ty + 16 i, columns
 // 4 tx + 64 jj .. +3. Row max and sum meet across the 16 lanes of a half
 // warp by shuffles. Out-of-range rows and keys (lengths that are not a
 // multiple of 64) are zero-filled on load, never stored, and out-of-range
 // keys score -inf so they add nothing.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -70,7 +65,7 @@ constexpr int kPRow = kBK + kPad;            // row of a score tile
 constexpr int kSmemLimit = 232448;           // 227 KB per block on H100
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0 };            // the only dtype code taken here
 
 struct Dims {
   int hq, hkv, sq, sk, group, offs, causal;
@@ -82,29 +77,11 @@ __device__ __forceinline__ long long row_off(int b, int s, int h, int S,
   return ((static_cast<long long>(b) * S + s) * H + h) * D;
 }
 
-// Four consecutive elements to fp32; bf16 -> fp32 is exact (the bf16 bits
-// are the high half of the fp32).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(r.x << 16),
-                     __uint_as_float(r.x & 0xffff0000u),
-                     __uint_as_float(r.y << 16),
-                     __uint_as_float(r.y & 0xffff0000u));
-}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-// Round to nearest even, as torch casts.
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 r;
-  r.x = *reinterpret_cast<uint32_t*>(&a);
-  r.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = r;
 }
 
 // Rows s0 .. s0+63 of head h of a [B, S, H, D] tensor into an fp32 smem
@@ -486,14 +463,10 @@ cudaError_t launch(Which which, const Args& a, cudaStream_t stream) {
   cudaError_t err;
   switch (which) {
     case kFwd: {
-      if constexpr (!std::is_same<T, float>::value) {
-        return cudaErrorInvalidValue;      // bf16: flash_attention_sm90.cu
-      } else {
-        auto kernel = flash_fwd_kernel<T, D>;
-        if ((err = prepare(kernel, fwd_smem<D>())) != cudaSuccess) return err;
-        kernel<<<q_grid, kThreads, fwd_smem<D>(), stream>>>(
-            q, k, v, static_cast<T*>(a.out), a.lse_out, p);
-      }
+      auto kernel = flash_fwd_kernel<T, D>;
+      if ((err = prepare(kernel, fwd_smem<D>())) != cudaSuccess) return err;
+      kernel<<<q_grid, kThreads, fwd_smem<D>(), stream>>>(
+          q, k, v, static_cast<T*>(a.out), a.lse_out, p);
       break;
     }
     case kDq: {
@@ -504,16 +477,12 @@ cudaError_t launch(Which which, const Args& a, cudaStream_t stream) {
       break;
     }
     case kDkv: {
-      if constexpr (!std::is_same<T, float>::value) {
-        return cudaErrorInvalidValue;      // bf16: flash_attention_sm90.cu
-      } else {
-        auto kernel = flash_dkv_kernel<T, D>;
-        if ((err = prepare(kernel, dkv_smem<D>())) != cudaSuccess) return err;
-        const dim3 grid((p.sk + kBK - 1) / kBK, p.hkv, a.batch);
-        kernel<<<grid, kThreads, dkv_smem<D>(), stream>>>(
-            q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.dk),
-            static_cast<T*>(a.dv), p);
-      }
+      auto kernel = flash_dkv_kernel<T, D>;
+      if ((err = prepare(kernel, dkv_smem<D>())) != cudaSuccess) return err;
+      const dim3 grid((p.sk + kBK - 1) / kBK, p.hkv, a.batch);
+      kernel<<<grid, kThreads, dkv_smem<D>(), stream>>>(
+          q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.dk),
+          static_cast<T*>(a.dv), p);
       break;
     }
     default:
@@ -538,11 +507,9 @@ cudaError_t dispatch(Which which, int d, int dtype, Args a, void* stream) {
   a.p.group = a.p.hq / a.p.hkv;
   a.p.offs = a.p.sk - a.p.sq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: return launch_d<float>(which, d, a, s);
-    case kBF16: return launch_d<__nv_bfloat16>(which, d, a, s);
-    default: return cudaErrorInvalidValue;
-  }
+  // bf16 runs flash_attention_sm90.cu.
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  return launch_d<float>(which, d, a, s);
 }
 
 Args make_args(int batch, int hq, int hkv, int sq, int sk, float scale,
@@ -563,10 +530,9 @@ Args make_args(int batch, int hq, int hkv, int sq, int sk, float scale,
 extern "C" {
 
 // Each launches on `stream` with no synchronisation and no allocation, and
-// returns the launch's cudaError_t (0 on success). All tensors contiguous,
-// in the layouts of the header; d is 64 or 128; dtype 0 = fp32, 1 = bf16
-// (for every tensor but lse and delta, which are fp32; bf16 for dq only:
-// the forward and dk/dv return cudaErrorInvalidValue for it).
+// returns the launch's cudaError_t (0 on success). All tensors contiguous
+// fp32, in the layouts of the header; d is 64 or 128; dtype must be 0
+// (fp32): any other code returns cudaErrorInvalidValue.
 int ray_tpu_flash_fwd(const void* q, const void* k, const void* v,
                       void* out, float* lse, int batch, int hq, int hkv,
                       int sq, int sk, int d, float scale, int causal,

@@ -1,53 +1,58 @@
-// Flash attention on Hopper's tensor cores (sm_90a): the bf16 forward and
-// dK/dV kernels.
+// Flash attention on Hopper's tensor cores (sm_90a): the bf16 forward, dQ
+// and dK/dV kernels.
 //
 // Replaces, for bf16 inputs, the TPU kernels of ray_tpu/ops/attention.py:
 //   _fwd_kernel  (:74, launched by _fwd)  -> flash_fwd_kernel_sm90
+//   _dq_kernel   (:170, launched by _bwd) -> flash_dq_kernel_sm90
 //   _dkv_kernel  (:207, launched by _bwd) -> flash_dkv_kernel_sm90
-// fp32 inputs, and dq in both dtypes, run the CUDA-core kernels of
-// flash_attention.cu.
+// fp32 inputs run the CUDA-core kernels of flash_attention.cu.
 //
-// Contract (that of flash_attention.cu): q, out and dO are [B, Sq, Hq, D];
-// k, v, dk and dv are [B, Sk, KVH, D], contiguous bf16; lse and delta are
-// fp32 [B, Hq, Sq]. Query head h reads kv head h / (Hq / KVH). The causal
-// mask is aligned bottom-right (row r sees key c iff r + (sk - sq) >= c);
-// masked scores are -0.7 * FLT_MAX and keys past sk score -inf. The
-// forward keeps an fp32 online softmax and writes out = acc / (l == 0 ? 1
-// : l) in bf16 and lse = m + log(l); the backward recomputes
-// p = exp(s - lse), ds = p * (dO V^T - delta), dv = p^T dO and
-// dk = scale * ds^T q, summed over the query group inside the block (no
-// atomics, no per-q-head intermediate). D is 64 or 128; lengths need not
-// be multiples of 64.
+// Contract (that of flash_attention.cu): q, out, dO and dq are
+// [B, Sq, Hq, D]; k, v, dk and dv are [B, Sk, KVH, D], contiguous bf16; lse
+// and delta are fp32 [B, Hq, Sq]. Query head h reads kv head h / (Hq /
+// KVH). The causal mask is aligned bottom-right (row r sees key c iff
+// r + (sk - sq) >= c); masked scores are -0.7 * FLT_MAX and keys past sk
+// score -inf. The forward keeps an fp32 online softmax and writes out =
+// acc / (l == 0 ? 1 : l) in bf16 and lse = m + log(l); the backward
+// recomputes p = exp(s - lse), ds = p * (dO V^T - delta), dq = scale * ds K,
+// dv = p^T dO and dk = scale * ds^T q, dk/dv summed over the query group
+// inside the block (no atomics, no per-q-head intermediate). D is 64 or
+// 128; lengths need not be multiples of 64.
 //
 // Numerics. s is bf16 q times bf16 k summed in fp32, then times `scale`
 // (the CUDA-core kernels scale q in fp32 first). p and ds are rounded to
-// bf16 before the products that consume them (P V, P^T dO, dS^T Q), with
-// fp32 sums; the softmax sum l is taken over the fp32 p; dk is multiplied
-// by `scale` once at the end.
+// bf16 before the products that consume them (P V, dS K, P^T dO, dS^T Q),
+// with fp32 sums; the softmax sum l is taken over the fp32 p; dq and dk are
+// multiplied by `scale` once at the end.
 //
 // What bounds it: at the Llama-3-8B training shape (B=2, S=2048, Hq=32,
-// KVH=8, D=128, causal) the forward is ~69 GFLOP and dk/dv ~137 GFLOP
-// against ~50-70 MB of inputs and outputs, over 1,000 flops per byte: the
-// card's bf16 tensor-core rate bounds both (989 TFLOP/s), not HBM.
+// KVH=8, D=128, causal) the forward is ~69 GFLOP, dq ~103 GFLOP and dk/dv
+// ~137 GFLOP against ~50-70 MB of inputs and outputs, over 1,000 flops per
+// byte: the card's bf16 tensor-core rate bounds all three (989 TFLOP/s),
+// not HBM.
 //
 // What the design does about it (FlashAttention-2's structure):
 // * Every product is mma.sync.m16n8k16 on bf16 operands with fp32
 //   accumulators; shared memory holds bf16 tiles, never widened, with rows
 //   padded by 16 bytes so that ldmatrix reads 8 rows from 8 distinct bank
-//   groups. Operands that are row-major along the reduction (V in P V, dO
-//   in P^T dO, Q in dS^T Q) load with ldmatrix.trans.
-// * K/V (forward) and Q/dO/lse/delta (dk/dv) stream through a ring of two
-//   cp.async stages (16-byte copies; rows past the length zero-filled by
-//   src-size 0): the next tile's copy is in flight while this one is
+//   groups. Operands that are row-major along the reduction (V in P V, K in
+//   dS K, dO in P^T dO, Q in dS^T Q) load with ldmatrix.trans.
+// * K/V (forward, dq) and Q/dO/lse/delta (dk/dv) stream through a ring of
+//   two cp.async stages (16-byte copies; rows past the length zero-filled
+//   by src-size 0): the next tile's copy is in flight while this one is
 //   computed.
-// * 4 warps per block, 87 KB (forward) and 103 KB (dk/dv) of shared memory
-//   at D = 128, so two blocks share an SM.
-// * Forward: one block per (batch, q head, 64-row q tile), heaviest causal
-//   tiles first across all heads; each warp owns 16 q rows, keeps its Q
-//   fragments in registers, and turns its fp32 score accumulators into the
-//   bf16 A fragments of P V in registers (the m16n8 accumulator layout is
-//   the A layout of the next mma), so scores never touch shared memory.
-//   The mask is applied only on the diagonal and the ragged last tile.
+// * 4 warps per block, 87 KB (forward), 103 KB (dq) and 103 KB (dk/dv) of
+//   shared memory at D = 128, so two blocks share an SM.
+// * Forward and dq: one block per (batch, q head, 64-row q tile), heaviest
+//   causal tiles first across all heads; each warp owns 16 q rows and turns
+//   its fp32 accumulators (scores; dS) into the bf16 A fragments of the next
+//   product (P V; dS K) in registers (the m16n8 accumulator layout is the A
+//   layout of the next mma), so scores never touch shared memory. The mask
+//   is applied only on the diagonal and the ragged last tile. The forward
+//   keeps its Q fragments in registers; dq keeps Q and dO resident in
+//   shared memory and reloads their fragments each 16-wide k-step, so that
+//   the S and dP accumulators (32 + 32 registers) and the dq accumulator
+//   (64) fit beside each other without spilling.
 // * dk/dv: one block per (batch, kv head, 64-key tile), key tile 0 (the
 //   one with the most q tiles under causal masking) first; K and V stay
 //   resident in shared memory; each warp owns 16 key rows and walks the
@@ -384,6 +389,140 @@ flash_fwd_kernel_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
+flash_dq_kernel_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     const Dims p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kTile = Tile<D>::kElems, kRow = Tile<D>::kRow;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sDO = sQ + kTile;
+  bf16* sK = sDO + kTile;                        // [2 stages][kTile]
+  bf16* sV = sK + 2 * kTile;                     // [2 stages][kTile]
+  float* sL = reinterpret_cast<float*>(sV + 2 * kTile);   // [64]
+  float* sDelta = sL + kBQ;                               // [64]
+  const int nq = (p.sq + kBQ - 1) / kBQ;
+  const int bh = p.batch * p.hq;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x) / bh) * kBQ;
+  const int h = blockIdx.x % bh % p.hq, b = blockIdx.x % bh / p.hq;
+  const int hk = h / p.group;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 16 * warp + g;           // and row0 + 8
+  const int nk = key_tiles(p, q0);
+  const long long lrow = (static_cast<long long>(b) * p.hq + h) * p.sq;
+
+  load_tile<D>(sQ, q, b, q0, h, p.sq, p.hq);
+  load_tile<D>(sDO, dout, b, q0, h, p.sq, p.hq);
+  load_rows(sL, lse + lrow, q0, p.sq);
+  load_rows(sDelta, delta + lrow, q0, p.sq);
+  load_tile<D>(sK, k, b, 0, hk, p.sk, p.hkv);
+  load_tile<D>(sV, v, b, 0, hk, p.sk, p.hkv);
+  cp_async_commit();
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // This lane's rows' lse and delta (rows past sq read 0: their dO rows
+  // are zero, so their ds is 0).
+  float lse0 = 0.f, lse1 = 0.f, dl0 = 0.f, dl1 = 0.f;
+  const bf16* wQ = sQ + 16 * warp * kRow + a_off<D>(lane);
+  const bf16* wDO = sDO + 16 * warp * kRow + a_off<D>(lane);
+
+  for (int ik = 0; ik < nk; ++ik) {
+    const int st = ik & 1;
+    if (ik + 1 < nk) {
+      load_tile<D>(sK + (st ^ 1) * kTile, k, b, (ik + 1) * kBK, hk, p.sk,
+                   p.hkv);
+      load_tile<D>(sV + (st ^ 1) * kTile, v, b, (ik + 1) * kBK, hk, p.sk,
+                   p.hkv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                          // tile ik (and Q, dO) landed
+    __syncthreads();
+    if (ik == 0) {
+      lse0 = sL[16 * warp + g];
+      lse1 = sL[16 * warp + g + 8];
+      dl0 = sDelta[16 * warp + g];
+      dl1 = sDelta[16 * warp + g + 8];
+    }
+    const bf16* cK = sK + st * kTile;
+    const bf16* cV = sV + st * kTile;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp; the A fragments
+    // of Q and dO reload from shared memory each k-step.
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, wQ + ks * 16);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t r[4];
+        ldsm_x4(r, cK + np * 16 * kRow + ks * 16 + b_off<D>(lane));
+        mma(s[2 * np], a, r[0], r[1]);
+        mma(s[2 * np + 1], a, r[2], r[3]);
+      }
+      ldsm_x4(a, wDO + ks * 16);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t r[4];
+        ldsm_x4(r, cV + np * 16 * kRow + ks * 16 + b_off<D>(lane));
+        mma(dp[2 * np], a, r[0], r[1]);
+        mma(dp[2 * np + 1], a, r[2], r[3]);
+      }
+    }
+
+    // P = exp(S scale - lse), dS = P (dP - delta), in place of S.
+    const int k0 = ik * kBK;
+    const bool need_mask =
+        k0 + kBK > p.sk || (p.causal && k0 + kBK - 1 > q0 + p.offs);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * p.scale;
+        if (need_mask)
+          x = masked(p, x, row0 + (e >> 1) * 8, k0 + 8 * j + 2 * t + (e & 1));
+        const float pe = exp2f((x - (e < 2 ? lse0 : lse1)) * kLog2e);
+        s[j][e] = pe * (dp[j][e] - (e < 2 ? dl0 : dl1));
+      }
+    }
+
+    // dQ += dS K: dS's accumulators are the A fragments, K loads
+    // transposed.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
+                             pack(s[2 * kk][2], s[2 * kk][3]),
+                             pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t r[4];
+        ldsm_x4_t(r, cK + kk * 16 * kRow + np * 16 + bt_off<D>(lane));
+        mma(acc[2 * np], a, r[0], r[1]);
+        mma(acc[2 * np + 1], a, r[2], r[3]);
+      }
+    }
+    __syncthreads();                             // stage st free to refill
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // The warp's own 16 rows of sQ stage its dq.
+  store_rows<D>(sQ + 16 * warp * kRow, acc, p.scale, p.scale, dq, b,
+                q0 + 16 * warp, h, p.sq, p.hq, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_dkv_kernel_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const bf16* __restrict__ dout,
@@ -528,16 +667,20 @@ flash_dkv_kernel_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D> constexpr int fwd_smem() {
   return 2 * 5 * Tile<D>::kElems;                // Q, 2 x K, 2 x V
 }
+template <int D> constexpr int dq_smem() {
+  return 2 * 6 * Tile<D>::kElems + 2 * 4 * kBQ;  // Q, dO, 2 x (K, V), rows
+}
 template <int D> constexpr int dkv_smem() {
   return 2 * 6 * Tile<D>::kElems + 4 * 4 * kBQ;  // K, V, 2 x (Q, dO), rows
 }
 static_assert(fwd_smem<128>() <= 110 * 1024, "forward: two blocks an SM");
+static_assert(dq_smem<128>() <= 110 * 1024, "dq: two blocks an SM");
 static_assert(dkv_smem<128>() <= 110 * 1024, "dk/dv: two blocks an SM");
 
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse_in, *delta;
-  void *out, *dk, *dv;
+  void *out, *dq, *dk, *dv;
   float* lse_out;
   Dims p;
 };
@@ -561,6 +704,22 @@ cudaError_t launch_fwd(const Args& a, cudaStream_t stream) {
   kernel<<<static_cast<unsigned>(blocks), kThreads, fwd_smem<D>(), stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse_out, p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
+  const Dims& p = a.p;
+  auto kernel = flash_dq_kernel_sm90<D>;
+  cudaError_t err = prepare(kernel, dq_smem<D>());
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      static_cast<long long>((p.sq + kBQ - 1) / kBQ) * p.hq * p.batch;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, dq_smem<D>(), stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      a.lse_in, a.delta, static_cast<bf16*>(a.dq), p);
   return cudaGetLastError();
 }
 
@@ -615,6 +774,24 @@ int ray_tpu_flash_fwd_sm90(const void* q, const void* k, const void* v,
   switch (d) {
     case 64: return launch_fwd<64>(a, s);
     case 128: return launch_fwd<128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int ray_tpu_flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* delta, void* dq, int batch, int hq,
+                              int hkv, int sq, int sk, int d, float scale,
+                              int causal, void* stream) {
+  Args a{};
+  if (!make_dims(&a.p, batch, hq, hkv, sq, sk, scale, causal))
+    return cudaErrorInvalidValue;
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse_in = lse;
+  a.delta = delta; a.dq = dq;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return launch_dq<64>(a, s);
+    case 128: return launch_dq<128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

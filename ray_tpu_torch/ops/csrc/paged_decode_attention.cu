@@ -17,26 +17,43 @@
 // q and out are small. So the floor is (live K/V + q + out bytes) / 3.35
 // TB/s.
 //
-// Design, and what it does about that bound. One thread block per (slot
-// b, kv head h) -- or per group of GT query heads of h when G > 8 or G is
-// not a power of two -- walks the slot's live tokens in tiles of 64: the
-// loop takes the place of the TPU's sequential third grid axis, and the
-// running max / sum / accumulator that lived in VMEM scratch live in
-// registers. The block stages its own table row and q group in shared
-// memory (scalar prefetch and the resident q block on the TPU) and
-// computes arena offsets from the strides it is given, so a slot's blocks
-// need not be adjacent, and any block size works. Each K/V row is read
-// from HBM once per kv head and serves all G query heads from shared
-// memory. Tiles arrive by cp.async into two shared-memory stages: the
-// copy of tile i+1 is in flight while tile i is computed. Dead tail
-// entries and tokens past pos are never loaded, so K/V bytes scale with
-// live tokens, not with the table width.
-//
-// What it leaves on the table (later work): B * KVH blocks (64 at the
-// Llama-3-8B decode shape) fill half of the 132 SMs, and a long slot is
-// one block's serial walk, bound by that SM's instruction rate rather
-// than by HBM. Split-K over the table (flash-decoding), a persistent grid
-// and tensor-core (mma) products are the levers.
+// Design (flash-decoding), and what it does about that bound. A long
+// slot must not be one block's serial walk, and the card has 132 SMs to
+// fill at batch 8. So the slot's token range is cut into chunks of a fixed
+// number of 64-token tiles (the host picks the split count from shapes
+// alone, never from positions), and one 1-4 warp block per (slot, kv
+// head or group tile of GT query heads, chunk) walks its chunk:
+// * Each warp takes whole 32-token steps of the chunk (step w, w + warps,
+//   ...) and loads them itself by cp.async into its own shared-memory
+//   rows (K first, then V, so the scores start while V is in flight): no
+//   block barrier a tile. Lane t scores token t against all GT query heads
+//   (its full D dot products, q broadcast from shared memory), the warp
+//   keeps its own fp32 online softmax per query head, and in P.V each lane
+//   owns 8 elements of D over a strided share of the step's tokens.
+// * The warps merge once at the end through shared memory, and the block
+//   writes its unnormalised partial: acc [GT, D] fp32 and the running max
+//   and sum per query head, into a workspace the caller allocates
+//   ([B, Hq, splits, D] and [B, Hq, splits, 2]).
+// * A second small kernel from the same entry point combines a row's live
+//   partials: out = sum_i acc_i e^(m_i - M) / sum_i l_i e^(m_i - M), with
+//   l == 0 -> 1. Blocks whose chunk lies past pos exit at once and are
+//   never read, so dead chunks contribute nothing, and no -inf - (-inf)
+//   is formed.
+// * The chain before the first product is kept short: a lane fetches its
+//   first token's table entry beside pos, and the q group is staged (fp32
+//   in shared memory) while the first K/V rows are in flight. A step's K
+//   rows, once scored, hold its probabilities, so at D = 128 in bf16 a
+//   4-warp block takes 72 KB and three blocks share an SM.
+// The host decides the layout (group tile GT, split count, chunk tokens)
+// from shapes and passes it in; the entry point checks it and never
+// recomputes it.
+// The block computes arena offsets from the strides it is given (lane t
+// looks up its token's table entry, and the row's offset is shuffled to
+// the lanes that copy it), so a slot's blocks need not be adjacent and any
+// block size works. Each K/V row is read from HBM once per kv head and
+// serves all GT query heads; dead tail entries and tokens past pos are
+// never loaded, so K/V bytes scale with live tokens, not with the table
+// width.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,12 +62,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;                   // tokens per tile
-constexpr int kSlices = kThreads / kTile;   // D slices in the score phase
+constexpr int kWarps = 4;                   // warps per block, at most
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 64;                   // tokens per tile: the split unit
+constexpr int kStep = 32;                   // tokens per warp step, one a lane
 constexpr int kMaxD = 256;
-constexpr int kMaxTable = 4096;             // table entries staged in smem
+constexpr int kMaxTable = 4096;             // table entries a slot may have
+constexpr int kMaxSplits = 65535;           // grid.z
 constexpr int kRowPad = 16;                 // bytes after each smem row
 constexpr int kSmemLimit = 232448;          // 227 KB per block on H100
 constexpr float kMaskValue = -1e30f;
@@ -66,39 +84,45 @@ struct Params {
   const int32_t* tables;
   const int32_t* positions;
   void* out;
-  int hq, hkv, d, bs, nb, group;
+  float* ws_acc;                            // [B, Hq, splits, D]
+  float* ws_ml;                             // [B, Hq, splits, 2]: max, sum
+  int hq, hkv, d, bs, nb, group, splits;
+  int chunk;                                // tokens per split, from the host
   long long q_sb, q_sh;
   long long kv_sn, kv_st, kv_sh;
   long long sc_sn, sc_st, sc_sh;
   long long tab_sb;
   float scale;
-  int stages;                               // 1 or 2 cp.async stages
 };
 
-// Shared memory: q group [GT][D] f32, score partials [kSlices][GT][kTile],
-// probabilities [GT][kTile], alpha [GT], l [GT], the table row [nb]; then
-// `stages` tile buffers {K rows, V rows, K scales, V scales}, reused at the
-// end for the cross-thread reduction of the accumulators.
+// Shared memory: the q group [GT][D] fp32, then one region per warp: the
+// K area, V rows [kStep][row] and, for int8 arenas, K and V scales
+// [kStep] each. The K area holds the step's K rows [kStep][row]; once its
+// scores are taken, the step's probabilities [kStep][GT] fp32 while V's
+// copies are still in flight, so it is the larger of the two (at D = 8 an
+// int8 row is 24 bytes: 768 bytes of rows against 1024 of probabilities
+// at GT = 8); at the end it holds the warp's partial (acc [GT][D], max
+// [GT], sum [GT]), which kStep rows of at least D + 16 bytes always hold.
 __host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
-__host__ __device__ inline int fixed_bytes(int gt, int d, int nb) {
-  return round16(4 * (gt * d + kSlices * gt * kTile + gt * kTile + 2 * gt)
-                 + 4 * nb);
+__host__ __device__ inline int q_bytes(int gt, int d) {
+  return round16(4 * gt * d);
 }
 __host__ __device__ inline int row_stride(int d, int itemsize) {
   return d * itemsize + kRowPad;
 }
-__host__ __device__ inline int stage_bytes(int d, int itemsize) {
-  return 2 * kTile * row_stride(d, itemsize) + 2 * kTile * 4;
+__host__ __device__ inline int k_area_bytes(int gt, int d, int itemsize) {
+  const int rows = kStep * row_stride(d, itemsize);
+  const int probs = kStep * gt * 4;
+  return round16(rows > probs ? rows : probs);
+}
+__host__ __device__ inline int warp_bytes(int gt, int d, int itemsize) {
+  return k_area_bytes(gt, d, itemsize) + kStep * row_stride(d, itemsize)
+         + (itemsize == 1 ? 2 * kStep * 4 : 0);
 }
 __host__ __device__ inline int pow2_at_least(int n) {
   int p = 1;
   while (p < n) p <<= 1;
   return p;
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
 }
 
 // Eight consecutive elements of a K/V row from shared memory, to fp32.
@@ -127,6 +151,11 @@ __device__ __forceinline__ void load8(const int8_t* p, float* o) {
         static_cast<int32_t>(w[i / 4] << (24 - 8 * (i % 4))) >> 24);
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as torch casts
@@ -152,131 +181,143 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// The weight e^(m - M) of a partial with running max m under the merged
+// max M; an empty partial (m = -inf) weighs exactly 0.
+__device__ __forceinline__ float weight(float m, float M) {
+  return m == -INFINITY ? 0.f : expf(m - M);
+}
+
+__device__ __forceinline__ int live_tokens(const Params& p, int b) {
+  const int pos = p.positions[b];
+  return pos < 0 ? 0 : min(pos + 1, p.nb * p.bs);
+}
+
 template <typename QT, typename KVT, int GT>
-__global__ void __launch_bounds__(kThreads, 1)
-paged_decode_kernel(const Params p) {
-  static_assert(GT <= kWarps, "warp g runs query head g's softmax");
+__global__ void __launch_bounds__(kThreads, 3)
+paged_split_kernel(const Params p) {
+  constexpr bool kQuant = sizeof(KVT) == 1;         // int8 carries scales
   extern __shared__ __align__(16) unsigned char smem[];
   const int per_head = p.group / GT;        // blocks per kv head
   const int h = blockIdx.x / per_head;
   const int hq0 = h * p.group + (blockIdx.x % per_head) * GT;
   const int b = blockIdx.y;
+  const int c0 = blockIdx.z * p.chunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int w0 = c0 + warp * kStep;         // this warp's first step
+  // The table entry of this lane's first token, fetched beside pos.
+  const int first = w0 + lane;
+  const int blk0 = first < min(c0 + p.chunk, p.nb * p.bs)
+                       ? p.tables[b * p.tab_sb + first / p.bs] : 0;
+  const int n_tok = live_tokens(p, b);
+  if (c0 >= n_tok) return;                  // the chunk lies past pos
+  const int c1 = min(c0 + p.chunk, n_tok);
   const int D = p.d;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const bool quantized = p.k_scale != nullptr;
-
-  const int pos = p.positions[b];
-  const int n_tok = pos < 0 ? 0 : min(pos + 1, p.nb * p.bs);
-  const int n_tiles = (n_tok + kTile - 1) / kTile;
+  const int row_s = row_stride(D, sizeof(KVT));
+  const int w_bytes = warp_bytes(GT, D, sizeof(KVT));
 
   float* s_q = reinterpret_cast<float*>(smem);
-  float* s_part = s_q + GT * D;
-  float* s_p = s_part + kSlices * GT * kTile;
-  float* s_alpha = s_p + GT * kTile;
-  float* s_l = s_alpha + GT;
-  int* s_tab = reinterpret_cast<int*>(s_l + GT);
-  unsigned char* s_stage = smem + fixed_bytes(GT, D, p.nb);
-  const int row_s = row_stride(D, sizeof(KVT));
-  const int st_bytes = stage_bytes(D, sizeof(KVT));
+  unsigned char* regions = smem + q_bytes(GT, D);
+  unsigned char* k_s = regions + warp * w_bytes;
+  unsigned char* v_s = k_s + k_area_bytes(GT, D, sizeof(KVT));
+  float* p_s = reinterpret_cast<float*>(k_s);     // [kStep][GT], after scores
+  float* ks_s = reinterpret_cast<float*>(v_s + kStep * row_s);  // int8 only
+  float* vs_s = ks_s + kStep;
 
+  constexpr int kChunk = sizeof(KVT) == 1 ? 8 : 16;   // bytes per copy
+  const int cpr = D * static_cast<int>(sizeof(KVT)) / kChunk;
+  const char* kg = static_cast<const char*>(p.k);
+  const char* vg = static_cast<const char*>(p.v);
+  // K rows (and scales) of the step at t0 as one cp.async group, V rows as
+  // the next; lane t looks up token t0 + t's arena row (blk: its table
+  // entry), and row r's copies come from the lanes i = r * cpr + c, which
+  // learn its offset from lane r (a trip count of cpr for every lane).
+  auto load_step = [&](int t0, int blk) {
+    const int rows = min(kStep, c1 - t0);
+    long long off = 0;
+    if (lane < rows) {
+      const int tok = t0 + lane;
+      off = (static_cast<long long>(blk) * p.kv_sn + (tok % p.bs) * p.kv_st
+             + h * p.kv_sh) * static_cast<long long>(sizeof(KVT));
+      if (kQuant) {
+        const long long so = static_cast<long long>(blk) * p.sc_sn
+                             + (tok % p.bs) * p.sc_st + h * p.sc_sh;
+        cp_async<4>(ks_s + lane, p.k_scale + so);
+        cp_async<4>(vs_s + lane, p.v_scale + so);
+      }
+    }
+    for (int i = lane; i < kStep * cpr; i += 32) {
+      const int r = i / cpr, c = i % cpr;
+      const long long ro = __shfl_sync(0xffffffffu, off, r);
+      if (r < rows)
+        cp_async<kChunk>(k_s + r * row_s + c * kChunk, kg + ro + c * kChunk);
+    }
+    cp_async_commit();
+    for (int i = lane; i < kStep * cpr; i += 32) {
+      const int r = i / cpr, c = i % cpr;
+      const long long ro = __shfl_sync(0xffffffffu, off, r);
+      if (r < rows)
+        cp_async<kChunk>(v_s + r * row_s + c * kChunk, vg + ro + c * kChunk);
+    }
+    cp_async_commit();
+  };
+  if (w0 < c1) load_step(w0, blk0);
+
+  // The q group, staged while the first K/V rows are in flight.
   {
     const QT* qp = static_cast<const QT*>(p.q) + b * p.q_sb;
-    for (int i = tid; i < GT * D; i += kThreads)
+    for (int i = tid; i < GT * D; i += blockDim.x)
       s_q[i] = to_float(qp[(hq0 + i / D) * p.q_sh + i % D]);
-    const int n_blk = (n_tok + p.bs - 1) / p.bs;
-    for (int i = tid; i < n_blk; i += kThreads)
-      s_tab[i] = p.tables[b * p.tab_sb + i];
   }
   __syncthreads();
 
-  // Rows of K and V (and their scales) of tile `tile` into stage `st`.
-  constexpr int kChunk = sizeof(KVT) == 1 ? 8 : 16;   // bytes per copy
-  const int row_bytes = D * static_cast<int>(sizeof(KVT));
-  const int cpr = row_bytes / kChunk;
-  auto load_tile = [&](int tile, int st) {
-    unsigned char* buf = s_stage + st * st_bytes;
-    const int t0 = tile * kTile;
-    const int rows = min(kTile, n_tok - t0);
-    const char* kg = static_cast<const char*>(p.k);
-    const char* vg = static_cast<const char*>(p.v);
-    for (int i = tid; i < rows * cpr; i += kThreads) {
-      const int r = i / cpr, c = i % cpr;
-      const int tok = t0 + r;
-      const long long off =
-          (static_cast<long long>(s_tab[tok / p.bs]) * p.kv_sn
-           + (tok % p.bs) * p.kv_st + h * p.kv_sh) * sizeof(KVT)
-          + c * kChunk;
-      cp_async<kChunk>(buf + r * row_s + c * kChunk, kg + off);
-      cp_async<kChunk>(buf + (kTile + r) * row_s + c * kChunk, vg + off);
-    }
-    if (quantized) {
-      float* ks = reinterpret_cast<float*>(buf + 2 * kTile * row_s);
-      for (int r = tid; r < rows; r += kThreads) {
-        const int tok = t0 + r;
-        const long long off =
-            static_cast<long long>(s_tab[tok / p.bs]) * p.sc_sn
-            + (tok % p.bs) * p.sc_st + h * p.sc_sh;
-        cp_async<4>(ks + r, p.k_scale + off);
-        cp_async<4>(ks + kTile + r, p.v_scale + off);
-      }
-    }
-  };
-
-  // Score phase: thread (token st_t, D slice st_sl).
-  const int st_t = tid % kTile;
-  const int st_sl = tid / kTile;
   const int chunks = D / 8;
-  const int per_slice = (chunks + kSlices - 1) / kSlices;
-  const int c_lo = st_sl * per_slice;
-  const int c_hi = min(chunks, c_lo + per_slice);
-  // P.V phase: thread (token group pv_g, chunk pv_c of 8 elements); the
-  // n_groups partial sums meet once, after the last tile.
+  // P.V: lane (pv_g, pv_c) owns elements 8 pv_c .. +7 of the tokens
+  // pv_g, pv_g + n_tg, ...; the n_tg partial sums meet after the walk.
   const int tpt = pow2_at_least(chunks);
-  const int n_groups = kThreads / tpt;
-  const int pv_c = tid % tpt;
-  const int pv_g = tid / tpt;
+  const int n_tg = 32 / tpt;
+  const int pv_c = lane % tpt;
+  const int pv_g = lane / tpt;
 
   float acc[GT][8];
+  float m[GT], l[GT];                       // l: this lane's tokens only
 #pragma unroll
-  for (int g = 0; g < GT; ++g)
+  for (int g = 0; g < GT; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
-  // Warp g keeps query head g's running max and sum.
-  float m_run = -INFINITY;
-  float l_run = 0.f;
+  }
 
-  if (p.stages == 2 && n_tiles > 0) load_tile(0, 0);
-  cp_async_commit();
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    int st = 0;
-    if (p.stages == 2) {
-      st = tile & 1;
-      if (tile + 1 < n_tiles) load_tile(tile + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();                 // tile `tile` has landed
-    } else {
-      load_tile(tile, 0);
-      cp_async_commit();
-      cp_async_wait<0>();
+  for (int t0 = w0; t0 < c1; t0 += n_warps * kStep) {
+    if (t0 != w0) {
+      const int tok = t0 + lane;
+      load_step(t0, tok < c1 ? p.tables[b * p.tab_sb + tok / p.bs] : 0);
     }
-    __syncthreads();
-    const unsigned char* buf = s_stage + st * st_bytes;
-    const KVT* k_s = reinterpret_cast<const KVT*>(buf);
-    const KVT* v_s = reinterpret_cast<const KVT*>(buf + kTile * row_s);
-    const float* ks_s = reinterpret_cast<const float*>(buf + 2 * kTile * row_s);
-    const float* vs_s = ks_s + kTile;
-    const int rows = min(kTile, n_tok - tile * kTile);
+    const int rows = min(kStep, c1 - t0);
+    cp_async_wait<1>();                     // K rows (and scales) landed
+    __syncwarp();
 
-    // 1. partial q . k over this thread's D slice, for every query head.
-    if (st_t < rows) {
-      float part[GT];
+    // Scores: lane t against every query head of the group.
+    float s[GT];
+    if (lane < rows) {
 #pragma unroll
-      for (int g = 0; g < GT; ++g) part[g] = 0.f;
-      const KVT* krow = reinterpret_cast<const KVT*>(
-          reinterpret_cast<const unsigned char*>(k_s) + st_t * row_s);
-      for (int c = c_lo; c < c_hi; ++c) {
+      for (int g = 0; g < GT; ++g) s[g] = 0.f;
+      const KVT* krow = reinterpret_cast<const KVT*>(k_s + lane * row_s);
+      for (int c = 0; c < chunks; ++c) {
         float kf[8];
         load8(krow + c * 8, kf);
 #pragma unroll
@@ -284,140 +325,171 @@ paged_decode_kernel(const Params p) {
           float qf[8];
           load8(s_q + g * D + c * 8, qf);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) part[g] += qf[i] * kf[i];
+          for (int i = 0; i < 8; ++i) s[g] += qf[i] * kf[i];
         }
       }
 #pragma unroll
-      for (int g = 0; g < GT; ++g)
-        s_part[(st_sl * GT + g) * kTile + st_t] = part[g];
-    }
-    __syncthreads();
-
-    // 2. online softmax of this tile: warp g for query head g.
-    if (warp < GT) {
-      const int g = warp;
-      float s[kTile / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < kTile / 32; ++u) {
-        const int t = lane + 32 * u;
-        float x = kMaskValue;
-        if (t < rows) {
-          x = 0.f;
-#pragma unroll
-          for (int sl = 0; sl < kSlices; ++sl)
-            x += s_part[(sl * GT + g) * kTile + t];
-          // int8: q . (k8 * s) == (q . k8) * s, one scale per token row.
-          if (quantized) x *= ks_s[t];
-          x *= p.scale;
-        }
-        s[u] = x;
-        mx = fmaxf(mx, x);
+      for (int g = 0; g < GT; ++g) {
+        // int8: q . (k8 * s) == (q . k8) * s, one scale per token row.
+        if (kQuant) s[g] *= ks_s[lane];
+        s[g] *= p.scale;
       }
+    } else {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < kTile / 32; ++u) {
-        const int t = lane + 32 * u;
-        const float e = expf(s[u] - m_new);
-        sum += e;
-        // V's int8 scale folds into the weight of its row.
-        s_p[g * kTile + t] = quantized && t < rows ? e * vs_s[t] : e;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m_run - m_new);
-      l_run = alpha * l_run + sum;
-      m_run = m_new;
-      if (lane == 0) s_alpha[g] = alpha;
+      for (int g = 0; g < GT; ++g) s[g] = kMaskValue;
     }
-    __syncthreads();
-
-    // 3. acc = acc * alpha + sum_t p_t * v_t over this thread's tokens.
+    __syncwarp();                           // K rows free for p_s
+    // The warp's online softmax, one query head at a time.
+    float alpha[GT];
 #pragma unroll
     for (int g = 0; g < GT; ++g) {
-      const float a = s_alpha[g];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[g][i] *= a;
+      const float m_new = fmaxf(m[g], warp_max(s[g]));
+      alpha[g] = expf(m[g] - m_new);        // 0 on the first step
+      const float e = expf(s[g] - m_new);
+      l[g] = alpha[g] * l[g] + e;
+      m[g] = m_new;
+      // V's int8 scale folds into the weight of its row.
+      p_s[lane * GT + g] = lane < rows ? (kQuant ? e * vs_s[lane] : e) : 0.f;
     }
+    cp_async_wait<0>();                     // V rows landed
+    __syncwarp();
+
+    // acc = acc * alpha + sum_t p_t v_t over this lane's share of tokens.
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[g][i] *= alpha[g];
     if (pv_c < chunks) {
-      for (int t = pv_g; t < rows; t += n_groups) {
+      for (int t = pv_g; t < rows; t += n_tg) {
         float vf[8];
-        load8(reinterpret_cast<const KVT*>(
-                  reinterpret_cast<const unsigned char*>(v_s) + t * row_s)
-                  + pv_c * 8, vf);
+        load8(reinterpret_cast<const KVT*>(v_s + t * row_s) + pv_c * 8, vf);
 #pragma unroll
         for (int g = 0; g < GT; ++g) {
-          const float pt = s_p[g * kTile + t];
+          const float pt = p_s[t * GT + g];
 #pragma unroll
           for (int i = 0; i < 8; ++i) acc[g][i] += pt * vf[i];
         }
       }
     }
-    __syncthreads();                // the stage is refilled next
+    __syncwarp();                           // rows are refilled next step
   }
-  cp_async_wait<0>();
 
-  // 4. sum the n_groups partials of each output element.
-  float* red = reinterpret_cast<float*>(s_stage);
-  if (pv_c < chunks) {
+  // The warp's partial: sums over its lanes, then into its own K rows.
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    l[g] = warp_sum(l[g]);
+    for (int o = tpt; o < 32; o <<= 1)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        acc[g][i] += __shfl_xor_sync(0xffffffffu, acc[g][i], o);
+  }
+  float* w_acc = reinterpret_cast<float*>(k_s);     // [GT][D]
+  float* w_m = w_acc + GT * D;
+  float* w_l = w_m + GT;
+  if (pv_g == 0 && pv_c < chunks) {
 #pragma unroll
     for (int g = 0; g < GT; ++g)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        red[(pv_g * GT + g) * D + pv_c * 8 + i] = acc[g][i];
+      for (int i = 0; i < 8; ++i) w_acc[g * D + pv_c * 8 + i] = acc[g][i];
   }
-  if (warp < GT && lane == 0) s_l[warp] = l_run;
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      w_m[g] = m[g];
+      w_l[g] = l[g];
+    }
+  }
   __syncthreads();
-  QT* op = static_cast<QT*>(p.out) + (static_cast<long long>(b) * p.hq
-                                      + hq0) * D;
-  for (int i = tid; i < GT * D; i += kThreads) {
+
+  // The block's partial (warp 0 always walked a step, so M is finite).
+  auto part = [&](int w) {
+    return reinterpret_cast<const float*>(regions + w * w_bytes);
+  };
+  const long long row0 = (static_cast<long long>(b) * p.hq + hq0) * p.splits
+                         + blockIdx.z;      // head g: row0 + g * splits
+  for (int i = tid; i < GT * D; i += blockDim.x) {
     const int g = i / D;
-    float o = 0.f;
-    for (int pg = 0; pg < n_groups; ++pg) o += red[(pg * GT + g) * D + i % D];
-    const float l = s_l[g];
-    store(op + i, o / (l == 0.f ? 1.f : l));
+    float M = -INFINITY;
+    for (int w = 0; w < n_warps; ++w) M = fmaxf(M, part(w)[GT * D + g]);
+    float a = 0.f;
+    for (int w = 0; w < n_warps; ++w)
+      a += part(w)[i] * weight(part(w)[GT * D + g], M);
+    p.ws_acc[(row0 + static_cast<long long>(g) * p.splits) * D + i % D] = a;
+  }
+  if (tid < GT) {
+    float M = -INFINITY;
+    for (int w = 0; w < n_warps; ++w) M = fmaxf(M, part(w)[GT * D + tid]);
+    float L = 0.f;
+    for (int w = 0; w < n_warps; ++w)
+      L += part(w)[GT * D + GT + tid] * weight(part(w)[GT * D + tid], M);
+    float* ml = p.ws_ml + (row0 + static_cast<long long>(tid) * p.splits) * 2;
+    ml[0] = M;
+    ml[1] = L;
   }
 }
 
+// One block per (slot, query head), a thread per element of D: the live
+// splits' partials, rescaled to their common max, summed and normalised.
+template <typename QT>
+__global__ void __launch_bounds__(kMaxD)
+paged_combine_kernel(const Params p) {
+  const int row = blockIdx.x;               // b * Hq + head
+  const int d = threadIdx.x;
+  const int live = (live_tokens(p, row / p.hq) + p.chunk - 1) / p.chunk;
+  const float* ml = p.ws_ml + static_cast<long long>(row) * p.splits * 2;
+  const float* acc = p.ws_acc + static_cast<long long>(row) * p.splits * p.d;
+  float M = -INFINITY;
+#pragma unroll 4
+  for (int i = 0; i < live; ++i) M = fmaxf(M, ml[2 * i]);
+  float L = 0.f, o = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < live; ++i) {
+    const float w = weight(ml[2 * i], M);
+    L += ml[2 * i + 1] * w;
+    if (d < p.d) o += acc[static_cast<long long>(i) * p.d + d] * w;
+  }
+  if (d < p.d)
+    store(static_cast<QT*>(p.out) + static_cast<long long>(row) * p.d + d,
+          o / (L == 0.f ? 1.f : L));
+}
+
 template <typename QT, typename KVT, int GT>
-cudaError_t launch(Params p, int batch, cudaStream_t stream) {
-  const int itemsize = sizeof(KVT);
-  const int fixed = fixed_bytes(GT, p.d, p.nb);
-  const int n_groups = kThreads / pow2_at_least(p.d / 8);
-  const int red = n_groups * GT * p.d * 4;
-  const int st = stage_bytes(p.d, itemsize);
-  p.stages = fixed + (2 * st > red ? 2 * st : red) <= kSmemLimit ? 2 : 1;
-  const int smem = fixed + (p.stages * st > red ? p.stages * st : red);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  auto kernel = paged_decode_kernel<QT, KVT, GT>;
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  const int qb = q_bytes(GT, p.d);
+  const int wb = warp_bytes(GT, p.d, sizeof(KVT));
+  const int warps = min(kWarps, (kSmemLimit - qb) / wb);
+  if (warps < 1) return cudaErrorInvalidValue;
+  const int smem = qb + warps * wb;
+  auto kernel = paged_split_kernel<QT, KVT, GT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.hkv * (p.group / GT), batch), kThreads, smem, stream>>>(p);
+  kernel<<<dim3(p.hkv * (p.group / GT), batch, p.splits), 32 * warps, smem,
+           stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  paged_combine_kernel<QT><<<batch * p.hq, (p.d + 31) / 32 * 32, 0,
+                             stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename QT, typename KVT>
-cudaError_t launch_gt(const Params& p, int batch, cudaStream_t s) {
-  // The largest group tile of 8, 4, 2, 1 query heads that divides G.
-  if (p.group % 8 == 0) return launch<QT, KVT, 8>(p, batch, s);
-  if (p.group % 4 == 0) return launch<QT, KVT, 4>(p, batch, s);
-  if (p.group % 2 == 0) return launch<QT, KVT, 2>(p, batch, s);
-  return launch<QT, KVT, 1>(p, batch, s);
+cudaError_t launch_gt(const Params& p, int gt, int batch, cudaStream_t s) {
+  switch (gt) {
+    case 8: return launch<QT, KVT, 8>(p, batch, s);
+    case 4: return launch<QT, KVT, 4>(p, batch, s);
+    case 2: return launch<QT, KVT, 2>(p, batch, s);
+    case 1: return launch<QT, KVT, 1>(p, batch, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename QT>
-cudaError_t launch_kv(const Params& p, int batch, int kv_dtype,
+cudaError_t launch_kv(const Params& p, int gt, int batch, int kv_dtype,
                       cudaStream_t s) {
   switch (kv_dtype) {
-    case kF32: return launch_gt<QT, float>(p, batch, s);
-    case kBF16: return launch_gt<QT, __nv_bfloat16>(p, batch, s);
-    case kI8: return launch_gt<QT, int8_t>(p, batch, s);
+    case kF32: return launch_gt<QT, float>(p, gt, batch, s);
+    case kBF16: return launch_gt<QT, __nv_bfloat16>(p, gt, batch, s);
+    case kI8: return launch_gt<QT, int8_t>(p, gt, batch, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -426,33 +498,44 @@ cudaError_t launch_kv(const Params& p, int batch, int kv_dtype,
 
 extern "C" {
 
-// Launch on `stream`; no synchronisation and no allocation. Strides are
-// in elements; the last dim of q, the arena and out must be contiguous,
-// and arena rows 16-byte aligned. Returns the launch's cudaError_t (0 on
-// success).
+// Launch on `stream` (the split kernel, then the combine kernel); no
+// synchronisation and no allocation. Strides are in elements; the last
+// dim of q, the arena and out must be contiguous, and arena rows 16-byte
+// aligned. out is [B, Hq, D] contiguous in q's dtype; ws_acc ([B, Hq,
+// splits, D]) and ws_ml ([B, Hq, splits, 2]) are fp32 scratch. The
+// caller's layout: blocks of gt query heads (1, 2, 4 or 8, dividing the
+// group); split i covers tokens [i chunk, (i + 1) chunk), chunk a multiple
+// of 64, and every split starts inside the table. Returns the launch's
+// cudaError_t (0 on success).
 int ray_tpu_paged_decode_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* tables, const void* positions,
-    void* out, int batch, int hq, int hkv, int d, int bs, int nb,
-    long long q_sb, long long q_sh, long long kv_sn, long long kv_st,
-    long long kv_sh, long long sc_sn, long long sc_st, long long sc_sh,
-    long long tab_sb, float scale, int q_dtype, int kv_dtype,
-    void* stream) {
+    void* out, void* ws_acc, void* ws_ml, int batch, int hq, int hkv, int d,
+    int bs, int nb, int gt, int splits, int chunk, long long q_sb,
+    long long q_sh, long long kv_sn, long long kv_st, long long kv_sh,
+    long long sc_sn, long long sc_st, long long sc_sh, long long tab_sb,
+    float scale, int q_dtype, int kv_dtype, void* stream) {
+  const long long tokens = static_cast<long long>(nb) * bs;
   if (hkv <= 0 || hq % hkv || d <= 0 || d % 8 || d > kMaxD ||
-      bs <= 0 || nb <= 0 || nb > kMaxTable || batch <= 0 ||
+      bs <= 0 || nb <= 0 || nb > kMaxTable || batch <= 0 || batch > 65535 ||
+      tokens > (1LL << 30) || gt <= 0 || (hq / hkv) % gt ||
+      splits <= 0 || splits > kMaxSplits || chunk <= 0 || chunk % kTile ||
+      static_cast<long long>(splits - 1) * chunk >= tokens ||
+      static_cast<long long>(splits) * chunk < tokens ||
       (kv_dtype == kI8) != (k_scale != nullptr) ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return cudaErrorInvalidValue;
   Params p{q, k, v, static_cast<const float*>(k_scale),
            static_cast<const float*>(v_scale),
            static_cast<const int32_t*>(tables),
-           static_cast<const int32_t*>(positions), out, hq, hkv, d, bs, nb,
-           hq / hkv, q_sb, q_sh, kv_sn, kv_st, kv_sh, sc_sn, sc_st, sc_sh,
-           tab_sb, scale, 2};
+           static_cast<const int32_t*>(positions), out,
+           static_cast<float*>(ws_acc), static_cast<float*>(ws_ml), hq, hkv,
+           d, bs, nb, hq / hkv, splits, chunk, q_sb, q_sh, kv_sn, kv_st,
+           kv_sh, sc_sn, sc_st, sc_sh, tab_sb, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
-    case kF32: return launch_kv<float>(p, batch, kv_dtype, s);
-    case kBF16: return launch_kv<__nv_bfloat16>(p, batch, kv_dtype, s);
+    case kF32: return launch_kv<float>(p, gt, batch, kv_dtype, s);
+    case kBF16: return launch_kv<__nv_bfloat16>(p, gt, batch, kv_dtype, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -14,8 +14,14 @@ Two versions of one function live here:
   attention. The CPU path, and the yardstick the kernel is held to.
 * the CUDA kernel ``csrc/paged_decode_attention.cu`` (the port of the
   TPU's ``_paged_kernel``), launched by :func:`paged_decode_attention`
-  on CUDA tensors. ``paged_decode_attention.launches`` counts its
-  launches.
+  on CUDA tensors. It is split-K (flash-decoding): each slot's tokens are
+  cut into chunks of whole 64-token tiles, one block a chunk writes an
+  unnormalised partial into a workspace allocated here, and a combine
+  kernel from the same C entry point merges them. The layout (group
+  tile, split count, chunk) is decided here once, by :func:`paged_layout`
+  from shapes alone, and passed to the kernel.
+  ``paged_decode_attention.launches`` counts one per call (both CUDA
+  launches together).
 
 Dispatch: a CUDA tensor launches the kernel or raises (a failed build or
 launch is an error, never a silent fall back to the plain version); a
@@ -26,7 +32,9 @@ plain version on any device and ``use_kernel=True`` on the CPU raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -36,7 +44,10 @@ from ray_tpu_torch.ops.decode_attention import decode_attention_reference
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_HEAD_DIM = 256
-MAX_TABLE_ENTRIES = 4096     # the kernel stages a slot's table in smem
+MAX_TABLE_ENTRIES = 4096     # table entries the kernel takes per slot
+SPLIT_TILE = 64              # tokens per tile, the unit of a split
+BLOCKS_PER_SM = 8            # split blocks the chooser aims for per SM
+MAX_SPLITS = 65535           # the kernel's grid.z
 
 
 def dequantize_block(x, scale):
@@ -79,12 +90,64 @@ def paged_applicable(block_size: int, d: int, hq: int, hkv: int) -> bool:
             and 0 < d <= MAX_HEAD_DIM)
 
 
+def group_tile(group: int) -> int:
+    """Query heads a kernel block serves: the largest of 8, 4, 2, 1 that
+    divides the group."""
+    return next(gt for gt in (8, 4, 2, 1) if group % gt == 0)
+
+
+def split_chunk_tokens(nb: int, bs: int, splits: int) -> int:
+    """Tokens each of ``splits`` chunks covers: whole 64-token tiles."""
+    tiles = -(-nb * bs // SPLIT_TILE)
+    return -(-tiles // splits) * SPLIT_TILE
+
+
+def paged_splits(batch: int, hq: int, hkv: int, nb: int, bs: int,
+                 num_sms: int) -> int:
+    """The split count of the kernel for these shapes: enough chunks that
+    the (slot, group tile, chunk) blocks number about ``BLOCKS_PER_SM``
+    per SM, each chunk at least one tile. Shapes only: reading
+    ``positions`` would make every tick wait for the device."""
+    tiles = -(-nb * bs // SPLIT_TILE)
+    rows = batch * hkv * (hq // hkv // group_tile(hq // hkv))
+    want = min(tiles, max(1, -(-BLOCKS_PER_SM * num_sms // rows)))
+    chunk_tiles = -(-tiles // want)
+    return min(-(-tiles // chunk_tiles), MAX_SPLITS)
+
+
+@functools.lru_cache(maxsize=None)
+def paged_layout(batch: int, hq: int, hkv: int, nb: int, bs: int,
+                 num_sms: int):
+    """(group tile, split count, chunk tokens) of the kernel for these
+    shapes: the one place they are decided; the C entry point checks and
+    uses them."""
+    splits = paged_splits(batch, hq, hkv, nb, bs, num_sms)
+    return (group_tile(hq // hkv), splits,
+            split_chunk_tokens(nb, bs, splits))
+
+
+# The split kernels' fp32 workspace, one per (device, stream) and kept
+# between calls: calls on one stream run in order, so one call's split and
+# combine kernels never meet another's. The lock keeps two threads from
+# interleaving their launches on one stream (ctypes drops the GIL).
+_workspaces = {}
+_workspace_lock = threading.Lock()
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _kernel_fn():
     lib = _build.load("paged_decode_attention")
     fn = lib.ray_tpu_paged_decode_attention
     if fn.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([vp] * 8 + [i] * 6 + [ll] * 9
+        # q k v k_scale v_scale tables positions out ws_acc ws_ml;
+        # batch hq hkv d bs nb gt splits chunk; 9 strides; scale, dtypes,
+        # stream
+        fn.argtypes = ([vp] * 10 + [i] * 9 + [ll] * 9
                        + [ctypes.c_float, i, i, vp])
         fn.restype = ctypes.c_int
     return lib, fn
@@ -140,14 +203,23 @@ def _paged_cuda(q, arena_k, arena_v, tables, positions, scale, k_scale,
     if tables.stride(1) != 1:
         tables = tables.contiguous()
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
+    gt, splits, chunk = paged_layout(b, hq, hkv, nb, bs, _num_sms(dev.index))
+    # The workspace: partial sums [B, Hq, splits, D], then (max, sum)
+    # [B, Hq, splits, 2].
+    need = b * hq * splits * (d + 2)
     lib, fn = _kernel_fn()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _workspace_lock:
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = _workspaces.get((dev.index, stream))
+        if ws is None or ws.numel() < need:
+            ws = torch.empty(need, dtype=torch.float32, device=dev)
+            _workspaces[(dev.index, stream)] = ws
         err = fn(q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
                  k_scale.data_ptr() if quantized else None,
                  v_scale.data_ptr() if quantized else None,
                  tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-                 b, hq, hkv, d, bs, nb,
+                 ws.data_ptr(), ws.data_ptr() + 4 * b * hq * splits * d,
+                 b, hq, hkv, d, bs, nb, gt, splits, chunk,
                  q.stride(0), q.stride(1),
                  *arena_k.stride()[:3], *sc_strides,
                  tables.stride(0), float(scale),

@@ -4,15 +4,15 @@ the CPU.
 ``ray_tpu_torch/ops/csrc/flash_attention_sm90.cu`` computes the scores as
 bf16 q times bf16 k summed in fp32, then times ``scale``; an online
 softmax over 64-key tiles whose p is rounded to bf16 before P V while the
-sum l is taken over the fp32 p; and in the backward P^T and dS^T rounded
-to bf16 before P^T dO and dS^T Q, with dk multiplied by ``scale`` once at
-the end. Here plain PyTorch repeats those steps (fp32 math, a bf16 cast
-wherever the kernel rounds) on small bf16 cases drawn from a seed, and the
-emulation is held at the bf16 tolerances the card holds the kernels to
-(``chip_smoke.py`` FLASH_CASES, ``tests/test_torch_kernels_gpu.py``) to
-the plain fp32 versions (``flash_fwd_reference``/``flash_bwd_reference``)
-and to the JAX package's ``mha_reference`` and ``jax.grad`` of it. dq
-keeps its CUDA-core kernel, whose math is the plain version's.
+sum l is taken over the fp32 p; and in the backward dS rounded to bf16
+before dS K, and P^T and dS^T rounded to bf16 before P^T dO and dS^T Q,
+with dq and dk multiplied by ``scale`` once at the end. Here plain PyTorch
+repeats those steps (fp32 math, a bf16 cast wherever the kernel rounds) on
+small bf16 cases drawn from a seed, and the emulation is held at the bf16
+tolerances the card holds the kernels to (``chip_smoke.py`` FLASH_CASES,
+``tests/test_torch_kernels_gpu.py``) to the plain fp32 versions
+(``flash_fwd_reference``/``flash_bwd_reference``) and to the JAX package's
+``mha_reference`` and ``jax.grad`` of it.
 """
 
 import jax
@@ -104,6 +104,22 @@ def emulated_fwd(q, k, v, *, scale, causal):
             (m + torch.log(safe)).reshape(b, hq, sq))
 
 
+def emulated_dq(q, k, v, out, lse, do, *, scale, causal):
+    """dq in bf16 with the dq kernel's rounding points: dS rounded to bf16
+    before dS K (fp32 sums), dq scaled at the end."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    g = hq // hkv
+    s = _grouped_scores(q, k, scale, causal)
+    p = torch.exp(s - lse.reshape(b, hkv, g, sq, 1))
+    dog = do.float().reshape(b, sq, hkv, g, d)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = p * (dp - ta._delta(out, do).reshape(b, hkv, g, sq, 1))
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(torch.bfloat16).float(),
+                      k.float()) * scale
+    return dq.reshape(b, sq, hq, d).to(torch.bfloat16)
+
+
 def emulated_dkv(q, k, v, out, lse, do, *, scale, causal):
     """(dk, dv) in bf16 with the dk/dv kernel's rounding points: P^T and
     dS^T rounded to bf16 before their products, dk scaled at the end."""
@@ -142,6 +158,20 @@ def test_emulated_fwd_within_bf16_tolerance_of_plain(name):
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
+def test_emulated_dq_within_bf16_tolerance_of_plain(name):
+    causal, *shape = CASES[name]
+    q, k, v, do = _inputs(*shape, seed=3)
+    kw = dict(scale=shape[-1] ** -0.5, causal=causal)
+    out, lse = emulated_fwd(q, k, v, **kw)
+    dq = emulated_dq(q, k, v, out, lse, do, **kw)
+    ref_out, ref_lse = ta.flash_fwd_reference(q, k, v, **kw)
+    ref_dq, _, _ = ta.flash_bwd_reference(q, k, v, ref_out, ref_lse, do,
+                                          **kw)
+    assert dq.dtype == ref_dq.dtype == torch.bfloat16
+    _close(dq, ref_dq, what="dq")
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
 def test_emulated_dkv_within_bf16_tolerance_of_plain(name):
     causal, *shape = CASES[name]
     q, k, v, do = _inputs(*shape, seed=1)
@@ -162,8 +192,7 @@ def test_emulated_kernels_match_jax_reference_and_grad(name):
     kw = dict(scale=shape[-1] ** -0.5, causal=causal)
     out, lse = emulated_fwd(q, k, v, **kw)
     dk, dv = emulated_dkv(q, k, v, out, lse, do, **kw)
-    # dq runs the CUDA-core kernel on bf16 too: the plain version's math.
-    dq, _, _ = ta.flash_bwd_reference(q, k, v, out, lse, do, **kw)
+    dq = emulated_dq(q, k, v, out, lse, do, **kw)
     jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
     with jax.default_matmul_precision("highest"):
         want = ja.mha_reference(jq, jk, jv, causal=causal)
@@ -177,15 +206,15 @@ def test_emulated_kernels_match_jax_reference_and_grad(name):
 
 @pytest.mark.parametrize("which,dtype,source", [
     ("fwd", torch.bfloat16, "flash_attention_sm90"),
-    ("dq", torch.bfloat16, "flash_attention"),
+    ("dq", torch.bfloat16, "flash_attention_sm90"),
     ("dkv", torch.bfloat16, "flash_attention_sm90"),
     ("fwd", torch.float32, "flash_attention"),
     ("dq", torch.float32, "flash_attention"),
     ("dkv", torch.float32, "flash_attention"),
 ])
 def test_kernel_route_by_dtype(which, dtype, source):
-    # bf16 forward and dk/dv run on the tensor cores; fp32, and dq in both
-    # dtypes, on the CUDA cores. Each route names a source that exists.
+    # bf16 runs all three kernels on the tensor cores, fp32 all three on
+    # the CUDA cores. Each route names a source that exists.
     from ray_tpu_torch.ops import _build
 
     got_source, fn = ta.kernel_route(which, dtype)

@@ -61,9 +61,10 @@ def _paged_case(dev, kind, hq, hkv, d, bs, positions, nb_slot, seed=0,
 # (kind, q kind, hq, hkv, d, bs, positions, table entries per slot): the
 # Llama-3-8B decode shape, every group tile (G = 1, 2, 4, 8 and G = 3, 12,
 # which split a kv head's group over blocks), block sizes 16-128, head
-# dims 40-256 (int8 rows of 40 bytes; fp32 at 256 takes one smem stage),
-# positions at block edges, past the table (all entries live) and a
-# freed slot (-1).
+# dims 40-256 (int8 rows of 40 bytes; fp32 at 256 takes three warps a
+# block), positions at block edges, past the table (all entries live) and a
+# freed slot (-1); long tables (128 entries, positions up to 8191, one slot
+# alone), and a single slot at group tile 1 (the fewest blocks).
 CASES = {
     "llama3-bf16": ("bf16", None, 32, 8, 128, 64,
                     (0, 63, 64, 700, 1023, 1500, 2047, -1), 32),
@@ -80,6 +81,15 @@ CASES = {
     "d40-int8": ("int8", None, 8, 2, 40, 32, (1, 95, 96), 4),
     "d256-fp32": ("fp32", None, 16, 4, 256, 64, (63, 700), 12),
     "d256-bf16": ("bf16", None, 16, 2, 256, 64, (0, 64, 767), 12),
+    "long-bf16": ("bf16", None, 32, 8, 128, 64, (0, 2047, 5000, 8191), 128),
+    "long-alone-bf16": ("bf16", None, 32, 8, 128, 64, (8191,), 128),
+    "long-int8": ("int8", None, 32, 8, 128, 64, (1, 4095, 8191), 128),
+    "long-fp32": ("fp32", None, 32, 8, 128, 64, (64, 8191), 128),
+    "g1-one-slot-bf16": ("bf16", None, 8, 8, 128, 64, (3000,), 64),
+    # D = 8 at group tile 8: an int8 row (24 bytes with its pad) is
+    # smaller than a token's 8 fp32 probabilities.
+    "d8-g8-int8": ("int8", None, 16, 2, 8, 16, (0, 31, 32, 100, 255), 16),
+    "d8-g8-bf16": ("bf16", None, 16, 2, 8, 16, (0, 31, 32, 100, 255), 16),
 }
 
 
@@ -102,6 +112,25 @@ def test_paged_kernel_matches_plain(cuda_device, name):
                                rtol=rtol)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "fp32", "int8"])
+def test_paged_kernel_chunk_edges(cuda_device, kind):
+    # Positions one before, on and one after the edges of the split
+    # chunks the host picks for these shapes on this card.
+    hq, hkv, d, bs, nb = 32, 8, 128, 64, 32
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    _, _, c = tpda.paged_layout(6, hq, hkv, nb, bs, sms)
+    positions = (c - 2, c - 1, c, 2 * c - 1, 2 * c, nb * bs - 1)
+    args, kw = _paged_case(cuda_device, kind, hq, hkv, d, bs, positions, nb,
+                           seed=3)
+    out = tpda.paged_decode_attention(*args, **kw)
+    ref = tpda.paged_decode_attention(*args, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = (1e-5, 0.0) if out.dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
 def _flash_case(dev, dtype, b, sq, sk, hq, hkv, d, seed=0):
     rng = np.random.default_rng(seed)
     q, do = (rng.standard_normal((b, sq, hq, d)).astype(np.float32)
@@ -114,8 +143,9 @@ def _flash_case(dev, dtype, b, sq, sk, hq, hkv, d, seed=0):
 # (dtype, causal, b, sq, sk, hq, hkv, d): GQA groups 1/2/4/8, D 64 and
 # 128, cross-length causal (bottom-right mask), lengths that are not a
 # multiple of the 64-row tile, the Llama-3-8B head layout and its full
-# training attention shape. bf16 runs the tensor-core forward and dk/dv,
-# fp32 the CUDA-core kernels.
+# training attention shape. bf16 runs the tensor-core forward, dq and
+# dk/dv, fp32 the CUDA-core kernels; every bf16 case holds dq at 2e-2,
+# D=64 among them at lengths that are multiples of 64 and ragged ones.
 FLASH_CASES = {
     "g1-causal-fp32": (torch.float32, True, 2, 256, 256, 4, 4, 128),
     "g2-causal-bf16": (torch.bfloat16, True, 2, 256, 256, 4, 2, 128),
@@ -132,6 +162,11 @@ FLASH_CASES = {
                                  128),
     "g4-d64-ragged-bf16": (torch.bfloat16, True, 2, 200, 200, 8, 2, 64),
     "g4-d64-ragged-cross-bf16": (torch.bfloat16, True, 1, 77, 333, 8, 2, 64),
+    "d64-causal-bf16": (torch.bfloat16, True, 2, 256, 256, 4, 2, 64),
+    "d64-cross-causal-bf16": (torch.bfloat16, True, 1, 128, 320, 8, 4, 64),
+    "d64-ragged-noncausal-bf16": (torch.bfloat16, False, 1, 130, 70, 4, 2,
+                                  64),
+    "ragged-causal-bf16": (torch.bfloat16, True, 1, 100, 100, 4, 2, 128),
 }
 
 
@@ -166,10 +201,11 @@ def test_flash_kernels_match_plain(cuda_device, name):
                                    rtol=rtol)
 
 
-# The kernel each dtype launches, by the name the profiler sees: bf16
-# forward and dk/dv on the tensor cores, everything else on CUDA cores.
+# The kernel each dtype launches, by the name the profiler sees: bf16 on
+# the tensor cores, fp32 on the CUDA cores.
 FLASH_KERNEL_NAMES = {
-    torch.bfloat16: {"fwd": "flash_fwd_kernel_sm90", "dq": "flash_dq_kernel",
+    torch.bfloat16: {"fwd": "flash_fwd_kernel_sm90",
+                     "dq": "flash_dq_kernel_sm90",
                      "dkv": "flash_dkv_kernel_sm90"},
     torch.float32: {"fwd": "flash_fwd_kernel", "dq": "flash_dq_kernel",
                     "dkv": "flash_dkv_kernel"},
