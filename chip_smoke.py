@@ -63,23 +63,32 @@ Phases, any failure exits non-zero with no result line:
    launches, in bf16, so the three tensor-core kernels; then step time,
    tokens/s, MFU, peak memory and one profiled step's device time by
    kernel, which fails if a flash group reads 0 ms;
-11. dense kernel vs plain: the dense decode-attention kernel against
+11. dense kernel vs plain: the split-K dense decode-attention kernel
+   (split and combine kernels, one call) against
    ``decode_attention_reference`` at the Llama-3-8B decode shape (B=8,
    Hq=32, KVH=8, D=128, S_max=2048, the phase-3 positions): bf16 and fp32
-   caches, a per-layer view of a [2, B, S, KVH, D] cache, and S_max=1000
-   (a ragged last tile); tolerances in DENSE_CASES;
+   caches, a per-layer view of a [2, B, S, KVH, D] cache, S_max=1000 (a
+   ragged last tile), and long bf16 and fp32 caches (S_max=8192, the
+   phase-3 long positions); tolerances in DENSE_CASES;
 12. dense timing: kernel, plain version and ``scaled_dot_product_attention``
    over the transposed contiguous cache with the ``pos >= col`` mask (a
    yardstick only; the port never calls it), CUDA events with L2 flushed;
    the bound is the live K/V + q + out + positions bytes over 3.35 TB/s;
+   beside each time the layout the host chose (``dense_layout``: splits,
+   chunk tokens) and host microseconds a call (``host_us``);
 13. dense end to end: ``ContinuousBatcher(paged=False)`` serving
    Llama-3-8B at full width and depth (the phase-5 weights, 8 slots,
    max_len 2048): the phase-5 prompts, 32 new tokens each, every request
    32 in-vocab tokens, the dense kernel launched num_layers times per
    tick and the paged kernel never; tick, tokens/s, TTFT p50, peak
    memory, a profile of 5 ticks, and how many requests agree token for
-   token with the paged run (printed, not a gate: bf16 dense and paged
-   prefill reduce over different key lengths);
+   token with the paged run. Not a gate (bf16 dense and paged prefill
+   reduce over different key lengths): at each request that parts, the
+   first parting token and the top-2 logit margin there from a bf16 full
+   forward (``partings``: request, token, margin, top logit); the same
+   for a bf16 dense run through the plain attention
+   (``use_decode_kernel=False``, another summation order: a yardstick of
+   where bf16 runs part);
 14. dense parity inside the engine: in phase 6's 2-layer fp32 model the
    dense engine with the kernel and with ``use_decode_kernel=False``, the
    paged engine with its kernel, and ``LlamaGenerator.generate`` for one
@@ -96,7 +105,10 @@ The line before the last is the kernels' JSON record; the last line is
 host microseconds a paged call takes (``host_us``, the phase-3 cases at
 32 table entries) with the ``ray_tpu_torch`` package under ROOT, so two
 checkouts' wrappers can be compared on one card; it prints one
-``[host]`` JSON line.
+``[host]`` JSON line. ``python3 chip_smoke.py --dense-ms ROOT`` likewise
+times only the dense kernel of ROOT's package at the timed phase-12
+cases (kernel ms, L2 flushed, and host microseconds a call) and prints
+one ``[dense-ms]`` JSON line.
 """
 
 import dataclasses
@@ -143,14 +155,22 @@ CASES = [("bf16", "bf16", "bf16", 32, POSITIONS, 2e-2, 2e-2),
          ("int8", "bf16", "int8", 32, POSITIONS, 2e-2, 2e-2),
          ("long-bf16", "bf16", "bf16", 128, LONG_POSITIONS, 2e-2, 2e-2),
          ("long-fp32", "fp32", "fp32", 128, LONG_POSITIONS, 1e-5, 0.0)]
-# Dense kernel cases (name, cache dtype, S_max, layer view, atol, rtol):
-# fp32 is exact math in another summation order; bf16 outputs round once
-# to bf16 (~2^-8 relative).
-DENSE_CASES = [("bf16", "bf16", 2048, False, 2e-2, 2e-2),
-               ("fp32", "fp32", 2048, False, 1e-5, 0.0),
-               ("layer-view-bf16", "bf16", 2048, True, 2e-2, 2e-2),
-               ("ragged-1000-bf16", "bf16", 1000, False, 2e-2, 2e-2)]
-DENSE_TIMED = ("bf16", "fp32")
+# Dense kernel cases (name, cache dtype, S_max, layer view, positions,
+# atol, rtol): fp32 is exact math in another summation order; bf16
+# outputs round once to bf16 (~2^-8 relative). The long caches (S_max
+# 8192, 268 MB of bf16 K/V) are where one block's walk of a slot was
+# longest.
+DENSE_CASES = [("bf16", "bf16", 2048, False, POSITIONS, 2e-2, 2e-2),
+               ("fp32", "fp32", 2048, False, POSITIONS, 1e-5, 0.0),
+               ("layer-view-bf16", "bf16", 2048, True, POSITIONS, 2e-2,
+                2e-2),
+               ("ragged-1000-bf16", "bf16", 1000, False, POSITIONS, 2e-2,
+                2e-2),
+               ("long-bf16", "bf16", 8192, False, LONG_POSITIONS, 2e-2,
+                2e-2),
+               ("long-fp32", "fp32", 8192, False, LONG_POSITIONS, 1e-5,
+                0.0)]
+DENSE_TIMED = ("bf16", "fp32", "long-bf16", "long-fp32")
 TOP2_MARGIN = 1e-4
 
 
@@ -329,7 +349,7 @@ def dense_bound(c):
     token."""
     s = SHAPE
     s_max = c["k"].shape[1]
-    live = sum(min(p + 1, s_max) for p in POSITIONS)
+    live = sum(min(p + 1, s_max) for p in c["positions"])
     nbytes = (live * s["KVH"] * s["D"] * c["k"].element_size() * 2
               + s["B"] * 4 + 2 * c["q"].numel() * c["q"].element_size())
     ops = live * 4 * s["HQ"] * s["D"]
@@ -340,7 +360,7 @@ def dense_bound(c):
             "bytes" if t_bytes >= t_ops else "operations", live, nbytes)
 
 
-def dense_case(torch, kind, s_max, layer_view, seed):
+def dense_case(torch, kind, s_max, layer_view, positions, seed):
     s = SHAPE
     dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[kind]
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -352,9 +372,25 @@ def dense_case(torch, kind, s_max, layer_view, seed):
         k, v = k[1], v[1]       # what the engine hands in: cache.k[li]
     q = torch.randn((s["B"], s["HQ"], s["D"]), generator=gen,
                     device="cuda").to(dt)
-    return dict(q=q, k=k, v=v, pos=torch.tensor(POSITIONS,
-                                                dtype=torch.int32,
-                                                device="cuda"))
+    return dict(q=q, k=k, v=v, positions=positions,
+                pos=torch.tensor(positions, dtype=torch.int32,
+                                 device="cuda"))
+
+
+def dense_split_layout(torch, c):
+    """The layout the wrapper hands the dense kernel for this case's
+    shapes (``dense_layout``: split count and chunk tokens), and the split
+    blocks whose chunk holds one of the slot's tokens, counted here from
+    the positions. Printed, not recorded."""
+    from ray_tpu_torch.ops import decode_attention as da
+
+    s = SHAPE
+    s_max = c["k"].shape[1]
+    gt, splits, chunk = da.dense_layout(
+        s["B"], s["HQ"], s["KVH"], s_max,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    live = sum(-(-min(p + 1, s_max) // chunk) for p in c["positions"])
+    return splits, chunk, live * s["HQ"] // gt
 
 
 def dense_kernel_phases(torch):
@@ -367,9 +403,10 @@ def dense_kernel_phases(torch):
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     results = {}
-    for i, (name, kind, s_max, layer_view, atol, rtol) in enumerate(
-            DENSE_CASES):
-        c = dense_case(torch, kind, s_max, layer_view, seed=20 + i)
+    for i, (name, kind, s_max, layer_view, positions, atol, rtol) in \
+            enumerate(DENSE_CASES):
+        c = dense_case(torch, kind, s_max, layer_view, positions,
+                       seed=20 + i)
         args = (c["q"], c["k"], c["v"], c["pos"])
         out = decode_attention(*args, use_kernel=True)
         ref = decode_attention_reference(*args)
@@ -397,12 +434,16 @@ def dense_kernel_phases(torch):
                     q4, kd, vd, attn_mask=mask, enable_gqa=True), flush)
             (res["bound_ms"], res["bound_by"], res["live_tokens"],
              res["bytes"]) = dense_bound(c)
+            res["host_us"] = host_us(torch, lambda: decode_attention(
+                *args, use_kernel=True))
+            splits, chunk, blocks = dense_split_layout(torch, c)
             print(f"[dense-timing] {name}: kernel {res['ms']:.4f} ms, "
                   f"plain {res['plain_ms']:.4f} ms, library "
                   f"{res['library_ms']:.4f} ms, bound "
                   f"{res['bound_ms']:.4f} ms ({res['bound_by']}; "
                   f"{res['live_tokens']} live tokens, {res['bytes']} "
-                  f"bytes)")
+                  f"bytes); {splits} splits of {chunk} tokens, {blocks} "
+                  f"live blocks; host us a call {res['host_us']:.2f}")
         results[name] = res
     del flush
     torch.cuda.empty_cache()
@@ -488,7 +529,7 @@ def profile_ticks(torch, cfg, params, prompts, n_ticks=5, **kw):
     busy_us = sum(r[1] for r in rows)
     attn = {}                    # attention kernel -> [device us, launches]
     for name, us, n in rows:
-        kernel = re.search(r"(paged_split|paged_combine|dense_decode)_kernel",
+        kernel = re.search(r"(paged_split|dense_split|split_combine)_kernel",
                            name)
         if kernel:
             acc = attn.setdefault(kernel.group(0), [0.0, 0])
@@ -530,15 +571,21 @@ def end_to_end(torch, card):
     runs, outputs = {}, {}
     for name, ps, kw in [("bf16", prompts, {}),
                          ("int8", prompts[:4], {"kv_dtype": "int8"}),
-                         ("dense", prompts, {"paged": False})]:
+                         ("dense", prompts, {"paged": False}),
+                         ("dense-plain", prompts,
+                          {"paged": False, "use_decode_kernel": False})]:
         outs, st = serve(torch, cfg, params, ps, 32, **kw)
         check_outputs(outs, 32, cfg.vocab_size, f"e2e {name}")
-        check_launches(st, cfg.num_layers, f"e2e {name}")
+        if kw.get("use_decode_kernel", True):
+            check_launches(st, cfg.num_layers, f"e2e {name}")
         st["card"] = card
-        if name == "dense":
+        if name.startswith("dense"):
             st["agree_with_paged"] = sum(
                 a == b for a, b in zip(outs, outputs["bf16"]))
-        print(f"[e2e] {name} {'cache' if name == 'dense' else 'arena'}: "
+            st["partings"] = partings(torch, params, cfg, ps, outs,
+                                      outputs["bf16"], name)
+        print(f"[e2e] {name} "
+              f"{'cache' if name.startswith('dense') else 'arena'}: "
               f"{json.dumps(st)}")
         runs[name], outputs[name] = st, outs
     for name, kw in [("bf16", {}), ("dense", {"paged": False})]:
@@ -561,18 +608,41 @@ def _leaves(params):
 
 
 def top2_margin(torch, params, cfg, seq):
-    """The top-2 logit gap of the next token after ``seq`` (fp32 full
-    forward)."""
+    """(top-2 logit gap, top logit) of the next token after ``seq``: a
+    full forward in the params' dtype, with fp32 logits, under the
+    engine's GEMM precision."""
+    from ray_tpu_torch.models import llama
     from ray_tpu_torch.models.continuous_batching import \
         _prefill_forward_paged
 
-    with torch.no_grad():
+    with torch.no_grad(), llama.fp32_reduction(torch.device("cuda"),
+                                               cfg.dtype):
         logits, _ = _prefill_forward_paged(
             params, torch.tensor([seq], device="cuda"),
             torch.arange(len(seq), device="cuda"), None, None, cfg,
             False, last_idx=torch.tensor([len(seq) - 1], device="cuda"))
-    top2 = logits[0, 0].topk(2).values
-    return float(top2[0] - top2[1])
+    top = logits[0, 0].float().topk(2).values
+    return float(top[0] - top[1]), float(top[0])
+
+
+def partings(torch, params, cfg, prompts, got, want, what):
+    """Where the bf16 run ``what`` (``got``) parts from the paged run
+    ``want``: for each such request, (request, first parting token, top-2
+    margin, top logit) of the next token after the prompt and the tokens
+    both runs share, from a bf16 full forward. A margin near bf16's
+    rounding of a logit of that size (2^-8 relative) is a near-tie that
+    another summation order flips."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
+        margin, top = top2_margin(torch, params, cfg, prompts[i] + b[:j])
+        print(f"[parity] bf16 {what} and paged runs part at request {i}, "
+              f"token {j}: top-2 margin {margin:.4e}, top logit {top:.4f} "
+              f"(bf16 rounding there {abs(top) * 2**-8:.4e})")
+        out.append((i, j, margin, top))
+    return out
 
 
 def check_agree(torch, params, cfg, prompts, got, want, what):
@@ -582,7 +652,7 @@ def check_agree(torch, params, cfg, prompts, got, want, what):
         if a == b:
             continue
         j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
-        margin = top2_margin(torch, params, cfg, prompts[i] + b[:j])
+        margin, _ = top2_margin(torch, params, cfg, prompts[i] + b[:j])
         print(f"[parity] {what}: request {i} diverges at token {j}: "
               f"top-2 margin {margin:.3e}")
         if margin >= TOP2_MARGIN:
@@ -977,6 +1047,32 @@ def paged_host_us(torch, root):
     print("[host] " + json.dumps(dict(root=root, us_per_call=out)))
 
 
+def dense_ms(torch, root):
+    """``--dense-ms ROOT``: the dense kernel of ROOT's ``ray_tpu_torch``
+    at the timed phase-12 cases: kernel ms (L2 flushed) and host
+    microseconds a call."""
+    sys.path.insert(0, os.path.abspath(root))
+    from ray_tpu_torch.ops.decode_attention import decode_attention
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for i, (name, kind, s_max, layer_view, positions, _, _) in enumerate(
+            DENSE_CASES):
+        if name not in DENSE_TIMED:
+            continue
+        c = dense_case(torch, kind, s_max, layer_view, positions,
+                       seed=20 + i)
+        args = (c["q"], c["k"], c["v"], c["pos"])
+        out[name] = dict(
+            ms=time_ms(torch, lambda: decode_attention(*args,
+                                                       use_kernel=True),
+                       flush),
+            host_us=host_us(torch, lambda: decode_attention(
+                *args, use_kernel=True)))
+        del c, args
+    print("[dense-ms] " + json.dumps(dict(root=root, cases=out)))
+
+
 def main():
     import torch
 
@@ -986,6 +1082,10 @@ def main():
     if sys.argv[1:2] == ["--paged-host-us"]:
         print(card_line())
         paged_host_us(torch, sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--dense-ms"]:
+        print(card_line())
+        dense_ms(torch, sys.argv[2])
         return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

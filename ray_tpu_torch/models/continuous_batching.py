@@ -407,10 +407,6 @@ class ContinuousBatcher:
             prefix_cache)
         self.use_decode_kernel = _resolve_decode_kernel(use_decode_kernel,
                                                         self.device)
-        if self.device.type == "cuda" and config.dtype == torch.bfloat16:
-            # bf16 products reduce in fp32: the JAX package's numerics.
-            torch.backends.cuda.matmul.\
-                allow_bf16_reduced_precision_reduction = False
         self.base_tick_count = 0        # decode-tick dispatches
         self.decoded_tokens = 0         # committed decode tokens
         self.prefill_batches = 0
@@ -722,15 +718,19 @@ class ContinuousBatcher:
     @torch.no_grad()
     def step(self) -> Dict[int, List[int]]:
         """Admit waiting requests, run one decode tick over all active
-        slots, and return the requests that finished."""
-        self._admit()
-        if self._slots:
-            if self._dirty:
-                self._upload_state()
-            nxt = self._run_tick().cpu().numpy()   # 4 bytes/slot: the sync
-            if self._apply_tokens(
-                    [nxt], [(s, st["rid"]) for s, st in self._slots.items()]):
-                self._dirty = True
+        slots, and return the requests that finished. Prefill and tick
+        run under :func:`llama.fp32_reduction` (bf16 GEMMs reduce in
+        fp32)."""
+        with llama.fp32_reduction(self.device, self.config.dtype):
+            self._admit()
+            if self._slots:
+                if self._dirty:
+                    self._upload_state()
+                nxt = self._run_tick().cpu().numpy()   # 4 bytes/slot: sync
+                if self._apply_tokens(
+                        [nxt],
+                        [(s, st["rid"]) for s, st in self._slots.items()]):
+                    self._dirty = True
         out, self._finished = self._finished, {}
         return out
 

@@ -13,6 +13,7 @@ selective policy when ``remat`` is on; attention is the flash path of
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Dict, Optional, Tuple
@@ -40,6 +41,26 @@ def default_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def fp32_reduction(device: torch.device, dtype: torch.dtype):
+    """Inside the scope, bf16 GEMMs on a CUDA ``device`` reduce in fp32
+    (cuBLAS's reduced-precision reduction off), as the JAX package's
+    programs state their precision. The engine's step and the trainer's
+    step run under it; the caller's setting comes back on exit and on an
+    exception, so the caller's own GEMMs keep theirs. Other devices and
+    dtypes leave the setting alone."""
+    if device.type != "cuda" or dtype != torch.bfloat16:
+        yield
+        return
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
 
 
 @dataclasses.dataclass(frozen=True)

@@ -228,10 +228,6 @@ class ShardedTrainer:
         # update; the accumulator is fp32 unless asked otherwise.
         self.microbatches = max(int(microbatches), 1)
         self.grad_accum_dtype = grad_accum_dtype or torch.float32
-        if self.device.type == "cuda" and config.dtype == torch.bfloat16:
-            # bf16 products reduce in fp32: the JAX package's numerics.
-            torch.backends.cuda.matmul.\
-                allow_bf16_reduced_precision_reduction = False
 
     # -- state -------------------------------------------------------------
     def state_from_params(self, params) -> TrainState:
@@ -308,18 +304,21 @@ class ShardedTrainer:
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimizer step. The state is donated: its params and
-        moments are updated in place and returned in a new TrainState."""
+        moments are updated in place and returned in a new TrainState.
+        The step runs under :func:`llama.fp32_reduction` (bf16 GEMMs
+        reduce in fp32)."""
         g = batch["tokens"].shape[0]
         if g % self.microbatches:
             raise ValueError(
                 f"global batch {g} not divisible by "
                 f"microbatches={self.microbatches}")
         batch = {k: v.to(self.device) for k, v in batch.items()}
-        _, metrics, grads = self.grads(state.params, batch)
-        metrics["grad_norm"] = AdamW.global_norm(grads)
-        opt_state = self.optimizer.apply_(grads, state.opt_state,
-                                          state.params,
-                                          g_norm=metrics["grad_norm"])
+        with llama.fp32_reduction(self.device, self.config.dtype):
+            _, metrics, grads = self.grads(state.params, batch)
+            metrics["grad_norm"] = AdamW.global_norm(grads)
+            opt_state = self.optimizer.apply_(grads, state.opt_state,
+                                              state.params,
+                                              g_norm=metrics["grad_norm"])
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt_state), metrics
 

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds). Libraries land in ``ops/build/``
 (listed in ``.gitignore``) under a name that carries a hash of the
-source and the flags, so an edited source rebuilds at its next use.
+source, every shared header (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds at its next use.
 Nothing is built at import time: the first call to :func:`load` builds
 (or :func:`build_all` builds every source at once, one ``nvcc`` per
 source, started together).
@@ -47,10 +48,14 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
+    """The library's path: a hash of its source, every ``csrc/*.cuh``
+    (a source may include any of them) and the flags."""
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for f in [name + ".cu"] + headers:
+        h.update(f.encode())
+        with open(os.path.join(CSRC, f), "rb") as src:
+            h.update(src.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

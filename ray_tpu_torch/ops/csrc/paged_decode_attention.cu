@@ -34,11 +34,12 @@
 //   writes its unnormalised partial: acc [GT, D] fp32 and the running max
 //   and sum per query head, into a workspace the caller allocates
 //   ([B, Hq, splits, D] and [B, Hq, splits, 2]).
-// * A second small kernel from the same entry point combines a row's live
-//   partials: out = sum_i acc_i e^(m_i - M) / sum_i l_i e^(m_i - M), with
-//   l == 0 -> 1. Blocks whose chunk lies past pos exit at once and are
-//   never read, so dead chunks contribute nothing, and no -inf - (-inf)
-//   is formed.
+// * A second small kernel from the same entry point
+//   (split_combine_kernel, split_combine.cuh, shared with the dense
+//   kernel) combines a row's live partials: out = sum_i acc_i
+//   e^(m_i - M) / sum_i l_i e^(m_i - M), with l == 0 -> 1. Blocks whose
+//   chunk lies past pos exit at once and are never read, so dead chunks
+//   contribute nothing, and no -inf - (-inf) is formed.
 // * The chain before the first product is kept short: a lane fetches its
 //   first token's table entry beside pos, and the q group is staged (fp32
 //   in shared memory) while the first K/V rows are in flight. A step's K
@@ -59,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "split_combine.cuh"
 
 namespace {
 
@@ -156,11 +159,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch casts
-}
-
 // Asynchronous global -> shared copy of N bytes (4, 8 or 16).
 template <int N>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {
@@ -192,12 +190,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
-}
-
-// The weight e^(m - M) of a partial with running max m under the merged
-// max M; an empty partial (m = -inf) weighs exactly 0.
-__device__ __forceinline__ float weight(float m, float M) {
-  return m == -INFINITY ? 0.f : expf(m - M);
 }
 
 __device__ __forceinline__ int live_tokens(const Params& p, int b) {
@@ -428,31 +420,6 @@ paged_split_kernel(const Params p) {
   }
 }
 
-// One block per (slot, query head), a thread per element of D: the live
-// splits' partials, rescaled to their common max, summed and normalised.
-template <typename QT>
-__global__ void __launch_bounds__(kMaxD)
-paged_combine_kernel(const Params p) {
-  const int row = blockIdx.x;               // b * Hq + head
-  const int d = threadIdx.x;
-  const int live = (live_tokens(p, row / p.hq) + p.chunk - 1) / p.chunk;
-  const float* ml = p.ws_ml + static_cast<long long>(row) * p.splits * 2;
-  const float* acc = p.ws_acc + static_cast<long long>(row) * p.splits * p.d;
-  float M = -INFINITY;
-#pragma unroll 4
-  for (int i = 0; i < live; ++i) M = fmaxf(M, ml[2 * i]);
-  float L = 0.f, o = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < live; ++i) {
-    const float w = weight(ml[2 * i], M);
-    L += ml[2 * i + 1] * w;
-    if (d < p.d) o += acc[static_cast<long long>(i) * p.d + d] * w;
-  }
-  if (d < p.d)
-    store(static_cast<QT*>(p.out) + static_cast<long long>(row) * p.d + d,
-          o / (L == 0.f ? 1.f : L));
-}
-
 template <typename QT, typename KVT, int GT>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   const int qb = q_bytes(GT, p.d);
@@ -467,9 +434,9 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   kernel<<<dim3(p.hkv * (p.group / GT), batch, p.splits), 32 * warps, smem,
            stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  paged_combine_kernel<QT><<<batch * p.hq, (p.d + 31) / 32 * 32, 0,
-                             stream>>>(p);
-  return cudaGetLastError();
+  const CombineParams cp{p.ws_acc, p.ws_ml, p.positions, p.out,
+                         p.nb * p.bs, p.splits, p.chunk, p.hq, p.d};
+  return launch_combine<QT>(cp, batch, stream);
 }
 
 template <typename QT, typename KVT>

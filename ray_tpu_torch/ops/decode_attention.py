@@ -11,7 +11,14 @@ heads divide the q heads. Two versions of one function live here:
   reduces to after its gather.
 * the CUDA kernel ``csrc/decode_attention.cu`` (the port of the TPU's
   ``_decode_kernel``), launched by :func:`decode_attention` on CUDA
-  tensors. ``decode_attention.launches`` counts its launches.
+  tensors. It is split-K (flash-decoding): each slot's tokens are cut
+  into chunks of whole 64-token tiles, one block a chunk writes an
+  unnormalised partial into a workspace allocated here, and the combine
+  kernel it shares with the paged kernel (``csrc/split_combine.cuh``)
+  merges them, both from one C call. The layout (group tile, split
+  count, chunk) is decided here once, by :func:`dense_layout` from
+  shapes alone, and passed to the kernel. ``decode_attention.launches``
+  counts one per call (both CUDA launches together).
 
 Dispatch: a CUDA tensor launches the kernel or raises (a failed build or
 launch, or a shape or dtype the kernel does not take, is an error, never
@@ -26,13 +33,15 @@ and tiles by 64 tokens whatever ``block_k`` says.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
+import threading
 from typing import Optional
 
 import torch
 
-from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import _build, _split
 
 # Masked scores are -1e30, not -inf: fully masked garbage rows in freed
 # slots must softmax to finite values, not NaN. The CUDA kernels use the
@@ -85,12 +94,39 @@ def decode_applicable(s_max: int, d: int, hq: int, hkv: int, *,
     return not (hq % hkv or d % 128 or s_max % min(block_k, s_max))
 
 
+@functools.lru_cache(maxsize=None)
+def dense_layout(batch: int, hq: int, hkv: int, s_max: int, num_sms: int):
+    """(group tile, split count, chunk tokens) of the kernel for these
+    shapes: enough chunks of whole 64-token tiles over ``S_max`` that the
+    (slot, group tile, chunk) blocks number about
+    ``_split.BLOCKS_PER_SM`` per SM. Shapes only, never ``positions``:
+    reading them would make every tick wait for the device. The one place
+    the layout is decided; the C entry point checks and uses it."""
+    gt = _split.group_tile(hq // hkv)
+    splits = _split.choose_splits(s_max, batch * hq // gt, num_sms)
+    return gt, splits, _split.chunk_tokens(s_max, splits)
+
+
+# The split kernel's fp32 workspace, one per (device, stream) and kept
+# between calls (``_split.workspace``). The lock keeps two threads from
+# interleaving their launches on one stream (ctypes drops the GIL).
+_workspaces = {}
+_workspace_lock = threading.Lock()
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _kernel_fn():
     lib = _build.load("decode_attention")
     fn = lib.ray_tpu_decode_attention
     if fn.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([vp] * 5 + [i] * 5 + [ll] * 5
+        # q k v positions out ws_acc ws_ml; batch hq hkv d s_max gt splits
+        # chunk; 5 strides; scale, dtypes, stream
+        fn.argtypes = ([vp] * 7 + [i] * 8 + [ll] * 5
                        + [ctypes.c_float, i, i, vp])
         fn.restype = ctypes.c_int
     return lib, fn
@@ -128,12 +164,18 @@ def _decode_cuda(q, cache_k, cache_v, positions, scale):
                          f"multiple of {align} elements)")
     positions = positions.to(torch.int32).contiguous()
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
+    gt, splits, chunk = dense_layout(b, hq, hkv, s_max, _num_sms(dev.index))
     lib, fn = _kernel_fn()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _workspace_lock:
         stream = torch.cuda.current_stream(dev).cuda_stream
+        # Partial sums [B, Hq, splits, D], then (max, sum) [B, Hq,
+        # splits, 2].
+        ws = _split.workspace(_workspaces, dev, stream,
+                              b * hq * splits * (d + 2))
         err = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-                 positions.data_ptr(), out.data_ptr(),
-                 b, hq, hkv, d, s_max,
+                 positions.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                 ws.data_ptr() + 4 * b * hq * splits * d,
+                 b, hq, hkv, d, s_max, gt, splits, chunk,
                  q.stride(0), q.stride(1), *cache_k.stride()[:3],
                  float(scale), _DTYPE_CODES[q.dtype],
                  _DTYPE_CODES[cache_k.dtype], stream)
@@ -155,7 +197,8 @@ def decode_attention(q, cache_k, cache_v, positions,
     ``use_kernel``: None = the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors; True = the kernel (raises on the CPU);
     False = the plain version on any device. ``block_k`` is the TPU
-    kernel's block; the CUDA kernel tiles by 64 tokens whatever it says.
+    kernel's block; the CUDA kernel splits by whole 64-token tiles
+    (:func:`dense_layout`) whatever it says.
     """
     del block_k
     b, hq, d = q.shape

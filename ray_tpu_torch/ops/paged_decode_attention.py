@@ -19,7 +19,8 @@ Two versions of one function live here:
   unnormalised partial into a workspace allocated here, and a combine
   kernel from the same C entry point merges them. The layout (group
   tile, split count, chunk) is decided here once, by :func:`paged_layout`
-  from shapes alone, and passed to the kernel.
+  from shapes alone (the arithmetic the dense kernel shares lives in
+  :mod:`ray_tpu_torch.ops._split`), and passed to the kernel.
   ``paged_decode_attention.launches`` counts one per call (both CUDA
   launches together).
 
@@ -39,15 +40,14 @@ from typing import Optional
 
 import torch
 
-from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import _build, _split
+from ray_tpu_torch.ops._split import (  # noqa: F401 (this module's API)
+    BLOCKS_PER_SM, MAX_SPLITS, SPLIT_TILE, group_tile)
 from ray_tpu_torch.ops.decode_attention import decode_attention_reference
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_HEAD_DIM = 256
 MAX_TABLE_ENTRIES = 4096     # table entries the kernel takes per slot
-SPLIT_TILE = 64              # tokens per tile, the unit of a split
-BLOCKS_PER_SM = 8            # split blocks the chooser aims for per SM
-MAX_SPLITS = 65535           # the kernel's grid.z
 
 
 def dequantize_block(x, scale):
@@ -90,16 +90,9 @@ def paged_applicable(block_size: int, d: int, hq: int, hkv: int) -> bool:
             and 0 < d <= MAX_HEAD_DIM)
 
 
-def group_tile(group: int) -> int:
-    """Query heads a kernel block serves: the largest of 8, 4, 2, 1 that
-    divides the group."""
-    return next(gt for gt in (8, 4, 2, 1) if group % gt == 0)
-
-
 def split_chunk_tokens(nb: int, bs: int, splits: int) -> int:
     """Tokens each of ``splits`` chunks covers: whole 64-token tiles."""
-    tiles = -(-nb * bs // SPLIT_TILE)
-    return -(-tiles // splits) * SPLIT_TILE
+    return _split.chunk_tokens(nb * bs, splits)
 
 
 def paged_splits(batch: int, hq: int, hkv: int, nb: int, bs: int,
@@ -108,11 +101,8 @@ def paged_splits(batch: int, hq: int, hkv: int, nb: int, bs: int,
     the (slot, group tile, chunk) blocks number about ``BLOCKS_PER_SM``
     per SM, each chunk at least one tile. Shapes only: reading
     ``positions`` would make every tick wait for the device."""
-    tiles = -(-nb * bs // SPLIT_TILE)
-    rows = batch * hkv * (hq // hkv // group_tile(hq // hkv))
-    want = min(tiles, max(1, -(-BLOCKS_PER_SM * num_sms // rows)))
-    chunk_tiles = -(-tiles // want)
-    return min(-(-tiles // chunk_tiles), MAX_SPLITS)
+    return _split.choose_splits(nb * bs, batch * hq // group_tile(hq // hkv),
+                                num_sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,8 +117,7 @@ def paged_layout(batch: int, hq: int, hkv: int, nb: int, bs: int,
 
 
 # The split kernels' fp32 workspace, one per (device, stream) and kept
-# between calls: calls on one stream run in order, so one call's split and
-# combine kernels never meet another's. The lock keeps two threads from
+# between calls (``_split.workspace``). The lock keeps two threads from
 # interleaving their launches on one stream (ctypes drops the GIL).
 _workspaces = {}
 _workspace_lock = threading.Lock()
@@ -210,10 +199,7 @@ def _paged_cuda(q, arena_k, arena_v, tables, positions, scale, k_scale,
     lib, fn = _kernel_fn()
     with torch.cuda.device(dev), _workspace_lock:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ws = _workspaces.get((dev.index, stream))
-        if ws is None or ws.numel() < need:
-            ws = torch.empty(need, dtype=torch.float32, device=dev)
-            _workspaces[(dev.index, stream)] = ws
+        ws = _split.workspace(_workspaces, dev, stream, need)
         err = fn(q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
                  k_scale.data_ptr() if quantized else None,
                  v_scale.data_ptr() if quantized else None,

@@ -336,8 +336,11 @@ def _dense_case(dev, kind, hq, hkv, d, s_max, positions, view, seed=0):
 # (kind, hq, hkv, d, S_max, positions, view): the Llama-3-8B decode shape
 # and its engine view, every group tile (G = 1, 2, 4, 8, and G = 3, 12,
 # which split a kv head's group over blocks), D 64 and 128 (and 256 in
-# fp32, which takes one smem stage), ragged S_max (no multiple of 64),
-# positions 0, at tile edges, at S_max - 1 and past it, and strided views.
+# fp32, which takes three warps a block), ragged S_max (no multiple of
+# 64), positions 0, at tile edges, at S_max - 1 and past it, and strided
+# views; S_max = 8192 (chunks of 512 tokens at B = 8); D = 8 in bf16 at
+# group tile 8, where a warp's K rows (32 x 32 bytes) and its step's
+# probabilities (32 x 8 fp32) take the same 1,024 bytes.
 DENSE_CASES = {
     "llama3-bf16": ("bf16", 32, 8, 128, 2048,
                     (0, 63, 64, 700, 1023, 1500, 2047, 0), "contiguous"),
@@ -353,6 +356,11 @@ DENSE_CASES = {
     "g12-fp32": ("fp32", 48, 4, 128, 200, (64, 199), "head"),
     "g4-ragged-d64-fp32": ("fp32", 8, 2, 64, 77, (0, 76, 40), "layer"),
     "d256-fp32": ("fp32", 16, 4, 256, 130, (63, 129), "contiguous"),
+    "long-bf16": ("bf16", 32, 8, 128, 8192,
+                  (0, 63, 2047, 4095, 4096, 6000, 8191, 0), "contiguous"),
+    "long-fp32": ("fp32", 32, 8, 128, 8192, (64, 8191, 3000), "layer"),
+    "d8-g8-bf16": ("bf16", 16, 2, 8, 300, (0, 31, 32, 100, 299),
+                   "contiguous"),
 }
 
 
@@ -374,6 +382,93 @@ def test_dense_kernel_matches_plain(cuda_device, name):
     atol, rtol = (1e-5, 0.0) if out.dtype == torch.float32 else (2e-2, 2e-2)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sms", [1, 1024])
+@pytest.mark.parametrize("name", ["llama3-bf16", "llama3-fp32",
+                                  "g2-ragged-bf16", "long-bf16"])
+def test_dense_kernel_few_and_many_splits(cuda_device, monkeypatch, name,
+                                          sms):
+    # The split count the host picks follows the SM count: one SM gives
+    # one split (a block walks the whole cache), 1024 SMs a split a tile.
+    kind, hq, hkv, d, s_max, positions, view = DENSE_CASES[name]
+    monkeypatch.setattr(tda, "_num_sms", lambda index: sms)
+    _, splits, chunk = tda.dense_layout(len(positions), hq, hkv, s_max, sms)
+    assert (splits, chunk) == ((1, -(-s_max // 64) * 64) if sms == 1
+                               else (-(-s_max // 64), 64))
+    q, k, v, pos = _dense_case(cuda_device, kind, hq, hkv, d, s_max,
+                               positions, view, seed=1)
+    out = tda.decode_attention(q, k, v, pos)
+    ref = tda.decode_attention(q, k, v, pos, use_kernel=False)
+    torch.cuda.synchronize()
+    atol, rtol = (1e-5, 0.0) if out.dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "fp32"])
+def test_dense_kernel_chunk_edges(cuda_device, kind):
+    # Positions one before, on and one after the edges of the split
+    # chunks the host picks for these shapes on this card.
+    hq, hkv, d, s_max = 32, 8, 128, 2048
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    _, _, c = tda.dense_layout(6, hq, hkv, s_max, sms)
+    positions = (c - 2, c - 1, c, 2 * c - 1, 2 * c, s_max - 1)
+    q, k, v, pos = _dense_case(cuda_device, kind, hq, hkv, d, s_max,
+                               positions, "layer", seed=3)
+    out = tda.decode_attention(q, k, v, pos)
+    ref = tda.decode_attention(q, k, v, pos, use_kernel=False)
+    torch.cuda.synchronize()
+    atol, rtol = (1e-5, 0.0) if out.dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_dense_kernel_rejects_a_bad_layout(cuda_device, monkeypatch):
+    # The C entry point checks the layout it is handed and refuses it
+    # (cudaErrorInvalidValue); nothing falls back to the plain version.
+    q, k, v, pos = _dense_case(cuda_device, "bf16", 32, 8, 128, 1000,
+                               (5, 999), "contiguous")
+    for bad in [(3, 1, 1024),      # a group tile that is not 1, 2, 4, 8
+                (4, 2, 96),        # a chunk of no whole tiles
+                (4, 2, 448),       # chunks that do not reach S_max
+                (4, 3, 512)]:      # a split that starts past S_max
+        monkeypatch.setattr(tda, "dense_layout", lambda *a, _b=bad: _b)
+        before = tda.decode_attention.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tda.decode_attention(q, k, v, pos)
+        assert tda.decode_attention.launches == before
+
+
+@pytest.mark.gpu
+def test_constructors_on_card_leave_bf16_reduction_flag(cuda_device):
+    # bf16 GEMMs reduce in fp32 inside the engine's and the trainer's
+    # steps only; the process's setting is what it was before and after.
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    try:
+        matmul.allow_bf16_reduced_precision_reduction = True
+        cfg = llama.LlamaConfig.tiny(
+            dtype=torch.bfloat16, vocab_size=512, hidden_size=256,
+            intermediate_size=512, num_heads=4, num_kv_heads=2,
+            head_dim=128)
+        eng = ContinuousBatcher(cfg, num_slots=2, max_len=128, paged=False,
+                                device=cuda_device)
+        trainer = training.ShardedTrainer(cfg, device=cuda_device)
+        assert matmul.allow_bf16_reduced_precision_reduction is True
+        eng.submit([1, 2, 3], max_new_tokens=2)
+        eng.run_to_completion()
+        state = trainer.init_state(0)
+        trainer.train_step(state, training.synthetic_batch(
+            2, 128, cfg.vocab_size, seed=0))
+        assert matmul.allow_bf16_reduced_precision_reduction is True
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
 
 
 @pytest.mark.gpu
