@@ -93,10 +93,39 @@ Phases, any failure exits non-zero with no result line:
    dense engine with the kernel and with ``use_decode_kernel=False``, the
    paged engine with its kernel, and ``LlamaGenerator.generate`` for one
    prompt give the same greedy tokens (a divergence passes only if the
-   top-2 logit margin there is below 1e-4).
+   top-2 logit margin there is below 1e-4);
+15. prefix serving: phase 5's model and weights, the paged engine with
+   the prefix cache on and off (``PREFIX``): one warm request of a shared
+   1,024-token prefix (numpy seed 1) plus a tail runs first, then 12
+   requests of that prefix plus tails of 17-300 tokens, 32 new tokens
+   each, greedy. Each must return 32 in-vocab tokens, the paged kernel
+   must launch num_layers times a tick, ``prefix_hit_tokens`` must be
+   12 x 1,024 and the cache-off run must prefill 12 x 1,024 tokens more.
+   Reported for both: prefill tokens and seconds, TTFT p50, tick ms, peak
+   memory; and on/off agreement token for token with ``partings`` (not a
+   gate in bf16: a suffix-only prefill's GEMMs may tile otherwise);
+16. engine parity of the new paths: in phase 6's 2-layer fp32 model, the
+   prefix cache on against off (model-dtype and int8 arenas, four
+   requests of a 512-token prefix after a warm request of it), and
+   ``sync_every=4`` against 1 (paged and dense engines, phase 6's
+   requests): the same greedy tokens (a divergence passes only if the
+   top-2 logit margin there is below 1e-4);
+17. buffered at full width: the phase-5 requests with ``sync_every=4``
+   (ticks run ahead, their tokens fetched in one pinned non-blocking copy
+   a 4 ticks): 32 in-vocab tokens each and num_layers paged launches a
+   tick; agreement with phase 5, tick ms, tokens/s and TTFT p50 reported;
+18. scoring: ``score_logprobs`` of two phase-5 requests' served tokens
+   with the bf16 flash forward kernel (num_layers launches a call) and
+   with ``attention_kernel=False``, within ``SCORE_TOL``; every layer's
+   flash forward in the scoring (B=1, the padded sequence of 512 or 1,024)
+   within ``SCORE_TOL`` of the plain forward on the same q/k/v, where
+   three wrong attentions (no causal mask, each row's own 64-key block
+   skipped, zeros) must each fail; how many served greedy tokens are the
+   argmax of the scored distribution is reported.
 
-Phases 11-12 run after phases 3-4, and 13-14 inside phases 5-6, where
-their models already live.
+Phases 11-12 run after phases 3-4; 13, 15, 17 and 18 inside phase 5 and
+16 inside phase 6, where their models already live (15 and 17 before
+phase 5's profiles, which would slow their host-clock times).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -172,6 +201,21 @@ DENSE_CASES = [("bf16", "bf16", 2048, False, POSITIONS, 2e-2, 2e-2),
                 0.0)]
 DENSE_TIMED = ("bf16", "fp32", "long-bf16", "long-fp32")
 TOP2_MARGIN = 1e-4
+# Phase 15: 12 requests sharing a 1,024-token prefix (numpy seed 1), tails
+# of 17-300 tokens, 32 new tokens each, after one warm request of the
+# prefix.
+PREFIX = dict(tokens=1024, seed=1, requests=12, tail=(17, 301), max_new=32)
+# Phase 18: the phase-5 requests scored, and the tolerance of the flash
+# kernel's logprobs against attention_kernel=False: the bf16 flash cases'.
+# Random weights put every served token's logprob near -log(vocab), so
+# that comparison alone cannot tell a wrong attention from a right one:
+# each layer's flash forward is also held, at SCORE_TOL, against its plain
+# version on the q/k/v scoring gave it, and three wrong attentions
+# (no causal mask, each row's own SCORE_CONTROL_BLOCK-key block skipped,
+# zeros) must each fall outside SCORE_TOL there.
+SCORE_REQUESTS = (0, 1)
+SCORE_TOL = (2e-2, 2e-2)
+SCORE_CONTROL_BLOCK = 64
 
 
 def fail(msg):
@@ -450,10 +494,12 @@ def dense_kernel_phases(torch):
     return results
 
 
-def serve(torch, cfg, params, prompts, max_new, **kw):
-    """Drive the engine over ``prompts`` after a one-request warm-up;
-    returns (outputs by request, stats). Every launch count is set to 0
-    just before the measured run and read just after it."""
+def serve(torch, cfg, params, prompts, max_new, warm=None, **kw):
+    """Drive the engine over ``prompts`` after a warm-up (``warm``: prompts
+    run to completion first, 2 tokens each; by default a 16-token slice of
+    the first prompt); returns (outputs by request, stats). Every launch
+    count is set to 0 just before the measured run and read just after
+    it."""
     from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
     from ray_tpu_torch.ops.decode_attention import decode_attention
     from ray_tpu_torch.ops.paged_decode_attention import \
@@ -463,12 +509,14 @@ def serve(torch, cfg, params, prompts, max_new, **kw):
     eng = ContinuousBatcher(cfg, params=params, num_slots=8, max_len=2048,
                             block_size=64, token_callback=lambda r, t:
                             first.setdefault(r, time.perf_counter()), **kw)
-    eng.submit(prompts[0][:16], max_new_tokens=2)            # warm-up
+    for p in warm or [prompts[0][:16]]:
+        eng.submit(p, max_new_tokens=2)
     eng.run_to_completion()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ticks0, pre0 = eng.base_tick_count, eng.prefill_seconds
-    dec0 = eng.decoded_tokens
+    dec0, ptok0, hit0, pb0 = (eng.decoded_tokens, eng.prefill_tokens,
+                              eng.prefix_hit_tokens, eng.prefill_batches)
     reset_launch_counts()
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
@@ -486,8 +534,12 @@ def serve(torch, cfg, params, prompts, max_new, **kw):
         tick_ms=decode_s / max(ticks, 1) * 1e3,
         decode_tok_s=(eng.decoded_tokens - dec0) / decode_s,
         prefill_s=eng.prefill_seconds - pre0,
+        prefill_batches=eng.prefill_batches - pb0,
+        prefill_tokens=eng.prefill_tokens - ptok0,
+        prefix_hit_tokens=eng.prefix_hit_tokens - hit0,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-        kernel=eng.use_decode_kernel, paged=eng.paged)
+        kernel=eng.use_decode_kernel, paged=eng.paged,
+        prefix_cache=eng.prefix_cache, sync_every=eng.sync_every)
     return [out[r] for r in rids], stats
 
 
@@ -588,15 +640,198 @@ def end_to_end(torch, card):
               f"{'cache' if name.startswith('dense') else 'arena'}: "
               f"{json.dumps(st)}")
         runs[name], outputs[name] = st, outs
+    runs["prefix"] = timed("phase 15", prefix_serving, torch, cfg, params,
+                           card)
+    runs["buffered"] = timed("phase 17", buffered_serving, torch, cfg,
+                             params, prompts, outputs["bf16"], card)
     for name, kw in [("bf16", {}), ("dense", {"paged": False})]:
         prof = profile_ticks(torch, cfg, params, prompts, **kw)
         prof["idle_share"] = 1.0 - prof["device_busy_ms_per_tick"] / runs[
             name]["tick_ms"]
         print(f"[profile] {name} decode tick, 8 slots: {json.dumps(prof)}")
         runs[name]["profile"] = prof
+    runs["scoring"] = timed("phase 18", scoring, torch, cfg, params,
+                            prompts, outputs["bf16"], card)
     del params
     torch.cuda.empty_cache()
     return runs
+
+
+def prefix_serving(torch, cfg, params, card):
+    """Phase 15: the paged engine with the prefix cache on and off over
+    12 requests that share a PREFIX["tokens"]-token prefix, after a warm
+    request of that prefix has indexed it."""
+    p = PREFIX
+    rng = np.random.default_rng(p["seed"])
+    shared = rng.integers(0, cfg.vocab_size, size=p["tokens"]).tolist()
+    warm = shared + rng.integers(0, cfg.vocab_size, size=40).tolist()
+    tails = rng.integers(*p["tail"], size=p["requests"])
+    prompts = [shared + rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in tails]
+    print(f"[prefix] {p['requests']} requests of a {p['tokens']}-token "
+          f"prefix plus tails {sorted(int(n) for n in tails)}")
+    runs, outs = {}, {}
+    for name, on in (("on", True), ("off", False)):
+        outs[name], st = serve(torch, cfg, params, prompts, p["max_new"],
+                               warm=[warm], prefix_cache=on)
+        check_outputs(outs[name], p["max_new"], cfg.vocab_size,
+                      f"prefix {name}")
+        check_launches(st, cfg.num_layers, f"prefix {name}")
+        st["card"] = card
+        runs[name] = st
+    hits = p["requests"] * p["tokens"]
+    saved = runs["off"]["prefill_tokens"] - runs["on"]["prefill_tokens"]
+    if runs["on"]["prefix_hit_tokens"] != hits or saved != hits:
+        fail(f"prefix: {runs['on']['prefix_hit_tokens']} hit tokens and "
+             f"{saved} fewer prefilled (want {hits} each)")
+    runs["on"]["agree_with_off"] = sum(a == b for a, b in zip(outs["on"],
+                                                              outs["off"]))
+    runs["on"]["partings"] = partings(torch, params, cfg, prompts,
+                                      outs["on"], outs["off"], "prefix-on",
+                                      against="prefix-off")
+    for name, st in runs.items():
+        print(f"[prefix] cache {name}: {json.dumps(st)}")
+    return runs
+
+
+def buffered_serving(torch, cfg, params, prompts, want, card):
+    """Phase 17: the phase-5 requests with ``sync_every=4``; agreement
+    with the phase-5 run is reported, not gated."""
+    outs, st = serve(torch, cfg, params, prompts, 32, sync_every=4)
+    check_outputs(outs, 32, cfg.vocab_size, "buffered")
+    check_launches(st, cfg.num_layers, "buffered")
+    st["agree_with_sync_every_1"] = sum(a == b for a, b in zip(outs, want))
+    st["card"] = card
+    print(f"[buffered] sync_every=4: {json.dumps(st)}")
+    return st
+
+
+def scoring(torch, cfg, params, prompts, outs, card):
+    """Phase 18: ``score_logprobs`` of two phase-5 requests' served
+    tokens, with the flash forward kernel (num_layers launches a call)
+    and with ``attention_kernel=False``, within SCORE_TOL; each kernel
+    launch of the scoring held against the plain forward on its own
+    inputs, with controls that must fail (SCORE_CONTROL_BLOCK); and how
+    many served tokens are the argmax of the scored distribution."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.continuous_batching import (ContinuousBatcher,
+                                                          _bucket)
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    atol, rtol = SCORE_TOL
+    got, attn = {}, {"max_abs_err": 0.0, "calls": 0, "shapes": [],
+                     "controls": {}}
+    for kernel in (None, False):
+        eng = ContinuousBatcher(
+            dataclasses.replace(cfg, attention_kernel=kernel), params=params,
+            num_slots=8, max_len=2048, block_size=64)
+        got[kernel] = []
+        for i in SCORE_REQUESTS:
+            before = flash_attention.launches["fwd"]
+            calls = []
+            if kernel is None:
+                llama.flash_attention = _recording(flash_attention, calls)
+            try:
+                got[kernel].append(eng.score_logprobs(prompts[i], outs[i]))
+            finally:
+                llama.flash_attention = flash_attention
+            launched = flash_attention.launches["fwd"] - before
+            if launched != (cfg.num_layers if kernel is None else 0):
+                fail(f"scoring: attention_kernel={kernel} launched the "
+                     f"flash forward {launched} times")
+            if calls:
+                scored_attention(torch, calls, attn, f"request {i}")
+            del calls
+        del eng
+    err, argmax = 0.0, 0
+    for i, a, b in zip(SCORE_REQUESTS, got[None], got[False]):
+        err = max(err, float(np.abs(a - b).max()))
+        if not (np.all(np.isfinite(a))
+                and np.all(np.abs(a - b) <= atol + rtol * np.abs(b))):
+            fail(f"scoring: kernel and plain logprobs of request {i} "
+                 f"disagree (max_abs_err {err})")
+        seq = prompts[i] + outs[i]
+        tokens = torch.zeros((1, min(_bucket(len(seq)), 2048)),
+                             dtype=torch.long, device="cuda")
+        tokens[0, :len(seq)] = torch.tensor(seq, device="cuda")
+        with torch.no_grad(), llama.fp32_reduction(torch.device("cuda"),
+                                                   cfg.dtype):
+            logits = llama.forward(params, tokens, cfg)[0]
+        start = len(prompts[i]) - 1
+        best = logits[start:start + len(outs[i])].argmax(-1).tolist()
+        argmax += sum(x == y for x, y in zip(best, outs[i]))
+        del logits
+    st = dict(requests=list(SCORE_REQUESTS),
+              tokens=[len(outs[i]) for i in SCORE_REQUESTS],
+              seq_lens=[len(prompts[i]) + len(outs[i])
+                        for i in SCORE_REQUESTS],
+              max_abs_err=err, tol=SCORE_TOL, served_tokens_argmax=argmax,
+              attention=attn, card=card)
+    print(f"[scoring] {json.dumps(st)}")
+    return st
+
+
+def _recording(inner, calls):
+    """``inner`` (the model's flash attention) that also keeps each call's
+    (q, k, v, keywords, output) in ``calls``."""
+    def record(q, k, v, **kw):
+        out = inner(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+    return record
+
+
+def masked_attention(torch, q, k, v, keep):
+    """Plain GQA attention of q [B, S, Hq, D] over k, v [B, S, KVH, D] in
+    fp32, where ``keep`` [S, S] says which keys each query sees."""
+    g = q.shape[2] // k.shape[2]
+    kf, vf = (t.float().repeat_interleave(g, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * q.shape[3] ** -0.5
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def scored_attention(torch, calls, attn, what):
+    """Hold each recorded flash forward against the plain forward on its
+    own inputs at SCORE_TOL, and the first layer's against three wrong
+    attentions that must each fail SCORE_TOL."""
+    from ray_tpu_torch.ops.attention import flash_fwd_reference
+
+    atol, rtol = SCORE_TOL
+    for layer, (q, k, v, kw, out) in enumerate(calls):
+        if not kw.get("causal", False):
+            fail(f"scoring: {what} layer {layer} attention is not causal")
+        want, _ = flash_fwd_reference(q, k, v, scale=q.shape[3] ** -0.5,
+                                      causal=True)
+        e, ok, n_bad = close(torch, out, want, atol, rtol)
+        attn["max_abs_err"] = max(attn["max_abs_err"], e)
+        attn["calls"] += 1
+        if list(q.shape) not in attn["shapes"]:
+            attn["shapes"].append(list(q.shape))
+        if not ok:
+            fail(f"scoring: {what} layer {layer}: flash forward disagrees "
+                 f"with the plain version at {list(q.shape)} "
+                 f"(max_abs_err {e}, {n_bad} elements outside {SCORE_TOL})")
+        if layer:
+            continue
+        n, blk = q.shape[1], SCORE_CONTROL_BLOCK
+        rows = torch.arange(n, device=q.device)[:, None]
+        cols = torch.arange(n, device=q.device)[None, :]
+        causal = cols <= rows
+        controls = {
+            "no_causal_mask": masked_attention(
+                torch, q, k, v, torch.ones_like(causal)),
+            "own_block_skipped": masked_attention(
+                torch, q, k, v, (cols < rows // blk * blk)
+                | (causal & (rows < blk))),
+            "zeros": torch.zeros_like(want)}
+        for name, wrong in controls.items():
+            e, ok, n_bad = close(torch, wrong, want, atol, rtol)
+            attn["controls"].setdefault(name, []).append(
+                dict(max_abs_err=e, elements_out=n_bad))
+            if ok:
+                fail(f"scoring: the {name} control passes SCORE_TOL at "
+                     f"{list(q.shape)}: the check cannot see that fault")
 
 
 def _leaves(params):
@@ -625,20 +860,20 @@ def top2_margin(torch, params, cfg, seq):
     return float(top[0] - top[1]), float(top[0])
 
 
-def partings(torch, params, cfg, prompts, got, want, what):
-    """Where the bf16 run ``what`` (``got``) parts from the paged run
-    ``want``: for each such request, (request, first parting token, top-2
-    margin, top logit) of the next token after the prompt and the tokens
-    both runs share, from a bf16 full forward. A margin near bf16's
-    rounding of a logit of that size (2^-8 relative) is a near-tie that
-    another summation order flips."""
+def partings(torch, params, cfg, prompts, got, want, what, against="paged"):
+    """Where the bf16 run ``what`` (``got``) parts from the run
+    ``against`` (``want``): for each such request, (request, first parting
+    token, top-2 margin, top logit) of the next token after the prompt and
+    the tokens both runs share, from a bf16 full forward. A margin near
+    bf16's rounding of a logit of that size (2^-8 relative) is a near-tie
+    that another summation order flips."""
     out = []
     for i, (a, b) in enumerate(zip(got, want)):
         if a == b:
             continue
         j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
         margin, top = top2_margin(torch, params, cfg, prompts[i] + b[:j])
-        print(f"[parity] bf16 {what} and paged runs part at request {i}, "
+        print(f"[parity] bf16 {what} and {against} runs part at request {i}, "
               f"token {j}: top-2 margin {margin:.4e}, top logit {top:.4f} "
               f"(bf16 rounding there {abs(top) * 2**-8:.4e})")
         out.append((i, j, margin, top))
@@ -692,8 +927,38 @@ def engine_parity(torch):
     one = gen.generate([prompts[0]], max_new_tokens=16)[0].tolist()
     check_agree(torch, params, cfg, prompts[:1], [one], got["paged"][:1],
                 "LlamaGenerator and paged-kernel engine")
-    del params, gen
+    del gen
+    timed("phase 16", engine_parity_16, torch, cfg, params, prompts, got,
+          rng)
+    del params
     torch.cuda.empty_cache()
+
+
+def engine_parity_16(torch, cfg, params, prompts, got, rng):
+    """Phase 16: in phase 6's model, the prefix cache on against off on
+    model-dtype and int8 arenas (four requests of a 512-token prefix after
+    a warm request of it), and sync_every=4 against 1 on paged and dense
+    engines (phase 6's requests)."""
+    shared = rng.integers(0, cfg.vocab_size, size=512).tolist()
+    pprompts = [shared + rng.integers(0, cfg.vocab_size, size=n).tolist()
+                for n in (5, 70, 200, 1)]
+    for kv in ("bf16", "int8"):
+        runs = {}
+        for on in (True, False):
+            runs[on], st = serve(torch, cfg, params, pprompts, 16,
+                                 warm=[shared + [1, 2, 3]], prefix_cache=on,
+                                 kv_dtype=kv)
+            check_launches(st, cfg.num_layers, f"prefix {on} {kv}")
+            if st["prefix_hit_tokens"] != (len(pprompts) * 512 if on else 0):
+                fail(f"parity prefix {on} {kv}: "
+                     f"{st['prefix_hit_tokens']} hit tokens")
+        check_agree(torch, params, cfg, pprompts, runs[True], runs[False],
+                    f"prefix cache on and off, {kv} arena")
+    for name, kw in (("paged", {}), ("dense", {"paged": False})):
+        buf, st = serve(torch, cfg, params, prompts, 16, sync_every=4, **kw)
+        check_launches(st, cfg.num_layers, f"buffered {name}")
+        check_agree(torch, params, cfg, prompts, buf, got[name],
+                    f"sync_every=4 and 1, {name}")
 
 
 def reset_launch_counts():
@@ -1113,8 +1378,8 @@ def main():
 
     timing = timed("phases 3-4", kernel_phases, torch)
     dense = timed("phases 11-12", dense_kernel_phases, torch)
-    runs = timed("phases 5, 13", end_to_end, torch, card)
-    timed("phases 6, 14", engine_parity, torch)
+    runs = timed("phases 5, 13, 15, 17, 18", end_to_end, torch, card)
+    timed("phases 6, 14, 16", engine_parity, torch)
     flash = timed("phases 7-8", flash_phases, torch)
     timed("phase 9", model_parity, torch)
     train = timed("phase 10", train_end_to_end, torch, card)

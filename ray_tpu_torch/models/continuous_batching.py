@@ -22,10 +22,17 @@ Either way the attention is the CUDA kernel on the card. PyTorch runs
 eagerly and the cache is updated in place, where the JAX package
 threads a donated functional cache through jitted programs.
 
+Paged engines share prompt blocks across requests through a radix index
+(``prefix_cache``, on by default as in JAX): a request whose leading
+full prompt blocks are already in the arena splices them into its table
+read-only and prefills only its suffix. ``sync_every > 1`` runs ticks
+ahead of the host and fetches their tokens in batches, rewinding to the
+host's state when a request finishes. ``swap_params`` and
+``score_logprobs`` are the hooks a training loop drives.
+
 Not in this slice (each raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it): the prefix cache (off by default here,
-on in the JAX package), buffered ``sync_every > 1`` decode, speculative
-decode and disaggregated roles.
+ROADMAP.md item that ports it): speculative decode and disaggregated
+roles.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import itertools
 import os
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +51,8 @@ from ray_tpu_torch.models.inference import (KVCache, _attend_cached,
                                             _forward_cached, _layer, _mlp,
                                             _proj, lm_head_logits)
 from ray_tpu_torch.models.paged_kv import (GARBAGE_BLOCK, BlockAllocator,
-                                           PagedKVCache, quantize_kv,
+                                           PagedKVCache, RadixBlockIndex,
+                                           prompt_chunks, quantize_kv,
                                            resolve_kv_dtype)
 from ray_tpu_torch.models.sampling import (SamplingParams, sample_tokens,
                                            step_key)
@@ -210,13 +218,37 @@ def _decode_tick_paged(params, tokens, positions, tables, limits,
     return next_tokens, positions + 1, cache, step + 1
 
 
+class _ArenaPrefix:
+    """A matched prefix's K or V, gathered from the arena one layer at a
+    time: ``[li]`` is ``[N, m * bs, KVH, D]`` in the model dtype, int8
+    storage dequantized exactly as the JAX engine's prefill reads it
+    (``(q.float() * scale[..., None]).to(dtype)``). It stands in for a
+    stacked ``[L, N, P, KVH, D]`` tensor in
+    :func:`_prefill_forward_paged`'s layer loop, so only one layer's
+    prefix is live at a time (the JAX engine gathers every layer's before
+    its scan)."""
+
+    def __init__(self, arena, scale, flat_blocks, n, dtype):
+        self.arena, self.scale, self.flat = arena, scale, flat_blocks
+        self.n, self.dtype = n, dtype
+
+    def __getitem__(self, li):
+        blocks = self.arena[li].index_select(0, self.flat)  # [N*m, bs, ..]
+        if self.scale is not None:
+            scale = self.scale[li].index_select(0, self.flat)
+            blocks = blocks.float() * scale[..., None]
+        blocks = blocks.to(self.dtype)
+        return blocks.reshape(self.n, -1, *blocks.shape[2:])
+
+
 def _prefill_forward_paged(params, tokens, positions, pk, pv, config,
                            quantized, last_idx=None):
     """Prefill forward over ``[prefix ++ suffix]``.
 
-    ``tokens`` [N, S] at absolute ``positions`` [S]; ``pk``/``pv``
-    [L, N, P, KVH, D] hold prefix K/V as attention reads it (None: no
-    prefix, the only case this slice's engine uses). Returns
+    ``tokens`` [N, S] at absolute ``positions`` [S]; ``pk[li]``/``pv[li]``
+    [N, P, KVH, D] hold layer ``li``'s prefix K/V as attention reads it
+    (a stacked [L, N, P, KVH, D] tensor or an :class:`_ArenaPrefix`;
+    None: no prefix). Returns
     ``(logits, stored)``: logits [N, S, V] fp32, or [N, 1, V] at each
     row's ``last_idx`` [N] when given (the engine needs only those, and
     the full [N, S, V] would cost N*S*V*4 bytes); ``stored`` is the
@@ -283,14 +315,14 @@ def _resolve_paged(paged: Optional[bool]) -> bool:
 
 
 def _resolve_prefix_cache(prefix_cache: Optional[bool]) -> bool:
-    """Explicit arg > ``RAY_TPU_PREFIX_CACHE`` env > OFF (the JAX
-    package defaults it on; here it waits for its port)."""
+    """Explicit arg > ``RAY_TPU_PREFIX_CACHE`` env > on. Only paged
+    engines use it: the radix index shares arena blocks, which dense
+    per-slot stripes cannot."""
     if prefix_cache is None:
         prefix_cache = env_flag("RAY_TPU_PREFIX_CACHE")
-    if prefix_cache:
-        raise llama.not_ported("prefix_cache=True",
-                               "item 4 (engine features: the prefix cache)")
-    return False
+    if prefix_cache is None:
+        return True
+    return bool(prefix_cache)
 
 
 def _resolve_spec_k(spec_k: Optional[int]) -> int:
@@ -303,7 +335,7 @@ def _resolve_spec_k(spec_k: Optional[int]) -> int:
         raise ValueError(f"spec_k must be >= 0, got {spec_k}")
     if spec_k:
         raise llama.not_ported("speculative decoding (spec_k > 0)",
-                               "item 4 (engine features: speculative decode)")
+                               "item 4b (engine features: speculative decode)")
     return 0
 
 
@@ -318,7 +350,7 @@ def _resolve_role(role: Optional[str]) -> str:
             f"got {role!r}")
     if role != "both":
         raise llama.not_ported(f"role={role!r}",
-                               "item 4 (engine features: the prefill/decode "
+                               "item 4c (engine features: the prefill/decode "
                                "split)")
     return role
 
@@ -337,6 +369,16 @@ def _resolve_decode_kernel(use_decode_kernel: Optional[bool],
         raise RuntimeError("use_decode_kernel=True needs a CUDA device; "
                            f"the engine runs on {device}")
     return bool(use_decode_kernel)
+
+
+def _named_leaves(tree, prefix=""):
+    """(dotted name, leaf) pairs of a nested param dict, in key order."""
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _named_leaves(val, name + ".")
+        else:
+            yield name, val
 
 
 class ContinuousBatcher:
@@ -367,6 +409,15 @@ class ContinuousBatcher:
         ``use_decode_kernel`` routes tick attention through the CUDA
         kernel (default on CUDA) or the plain version (False).
 
+        ``sync_every=K > 1`` is buffered decode for high-latency host
+        links: K ticks run per host synchronization, their tokens fetched
+        in one copy that overlaps the next K ticks (pinned memory and an
+        event on CUDA). Ticks run ahead of the host's bookkeeping; when a
+        request finishes, the engine rewinds to the host's state (the
+        dispatched sampling step included) and redoes at most 2K ticks.
+        Greedy outputs equal ``sync_every=1``'s; sampled ones too for
+        requests submitted up front.
+
         ``paged`` (default on; ``RAY_TPU_PAGED_KV=0`` turns it off)
         selects the data plane. Paged: a shared arena of ``block_size``-
         token blocks with per-slot block tables; admission reserves each
@@ -374,10 +425,15 @@ class ContinuousBatcher:
         space. ``kv_dtype`` ('bf16' = the model dtype, or 'int8' with
         per-token per-head scales) selects arena storage; ``num_blocks``
         sizes the arena (default: every slot at ``max_len`` plus the
-        garbage block). Dense (``paged=False``): one ``max_len`` stripe
-        per slot in the model dtype; ``block_size``, ``kv_dtype``,
-        ``num_blocks`` and ``prefix_cache`` are ignored, as in JAX.
-        ``sampling`` is a
+        garbage block). ``prefix_cache`` (default on;
+        ``RAY_TPU_PREFIX_CACHE``) indexes full prompt blocks in a radix
+        tree: a later request with the same leading blocks splices them
+        into its table read-only and prefills only its suffix; released
+        prompt blocks park in an LRU that arena pressure reclaims before
+        admission waits. Greedy outputs are the same on or off. Dense
+        (``paged=False``): one ``max_len`` stripe per slot in the model
+        dtype; ``block_size``, ``kv_dtype``, ``num_blocks`` and
+        ``prefix_cache`` are ignored, as in JAX. ``sampling`` is a
         :class:`~ray_tpu_torch.models.sampling.SamplingParams` or dict;
         the default is greedy."""
         self.config = config
@@ -385,11 +441,7 @@ class ContinuousBatcher:
         self.num_slots = num_slots
         self.max_len = max_len
         self.eos_token = eos_token
-        if int(sync_every) > 1:
-            raise llama.not_ported("buffered decode (sync_every > 1)",
-                                   "item 4 (engine features: buffered "
-                                   "decode)")
-        self.sync_every = 1
+        self.sync_every = max(1, int(sync_every))
         self.sampling = SamplingParams.coerce(sampling)
         self.paged = _resolve_paged(paged)
         self.role = _resolve_role(role)
@@ -409,27 +461,32 @@ class ContinuousBatcher:
                                                         self.device)
         self.base_tick_count = 0        # decode-tick dispatches
         self.decoded_tokens = 0         # committed decode tokens
+        # With the prefix cache on, prefill_tokens counts only the
+        # prefilled (suffix) tokens; the hit/miss counters split prompts.
         self.prefill_batches = 0
         self.prefill_requests = 0
         self.prefill_tokens = 0
         self.prefill_seconds = 0.0      # dispatch -> first-token sync
+        self.prefix_hit_tokens = 0      # prompt tokens served from blocks
+        self.prefix_miss_tokens = 0     # prompt tokens prefilled
+        self.prefix_hit_requests = 0    # requests with >= 1 matched block
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = llama.init_params(config, gen, device=self.device)
         self.params = params
+        self._weight_version = 0        # bumped by swap_params
         self.token_callback = token_callback
+        self._prefix: Optional[RadixBlockIndex] = None
+        self._slot_nodes: Dict[int, List[Any]] = {}   # slot -> pinned nodes
         if self.paged:
             self.max_blocks = -(-max_len // self.block_size)
             self.num_blocks = int(num_blocks if num_blocks is not None
                                   else num_slots * self.max_blocks + 1)
-            self.cache = PagedKVCache.create(config, self.num_blocks,
-                                             self.block_size, self.kv_dtype,
-                                             device=self.device)
             self.allocator = BlockAllocator(self.num_blocks)
             self._slot_blocks: Dict[int, List[int]] = {}
-        else:
-            self.cache = KVCache.create(config, num_slots, max_len,
-                                        device=self.device)
+            if self.prefix_cache:
+                self._prefix = RadixBlockIndex()
+        self.cache = self._new_cache()
         self._free: List[int] = list(range(num_slots))
         self._slots: Dict[int, Dict[str, Any]] = {}   # slot -> request
         # Decode state on the device between ticks, uploaded only when
@@ -438,14 +495,92 @@ class ContinuousBatcher:
         self._d_positions = None
         self._d_tables = None
         self._d_limits = None
-        self._applied_steps = 0   # sampling step of the next tick
+        # Sampling step of the next dispatched tick. Buffered ticks run
+        # ahead of _applied_steps (the host-applied count); a rewind
+        # (_upload_state) sets it back, so replayed ticks sample with
+        # the same step numbers.
+        self._d_step = 0
+        self._applied_steps = 0
         self._prefill_count = 0   # per-dispatch prefill sampling stream
+        self._buf: List[torch.Tensor] = []   # buffered tick token rows
+        self._pending: Optional[tuple] = None  # (fetch, membership)
         self._dirty = True
         self._waiting: deque = deque()
         self._rid = itertools.count()
         self._finished: Dict[int, List[int]] = {}
 
+    def _new_cache(self):
+        if self.paged:
+            return PagedKVCache.create(self.config, self.num_blocks,
+                                       self.block_size, self.kv_dtype,
+                                       device=self.device)
+        return KVCache.create(self.config, self.num_slots, self.max_len,
+                              device=self.device)
+
     # ---------------------------------------------------------------- api
+    @property
+    def weight_version(self) -> int:
+        """Monotone version of the live params (0 = the initial ones)."""
+        return self._weight_version
+
+    def swap_params(self, params, version: Optional[int] = None) -> int:
+        """Replace the live params between steps: the only assignment of
+        ``self.params`` after ``__init__``. The KV cache and every
+        in-flight request are untouched, so running generations continue
+        under the new weights. ``params`` must have the same leaves as
+        the live ones, each of the same shape, dtype and device; a
+        mismatch raises ``ValueError`` naming the leaf. Returns the new
+        version (``version``, or the previous one + 1)."""
+        old = dict(_named_leaves(self.params))
+        new = dict(_named_leaves(params))
+        if old.keys() != new.keys():
+            raise ValueError(
+                f"swap_params tree mismatch: engine has leaves "
+                f"{sorted(old)}, swap brought {sorted(new)}")
+        for name, a in old.items():
+            b = new[name]
+            if not isinstance(b, torch.Tensor) or (
+                    (b.shape, b.dtype, b.device)
+                    != (a.shape, a.dtype, a.device)):
+                got = (f"{tuple(b.shape)}/{b.dtype}/{b.device}"
+                       if isinstance(b, torch.Tensor) else type(b).__name__)
+                raise ValueError(
+                    f"swap_params leaf {name!r} mismatch: engine has "
+                    f"{tuple(a.shape)}/{a.dtype}/{a.device}, swap brought "
+                    f"{got}")
+        self.params = params
+        self._weight_version = (int(version) if version is not None
+                                else self._weight_version + 1)
+        return self._weight_version
+
+    @torch.no_grad()
+    def score_logprobs(self, prompt_tokens: List[int],
+                       out_tokens: List[int]) -> np.ndarray:
+        """Log-probabilities of ``out_tokens`` after ``prompt_tokens``
+        under the live params: one teacher-forced
+        :func:`ray_tpu_torch.models.llama.forward` (the flash forward
+        kernel on the card) over the sequence padded to
+        ``min(_bucket(n), max_len)``, fp32 ``log_softmax``. Returns
+        ``[len(out_tokens)]`` float32."""
+        if not out_tokens:
+            return np.zeros((0,), np.float32)
+        full = list(prompt_tokens) + list(out_tokens)
+        if len(full) > self.max_len:
+            raise ValueError(
+                f"score_logprobs sequence ({len(full)} tokens) exceeds "
+                f"max_len={self.max_len}")
+        pad = min(_bucket(len(full)), self.max_len)
+        tokens = torch.zeros((1, pad), dtype=torch.long, device=self.device)
+        tokens[0, :len(full)] = torch.tensor(full, device=self.device)
+        with llama.fp32_reduction(self.device, self.config.dtype):
+            logits = llama.forward(self.params, tokens, self.config)
+        logp = torch.log_softmax(logits[0].float(), dim=-1)
+        start = len(prompt_tokens)
+        rows = torch.arange(start - 1, start - 1 + len(out_tokens),
+                            device=self.device)
+        picked = logp[rows, torch.tensor(out_tokens, device=self.device)]
+        return picked.cpu().numpy().astype(np.float32)
+
     def submit(self, prompt_tokens: List[int],
                max_new_tokens: int = 32) -> int:
         """Queue a request; returns its id. It joins the next tick with a
@@ -477,6 +612,13 @@ class ContinuousBatcher:
         self._free.append(slot)
         if self.paged:
             blocks = self._slot_blocks.pop(slot, None)
+            nodes = self._slot_nodes.pop(slot, None)
+            if nodes:
+                # Indexed blocks deref: refcount 0 parks them in the LRU
+                # (a later match revives them) instead of the free list.
+                self._prefix.release(nodes)
+                shared = {nd.block for nd in nodes}
+                blocks = [b for b in (blocks or []) if b not in shared]
             if blocks:
                 self.allocator.free(blocks)
 
@@ -495,31 +637,133 @@ class ContinuousBatcher:
                 return True
         return self._finished.pop(rid, None) is not None
 
+    def reset(self) -> List[int]:
+        """Abort everything (recovery after an engine error): rebuild the
+        arena or the dense cache, reset the allocator, clear the prefix
+        index (its blocks would alias the zeroed arena) and rewind the
+        step counters. Returns the request ids dropped."""
+        dropped = [st["rid"] for st in self._slots.values()]
+        dropped += [r["rid"] for r in self._waiting]
+        self._slots.clear()
+        self._waiting.clear()
+        self._free = list(range(self.num_slots))
+        self._finished.clear()
+        self._buf = []
+        self._pending = None
+        self.cache = None              # free the old cache before the new
+        self.cache = self._new_cache()
+        if self.paged:
+            self.allocator.reset()
+            self._slot_blocks.clear()
+            self._slot_nodes.clear()
+            if self._prefix is not None:
+                self._prefix.clear()
+        self._applied_steps = 0
+        self._d_step = 0
+        self._dirty = True
+        return dropped
+
     @property
     def active_count(self) -> int:
         return len(self._slots)
 
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Share of admitted prompt tokens served from cached prefix
+        blocks (0.0 with the prefix cache off or before any admission)."""
+        total = self.prefix_hit_tokens + self.prefix_miss_tokens
+        return self.prefix_hit_tokens / total if total else 0.0
+
     def has_work(self) -> bool:
-        return bool(self._slots or self._waiting or self._finished)
+        return bool(self._slots or self._waiting or self._finished
+                    or self._buf or self._pending)
 
     def kv_block_stats(self) -> Dict[str, float]:
-        """Arena occupancy: used/total blocks, live tokens, and the
-        fragmentation ratio (reserved-but-unwritten share of used
-        blocks). ``cached``/``shared`` stay 0 until the prefix cache is
-        ported. Dense engines report zeros."""
+        """Arena occupancy: live blocks used/total, LRU-cached and
+        refcount-shared prefix blocks, live tokens, and the fragmentation
+        ratio (reserved-but-unwritten share of used blocks, clamped at 0:
+        shared prefixes count once per slot). Cached blocks are on the
+        allocator's books but are not live demand, so ``used`` leaves
+        them out. Dense engines report zeros."""
         if not self.paged:
             return {"used": 0, "total": 0, "cached": 0, "shared": 0,
                     "live_tokens": 0, "frag_ratio": 0.0}
-        used = self.allocator.used_count
+        index = self._prefix
+        cached = index.cached_count if index is not None else 0
+        shared = index.shared_count if index is not None else 0
+        used = self.allocator.used_count - cached
         live = sum(st["pos"] for st in self._slots.values())
         cap = used * self.block_size
         return {"used": used, "total": self.num_blocks - 1,
-                "cached": 0, "shared": 0, "live_tokens": live,
+                "cached": cached, "shared": shared, "live_tokens": live,
                 "frag_ratio": max(1.0 - live / cap, 0.0) if cap else 0.0}
 
     # ------------------------------------------------------------ internals
     def _blocks_needed(self, prompt_len: int, max_new: int) -> int:
         return -(-(prompt_len + max_new) // self.block_size)
+
+    def _can_admit_head(self) -> bool:
+        """True when the FIFO head could admit now: a free slot and, when
+        paged, enough blocks, counting LRU-cached blocks that eviction
+        would reclaim and the blocks a radix match would cover. A parked
+        matched block counts once: the match revives it without freeing
+        anything. The buffered engine forces a sync boundary only then,
+        so an arena-blocked head does not collapse its pipelining."""
+        if not (self._waiting and self._free):
+            return False
+        if not self.paged:
+            return True
+        req = self._waiting[0]
+        avail = self.allocator.free_count
+        nodes: List[Any] = []
+        if self._prefix is not None:
+            nodes = self._prefix.match_nodes(self._capped_chunks(req))
+        m, need = self._admission_need(req, len(nodes))
+        if self._prefix is not None:
+            parked = sum(1 for nd in nodes[:m] if nd.refs == 0)
+            avail += self._prefix.cached_count - parked
+        return need <= avail
+
+    def _admission_need(self, req: Dict[str, Any],
+                        matched: int) -> Tuple[int, int]:
+        """(prefix blocks used, new blocks to reserve) for a request whose
+        capped chunks matched ``matched`` indexed blocks. The match
+        buckets DOWN to a power of two, as JAX's does to bound its
+        compiled programs. ``_can_admit_head`` and ``_admit`` both ask
+        here, so the buffered engine's probe agrees with admission."""
+        m = _bucket_floor(matched)
+        return m, self._blocks_needed(len(req["prompt"]), req["max_new"]) - m
+
+    def _capped_chunks(self, req: Dict[str, Any]) -> List[tuple]:
+        """The chunk keys a match may cover (``_match_cap`` of them)."""
+        return self._req_chunks(req)[:self._match_cap(req)]
+
+    def _match_cap(self, req: Dict[str, Any]) -> int:
+        """Blocks a match may cover: full prompt blocks, leaving at least
+        one prompt token to prefill (the first generated token samples
+        from the last prompt position's logits, which the cache does not
+        hold)."""
+        return (len(req["prompt"]) - 1) // self.block_size
+
+    def _req_chunks(self, req: Dict[str, Any]) -> List[tuple]:
+        """Block-aligned chunk keys of a queued request, memoized on it
+        (the buffered engine probes a waiting head every step)."""
+        chunks = req.get("chunks")
+        if chunks is None:
+            chunks = req["chunks"] = prompt_chunks(req["prompt"],
+                                                   self.block_size)
+        return chunks
+
+    def _alloc_blocks(self, n: int) -> Optional[List[int]]:
+        """All-or-nothing reservation; when the free list is short,
+        refcount-0 cached prefix blocks are evicted first (leaf-first,
+        oldest first), so cached state never blocks admission. Pinned
+        shared blocks are never touched."""
+        if self._prefix is not None and n > self.allocator.free_count:
+            evicted = self._prefix.evict(n - self.allocator.free_count)
+            if evicted:
+                self.allocator.free(evicted)
+        return self.allocator.alloc(n)
 
     def _table_row(self, blocks: List[int]) -> List[int]:
         # Dead tail entries REPEAT the last live block (masked anyway;
@@ -530,30 +774,54 @@ class ContinuousBatcher:
     def _admit(self) -> None:
         if not (self._waiting and self._free):
             return
-        # Drain every admissible request first, grouped by pow-2 prompt
-        # bucket, so an admission burst costs one prefill per bucket.
-        # Paged engines reserve each request's blocks up front (FIFO:
-        # when the head does not fit the arena, admission stops).
+        # Drain every admissible request first, grouped by (pow-2 suffix
+        # bucket, matched prefix blocks), so an admission burst costs one
+        # prefill per group. Paged engines reserve each request's novel
+        # blocks up front (FIFO: when the head does not fit the arena
+        # even after LRU eviction, admission stops); matched prefix
+        # blocks are pinned read-only instead of allocated.
         bs = self.block_size
         padded_cap = self.max_blocks * bs if self.paged else self.max_len
-        groups: Dict[int, List] = {}
+        groups: Dict[tuple, List] = {}
         while self._waiting and self._free:
             req = self._waiting[0]
             blocks: List[int] = []
-            padded_len = min(_bucket(len(req["prompt"])), padded_cap)
+            matched: List[Any] = []
+            chunks: List[tuple] = []
+            m = 0
+            suffix = req["prompt"]
             if self.paged:
-                got = self.allocator.alloc(
-                    self._blocks_needed(len(req["prompt"]), req["max_new"]))
+                if self._prefix is not None:
+                    chunks = self._req_chunks(req)
+                    matched = self._prefix.match(self._capped_chunks(req))
+                m, need = self._admission_need(req, len(matched))
+                if m < len(matched):
+                    # The released tail parks young in the LRU and is
+                    # prefilled again.
+                    self._prefix.release(matched[m:])
+                    matched = matched[:m]
+                got = self._alloc_blocks(need)
                 if got is None:
+                    if matched:
+                        self._prefix.release(matched)
                     break
-                blocks = got
-                padded_len = max(padded_len, bs)  # at least one block
+                blocks = [nd.block for nd in matched] + got
+                suffix = req["prompt"][m * bs:]
+                padded_len = max(min(_bucket(len(suffix)),
+                                     padded_cap - m * bs), bs)
+                if self._prefix is not None:
+                    self.prefix_hit_tokens += m * bs
+                    self.prefix_miss_tokens += len(suffix)
+                    self.prefix_hit_requests += bool(m)
+            else:
+                padded_len = min(_bucket(len(suffix)), padded_cap)
             self._waiting.popleft()
             slot = self._free.pop()
             if self.paged:
                 self._slot_blocks[slot] = blocks
-            groups.setdefault(padded_len, []).append((req, slot, blocks))
-        for padded_len, group in groups.items():
+            groups.setdefault((padded_len, m), []).append(
+                (req, slot, blocks, matched, suffix, chunks))
+        for (padded_len, m), group in groups.items():
             n = len(group)
             # The batch dim buckets to a power of two as well. Padding
             # rows REPEAT the last request: its duplicate cache writes
@@ -564,18 +832,21 @@ class ContinuousBatcher:
             slots = np.zeros(n_pad, np.int64)
             npb = padded_len // bs if self.paged else 0
             tables_w = np.full((n_pad, npb), GARBAGE_BLOCK, np.int64)
+            ptables = np.full((n_pad, m), GARBAGE_BLOCK, np.int64)
             for i in range(n_pad):
-                req, slot, blocks = group[min(i, n - 1)]
-                tokens[i, :len(req["prompt"])] = req["prompt"]
-                last_idx[i] = len(req["prompt"]) - 1
+                _, slot, blocks, _, suffix, _ = group[min(i, n - 1)]
+                tokens[i, :len(suffix)] = suffix
+                last_idx[i] = len(suffix) - 1
                 slots[i] = slot
-                # Bucket padding past the reservation writes masked
-                # garbage to block 0.
-                k = min(len(blocks), npb)
-                tables_w[i, :k] = blocks[:k]
+                # Suffix K/V land in the slot's new blocks (the matched
+                # prefix is read-only); bucket padding past the
+                # reservation writes masked garbage to block 0.
+                k = min(len(blocks) - m, npb)
+                tables_w[i, :k] = blocks[m:m + k]
+                ptables[i] = blocks[:m]
             t0 = time.perf_counter()
             if self.paged:
-                first = self._prefill(tokens, tables_w, last_idx)
+                first = self._prefill(tokens, ptables, tables_w, last_idx)
             else:
                 first = self._prefill_dense(tokens, slots, last_idx)
             first = first.cpu().numpy()          # N ints: the device sync
@@ -583,8 +854,19 @@ class ContinuousBatcher:
             self.prefill_batches += 1
             self.prefill_requests += n
             self.prefill_tokens += int(last_idx[:n].sum()) + n
-            for (req, slot, _blocks), tok in zip(group, first):
+            for (req, slot, blocks, matched, _, chunks), tok in zip(group,
+                                                                    first):
                 tok = int(tok)
+                if self._prefix is not None and chunks:
+                    # Index this prompt's full blocks now that their
+                    # writes are queued ahead of any later reader. A
+                    # chunk already indexed under another block (a cold
+                    # twin of this round) stops the walk and leaves the
+                    # rest exclusive.
+                    created = self._prefix.insert(chunks, blocks,
+                                                  start=len(matched))
+                    if matched or created:
+                        self._slot_nodes[slot] = matched + created
                 if self.token_callback is not None:
                     self.token_callback(req["rid"], tok)
                 self._slots[slot] = {
@@ -602,21 +884,31 @@ class ContinuousBatcher:
         self._prefill_count += 1
         return first
 
-    def _prefill(self, tokens, tables_w, last_idx):
-        """Batched bucketed paged prefill of N prompts ([N, S] padded):
-        run the forward, write each row's K/V into its blocks IN PLACE
-        (rows of ``tables_w`` [N, S // bs]; overflow entries name the
-        garbage block, where duplicate writes keep an arbitrary winner),
-        and return the N first tokens on the device."""
+    def _prefill(self, tokens, ptables, tables_w, last_idx):
+        """Batched bucketed paged prefill of N suffixes ([N, S] padded)
+        after an m-block matched prefix (``ptables`` [N, m]: read-only
+        arena blocks, gathered a layer at a time and dequantized when
+        int8), at positions ``m * bs + arange(S)``. Writes each row's
+        suffix K/V into its blocks IN PLACE (rows of ``tables_w``
+        [N, S // bs]; overflow entries name the garbage block, where
+        duplicate writes keep an arbitrary winner) and returns the N
+        first tokens on the device."""
         dev = self.device
         cache = self.cache
         bs = self.block_size
         n, s_pad = tokens.shape
-        positions = torch.arange(s_pad, device=dev)
+        m = ptables.shape[1]
+        pk = pv = None
+        if m:
+            flat_p = torch.from_numpy(ptables.reshape(-1)).to(dev)
+            pk = _ArenaPrefix(cache.k, cache.k_scale, flat_p, n,
+                              self.config.dtype)
+            pv = _ArenaPrefix(cache.v, cache.v_scale, flat_p, n,
+                              self.config.dtype)
         logits, stored = _prefill_forward_paged(
-            self.params, torch.from_numpy(tokens).to(dev), positions,
-            None, None, self.config, cache.quantized,
-            last_idx=torch.from_numpy(last_idx).to(dev))
+            self.params, torch.from_numpy(tokens).to(dev),
+            m * bs + torch.arange(s_pad, device=dev), pk, pv, self.config,
+            cache.quantized, last_idx=torch.from_numpy(last_idx).to(dev))
         flat_tables = torch.from_numpy(tables_w.reshape(-1)).to(dev)
         targets = ((cache.k, cache.v, cache.k_scale, cache.v_scale)
                    if cache.quantized else (cache.k, cache.v))
@@ -665,6 +957,9 @@ class ContinuousBatcher:
         dev = self.device
         self._d_tokens = torch.from_numpy(tokens).to(dev)
         self._d_positions = torch.from_numpy(positions).to(dev)
+        # Rewind the dispatched sampling step to the host-applied count:
+        # ticks a rewind discarded replay the same step numbers.
+        self._d_step = self._applied_steps
         if self.paged:
             tables = np.zeros((self.num_slots, self.max_blocks), np.int32)
             limits = np.zeros(self.num_slots, np.int32)
@@ -676,21 +971,25 @@ class ContinuousBatcher:
         self._dirty = False
 
     def _run_tick(self):
-        """Dispatch one decode tick; returns the [B] token vector."""
+        """Dispatch one decode tick; returns its [B] token vector, a
+        fresh tensor each tick (buffered rows must not alias)."""
         kw = dict(use_kernel=self.use_decode_kernel, sampling=self.sampling)
         if self.paged:
             (self._d_tokens, self._d_positions, self.cache,
-             _) = _decode_tick_paged(
+             self._d_step) = _decode_tick_paged(
                 self.params, self._d_tokens, self._d_positions,
-                self._d_tables, self._d_limits, self.cache,
-                self._applied_steps, self.config, **kw)
+                self._d_tables, self._d_limits, self.cache, self._d_step,
+                self.config, **kw)
         else:
             (self._d_tokens, self._d_positions, self.cache,
-             _) = _decode_tick(
+             self._d_step) = _decode_tick(
                 self.params, self._d_tokens, self._d_positions, self.cache,
-                self._applied_steps, self.config, **kw)
+                self._d_step, self.config, **kw)
         self.base_tick_count += 1
         return self._d_tokens
+
+    def _membership(self):
+        return [(s, st["rid"]) for s, st in self._slots.items()]
 
     def _apply_tokens(self, nxt_rows, membership) -> bool:
         """Book fetched tick rows; True when a request finished."""
@@ -701,7 +1000,7 @@ class ContinuousBatcher:
             for slot, rid in membership:
                 st = self._slots.get(slot)
                 if st is None or st["rid"] != rid:
-                    continue
+                    continue     # finished earlier in this batch
                 tok = int(row[slot])
                 if self.token_callback is not None:
                     self.token_callback(rid, tok)
@@ -718,21 +1017,94 @@ class ContinuousBatcher:
     @torch.no_grad()
     def step(self) -> Dict[int, List[int]]:
         """Admit waiting requests, run one decode tick over all active
-        slots, and return the requests that finished. Prefill and tick
-        run under :func:`llama.fp32_reduction` (bf16 GEMMs reduce in
-        fp32)."""
+        slots, and return the requests that finished (with
+        ``sync_every > 1``, finish detection lags up to 2K ticks).
+        Prefill and tick run under :func:`llama.fp32_reduction` (bf16
+        GEMMs reduce in fp32)."""
         with llama.fp32_reduction(self.device, self.config.dtype):
-            self._admit()
-            if self._slots:
-                if self._dirty:
-                    self._upload_state()
-                nxt = self._run_tick().cpu().numpy()   # 4 bytes/slot: sync
-                if self._apply_tokens(
-                        [nxt],
-                        [(s, st["rid"]) for s, st in self._slots.items()]):
-                    self._dirty = True
+            if self.sync_every > 1:
+                self._step_buffered()
+            else:
+                self._admit()
+                if self._slots:
+                    if self._dirty:
+                        self._upload_state()
+                    nxt = self._run_tick().cpu().numpy()  # 4 B/slot: sync
+                    if self._apply_tokens([nxt], self._membership()):
+                        self._dirty = True
         out, self._finished = self._finished, {}
         return out
+
+    def _step_buffered(self) -> None:
+        # Admission and upload only at a clean boundary (no ticks in
+        # flight): an upload mid-buffer would rewind the device sequence.
+        clean = not self._buf and self._pending is None
+        if clean:
+            self._admit()
+        if self._slots:
+            if self._dirty and clean:
+                self._upload_state()
+            self._buf.append(self._run_tick())
+        want_admit = self._can_admit_head()
+        if len(self._buf) >= self.sync_every or want_admit or (
+                not self._slots and (self._buf or self._pending is not None)):
+            # The non-K arms drain early: a waiting request with a free
+            # slot must not starve behind the pipeline, and a cancel of
+            # the last request must not wedge admission.
+            self._flush_buffered(force_boundary=want_admit)
+
+    def _stack_buffer(self, buf):
+        """Stack buffered [B] token rows into one [T, B] tensor and start
+        its copy to the host. On CUDA the copy is non-blocking into
+        pinned memory (into pageable memory it would be synchronous) and
+        an event marks its end; on the CPU the stack is the copy.
+        Returns the fetch for :meth:`_rows_from_stacked`."""
+        stacked = torch.stack(buf)
+        if stacked.device.type != "cuda":
+            return stacked, None
+        host = torch.empty(stacked.shape, dtype=stacked.dtype,
+                           pin_memory=True)
+        host.copy_(stacked, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _rows_from_stacked(fetch):
+        """Wait for a fetch to land and split it into per-tick rows."""
+        host, done = fetch
+        if done is not None:
+            done.synchronize()
+        return list(host.numpy())
+
+    def _flush_buffered(self, force_boundary: bool = False) -> None:
+        # 1. Apply the PRIOR pending fetch first: its copy overlapped the
+        # ticks just buffered. If it finished requests, the buffer is
+        # stale speculation over freed slots: discard it and rewind
+        # (re-upload host state next step).
+        if self._pending is not None:
+            fetch, membership = self._pending
+            self._pending = None
+            if self._apply_tokens(self._rows_from_stacked(fetch),
+                                  membership):
+                self._buf = []
+                self._dirty = True
+                return
+        if force_boundary and self._buf:
+            # A waiting request needs a clean boundary: apply the buffer
+            # synchronously instead of pipelining it.
+            rows = self._rows_from_stacked(self._stack_buffer(self._buf))
+            membership = self._membership()
+            self._buf = []
+            self._apply_tokens(rows, membership)
+            self._dirty = True
+            return
+        if not self._buf:
+            return
+        # 2. One copy for the whole buffer, landing while the next K
+        # ticks run.
+        self._pending = (self._stack_buffer(self._buf), self._membership())
+        self._buf = []
 
     def run_to_completion(self) -> Dict[int, List[int]]:
         """Drive ticks until every submitted request finished."""

@@ -9,15 +9,24 @@ somewhere harmless without branching in the tick. Optional int8 storage
 keeps fp32 per-token/per-kv-head scales in block-shaped sidecars.
 
 Unlike the JAX package, the arena is updated IN PLACE (``index_copy_``
-on views of these tensors); the engine owns the one copy. The radix
-prefix index and block staging come with the prefix-cache and
-disaggregation slices.
+on views of these tensors); the engine owns the one copy.
+
+Cross-request prefix reuse: :class:`RadixBlockIndex` maps block-aligned
+token-id chunks to the arena blocks already holding their K/V, so a
+shared system prompt prefills once and later requests splice its blocks
+into their tables read-only. A block is then free (on the allocator's
+free list), live (referenced by >= 1 slot; indexed blocks carry a
+refcount and are never reclaimed while referenced) or cached (refcount
+0, parked in the index's LRU: a later match revives it, arena pressure
+reclaims it leaf-first, oldest-first). Block staging for the
+prefill/decode split comes with that slice.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, NamedTuple, Optional
+from collections import OrderedDict, deque
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -149,3 +158,179 @@ class BlockAllocator:
     def reset(self) -> None:
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._allocated.clear()
+
+
+class _RadixNode:
+    """One block-aligned chunk in the prefix tree. ``refs`` counts the
+    slots currently reading this block through their tables; 0 parks the
+    node in the index LRU (block content stays valid in the arena)."""
+
+    __slots__ = ("chunk", "block", "parent", "children", "refs")
+
+    def __init__(self, chunk: Optional[Tuple[int, ...]], block: int,
+                 parent: Optional["_RadixNode"]):
+        self.chunk = chunk
+        self.block = block
+        self.parent = parent
+        self.children: Dict[Tuple[int, ...], "_RadixNode"] = {}
+        self.refs = 0
+
+
+class RadixBlockIndex:
+    """Radix index over block-aligned token-id chunks -> arena block ids.
+
+    Keys are EXACT token tuples (dict equality, no hashing: a collision
+    would serve another prompt's K/V), chained parent -> child so chunk
+    ``i``'s node is reachable only through the full token prefix
+    ``[0, (i+1) bs)`` that determines its K/V (causal attention).
+
+    * :meth:`match` pins every matched node (``refs += 1``, revived out
+      of the LRU): matched blocks are spliced into a slot's table
+      READ-ONLY and never reclaimed or written while pinned;
+    * :meth:`insert` indexes a slot's newly prefilled full-prompt blocks
+      (pinned, refs=1); a chunk already indexed under a different block
+      (two cold twins in one admission round) stops the walk and leaves
+      the loser's remaining blocks exclusive;
+    * :meth:`release` unpins; refs==0 parks the node at the LRU's young
+      end instead of freeing its block;
+    * :meth:`evict` reclaims parked blocks LEAF-FIRST in LRU order. Every
+      slot pins a contiguous root chain, so a parked node never has a
+      pinned descendant.
+    """
+
+    def __init__(self):
+        self._root = _RadixNode(None, GARBAGE_BLOCK, None)
+        self._lru: "OrderedDict[_RadixNode, None]" = OrderedDict()
+        self._live = 0          # nodes with refs >= 1
+        self._by_block: Dict[int, _RadixNode] = {}
+
+    # ------------------------------------------------------------ stats
+    @property
+    def cached_count(self) -> int:
+        """Parked refcount-0 blocks the arena can reclaim."""
+        return len(self._lru)
+
+    @property
+    def shared_count(self) -> int:
+        """Indexed blocks currently pinned by at least one slot."""
+        return self._live
+
+    @property
+    def indexed_count(self) -> int:
+        return len(self._by_block)
+
+    # ------------------------------------------------------------- read
+    def match_nodes(self,
+                    chunks: Sequence[Tuple[int, ...]]) -> List[_RadixNode]:
+        """Longest indexed prefix, read-only (NO pinning): the admission
+        probe inspects the nodes' refcounts, since pinning a parked node
+        revives it without freeing anything."""
+        node, out = self._root, []
+        for chunk in chunks:
+            node = node.children.get(chunk)
+            if node is None:
+                break
+            out.append(node)
+        return out
+
+    def match_len(self, chunks: Sequence[Tuple[int, ...]]) -> int:
+        """Longest indexed prefix, in blocks (no pinning)."""
+        return len(self.match_nodes(chunks))
+
+    # ------------------------------------------------------------ write
+    def match(self, chunks: Sequence[Tuple[int, ...]]) -> List[_RadixNode]:
+        """Longest indexed prefix, PINNED (each matched node's refcount
+        rises, reviving it from the LRU). Pair with :meth:`release`."""
+        node, out = self._root, []
+        for chunk in chunks:
+            node = node.children.get(chunk)
+            if node is None:
+                break
+            self._pin(node)
+            out.append(node)
+        return out
+
+    def insert(self, chunks: Sequence[Tuple[int, ...]],
+               blocks: Sequence[int], start: int = 0) -> List[_RadixNode]:
+        """Index ``blocks[start:]`` under ``chunks[start:]`` (the chunks
+        before ``start`` were matched: their nodes exist and are pinned
+        by this caller). Returns the nodes CREATED (pinned, refs=1). A
+        chunk already indexed under a different block stops the walk."""
+        node = self._root
+        for chunk in chunks[:start]:
+            node = node.children[chunk]   # matched path must exist
+        created: List[_RadixNode] = []
+        for i in range(start, len(chunks)):
+            child = node.children.get(chunks[i])
+            if child is not None:
+                if child.block != blocks[i]:
+                    break                 # cold twin lost the race
+                node = child
+                continue
+            child = _RadixNode(chunks[i], blocks[i], node)
+            node.children[chunks[i]] = child
+            self._by_block[blocks[i]] = child
+            self._pin(child)
+            created.append(child)
+            node = child
+        return created
+
+    def release(self, nodes: Sequence[_RadixNode]) -> None:
+        """Unpin; refcount 0 parks the node at the LRU young end (the
+        block stays resident until reclaimed)."""
+        for node in nodes:
+            node.refs -= 1
+            assert node.refs >= 0, "prefix node over-released"
+            if node.refs == 0:
+                self._live -= 1
+                self._lru[node] = None
+
+    def evict(self, want: int) -> List[int]:
+        """Reclaim up to ``want`` parked blocks, leaf-first in LRU order;
+        returns their ids for the allocator's free list. A parent joins
+        the candidate queue the moment its last child drops, so a deep
+        parked chain costs O(evicted)."""
+        out: List[int] = []
+        ready = deque(nd for nd in self._lru if not nd.children)
+        while len(out) < want and ready:
+            node = ready.popleft()
+            if node.children or node not in self._lru:
+                continue                  # defensive: invariant violated
+            parent = node.parent
+            self._drop(node)
+            out.append(node.block)
+            if (parent is not None and not parent.children
+                    and parent in self._lru):
+                ready.append(parent)
+        return out
+
+    def clear(self) -> None:
+        self._root = _RadixNode(None, GARBAGE_BLOCK, None)
+        self._lru.clear()
+        self._by_block.clear()
+        self._live = 0
+
+    # ---------------------------------------------------------- helpers
+    def _pin(self, node: _RadixNode) -> None:
+        if node.refs == 0:
+            self._live += 1
+            self._lru.pop(node, None)
+        node.refs += 1
+
+    def _drop(self, node: _RadixNode) -> None:
+        self._lru.pop(node, None)
+        self._by_block.pop(node.block, None)
+        if node.parent is not None:
+            node.parent.children.pop(node.chunk, None)
+
+
+def prompt_chunks(prompt_tokens: Sequence[int],
+                  block_size: int) -> List[Tuple[int, ...]]:
+    """Block-aligned chunk keys for the shareable region of a prompt:
+    only blocks filled entirely by prompt tokens (the tail block mixes
+    prompt and generated tokens). The engine further caps a match at
+    ``(len(prompt) - 1) // block_size`` blocks, so one prompt token is
+    left to prefill for the first token's logits."""
+    n = len(prompt_tokens) // block_size
+    return [tuple(prompt_tokens[i * block_size:(i + 1) * block_size])
+            for i in range(n)]

@@ -163,7 +163,8 @@ def _engines(params, **kw):
     je = jcb.ContinuousBatcher(JCFG, params=jp, paged=True,
                                prefix_cache=False, use_decode_kernel=False,
                                **kw)
-    te = tcb.ContinuousBatcher(TCFG, params=tp, device="cpu", **kw)
+    te = tcb.ContinuousBatcher(TCFG, params=tp, device="cpu",
+                               prefix_cache=False, **kw)
     return je, te
 
 
@@ -250,8 +251,6 @@ def test_submit_validation(params):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"prefix_cache": True}, "prefix cache"),
-    ({"sync_every": 4}, "buffered decode"),
     ({"spec_k": 2}, "speculative decode"),
     ({"role": "prefill"}, "prefill/decode split"),
 ])
@@ -263,12 +262,17 @@ def test_unported_features_raise(params, kwargs, item):
     assert item in str(info.value)
 
 
-def test_prefix_cache_defaults_off(params, monkeypatch):
-    _, tp = params
+def test_prefix_cache_defaults_on_like_jax(params, monkeypatch):
+    jp, tp = params
     monkeypatch.delenv("RAY_TPU_PREFIX_CACHE", raising=False)
     e = tcb.ContinuousBatcher(TCFG, params=tp, num_slots=2, max_len=64,
                               device="cpu")
-    assert e.prefix_cache is False and e.paged and not e.use_decode_kernel
+    je = jcb.ContinuousBatcher(JCFG, params=jp, num_slots=2, max_len=64)
+    assert e.prefix_cache is True is je.prefix_cache
+    assert e.paged and not e.use_decode_kernel
+    monkeypatch.setenv("RAY_TPU_PREFIX_CACHE", "0")
+    assert tcb.ContinuousBatcher(TCFG, params=tp, num_slots=2, max_len=64,
+                                 device="cpu").prefix_cache is False
 
 
 # ------------------------------------------------------------ sampling

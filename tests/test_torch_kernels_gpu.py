@@ -535,3 +535,156 @@ def test_dense_engine_on_card_launches_kernel_and_matches_cpu(cuda_device):
         assert launched == want
         outs[str(dev)] = [done[r] for r in rids]
     assert outs[str(cuda_device)] == outs["cpu"]
+
+
+def _tiny_on(dev, dtype=torch.float32, head_dim=64, seed=0, **kw):
+    """A tiny config and its weights, drawn on the CPU and copied to
+    ``dev`` (so a CPU engine and a card engine share them)."""
+    cfg = llama.LlamaConfig.tiny(dtype=dtype, head_dim=head_dim, **kw)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(seed),
+                               "cpu")
+    return cfg, {k: ({n: t.to(dev) for n, t in v.items()}
+                     if isinstance(v, dict) else v.to(dev))
+                 for k, v in params.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_prefix_cache_on_card_matches_off(cuda_device, kv_dtype):
+    # The paged kernel over tables whose leading entries are shared,
+    # read-only prefix blocks: greedy tokens with the prefix cache on
+    # equal those with it off, num_layers launches a tick, and the
+    # followers prefill only their suffixes.
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+
+    cfg, params = _tiny_on(cuda_device)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size, size=40).tolist()
+    prompts = [shared + rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (3, 9, 1)]
+    outs = {}
+    for on in (True, False):
+        eng = ContinuousBatcher(cfg, params=params, num_slots=2,
+                                max_len=128, block_size=16,
+                                kv_dtype=kv_dtype, prefix_cache=on,
+                                device=cuda_device)
+        before = tpda.paged_decode_attention.launches
+        got = []
+        for p in prompts:                 # sequential: real reuse
+            rid = eng.submit(p, max_new_tokens=8)
+            got.append(eng.run_to_completion()[rid])
+        assert tpda.paged_decode_attention.launches - before == \
+            cfg.num_layers * eng.base_tick_count
+        assert eng.prefix_hit_tokens == (2 * 2 * 16 if on else 0)
+        outs[on] = got
+    assert outs[True] == outs[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_buffered_on_card_matches_per_tick(cuda_device, paged):
+    # sync_every=4 fetches tokens through a pinned host tensor copied
+    # without blocking; greedy tokens equal sync_every=1's, and every tick
+    # launches the engine's decode kernel num_layers times.
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+
+    cfg, params = _tiny_on(cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (5, 30, 12)]
+    counter = (tpda.paged_decode_attention if paged
+               else tda.decode_attention)
+    outs = {}
+    for k in (1, 4):
+        eng = ContinuousBatcher(cfg, params=params, num_slots=2,
+                                max_len=128, block_size=16, paged=paged,
+                                sync_every=k, device=cuda_device)
+        before = counter.launches
+        rids = [eng.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts, (9, 14, 6))]
+        pinned = False
+        done = {}
+        while eng.has_work():
+            done.update(eng.step())
+            if eng._pending is not None:
+                pinned |= eng._pending[0][0].is_pinned()
+        assert counter.launches - before == \
+            cfg.num_layers * eng.base_tick_count
+        assert pinned == (k > 1)
+        outs[k] = [done[r] for r in rids]
+    assert outs[4] == outs[1]
+
+
+def _masked_attention(q, k, v, keep):
+    """Plain GQA attention of q [B, S, Hq, D] over k, v [B, S, KVH, D] in
+    fp32, where ``keep`` [S, S] says which keys each query sees."""
+    g = q.shape[2] // k.shape[2]
+    kf, vf = (t.float().repeat_interleave(g, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * q.shape[3] ** -0.5
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+@pytest.mark.gpu
+def test_score_logprobs_flash_kernel_matches_plain(cuda_device,
+                                                   monkeypatch):
+    # score_logprobs' forward runs the bf16 flash forward kernel (D=128,
+    # one launch a layer) and agrees with attention_kernel=False at the
+    # bf16 flash tolerance. Random weights put every logprob near
+    # -log(vocab), so that alone cannot fail: each launch is also held
+    # against the plain forward on the q/k/v scoring gave it, where three
+    # wrong attentions (no causal mask, each row's own 64-key block
+    # skipped, zeros) must each fall outside the tolerance.
+    import dataclasses
+
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+
+    cfg, params = _tiny_on(cuda_device, dtype=torch.bfloat16, head_dim=128,
+                           vocab_size=512, hidden_size=256,
+                           intermediate_size=512)
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, cfg.vocab_size, size=40).tolist()
+    out = rng.integers(0, cfg.vocab_size, size=50).tolist()
+    inner = llama.flash_attention
+    calls = []
+
+    def record(q, k, v, **kw):
+        o = inner(q, k, v, **kw)
+        calls.append((q, k, v, kw, o))
+        return o
+
+    got = {}
+    for kernel in (None, False):
+        eng = ContinuousBatcher(
+            dataclasses.replace(cfg, attention_kernel=kernel),
+            params=params, num_slots=2, max_len=128, device=cuda_device)
+        before = tfa.flash_attention.launches["fwd"]
+        with monkeypatch.context() as mp:
+            if kernel is None:
+                mp.setattr(llama, "flash_attention", record)
+            got[kernel] = eng.score_logprobs(prompt, out)
+        launched = tfa.flash_attention.launches["fwd"] - before
+        assert launched == (cfg.num_layers if kernel is None else 0)
+    atol, rtol = _flash_tol(torch.bfloat16)
+    np.testing.assert_allclose(got[None], got[False], atol=atol, rtol=rtol)
+    assert got[None].shape == (50,) and np.all(np.isfinite(got[None]))
+
+    assert len(calls) == cfg.num_layers
+    for q, k, v, kw, o in calls:
+        assert kw["causal"] and q.shape[:2] == (1, 128)
+        want, _ = tfa.flash_fwd_reference(q, k, v, scale=128 ** -0.5,
+                                          causal=True)
+        torch.testing.assert_close(o.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    q, k, v, _, _ = calls[0]
+    want, _ = tfa.flash_fwd_reference(q, k, v, scale=128 ** -0.5,
+                                      causal=True)
+    rows = torch.arange(128, device=cuda_device)[:, None]
+    cols = torch.arange(128, device=cuda_device)[None, :]
+    causal = cols <= rows
+    for wrong in (_masked_attention(q, k, v, torch.ones_like(causal)),
+                  _masked_attention(q, k, v, (cols < rows // 64 * 64)
+                                    | (causal & (rows < 64))),
+                  torch.zeros_like(want)):
+        err = (wrong.float() - want.float()).abs()
+        assert bool((err > atol + rtol * want.float().abs()).any())
