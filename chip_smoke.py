@@ -68,8 +68,10 @@ Phases, any failure exits non-zero with no result line:
    ``decode_attention_reference`` at the Llama-3-8B decode shape (B=8,
    Hq=32, KVH=8, D=128, S_max=2048, the phase-3 positions): bf16 and fp32
    caches, a per-layer view of a [2, B, S, KVH, D] cache, S_max=1000 (a
-   ragged last tile), and long bf16 and fp32 caches (S_max=8192, the
-   phase-3 long positions); tolerances in DENSE_CASES;
+   ragged last tile), long bf16 and fp32 caches (S_max=8192, the
+   phase-3 long positions), and the external drafter's step of phase 19
+   (Llama-3.2-1B's Hq=32, KVH=8, D=64, a layer of a [16, 8, 2048, 8, 64]
+   cache, bf16); tolerances in DENSE_CASES;
 12. dense timing: kernel, plain version and ``scaled_dot_product_attention``
    over the transposed contiguous cache with the ``pos >= col`` mask (a
    yardstick only; the port never calls it), CUDA events with L2 flushed;
@@ -121,13 +123,41 @@ Phases, any failure exits non-zero with no result line:
    within ``SCORE_TOL`` of the plain forward on the same q/k/v, where
    three wrong attentions (no causal mask, each row's own 64-key block
    skipped, zeros) must each fail; how many served greedy tokens are the
-   argmax of the scored distribution is reported.
+   argmax of the scored distribution is reported;
+19. speculative serving: phase 5's model, weights and requests through
+   ``ContinuousBatcher(spec_k=4, spec_adaptive=False)``: self-draft with
+   the default 8 of 32 layers on a bf16 arena, on an int8 arena (4
+   requests), with ``sync_every=4``; an external drafter at Llama-3.2-1B's
+   published widths (``DRAFTER``, random weights from seed 1; its steps
+   run the dense kernel); and JAX's default, adaptive k. Each request
+   must return 32 in-vocab tokens, spec ticks must run, and the kernels
+   must launch as ``want_launches`` says (per spec tick at rung k: (k + 1)
+   x 32 paged in verify, k x 8 paged in the self-draft or k x 16 dense in
+   the external drafter). First, one spec tick's layer-0 paged launches
+   (4 draft steps, 5 verify positions) are each held against
+   ``paged_attention_reference`` on their own inputs at SPEC_CHECK_TOL.
+   Reported: tick ms, tokens/s, TTFT p50, accept rate, tokens committed
+   a tick, the rungs run, peak memory, the table width and paged layout,
+   agreement with phase 5 and ``partings``; then a profile of 5 spec
+   ticks;
+20. spec parity inside the engine: in phase 6's 2-layer fp32 model,
+   greedy spec decode (self-draft of 1 layer, k = 2 and 4) against the
+   spec-off runs of phases 6 and 16 with the kernel and the plain
+   attention, model-dtype and int8 arenas, ``sync_every`` 1 and 4, the
+   prefix cache on and off, and an external 1-layer fp32 drafter: the
+   same greedy tokens (a divergence passes only if the top-2 logit margin
+   there is below 1e-4) at the launch counts of ``want_launches``; and
+   sampled spec decode (SPEC_SAMPLING) twice at ``sync_every`` 1 and twice
+   at 4: the same tokens every time.
 
-Phases 11-12 run after phases 3-4; 13, 15, 17 and 18 inside phase 5 and
-16 inside phase 6, where their models already live (15 and 17 before
-phase 5's profiles, which would slow their host-clock times).
+Phases 11-12 run after phases 3-4; 13, 15, 17, 18 and 19 inside phase 5
+and 16 and 20 inside phase 6, where their models already live (15, 17
+and 19 before phase 5's profiles, which would slow their host-clock
+times).
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (the paged and dense
+entries also carry ``spec_launches``, their launches in phase 19's
+self-draft and external-drafter runs); the last line is
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --paged-host-us ROOT`` instead measures only the
@@ -184,22 +214,31 @@ CASES = [("bf16", "bf16", "bf16", 32, POSITIONS, 2e-2, 2e-2),
          ("int8", "bf16", "int8", 32, POSITIONS, 2e-2, 2e-2),
          ("long-bf16", "bf16", "bf16", 128, LONG_POSITIONS, 2e-2, 2e-2),
          ("long-fp32", "fp32", "fp32", 128, LONG_POSITIONS, 1e-5, 0.0)]
-# Dense kernel cases (name, cache dtype, S_max, layer view, positions,
-# atol, rtol): fp32 is exact math in another summation order; bf16
-# outputs round once to bf16 (~2^-8 relative). The long caches (S_max
-# 8192, 268 MB of bf16 K/V) are where one block's walk of a slot was
-# longest.
-DENSE_CASES = [("bf16", "bf16", 2048, False, POSITIONS, 2e-2, 2e-2),
-               ("fp32", "fp32", 2048, False, POSITIONS, 1e-5, 0.0),
-               ("layer-view-bf16", "bf16", 2048, True, POSITIONS, 2e-2,
+# Dense kernel cases (name, cache dtype, S_max, layers of the cache the
+# case views one of (0: a contiguous cache), positions, atol, rtol): fp32
+# is exact math in another summation order; bf16 outputs round once to
+# bf16 (~2^-8 relative). The long caches (S_max 8192, 268 MB of bf16 K/V)
+# are where one block's walk of a slot was longest. The drafter case is
+# the external drafter's step of phase 19 (Llama-3.2-1B's heads, D=64, a
+# layer of its [16, 8, 2048, 8, 64] cache; DENSE_SHAPES).
+DENSE_CASES = [("bf16", "bf16", 2048, 0, POSITIONS, 2e-2, 2e-2),
+               ("fp32", "fp32", 2048, 0, POSITIONS, 1e-5, 0.0),
+               ("layer-view-bf16", "bf16", 2048, 2, POSITIONS, 2e-2, 2e-2),
+               ("ragged-1000-bf16", "bf16", 1000, 0, POSITIONS, 2e-2,
                 2e-2),
-               ("ragged-1000-bf16", "bf16", 1000, False, POSITIONS, 2e-2,
-                2e-2),
-               ("long-bf16", "bf16", 8192, False, LONG_POSITIONS, 2e-2,
-                2e-2),
-               ("long-fp32", "fp32", 8192, False, LONG_POSITIONS, 1e-5,
-                0.0)]
-DENSE_TIMED = ("bf16", "fp32", "long-bf16", "long-fp32")
+               ("long-bf16", "bf16", 8192, 0, LONG_POSITIONS, 2e-2, 2e-2),
+               ("long-fp32", "fp32", 8192, 0, LONG_POSITIONS, 1e-5, 0.0),
+               ("drafter-d64-bf16", "bf16", 2048, 16, POSITIONS, 2e-2,
+                2e-2)]
+DENSE_TIMED = ("bf16", "fp32", "long-bf16", "long-fp32", "drafter-d64-bf16")
+# Llama-3.2-1B's published widths: phase 19's external drafter and the
+# drafter dense case (random weights from seed 1).
+DRAFTER = dict(vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+               num_layers=16, num_heads=32, num_kv_heads=8, head_dim=64,
+               rope_theta=500000.0)
+DENSE_SHAPES = {"drafter-d64-bf16": dict(B=8, HQ=DRAFTER["num_heads"],
+                                         KVH=DRAFTER["num_kv_heads"],
+                                         D=DRAFTER["head_dim"])}
 TOP2_MARGIN = 1e-4
 # Phase 15: 12 requests sharing a 1,024-token prefix (numpy seed 1), tails
 # of 17-300 tokens, 32 new tokens each, after one warm request of the
@@ -216,6 +255,13 @@ PREFIX = dict(tokens=1024, seed=1, requests=12, tail=(17, 301), max_new=32)
 SCORE_REQUESTS = (0, 1)
 SCORE_TOL = (2e-2, 2e-2)
 SCORE_CONTROL_BLOCK = 64
+# Phase 19: speculative decode at k = 4 with the ladder held (runs that
+# say otherwise aside); one tick's layer-0 paged launches are held to the
+# plain version at the phase-3 bf16 tolerance.
+SPEC_RUN = dict(spec_k=4, spec_adaptive=False)
+SPEC_CHECK_TOL = (2e-2, 2e-2)
+# Phase 20: sampled spec decode's settings.
+SPEC_SAMPLING = dict(temperature=0.8, top_p=0.9, seed=11)
 
 
 def fail(msg):
@@ -391,7 +437,7 @@ def dense_bound(c):
     """Least time for the work these inputs need: live K/V rows,
     positions, q and out, each moved once; and 4*Hq*D operations per live
     token."""
-    s = SHAPE
+    s = c["shape"]
     s_max = c["k"].shape[1]
     live = sum(min(p + 1, s_max) for p in c["positions"])
     nbytes = (live * s["KVH"] * s["D"] * c["k"].element_size() * 2
@@ -404,19 +450,19 @@ def dense_bound(c):
             "bytes" if t_bytes >= t_ops else "operations", live, nbytes)
 
 
-def dense_case(torch, kind, s_max, layer_view, positions, seed):
-    s = SHAPE
+def dense_case(torch, name, kind, s_max, layers, positions, seed):
+    s = DENSE_SHAPES.get(name, SHAPE)
     dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[kind]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    lead = (2,) if layer_view else ()
+    lead = (layers,) if layers else ()
     shape = lead + (s["B"], s_max, s["KVH"], s["D"])
     k = torch.randn(shape, generator=gen, device="cuda").to(dt)
     v = torch.randn(shape, generator=gen, device="cuda").to(dt)
-    if layer_view:
+    if layers:
         k, v = k[1], v[1]       # what the engine hands in: cache.k[li]
     q = torch.randn((s["B"], s["HQ"], s["D"]), generator=gen,
                     device="cuda").to(dt)
-    return dict(q=q, k=k, v=v, positions=positions,
+    return dict(q=q, k=k, v=v, positions=positions, shape=s,
                 pos=torch.tensor(positions, dtype=torch.int32,
                                  device="cuda"))
 
@@ -428,7 +474,7 @@ def dense_split_layout(torch, c):
     the positions. Printed, not recorded."""
     from ray_tpu_torch.ops import decode_attention as da
 
-    s = SHAPE
+    s = c["shape"]
     s_max = c["k"].shape[1]
     gt, splits, chunk = da.dense_layout(
         s["B"], s["HQ"], s["KVH"], s_max,
@@ -447,9 +493,9 @@ def dense_kernel_phases(torch):
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     results = {}
-    for i, (name, kind, s_max, layer_view, positions, atol, rtol) in \
+    for i, (name, kind, s_max, layers, positions, atol, rtol) in \
             enumerate(DENSE_CASES):
-        c = dense_case(torch, kind, s_max, layer_view, positions,
+        c = dense_case(torch, name, kind, s_max, layers, positions,
                        seed=20 + i)
         args = (c["q"], c["k"], c["v"], c["pos"])
         out = decode_attention(*args, use_kernel=True)
@@ -497,26 +543,29 @@ def dense_kernel_phases(torch):
 def serve(torch, cfg, params, prompts, max_new, warm=None, **kw):
     """Drive the engine over ``prompts`` after a warm-up (``warm``: prompts
     run to completion first, 2 tokens each; by default a 16-token slice of
-    the first prompt); returns (outputs by request, stats). Every launch
-    count is set to 0 just before the measured run and read just after
-    it."""
+    the first prompt; ``[]`` for none); returns (outputs by request,
+    stats). Every launch count is set to 0 just before the measured run
+    and read just after it."""
     from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
     from ray_tpu_torch.ops.decode_attention import decode_attention
-    from ray_tpu_torch.ops.paged_decode_attention import \
-        paged_decode_attention
+    from ray_tpu_torch.ops.paged_decode_attention import (
+        paged_decode_attention, paged_layout)
 
     first = {}
     eng = ContinuousBatcher(cfg, params=params, num_slots=8, max_len=2048,
                             block_size=64, token_callback=lambda r, t:
                             first.setdefault(r, time.perf_counter()), **kw)
-    for p in warm or [prompts[0][:16]]:
+    for p in [prompts[0][:16]] if warm is None else warm:
         eng.submit(p, max_new_tokens=2)
     eng.run_to_completion()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ticks0, pre0 = eng.base_tick_count, eng.prefill_seconds
+    ticks0, spec0, pre0 = (eng.base_tick_count, eng.spec_tick_count,
+                           eng.prefill_seconds)
     dec0, ptok0, hit0, pb0 = (eng.decoded_tokens, eng.prefill_tokens,
                               eng.prefix_hit_tokens, eng.prefill_batches)
+    rungs0 = dict(eng._spec_ticks)
+    drafted0, accepted0 = eng.spec_draft_tokens, eng.spec_accepted_tokens
     reset_launch_counts()
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
@@ -525,10 +574,16 @@ def serve(torch, cfg, params, prompts, max_new, warm=None, **kw):
     wall = time.perf_counter() - t0
     launches = {"paged": paged_decode_attention.launches,
                 "dense": decode_attention.launches}
-    ticks = eng.base_tick_count - ticks0
+    base_ticks = eng.base_tick_count - ticks0
+    spec_ticks = eng.spec_tick_count - spec0
+    ticks = base_ticks + spec_ticks
     decode_s = wall - (eng.prefill_seconds - pre0)
+    drafted = eng.spec_draft_tokens - drafted0
+    accepted = eng.spec_accepted_tokens - accepted0
+    external = bool(eng.spec_k and eng.drafter.external)
     stats = dict(
-        requests=len(prompts), ticks=ticks, launches=launches,
+        requests=len(prompts), ticks=ticks, base_ticks=base_ticks,
+        spec_ticks=spec_ticks, launches=launches,
         wall_s=wall, ttft_p50_ms=float(np.median(
             [first[r] - t0 for r in rids])) * 1e3,
         tick_ms=decode_s / max(ticks, 1) * 1e3,
@@ -539,18 +594,66 @@ def serve(torch, cfg, params, prompts, max_new, warm=None, **kw):
         prefix_hit_tokens=eng.prefix_hit_tokens - hit0,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         kernel=eng.use_decode_kernel, paged=eng.paged,
-        prefix_cache=eng.prefix_cache, sync_every=eng.sync_every)
+        prefix_cache=eng.prefix_cache, sync_every=eng.sync_every,
+        kv_dtype=eng.kv_dtype)
+    if eng.paged:
+        # (group tile, splits, chunk tokens) the paged wrapper picks from
+        # the shapes: a spec engine's table is wider (max_len + spec_k).
+        stats["table_entries"] = eng.max_blocks
+        stats["paged_layout"] = paged_layout(
+            eng.num_slots, cfg.num_heads, cfg.num_kv_heads, eng.max_blocks,
+            eng.block_size,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+    if eng.spec_k:
+        # Ticks at each rung k in this run, and the draft depth: the
+        # launch counts follow from them (want_launches).
+        stats.update(
+            spec_k=eng.spec_k, spec_adaptive=eng.spec_adaptive,
+            spec_rungs={k: n - rungs0.get(k, 0)
+                        for k, n in sorted(eng._spec_ticks.items())
+                        if n > rungs0.get(k, 0)},
+            draft_layers=0 if external else eng.spec_draft_layers,
+            drafter_layers=eng.spec_draft_layers if external else 0,
+            drafted=drafted, accepted=accepted,
+            accept_rate=accepted / drafted if drafted else 0.0,
+            committed_per_tick=(eng.decoded_tokens - dec0) / max(ticks, 1),
+            # Tokens a slot commits a spec tick (k fixed: drafted / k
+            # slot rows ran).
+            committed_per_slot_tick=(
+                (eng.decoded_tokens - dec0) / (drafted / eng.spec_k)
+                if drafted and not eng.spec_adaptive else None),
+            final_k=eng._spec_cur_k)
     return [out[r] for r in rids], stats
 
 
+def want_launches(st, num_layers):
+    """Decode-kernel launches the run must count: num_layers a plain tick
+    on the engine's own plane; a spec tick at rung k launches the paged
+    kernel (k + 1) num_layers times in verify and, per draft step,
+    draft_layers times (self-draft, paged) or drafter_layers times (an
+    external drafter, dense). The plain versions launch nothing."""
+    want = {"paged": 0, "dense": 0}
+    if not st["kernel"]:
+        return want
+    want["paged" if st["paged"] else "dense"] += num_layers * st["base_ticks"]
+    for k, n in st.get("spec_rungs", {}).items():
+        want["paged"] += n * (k + 1) * num_layers
+        if st["drafter_layers"]:
+            want["dense"] += n * k * st["drafter_layers"]
+        else:
+            want["paged"] += n * k * st["draft_layers"]
+    return want
+
+
 def check_launches(st, num_layers, what):
-    """The engine's own decode kernel launched num_layers times a tick,
-    the other decode kernel never."""
-    own, other = ("paged", "dense") if st["paged"] else ("dense", "paged")
-    if (not st["kernel"] or st["launches"][own] != num_layers * st["ticks"]
-            or st["launches"][other]):
-        fail(f"{what}: launches {st['launches']} for {st['ticks']} ticks "
-             f"x {num_layers} layers (want {own} only)")
+    """The run launched the decode kernels ``want_launches`` says: on a
+    plain engine, its own kernel num_layers times a tick and the other
+    never."""
+    want = want_launches(st, num_layers)
+    if st["launches"] != want:
+        fail(f"{what}: launches {st['launches']} for {st['base_ticks']} "
+             f"plain and {st['spec_ticks']} spec ticks x {num_layers} "
+             f"layers (want {want})")
 
 
 def profile_ticks(torch, cfg, params, prompts, n_ticks=5, **kw):
@@ -628,8 +731,7 @@ def end_to_end(torch, card):
                           {"paged": False, "use_decode_kernel": False})]:
         outs, st = serve(torch, cfg, params, ps, 32, **kw)
         check_outputs(outs, 32, cfg.vocab_size, f"e2e {name}")
-        if kw.get("use_decode_kernel", True):
-            check_launches(st, cfg.num_layers, f"e2e {name}")
+        check_launches(st, cfg.num_layers, f"e2e {name}")
         st["card"] = card
         if name.startswith("dense"):
             st["agree_with_paged"] = sum(
@@ -644,15 +746,118 @@ def end_to_end(torch, card):
                            card)
     runs["buffered"] = timed("phase 17", buffered_serving, torch, cfg,
                              params, prompts, outputs["bf16"], card)
-    for name, kw in [("bf16", {}), ("dense", {"paged": False})]:
+    runs["spec"] = timed("phase 19", spec_serving, torch, cfg, params,
+                         prompts, outputs, card)
+    for name, run, kw in [("bf16", runs["bf16"], {}),
+                          ("dense", runs["dense"], {"paged": False}),
+                          ("spec", runs["spec"]["self-bf16"], SPEC_RUN)]:
         prof = profile_ticks(torch, cfg, params, prompts, **kw)
-        prof["idle_share"] = 1.0 - prof["device_busy_ms_per_tick"] / runs[
-            name]["tick_ms"]
+        prof["idle_share"] = 1.0 - prof["device_busy_ms_per_tick"] / run[
+            "tick_ms"]
         print(f"[profile] {name} decode tick, 8 slots: {json.dumps(prof)}")
-        runs[name]["profile"] = prof
+        run["profile"] = prof
     runs["scoring"] = timed("phase 18", scoring, torch, cfg, params,
                             prompts, outputs["bf16"], card)
     del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def spec_tick_check(torch, cfg, params, prompts, card):
+    """One self-draft spec tick at Llama-3-8B (k = SPEC_RUN's, 8 slots):
+    every paged launch on layer 0 of the arena (k draft steps and k + 1
+    verify positions) against ``paged_attention_reference`` on its own
+    inputs, computed right after the launch (later launches write the
+    arena in place), within the phase-3 bf16 tolerance."""
+    from ray_tpu_torch.models import continuous_batching as cb
+    from ray_tpu_torch.ops.paged_decode_attention import \
+        paged_attention_reference
+
+    atol, rtol = SPEC_CHECK_TOL
+    eng = cb.ContinuousBatcher(cfg, params=params, num_slots=8,
+                               max_len=2048, block_size=64, **SPEC_RUN)
+    for p in prompts[:8]:
+        eng.submit(p, max_new_tokens=8)
+    eng.step()                       # admission and a first spec tick
+    layer0 = eng.cache.k[0].data_ptr()
+    inner = cb.paged_decode_attention
+    calls = []
+
+    def checked(q, ck, cv, tables, pos, scale=None, **kw):
+        out = inner(q, ck, cv, tables, pos, scale, **kw)
+        if ck.data_ptr() == layer0:
+            kw.pop("use_kernel", None)
+            ref = paged_attention_reference(q, ck, cv, tables, pos, scale,
+                                            **kw)
+            err, ok, n_bad = close(torch, out, ref, atol, rtol)
+            calls.append(dict(positions=pos.tolist(), max_abs_err=err,
+                              max_abs_ref=float(ref.float().abs().max()),
+                              ok=ok, elements_out=n_bad))
+        return out
+
+    ticks0 = eng.spec_tick_count
+    cb.paged_decode_attention = checked
+    try:
+        eng.step()
+    finally:
+        cb.paged_decode_attention = inner
+    k = SPEC_RUN["spec_k"]
+    if eng.spec_tick_count != ticks0 + 1 or len(calls) != 2 * k + 1:
+        fail(f"spec check: {eng.spec_tick_count - ticks0} spec ticks, "
+             f"{len(calls)} layer-0 paged calls (want 1 and {2 * k + 1})")
+    bad = [c for c in calls if not c["ok"]]
+    st = dict(calls=len(calls), tol=SPEC_CHECK_TOL,
+              max_abs_err=max(c["max_abs_err"] for c in calls),
+              max_abs_ref=max(c["max_abs_ref"] for c in calls), card=card)
+    print(f"[spec-check] layer-0 paged launches of one spec tick: "
+          f"{json.dumps(st)}")
+    if bad:
+        fail(f"spec check: paged kernel disagrees with the plain version "
+             f"in {len(bad)} of {len(calls)} layer-0 calls: {bad[:2]}")
+    del eng
+    torch.cuda.empty_cache()
+    return st
+
+
+def spec_serving(torch, cfg, params, prompts, outputs, card):
+    """Phase 19: the phase-5 requests (4 on an int8 arena) through
+    speculative decode, k = 4, adaptive off unless a run says otherwise:
+    self-draft (the default 8 of 32 layers) on bf16 and int8 arenas and
+    with sync_every=4, an external drafter at Llama-3.2-1B's widths, and
+    JAX's default (adaptive on). Gated: 32 in-vocab tokens each, the
+    launch counts of want_launches, spec ticks run, one tick's layer-0
+    launches against the plain version (spec_tick_check). Reported:
+    agreement with phase 5 and partings."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.inference import ExternalLlamaDrafter
+
+    runs = {"check": spec_tick_check(torch, cfg, params, prompts, card)}
+    fixed = dict(SPEC_RUN)
+    for name, ps, kw, against in [
+            ("self-bf16", prompts, fixed, "bf16"),
+            ("self-int8", prompts[:4], dict(fixed, kv_dtype="int8"), "int8"),
+            ("self-buffered", prompts, dict(fixed, sync_every=4), "bf16"),
+            ("external", prompts, dict(fixed, drafter=None), "bf16"),
+            ("adaptive", prompts, dict(spec_k=fixed["spec_k"]), "bf16")]:
+        if "drafter" in kw:
+            # Made for its run alone, so the other runs' peak memory
+            # leaves its 2.9 GB of weights out.
+            kw["drafter"] = ExternalLlamaDrafter(
+                llama.LlamaConfig(**DRAFTER), seed=1, device="cuda")
+        outs, st = serve(torch, cfg, params, ps, 32, **kw)
+        kw.pop("drafter", None)
+        check_outputs(outs, 32, cfg.vocab_size, f"spec {name}")
+        check_launches(st, cfg.num_layers, f"spec {name}")
+        if not st["spec_ticks"]:
+            fail(f"spec {name}: no spec tick ran")
+        st["agree_with_phase5"] = sum(
+            a == b for a, b in zip(outs, outputs[against]))
+        st["partings"] = partings(torch, params, cfg, ps, outs,
+                                  outputs[against], f"spec-{name}",
+                                  against=f"phase-5 {against}")
+        st["card"] = card
+        print(f"[spec] {name}: {json.dumps(st)}")
+        runs[name] = st
     torch.cuda.empty_cache()
     return runs
 
@@ -916,8 +1121,7 @@ def engine_parity(torch):
                      ("dense-plain", {"paged": False,
                                       "use_decode_kernel": False})]:
         got[name], st = serve(torch, cfg, params, prompts, 16, **kw)
-        if kw.get("use_decode_kernel", True):
-            check_launches(st, cfg.num_layers, f"parity {name}")
+        check_launches(st, cfg.num_layers, f"parity {name}")
     check_agree(torch, params, cfg, prompts, got["paged-plain"],
                 got["paged"], "paged kernel and plain engines")
     for name in ("dense", "dense-plain"):
@@ -928,8 +1132,10 @@ def engine_parity(torch):
     check_agree(torch, params, cfg, prompts[:1], [one], got["paged"][:1],
                 "LlamaGenerator and paged-kernel engine")
     del gen
-    timed("phase 16", engine_parity_16, torch, cfg, params, prompts, got,
-          rng)
+    pprompts, warm, prefix_runs = timed("phase 16", engine_parity_16, torch,
+                                        cfg, params, prompts, got, rng)
+    timed("phase 20", spec_parity, torch, cfg, params, prompts, got,
+          pprompts, warm, prefix_runs)
     del params
     torch.cuda.empty_cache()
 
@@ -942,12 +1148,13 @@ def engine_parity_16(torch, cfg, params, prompts, got, rng):
     shared = rng.integers(0, cfg.vocab_size, size=512).tolist()
     pprompts = [shared + rng.integers(0, cfg.vocab_size, size=n).tolist()
                 for n in (5, 70, 200, 1)]
+    warm = [shared + [1, 2, 3]]
+    prefix_runs = {}
     for kv in ("bf16", "int8"):
-        runs = {}
+        runs = prefix_runs[kv] = {}
         for on in (True, False):
             runs[on], st = serve(torch, cfg, params, pprompts, 16,
-                                 warm=[shared + [1, 2, 3]], prefix_cache=on,
-                                 kv_dtype=kv)
+                                 warm=warm, prefix_cache=on, kv_dtype=kv)
             check_launches(st, cfg.num_layers, f"prefix {on} {kv}")
             if st["prefix_hit_tokens"] != (len(pprompts) * 512 if on else 0):
                 fail(f"parity prefix {on} {kv}: "
@@ -959,6 +1166,67 @@ def engine_parity_16(torch, cfg, params, prompts, got, rng):
         check_launches(st, cfg.num_layers, f"buffered {name}")
         check_agree(torch, params, cfg, prompts, buf, got[name],
                     f"sync_every=4 and 1, {name}")
+    return pprompts, warm, prefix_runs
+
+
+def spec_parity(torch, cfg, params, prompts, got, pprompts, warm,
+                prefix_runs):
+    """Phase 20: in phase 6's 2-layer fp32 model, greedy spec decode
+    (self-draft of 1 layer, k = 2 and 4, the ladder held) against the
+    spec-off runs of phases 6 and 16, with the kernel and the plain
+    attention, on model-dtype and int8 arenas, at sync_every 1 and 4,
+    with the prefix cache on and off, and with an external 1-layer fp32
+    drafter of the same vocabulary: the same tokens (a divergence passes
+    only at a top-2 margin below TOP2_MARGIN), at want_launches' counts.
+    Then sampled spec decode twice a sync_every (1 and 4) with one seed
+    and no warm-up (a warm-up's buffered rows would move the step count
+    the measured run starts from): the same tokens each time, and the same
+    at 1 and 4."""
+    from ray_tpu_torch.models.inference import ExternalLlamaDrafter
+
+    drafter = ExternalLlamaDrafter(dataclasses.replace(cfg, num_layers=1),
+                                   seed=3, device="cuda")
+    base_int8, st = serve(torch, cfg, params, prompts, 16, kv_dtype="int8")
+    check_launches(st, cfg.num_layers, "spec-off int8")
+    cases = [("kernel", prompts, {}, got["paged"]),
+             ("plain", prompts, {"use_decode_kernel": False},
+              got["paged-plain"]),
+             ("int8", prompts, {"kv_dtype": "int8"}, base_int8),
+             ("sync_every=4", prompts, {"sync_every": 4}, got["paged"]),
+             ("prefix-on", pprompts, {"warm": warm, "prefix_cache": True},
+              prefix_runs["bf16"][True]),
+             ("prefix-off", pprompts, {"warm": warm, "prefix_cache": False},
+              prefix_runs["bf16"][False]),
+             ("external", prompts, {"drafter": drafter}, got["paged"])]
+    counts = {}
+    for k in (2, 4):
+        for name, ps, kw, want in cases:
+            outs, st = serve(torch, cfg, params, ps, 16, spec_k=k,
+                             spec_draft_layers=1, spec_adaptive=False, **kw)
+            what = f"spec k={k} {name}"
+            check_launches(st, cfg.num_layers, what)
+            if not st["spec_ticks"]:
+                fail(f"{what}: no spec tick ran")
+            check_agree(torch, params, cfg, ps, outs, want,
+                        f"{what} and spec-off")
+            counts[f"k={k} {name}"] = (st["spec_ticks"], st["accept_rate"])
+    print(f"[spec-parity] spec ticks and accept rates: {json.dumps(counts)}")
+    sampled = {}
+    for sync_every in (1, 4):
+        for rep in range(2):
+            sampled[sync_every, rep], st = serve(
+                torch, cfg, params, prompts, 16, warm=[], spec_k=2,
+                spec_draft_layers=1, spec_adaptive=False,
+                sync_every=sync_every, sampling=SPEC_SAMPLING)
+            check_launches(st, cfg.num_layers, f"sampled spec {sync_every}")
+        if sampled[sync_every, 0] != sampled[sync_every, 1]:
+            fail(f"sampled spec, sync_every={sync_every}: two runs with one "
+                 f"seed differ")
+    if sampled[1, 0] != sampled[4, 0]:
+        fail("sampled spec: sync_every=4 differs from sync_every=1")
+    print(f"[spec-parity] sampled spec ({SPEC_SAMPLING}): the same tokens "
+          f"in two runs at sync_every 1 and 4, and across them")
+    del drafter
 
 
 def reset_launch_counts():
@@ -1321,11 +1589,11 @@ def dense_ms(torch, root):
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     out = {}
-    for i, (name, kind, s_max, layer_view, positions, _, _) in enumerate(
+    for i, (name, kind, s_max, layers, positions, _, _) in enumerate(
             DENSE_CASES):
         if name not in DENSE_TIMED:
             continue
-        c = dense_case(torch, kind, s_max, layer_view, positions,
+        c = dense_case(torch, name, kind, s_max, layers, positions,
                        seed=20 + i)
         args = (c["q"], c["k"], c["v"], c["pos"])
         out[name] = dict(
@@ -1378,8 +1646,8 @@ def main():
 
     timing = timed("phases 3-4", kernel_phases, torch)
     dense = timed("phases 11-12", dense_kernel_phases, torch)
-    runs = timed("phases 5, 13, 15, 17, 18", end_to_end, torch, card)
-    timed("phases 6, 14, 16", engine_parity, torch)
+    runs = timed("phases 5, 13, 15, 17, 18, 19", end_to_end, torch, card)
+    timed("phases 6, 14, 16, 20", engine_parity, torch)
     flash = timed("phases 7-8", flash_phases, torch)
     timed("phase 9", model_parity, torch)
     train = timed("phase 10", train_end_to_end, torch, card)
@@ -1390,6 +1658,7 @@ def main():
         source="ray_tpu_torch/ops/csrc/paged_decode_attention.cu",
         replaces="ray_tpu/ops/paged_decode_attention.py:90",
         launches=runs["bf16"]["launches"]["paged"],
+        spec_launches=runs["spec"]["self-bf16"]["launches"]["paged"],
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], kernel_ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
@@ -1416,6 +1685,7 @@ def main():
         source="ray_tpu_torch/ops/csrc/decode_attention.cu",
         replaces="ray_tpu/ops/decode_attention.py:98",
         launches=runs["dense"]["launches"]["dense"],
+        spec_launches=runs["spec"]["external"]["launches"]["dense"],
         max_abs_err=main_dense["max_abs_err"], ms=main_dense["ms"],
         plain_ms=main_dense["plain_ms"], bound_ms=main_dense["bound_ms"],
         bound_by=main_dense["bound_by"],

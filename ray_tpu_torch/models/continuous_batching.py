@@ -30,9 +30,17 @@ ahead of the host and fetches their tokens in batches, rewinding to the
 host's state when a request finishes. ``swap_params`` and
 ``score_logprobs`` are the hooks a training loop drives.
 
-Not in this slice (each raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it): speculative decode and disaggregated
-roles.
+Speculative decode (``spec_k > 0``, paged engines): a drafter (the
+target's first layers over its own arena, or a small external model over
+its own dense cache) proposes k tokens a slot, one verify pass scores the
+k+1 window positions through the paged attention, and each slot commits
+its accepted prefix plus one token of the target's
+(:func:`~ray_tpu_torch.models.sampling.spec_commit`). Reservations carry
+``spec_k`` look-ahead tokens, so rejected draft writes stay in the
+slot's own blocks.
+
+Not in this slice (raises ``NotImplementedError`` naming the ROADMAP.md
+item that ports it): disaggregated roles.
 """
 
 from __future__ import annotations
@@ -47,30 +55,38 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models import llama
-from ray_tpu_torch.models.inference import (KVCache, _attend_cached,
+from ray_tpu_torch.models.inference import (KVCache, SelfDrafter,
+                                            _attend_cached,
                                             _forward_cached, _layer, _mlp,
                                             _proj, lm_head_logits)
 from ray_tpu_torch.models.paged_kv import (GARBAGE_BLOCK, BlockAllocator,
                                            PagedKVCache, RadixBlockIndex,
                                            prompt_chunks, quantize_kv,
                                            resolve_kv_dtype)
-from ray_tpu_torch.models.sampling import (SamplingParams, sample_tokens,
-                                           step_key)
+from ray_tpu_torch.models.sampling import (SPEC_DRAFT_SALT, SamplingParams,
+                                           filtered_probs, sample_tokens,
+                                           spec_commit, step_key)
 from ray_tpu_torch.ops.decode_attention import decode_attention, env_flag
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.paged_decode_attention import paged_decode_attention
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 
-def _apply_rope_batched(x, cos, sin):
-    """RoPE with per-batch angles: x [B, 1, H, D], cos/sin [B, D//2]."""
+def _apply_rope_window(x, cos, sin):
+    """RoPE with per-(slot, position) angles: x [B, S, H, D], cos/sin
+    [B, S, D//2] (a tick is the window S = 1)."""
     dtype = x.dtype
     x = x.float()
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
-    c = cos[:, None, None, :]
-    s = sin[:, None, None, :]
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dtype)
+
+
+def _apply_rope_batched(x, cos, sin):
+    """RoPE with per-batch angles: x [B, 1, H, D], cos/sin [B, D//2]."""
+    return _apply_rope_window(x, cos[:, None], sin[:, None])
 
 
 def _slot_rows(positions, s_max: int):
@@ -92,15 +108,29 @@ def _scatter_slot(cache, new, rows):
 
 def _scatter_arena(arena, new, flat_pos):
     """Paged scatter, IN PLACE: arena [NB, bs, ...] viewed flat over
-    tokens; one entry per slot written at ``flat_pos`` [B] (= block_id *
-    bs + offset). Returns ``arena``. Freed slots all target the garbage
-    block: ``index_copy_`` with duplicate indices keeps an arbitrary
-    one of them, which is harmless because only freed slots ever attend
-    block 0."""
+    tokens; one entry per row of ``new`` written at ``flat_pos`` (=
+    block_id * bs + offset). Returns ``arena``. Freed slots all target
+    the garbage block: ``index_copy_`` with duplicate indices keeps an
+    arbitrary one of them, which is harmless because only freed slots
+    ever attend block 0."""
     nb, bs = arena.shape[0], arena.shape[1]
     flat = arena.view(nb * bs, *arena.shape[2:])
     flat.index_copy_(0, flat_pos, new.to(arena.dtype))
     return arena
+
+
+def _arena_rows(positions, tables, limits, bs: int):
+    """Flat arena rows (block_id * bs + offset) of writes at
+    ``positions`` [B, S], resolved through each slot's table row. A write
+    at or past the slot's ``limits`` would alias its last live block
+    through the table tail, so it goes to the garbage block instead (the
+    table index is clamped first, as JAX's gather clamps)."""
+    pos = positions.long()
+    idx = (pos // bs).clamp(max=tables.shape[1] - 1)
+    gathered = torch.gather(tables.long(), 1, idx)
+    block_idx = torch.where(pos < limits.long()[:, None], gathered,
+                            GARBAGE_BLOCK)
+    return block_idx * bs + pos % bs
 
 
 def _next_tokens(logits, step: int, sampling: SamplingParams,
@@ -119,87 +149,109 @@ def _next_tokens(logits, step: int, sampling: SamplingParams,
 _PREFILL_SALT = 1  # prefill sampling stream, distinct from decode's
 
 
-def _layer_qkv(x, layer, cos, sin, c):
-    """Per-layer projections of the tick: attn-norm, Q/K/V, RoPE on Q and
-    K (V unrotated). x [B, 1, E]; cos/sin [B, D//2]."""
+def _layer_qkv_window(x, layer, cos, sin, c):
+    """Per-layer projections over a window of S tokens a slot: attn-norm,
+    Q/K/V, RoPE on Q and K (V unrotated). x [B, S, E]; cos/sin
+    [B, S, D//2]. The tick is S = 1; verify's k+1 tokens ride the rows of
+    the same products."""
     h = rms_norm(x, layer["attn_norm"], c.rms_eps)
     q = _proj(h, layer["wq"].to(c.dtype))
     k = _proj(h, layer["wk"].to(c.dtype))
     v = _proj(h, layer["wv"].to(c.dtype))
-    return (_apply_rope_batched(q, cos, sin),
-            _apply_rope_batched(k, cos, sin), v)
+    return (_apply_rope_window(q, cos, sin),
+            _apply_rope_window(k, cos, sin), v)
 
 
-def _layer_finish(x, o, layer, c):
-    """Per-layer tail of the tick: attention output projection + gated
-    MLP. o [B, H, D]."""
-    b = o.shape[0]
-    x = x + (o.reshape(b, -1) @ layer["wo"].to(c.dtype).reshape(
-        -1, c.hidden_size))[:, None, :]
+def _layer_finish_window(x, o, layer, c):
+    """Per-layer tail over a window: attention output projection + gated
+    MLP. x [B, S, E]; o [B, S, H, D]."""
+    x = x + _proj(o.reshape(*o.shape[:2], -1),
+                  layer["wo"].to(c.dtype).reshape(-1, c.hidden_size))
     return _mlp(x, layer, c)
+
+
+def _window_embed(params, tokens, positions, c):
+    """Embeddings and RoPE angles of tokens [B, S] at ``positions``
+    [B, S]: (x [B, S, E], cos, sin [B, S, D//2])."""
+    b, s = tokens.shape
+    cos, sin = rope_frequencies(c.head_dim, 0, c.rope_theta,
+                                positions=positions.reshape(-1))
+    x = params["embed"].to(c.dtype)[tokens.long()]
+    return x, cos.reshape(b, s, -1), sin.reshape(b, s, -1)
+
+
+def _dense_forward(params, tokens, positions, cache: KVCache,
+                   config: llama.LlamaConfig, use_kernel: bool):
+    """One token a slot through every layer over the dense cache: tokens
+    [B] at per-slot absolute ``positions`` [B]. Writes each slot's new
+    K/V into ``cache`` in place (rows clamped into the cache, as JAX's
+    ``dynamic_update_slice`` clamps) and returns fp32 logits [B, 1, V].
+    ``use_kernel`` routes attention through the dense CUDA kernel (True)
+    or its plain version (False)."""
+    c = config
+    x, cos, sin = _window_embed(params, tokens[:, None], positions[:, None],
+                                c)
+    scale = c.head_dim ** -0.5
+    rows = _slot_rows(positions, cache.k.shape[2])
+    for li in range(c.num_layers):
+        layer = _layer(params, li)
+        q, k, v = _layer_qkv_window(x, layer, cos, sin, c)
+        ck = _scatter_slot(cache.k[li], k[:, 0], rows)
+        cv = _scatter_slot(cache.v[li], v[:, 0], rows)
+        o = decode_attention(q[:, 0], ck, cv, positions, scale,
+                             use_kernel=use_kernel)
+        x = _layer_finish_window(x, o.to(x.dtype)[:, None], layer, c)
+    x = rms_norm(x, params["final_norm"], c.rms_eps)
+    return lm_head_logits(x, params, c)
 
 
 def _decode_tick(params, tokens, positions, cache: KVCache, step: int,
                  config: llama.LlamaConfig, use_kernel: bool = False,
                  sampling: SamplingParams = SamplingParams()):
-    """One decode step for every slot over the dense cache: tokens [B] at
-    per-slot absolute ``positions`` [B]. Writes each slot's new K/V into
-    ``cache`` in place and returns (next_tokens [B], positions + 1,
-    cache, step + 1). ``use_kernel`` routes attention through the dense
-    CUDA kernel (True) or its plain version (False)."""
-    c = config
-    cos, sin = rope_frequencies(c.head_dim, 0, c.rope_theta,
-                                positions=positions)
-    x = params["embed"].to(c.dtype)[tokens.long()][:, None, :]
-    scale = c.head_dim ** -0.5
-    rows = _slot_rows(positions, cache.k.shape[2])
-    for li in range(c.num_layers):
-        layer = _layer(params, li)
-        q, k, v = _layer_qkv(x, layer, cos, sin, c)
-        ck = _scatter_slot(cache.k[li], k[:, 0], rows)
-        cv = _scatter_slot(cache.v[li], v[:, 0], rows)
-        o = decode_attention(q[:, 0], ck, cv, positions, scale,
-                             use_kernel=use_kernel)
-        x = _layer_finish(x, o.to(x.dtype), layer, c)
-    x = rms_norm(x, params["final_norm"], c.rms_eps)
-    logits = lm_head_logits(x, params, c)
+    """One decode step for every slot over the dense cache
+    (:func:`_dense_forward`) and its token selection. Returns
+    (next_tokens [B], positions + 1, cache, step + 1)."""
+    logits = _dense_forward(params, tokens, positions, cache, config,
+                            use_kernel)
     next_tokens = _next_tokens(logits, step, sampling)
     return next_tokens, positions + 1, cache, step + 1
 
 
-def _decode_tick_paged(params, tokens, positions, tables, limits,
-                       cache: PagedKVCache, step: int,
-                       config: llama.LlamaConfig, use_kernel: bool = False,
-                       sampling: SamplingParams = SamplingParams()):
-    """One decode step for every slot: tokens [B] at per-slot absolute
-    ``positions`` [B]; ``tables`` [B, max_blocks] int32 (dead tail
+def _paged_forward(params, num_layers: int, tokens, positions, tables,
+                   limits, cache: PagedKVCache, config: llama.LlamaConfig,
+                   use_kernel: bool):
+    """A window of S tokens a slot through the first ``num_layers``
+    layers over the paged arena: tokens [B, S] at per-slot absolute
+    ``positions`` [B, S]; ``tables`` [B, max_blocks] int32 (dead tail
     entries repeat the last live block; freed slots point wholesale at
     the garbage block); ``limits`` [B] is each slot's table-covered token
-    count. Writes each slot's new K/V into ``cache`` in place and returns
-    (next_tokens [B], positions + 1, cache, step + 1)."""
+    count. Returns fp32 logits [B, S, V] through the final norm and LM
+    head.
+
+    Each layer writes all S tokens' K/V into the arena IN PLACE before
+    any query attends; query j then attends positions [0..p_j] through
+    :func:`~ray_tpu_torch.ops.paged_decode_attention.paged_decode_attention`
+    (the CUDA kernel with ``use_kernel``, one call a window position),
+    so its later window neighbours stay masked. Writes past ``limits``
+    go to the garbage block. The tick is S = 1 over every layer, the
+    self-draft S = 1 over the first n, verify S = k+1 over every layer."""
     c = config
     quantized = cache.quantized
     bs = cache.block_size
-    cos, sin = rope_frequencies(c.head_dim, 0, c.rope_theta,
-                                positions=positions)
-    x = params["embed"].to(c.dtype)[tokens.long()][:, None, :]
+    b, s = tokens.shape
+    x, cos, sin = _window_embed(params, tokens, positions, c)
     scale = c.head_dim ** -0.5
-    # The tick writes at `positions`: resolve each slot's target block
-    # once (shared by every layer). A write past ``limits`` would alias
-    # the slot's last live block through the table tail, so it goes to
-    # the garbage block instead.
-    pos = positions.long()
-    gathered = torch.gather(tables.long(), 1, (pos // bs)[:, None])[:, 0]
-    block_idx = torch.where(pos < limits.long(), gathered,
-                            torch.full_like(gathered, GARBAGE_BLOCK))
-    flat_pos = block_idx * bs + pos % bs                        # [B]
-
-    for li in range(c.num_layers):
+    flat_pos = _arena_rows(positions, tables, limits, bs).reshape(-1)
+    pos_cols = positions.t().contiguous()    # [S, B]: one row a position
+    for li in range(num_layers):
         layer = _layer(params, li)
-        q, k, v = _layer_qkv(x, layer, cos, sin, c)
-        k_tok, v_tok = k[:, 0], v[:, 0]                         # [B, KVH, D]
+        q, k, v = _layer_qkv_window(x, layer, cos, sin, c)
+        k_tok = k.reshape(b * s, *k.shape[2:])                # [B*S, KVH, D]
+        v_tok = v.reshape(b * s, *v.shape[2:])
         ksl = vsl = None
         if quantized:
+            # Scales reduce over D alone, so a window's quantization is
+            # the tick's, token for token.
             kq, ksc = quantize_kv(k_tok)
             vq, vsc = quantize_kv(v_tok)
             ksl = _scatter_arena(cache.k_scale[li], ksc, flat_pos)
@@ -208,14 +260,131 @@ def _decode_tick_paged(params, tokens, positions, tables, limits,
             kq, vq = k_tok, v_tok
         ck = _scatter_arena(cache.k[li], kq, flat_pos)
         cv = _scatter_arena(cache.v[li], vq, flat_pos)
-        o = paged_decode_attention(q[:, 0], ck, cv, tables, positions,
+        o = torch.stack([
+            paged_decode_attention(q[:, j], ck, cv, tables, pos_cols[j],
                                    scale, k_scale=ksl, v_scale=vsl,
-                                   use_kernel=use_kernel)
-        x = _layer_finish(x, o.to(x.dtype), layer, c)
+                                   use_kernel=use_kernel).to(x.dtype)
+            for j in range(s)], dim=1)                        # [B, S, H, D]
+        x = _layer_finish_window(x, o, layer, c)
     x = rms_norm(x, params["final_norm"], c.rms_eps)
-    logits = lm_head_logits(x, params, c)
+    return lm_head_logits(x, params, c)
+
+
+def _decode_tick_paged(params, tokens, positions, tables, limits,
+                       cache: PagedKVCache, step: int,
+                       config: llama.LlamaConfig, use_kernel: bool = False,
+                       sampling: SamplingParams = SamplingParams()):
+    """One decode step for every slot (:func:`_paged_forward` of one
+    token a slot over every layer) and its token selection. Returns
+    (next_tokens [B], positions + 1, cache, step + 1), the cache written
+    in place."""
+    logits = _paged_forward(params, config.num_layers, tokens[:, None],
+                            positions[:, None], tables, limits, cache,
+                            config, use_kernel)
     next_tokens = _next_tokens(logits, step, sampling)
     return next_tokens, positions + 1, cache, step + 1
+
+
+def _draft_forward_paged(params, n_draft: int, tokens, positions, tables,
+                         limits, cache: PagedKVCache,
+                         config: llama.LlamaConfig, use_kernel: bool):
+    """One self-draft step: tokens [B] at ``positions`` [B] through the
+    target's first ``n_draft`` layers, reading and writing the target's
+    own arena (layers [0:n)) in place, with the tick's tables, limits and
+    garbage redirect; the target's final norm and LM head. Returns
+    (draft logits [B, V] fp32, cache)."""
+    logits = _paged_forward(params, n_draft, tokens[:, None],
+                            positions[:, None], tables, limits, cache,
+                            config, use_kernel)
+    return logits[:, 0], cache
+
+
+def _draft_forward_dense(dparams, tokens, positions, dcache: KVCache,
+                         dconfig: llama.LlamaConfig, use_kernel: bool):
+    """The external drafter's step over its own dense per-slot cache.
+    JAX runs the reference attention here; the port runs the dense
+    attention with ``use_kernel`` (the CUDA kernel on the card). Returns
+    (logits [B, V] fp32, dcache), the cache written in place."""
+    logits = _dense_forward(dparams, tokens, positions, dcache, dconfig,
+                            use_kernel)
+    return logits[:, 0], dcache
+
+
+def _verify_forward_paged(params, tokens, positions, tables, limits,
+                          cache: PagedKVCache, config: llama.LlamaConfig,
+                          use_kernel: bool):
+    """One batched verify pass over each slot's k+1-token window: tokens
+    [B, S] at per-slot absolute ``positions`` [B, S] (= p .. p+k), over
+    every layer. The projections and the MLP take the window's B * S
+    rows in one product each (one pass over the weights for k+1
+    positions); attention runs once a window position through the paged
+    path (:func:`_paged_forward`). Returns (fp32 logits [B, S, V],
+    cache), the cache written in place."""
+    logits = _paged_forward(params, config.num_layers, tokens, positions,
+                            tables, limits, cache, config, use_kernel)
+    return logits, cache
+
+
+def _spec_tick_paged(params, tokens, positions, tables, limits,
+                     cache: PagedKVCache, step: int,
+                     config: llama.LlamaConfig, k: int, n_draft: int,
+                     use_kernel: bool, sampling: SamplingParams,
+                     draft_params=None, draft_cache=None,
+                     draft_config=None):
+    """Speculative decode tick: draft ``k`` tokens a slot, score the k+1
+    window positions in one verify pass, accept per slot on the device
+    (:func:`~ray_tpu_torch.models.sampling.spec_commit`).
+
+    The self-drafter (no ``draft_params``) runs the target's first
+    ``n_draft`` layers over the target's arena; an external drafter runs
+    its own model over ``draft_cache``. Drafts write K/V at p .. p+k-1
+    and verify at p .. p+k, all inside the slot's reservation (it holds
+    ``spec_k`` tokens of look-ahead); K/V past the committed length are
+    overwritten before any later query attends them. Sampled drafts draw
+    from the generator of (seed, SPEC_DRAFT_SALT, step, index = draft
+    position).
+
+    Returns ``(committed [B, k+1], counts [B], next_tokens [B],
+    next_positions [B], cache, draft_cache, step + 1)``."""
+    external = draft_params is not None
+    d_tokens: List[torch.Tensor] = []
+    d_probs: List[torch.Tensor] = []
+    tok, pos = tokens, positions
+    for i in range(k):
+        if external:
+            logits_d, draft_cache = _draft_forward_dense(
+                draft_params, tok, pos, draft_cache, draft_config,
+                use_kernel)
+        else:
+            logits_d, cache = _draft_forward_paged(
+                params, n_draft, tok, pos, tables, limits, cache, config,
+                use_kernel)
+        if sampling.greedy:
+            nxt = logits_d.argmax(dim=-1).to(torch.int32)
+        else:
+            # The drafter proposes from its own filtered distribution;
+            # acceptance needs those q rows.
+            probs = filtered_probs(logits_d, sampling.temperature,
+                                   sampling.top_p)
+            gen = step_key(sampling.seed, step, SPEC_DRAFT_SALT,
+                           device=probs.device, index=i)
+            nxt = torch.multinomial(probs, 1, generator=gen)[:, 0].to(
+                torch.int32)
+            d_probs.append(probs)
+        d_tokens.append(nxt)
+        tok, pos = nxt, pos + 1
+    window = torch.stack([tokens.to(torch.int32)] + d_tokens, dim=1)
+    window_pos = positions[:, None] + torch.arange(
+        k + 1, device=positions.device, dtype=positions.dtype)[None, :]
+    logits, cache = _verify_forward_paged(params, window, window_pos, tables,
+                                          limits, cache, config, use_kernel)
+    probs = torch.stack(d_probs, dim=1) if d_probs else None
+    committed, counts = spec_commit(torch.stack(d_tokens, dim=1), probs,
+                                    logits, step, sampling)
+    next_tokens = torch.gather(committed, 1, (counts.long() - 1)[:, None])[
+        :, 0]
+    return (committed, counts, next_tokens, positions + counts, cache,
+            draft_cache, step + 1)
 
 
 class _ArenaPrefix:
@@ -325,18 +494,43 @@ def _resolve_prefix_cache(prefix_cache: Optional[bool]) -> bool:
     return bool(prefix_cache)
 
 
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name, "").strip()
+    return int(raw) if raw else default
+
+
 def _resolve_spec_k(spec_k: Optional[int]) -> int:
-    """Explicit arg > ``RAY_TPU_SPEC_K`` env > 0."""
+    """Speculative depth: explicit arg > ``RAY_TPU_SPEC_K`` env > 0
+    (off)."""
     if spec_k is None:
-        raw = os.environ.get("RAY_TPU_SPEC_K", "").strip()
-        spec_k = int(raw) if raw else 0
+        spec_k = _env_int("RAY_TPU_SPEC_K", 0)
     spec_k = int(spec_k)
     if spec_k < 0:
         raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-    if spec_k:
-        raise llama.not_ported("speculative decoding (spec_k > 0)",
-                               "item 4b (engine features: speculative decode)")
-    return 0
+    return spec_k
+
+
+def _resolve_spec_draft_layers(arg: Optional[int], num_layers: int) -> int:
+    """Self-draft depth: explicit arg > ``RAY_TPU_SPEC_DRAFT_LAYERS`` env
+    > num_layers // 4 (at least 1)."""
+    if arg is None:
+        arg = _env_int("RAY_TPU_SPEC_DRAFT_LAYERS", max(1, num_layers // 4))
+    arg = int(arg)
+    if not 1 <= arg <= num_layers:
+        raise ValueError(
+            f"spec_draft_layers must be in [1, {num_layers}], got {arg}")
+    return arg
+
+
+def _spec_ladder(spec_k: int) -> List[int]:
+    """Adaptive-k rungs: the powers of two below spec_k, and spec_k."""
+    ks = set()
+    v = 1
+    while v < spec_k:
+        ks.add(v)
+        v *= 2
+    ks.add(spec_k)
+    return sorted(ks)
 
 
 def _resolve_role(role: Optional[str]) -> str:
@@ -396,6 +590,9 @@ class ContinuousBatcher:
                  prefix_cache: Optional[bool] = None,
                  sampling=None,
                  spec_k: Optional[int] = None,
+                 spec_draft_layers: Optional[int] = None,
+                 spec_adaptive: Optional[bool] = None,
+                 drafter=None,
                  role: Optional[str] = None,
                  device=None):
         """``token_callback(rid, token)`` fires for every generated token
@@ -435,7 +632,29 @@ class ContinuousBatcher:
         dtype; ``block_size``, ``kv_dtype``, ``num_blocks`` and
         ``prefix_cache`` are ignored, as in JAX. ``sampling`` is a
         :class:`~ray_tpu_torch.models.sampling.SamplingParams` or dict;
-        the default is greedy."""
+        the default is greedy.
+
+        SPECULATIVE DECODE (``spec_k`` > 0, or ``RAY_TPU_SPEC_K``; paged
+        engines only): each tick a drafter proposes up to ``spec_k``
+        tokens a slot, one verify pass scores the k+1 positions through
+        the paged attention, and each slot commits its accepted prefix
+        plus one token of the target's. ``drafter`` is a
+        :class:`~ray_tpu_torch.models.inference.SelfDrafter` (the
+        default: the target's first ``spec_draft_layers`` /
+        ``RAY_TPU_SPEC_DRAFT_LAYERS`` layers over its own arena) or an
+        :class:`~ray_tpu_torch.models.inference.ExternalLlamaDrafter`
+        (its own model and dense cache, the dense attention kernel on the
+        card; its params on this engine's device). Reservations carry
+        ``spec_k`` look-ahead tokens. ``spec_adaptive`` (default on;
+        ``RAY_TPU_SPEC_ADAPTIVE``) moves k along the ladder of
+        :func:`_spec_ladder` from the accept rate of the last
+        ``RAY_TPU_SPEC_WINDOW`` spec rows, down to 0 (the plain tick),
+        and probes the bottom rung again after
+        ``RAY_TPU_SPEC_PROBE_TICKS`` boundaries there. Greedy tokens are
+        the target's own (in fp32; bf16 verify products over B * (k+1)
+        rows may tile otherwise than the tick's); sampled acceptance is
+        rejection sampling, which keeps the target's distribution and
+        replays across buffered rewinds."""
         self.config = config
         self.device = llama.default_device(device)
         self.num_slots = num_slots
@@ -445,7 +664,6 @@ class ContinuousBatcher:
         self.sampling = SamplingParams.coerce(sampling)
         self.paged = _resolve_paged(paged)
         self.role = _resolve_role(role)
-        self.spec_k = _resolve_spec_k(spec_k)
         self.block_size = int(block_size)
         if self.paged and (self.block_size < 8
                            or self.block_size & (self.block_size - 1)):
@@ -459,7 +677,59 @@ class ContinuousBatcher:
             prefix_cache)
         self.use_decode_kernel = _resolve_decode_kernel(use_decode_kernel,
                                                         self.device)
-        self.base_tick_count = 0        # decode-tick dispatches
+        # Speculative decode resolves before the arena is sized: a
+        # reservation carries spec_k look-ahead tokens.
+        self.spec_k = _resolve_spec_k(spec_k)
+        self.drafter = drafter
+        if self.spec_k:
+            if not self.paged:
+                raise ValueError(
+                    "speculative decoding needs the paged KV plane (the "
+                    "garbage-block rewind substrate); use paged=True or "
+                    "spec_k=0")
+            if self.drafter is None:
+                self.drafter = SelfDrafter(spec_draft_layers)
+            if self.drafter.external:
+                if self.drafter.config.vocab_size != config.vocab_size:
+                    raise ValueError(
+                        "external drafter must share the target's "
+                        "vocabulary")
+                here = self.device
+                if here.type == "cuda" and here.index is None:
+                    here = torch.device("cuda", torch.cuda.current_device())
+                there = self.drafter.params["embed"].device
+                if there != here:
+                    raise ValueError(f"external drafter params live on "
+                                     f"{there}, the engine on {here}")
+                self.spec_draft_layers = self.drafter.config.num_layers
+            else:
+                self.spec_draft_layers = _resolve_spec_draft_layers(
+                    spec_draft_layers if spec_draft_layers is not None
+                    else self.drafter.draft_layers, config.num_layers)
+            if spec_adaptive is None:
+                spec_adaptive = env_flag("RAY_TPU_SPEC_ADAPTIVE")
+            self.spec_adaptive = (True if spec_adaptive is None
+                                  else bool(spec_adaptive))
+            self._spec_ladder_ks = _spec_ladder(self.spec_k)
+        else:
+            self.drafter = None
+            self.spec_draft_layers = 0
+            self.spec_adaptive = False
+            self._spec_ladder_ks = []
+        self._spec_cur_k = self.spec_k
+        self._spec_ticks: Dict[int, int] = {}   # rung k -> spec ticks run
+        self._last_tick_k = 0                   # k the last tick ran with
+        # (drafted, accepted) per applied spec row: the adaptive-k
+        # controller and spec_accept_rate read it.
+        self._spec_window: deque = deque(
+            maxlen=max(1, _env_int("RAY_TPU_SPEC_WINDOW", 128)))
+        self._spec_probe_after = max(
+            1, _env_int("RAY_TPU_SPEC_PROBE_TICKS", 256))
+        self._spec_probe_countdown = self._spec_probe_after
+        self.spec_draft_tokens = 0      # drafted, cumulative
+        self.spec_accepted_tokens = 0   # accepted by verify, cumulative
+        self.spec_tick_count = 0        # spec-tick dispatches
+        self.base_tick_count = 0        # plain-tick dispatches
         self.decoded_tokens = 0         # committed decode tokens
         # With the prefix cache on, prefill_tokens counts only the
         # prefilled (suffix) tokens; the hit/miss counters split prompts.
@@ -479,7 +749,9 @@ class ContinuousBatcher:
         self._prefix: Optional[RadixBlockIndex] = None
         self._slot_nodes: Dict[int, List[Any]] = {}   # slot -> pinned nodes
         if self.paged:
-            self.max_blocks = -(-max_len // self.block_size)
+            # The table covers max_len plus the look-ahead: a spec tick
+            # writes K/V up to p + spec_k, inside the slot's reservation.
+            self.max_blocks = -(-(max_len + self.spec_k) // self.block_size)
             self.num_blocks = int(num_blocks if num_blocks is not None
                                   else num_slots * self.max_blocks + 1)
             self.allocator = BlockAllocator(self.num_blocks)
@@ -487,6 +759,7 @@ class ContinuousBatcher:
             if self.prefix_cache:
                 self._prefix = RadixBlockIndex()
         self.cache = self._new_cache()
+        self._draft_cache = self._new_draft_cache()
         self._free: List[int] = list(range(num_slots))
         self._slots: Dict[int, Dict[str, Any]] = {}   # slot -> request
         # Decode state on the device between ticks, uploaded only when
@@ -516,6 +789,14 @@ class ContinuousBatcher:
                                        device=self.device)
         return KVCache.create(self.config, self.num_slots, self.max_len,
                               device=self.device)
+
+    def _new_draft_cache(self) -> Optional[KVCache]:
+        """The external drafter's dense per-slot cache (None without
+        one)."""
+        if not (self.spec_k and self.drafter.external):
+            return None
+        return KVCache.create(self.drafter.config, self.num_slots,
+                              self.max_len, device=self.device)
 
     # ---------------------------------------------------------------- api
     @property
@@ -650,8 +931,13 @@ class ContinuousBatcher:
         self._finished.clear()
         self._buf = []
         self._pending = None
-        self.cache = None              # free the old cache before the new
+        self.cache = self._draft_cache = None   # free the old caches first
         self.cache = self._new_cache()
+        self._draft_cache = self._new_draft_cache()
+        # Speculative state restarts at the configured k.
+        self._spec_cur_k = self.spec_k
+        self._spec_window.clear()
+        self._spec_probe_countdown = self._spec_probe_after
         if self.paged:
             self.allocator.reset()
             self._slot_blocks.clear()
@@ -700,7 +986,14 @@ class ContinuousBatcher:
 
     # ------------------------------------------------------------ internals
     def _blocks_needed(self, prompt_len: int, max_new: int) -> int:
-        return -(-(prompt_len + max_new) // self.block_size)
+        # spec_k look-ahead tokens past the committed length: rejected
+        # draft and verify writes land inside the slot's own reservation.
+        return -(-(prompt_len + max_new + self.spec_k) // self.block_size)
+
+    def _lookahead_blocks(self, prompt_len: int, max_new: int) -> int:
+        """Blocks of a reservation that are speculative look-ahead."""
+        return (self._blocks_needed(prompt_len, max_new)
+                - -(-(prompt_len + max_new) // self.block_size))
 
     def _can_admit_head(self) -> bool:
         """True when the FIFO head could admit now: a free slot and, when
@@ -783,6 +1076,7 @@ class ContinuousBatcher:
         bs = self.block_size
         padded_cap = self.max_blocks * bs if self.paged else self.max_len
         groups: Dict[tuple, List] = {}
+        draft_pending: List[tuple] = []   # (slot, prompt): external drafter
         while self._waiting and self._free:
             req = self._waiting[0]
             blocks: List[int] = []
@@ -874,8 +1168,16 @@ class ContinuousBatcher:
                     "max_new": req["max_new"],
                     "pos": len(req["prompt"]),   # next decode writes here
                     "last": tok,
+                    # Reserved look-ahead blocks (occupied, not free).
+                    "la_blocks": (self._lookahead_blocks(
+                        len(req["prompt"]), req["max_new"])
+                        if self.paged else 0),
                 }
                 self._maybe_finish(slot)
+                if self._draft_cache is not None and slot in self._slots:
+                    draft_pending.append((slot, req["prompt"]))
+        if draft_pending:
+            self._run_draft_prefill(draft_pending)
         self._dirty = True  # device tokens/positions need re-upload
 
     def _first_tokens(self, logits):
@@ -937,6 +1239,42 @@ class ContinuousBatcher:
         self.cache.v[:, idx] = stripes.v
         return self._first_tokens(logits)
 
+    def _run_draft_prefill(self, admitted) -> None:
+        """Prefill the external drafter's dense cache for the slots just
+        admitted: FULL prompts (the prefix cache shortens only the
+        target's prefill), in the main prefill's pow-2 buckets, through
+        :func:`_forward_cached` over the slots' stripes, written back in
+        place (a padding row repeats its group's last slot). Padding K/V
+        past a prompt is dead: the drafter's first write at position p
+        lands before p is attended."""
+        dev = self.device
+        dcfg = self.drafter.config
+        by_bucket: Dict[int, List] = {}
+        for slot, prompt in admitted:
+            blen = min(_bucket(len(prompt)), self.max_len)
+            by_bucket.setdefault(blen, []).append((slot, prompt))
+        for blen, grp in by_bucket.items():
+            n = len(grp)
+            n_pad = min(_bucket(n, floor=1), self.num_slots)
+            toks = np.zeros((n_pad, blen), np.int64)
+            slots = np.zeros(n_pad, np.int64)
+            for i in range(n_pad):
+                slot, prompt = grp[min(i, n - 1)]
+                toks[i, :len(prompt)] = prompt
+                slots[i] = slot
+            idx = torch.from_numpy(slots).to(dev)
+            dc = self._draft_cache
+            stripes = KVCache(k=dc.k[:, idx], v=dc.v[:, idx])
+            # Only the K/V are wanted: one logits row a prompt, not
+            # [N, S, V].
+            _forward_cached(self.drafter.params,
+                            torch.from_numpy(toks).to(dev),
+                            torch.arange(blen, device=dev), stripes, dcfg,
+                            last_idx=torch.zeros(n_pad, dtype=torch.long,
+                                                 device=dev))
+            dc.k[:, idx] = stripes.k
+            dc.v[:, idx] = stripes.v
+
     def _maybe_finish(self, slot: int) -> None:
         st = self._slots.get(slot)
         if st is None:
@@ -971,9 +1309,28 @@ class ContinuousBatcher:
         self._dirty = False
 
     def _run_tick(self):
-        """Dispatch one decode tick; returns its [B] token vector, a
-        fresh tensor each tick (buffered rows must not alias)."""
+        """Dispatch one decode tick. Returns its device row: a fresh [B]
+        token vector from the plain tick (buffered rows must not alias),
+        or ``(committed [B, k+1], counts [B])`` from a spec tick. At
+        k = 0 (spec off, or the adaptive ladder parked at the bottom)
+        this is the plain tick."""
         kw = dict(use_kernel=self.use_decode_kernel, sampling=self.sampling)
+        k = self._spec_cur_k if self.spec_k else 0
+        if k > 0:
+            external = self._draft_cache is not None
+            (committed, counts, self._d_tokens, self._d_positions,
+             self.cache, self._draft_cache, self._d_step) = _spec_tick_paged(
+                self.params, self._d_tokens, self._d_positions,
+                self._d_tables, self._d_limits, self.cache, self._d_step,
+                self.config, k, self.spec_draft_layers,
+                draft_params=self.drafter.params if external else None,
+                draft_cache=self._draft_cache,
+                draft_config=self.drafter.config if external else None,
+                **kw)
+            self.spec_tick_count += 1
+            self._spec_ticks[k] = self._spec_ticks.get(k, 0) + 1
+            self._last_tick_k = k
+            return committed, counts
         if self.paged:
             (self._d_tokens, self._d_positions, self.cache,
              self._d_step) = _decode_tick_paged(
@@ -986,33 +1343,100 @@ class ContinuousBatcher:
                 self.params, self._d_tokens, self._d_positions, self.cache,
                 self._d_step, self.config, **kw)
         self.base_tick_count += 1
+        self._last_tick_k = 0
         return self._d_tokens
 
     def _membership(self):
         return [(s, st["rid"]) for s, st in self._slots.items()]
 
     def _apply_tokens(self, nxt_rows, membership) -> bool:
-        """Book fetched tick rows; True when a request finished."""
+        """Book fetched tick rows: [B] token vectors, or (committed
+        [B, k+1], counts [B]) pairs of spec ticks, each slot taking its
+        first ``counts[slot]`` tokens. True when a request finished."""
         finished_any = False
-        applied = 0
+        applied = drafted = accepted = 0
+        # A tick is one sampling step whatever it committed, so the
+        # rewind counter advances a row, not a token.
         self._applied_steps += len(nxt_rows)
         for row in nxt_rows:
+            toks, counts = row if isinstance(row, tuple) else (row, None)
             for slot, rid in membership:
                 st = self._slots.get(slot)
                 if st is None or st["rid"] != rid:
                     continue     # finished earlier in this batch
-                tok = int(row[slot])
-                if self.token_callback is not None:
-                    self.token_callback(rid, tok)
-                st["out"].append(tok)
-                st["last"] = tok
-                st["pos"] += 1
-                applied += 1
-                self._maybe_finish(slot)
-                if slot not in self._slots:
-                    finished_any = True
+                if counts is None:
+                    window = [toks[slot]]
+                else:
+                    n = int(counts[slot])
+                    window = toks[slot, :n]
+                    drafted += toks.shape[1] - 1
+                    accepted += n - 1
+                for tok in window:
+                    tok = int(tok)
+                    if self.token_callback is not None:
+                        self.token_callback(rid, tok)
+                    st["out"].append(tok)
+                    st["last"] = tok
+                    st["pos"] += 1
+                    applied += 1
+                    self._maybe_finish(slot)
+                    if slot not in self._slots:
+                        # EOS or max_new inside the window: the rest of
+                        # the committed window is past the request's end.
+                        finished_any = True
+                        break
         self.decoded_tokens += applied
+        if drafted:
+            self.spec_draft_tokens += drafted
+            self.spec_accepted_tokens += accepted
+            self._spec_window.append((drafted, accepted))
         return finished_any
+
+    # Accept-rate controller: shrink k below LOW, grow it above HIGH,
+    # hold between; MIN_SAMPLE drafted tokens gate any move.
+    _SPEC_RATE_LOW = 0.3
+    _SPEC_RATE_HIGH = 0.6
+    _SPEC_MIN_SAMPLE = 16
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Windowed draft accept rate: accepted / drafted over the last
+        ``RAY_TPU_SPEC_WINDOW`` spec rows (0.0 before any draft)."""
+        drafted = sum(d for d, _ in self._spec_window)
+        if not drafted:
+            return 0.0
+        return sum(a for _, a in self._spec_window) / drafted
+
+    def _adapt_spec_k(self) -> None:
+        """Move the live draft depth along the ladder from the windowed
+        accept rate. Called only at clean boundaries (every step when
+        ``sync_every == 1``; with no tick in flight when buffered), so a
+        buffered fetch never mixes row widths. Parked at k = 0 the engine
+        runs the plain tick and re-probes the bottom rung after
+        ``RAY_TPU_SPEC_PROBE_TICKS`` boundaries."""
+        if not (self.spec_k and self.spec_adaptive):
+            return
+        if self._spec_cur_k == 0:
+            self._spec_probe_countdown -= 1
+            if self._spec_probe_countdown <= 0:
+                self._spec_cur_k = self._spec_ladder_ks[0]
+                self._spec_window.clear()
+                self._spec_probe_countdown = self._spec_probe_after
+            return
+        drafted = sum(d for d, _ in self._spec_window)
+        if drafted < self._SPEC_MIN_SAMPLE:
+            return
+        rate = self.spec_accept_rate
+        idx = self._spec_ladder_ks.index(self._spec_cur_k)
+        if rate < self._SPEC_RATE_LOW:
+            self._spec_cur_k = (self._spec_ladder_ks[idx - 1] if idx > 0
+                                else 0)
+            self._spec_window.clear()
+            self._spec_probe_countdown = self._spec_probe_after
+        elif rate > self._SPEC_RATE_HIGH and (
+                idx + 1 < len(self._spec_ladder_ks)):
+            self._spec_cur_k = self._spec_ladder_ks[idx + 1]
+            self._spec_window.clear()
 
     @torch.no_grad()
     def step(self) -> Dict[int, List[int]]:
@@ -1025,21 +1449,26 @@ class ContinuousBatcher:
             if self.sync_every > 1:
                 self._step_buffered()
             else:
+                self._adapt_spec_k()
                 self._admit()
                 if self._slots:
                     if self._dirty:
                         self._upload_state()
-                    nxt = self._run_tick().cpu().numpy()  # 4 B/slot: sync
+                    row = self._run_tick()      # .cpu() below: the sync
+                    nxt = (tuple(t.cpu().numpy() for t in row)
+                           if isinstance(row, tuple) else row.cpu().numpy())
                     if self._apply_tokens([nxt], self._membership()):
                         self._dirty = True
         out, self._finished = self._finished, {}
         return out
 
     def _step_buffered(self) -> None:
-        # Admission and upload only at a clean boundary (no ticks in
-        # flight): an upload mid-buffer would rewind the device sequence.
+        # Admission, upload and a change of k only at a clean boundary
+        # (no ticks in flight): an upload mid-buffer would rewind the
+        # device sequence, and a new k would mix row widths in a fetch.
         clean = not self._buf and self._pending is None
         if clean:
+            self._adapt_spec_k()
             self._admit()
         if self._slots:
             if self._dirty and clean:
@@ -1054,27 +1483,38 @@ class ContinuousBatcher:
             self._flush_buffered(force_boundary=want_admit)
 
     def _stack_buffer(self, buf):
-        """Stack buffered [B] token rows into one [T, B] tensor and start
-        its copy to the host. On CUDA the copy is non-blocking into
-        pinned memory (into pageable memory it would be synchronous) and
-        an event marks its end; on the CPU the stack is the copy.
-        Returns the fetch for :meth:`_rows_from_stacked`."""
-        stacked = torch.stack(buf)
-        if stacked.device.type != "cuda":
-            return stacked, None
-        host = torch.empty(stacked.shape, dtype=stacked.dtype,
-                           pin_memory=True)
-        host.copy_(stacked, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+        """Stack buffered tick rows and start their copy to the host:
+        [B] rows into one [T, B] tensor, spec rows into ([T, B, k+1],
+        [T, B]) (k is fixed across a buffer). On CUDA each copy is
+        non-blocking into pinned memory (into pageable memory it would
+        be synchronous) and one event marks their end; on the CPU the
+        stack is the copy. Returns the fetch for
+        :meth:`_rows_from_stacked`."""
+        if isinstance(buf[0], tuple):
+            parts = tuple(torch.stack([r[i] for r in buf]) for i in (0, 1))
+        else:
+            parts = (torch.stack(buf),)
+        done = None
+        if parts[0].device.type == "cuda":
+            hosts = tuple(torch.empty(p.shape, dtype=p.dtype,
+                                      pin_memory=True) for p in parts)
+            for host, part in zip(hosts, parts):
+                host.copy_(part, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            parts = hosts
+        return (parts if len(parts) == 2 else parts[0]), done
 
     @staticmethod
     def _rows_from_stacked(fetch):
-        """Wait for a fetch to land and split it into per-tick rows."""
+        """Wait for a fetch to land and split it into per-tick rows (spec
+        rows as (committed, counts) pairs)."""
         host, done = fetch
         if done is not None:
             done.synchronize()
+        if isinstance(host, tuple):
+            toks, counts = (h.numpy() for h in host)
+            return list(zip(toks, counts))
         return list(host.numpy())
 
     def _flush_buffered(self, force_boundary: bool = False) -> None:

@@ -7,13 +7,14 @@ functionally through jitted programs; here PyTorch runs eagerly and
 :func:`_forward_cached` writes each step's K/V into the cache IN PLACE
 (the returned cache is the one passed in). Also here: the layer pieces
 the serving engine shares (:func:`_proj`, :func:`_mlp`), the prefill
-attention over a cache (:func:`_attend_cached`) and the fp32-logit LM
-head (:func:`lm_head_logits`).
+attention over a cache (:func:`_attend_cached`), the fp32-logit LM
+head (:func:`lm_head_logits`) and the speculative-decode drafters
+(:class:`SelfDrafter`, :class:`ExternalLlamaDrafter`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +36,47 @@ class KVCache(NamedTuple):
                  config.num_kv_heads, config.head_dim)
         return cls(k=torch.zeros(shape, dtype=config.dtype, device=device),
                    v=torch.zeros(shape, dtype=config.dtype, device=device))
+
+
+class SelfDrafter:
+    """Speculative-decode drafter that is the target model, truncated:
+    its first ``draft_layers`` decoder layers plus the target's own final
+    norm and LM head. Those layers compute the K/V the target writes, so
+    the drafter reads and writes the target's paged arena (layers
+    [0:n)) in place: context K/V is already there, and verify rewrites
+    the positions the drafts wrote before any query reads them.
+
+    ``draft_layers=None`` defers to the engine
+    (``RAY_TPU_SPEC_DRAFT_LAYERS``, else num_layers // 4)."""
+
+    external = False
+
+    def __init__(self, draft_layers: Optional[int] = None):
+        self.draft_layers = draft_layers
+
+
+class ExternalLlamaDrafter:
+    """Speculative-decode drafter backed by a separate (small) Llama
+    sharing the target's vocabulary. The engine keeps its dense per-slot
+    :class:`KVCache`, fills it by a prefill of the full prompt at
+    admission and advances it in the spec tick's draft steps; a rewind
+    needs nothing from it, because entries past a slot's committed
+    length are overwritten before they are attended.
+
+    ``params`` must live on the engine's device; None draws random
+    weights from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (None means ``cuda``, and with no GPU that raises)."""
+
+    external = True
+
+    def __init__(self, config: llama.LlamaConfig, params=None,
+                 seed: int = 0, device=None):
+        self.config = config
+        if params is None:
+            device = llama.default_device(device)
+            gen = torch.Generator(device=device).manual_seed(seed)
+            params = llama.init_params(config, gen, device=device)
+        self.params = params
 
 
 def _layer(params, li: int) -> Dict[str, torch.Tensor]:

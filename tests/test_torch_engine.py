@@ -251,7 +251,6 @@ def test_submit_validation(params):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"spec_k": 2}, "speculative decode"),
     ({"role": "prefill"}, "prefill/decode split"),
 ])
 def test_unported_features_raise(params, kwargs, item):
@@ -260,6 +259,19 @@ def test_unported_features_raise(params, kwargs, item):
         tcb.ContinuousBatcher(TCFG, params=tp, num_slots=2, max_len=64,
                               device="cpu", **kwargs)
     assert item in str(info.value)
+
+
+def test_spec_decode_on_dense_plane_raises(params):
+    # Speculative decode runs on the paged plane only, as in JAX.
+    jp, tp = params
+    for make in (lambda: tcb.ContinuousBatcher(
+            TCFG, params=tp, num_slots=2, max_len=64, paged=False,
+            spec_k=2, device="cpu"),
+                 lambda: jcb.ContinuousBatcher(
+            JCFG, params=jp, num_slots=2, max_len=64, paged=False,
+            spec_k=2)):
+        with pytest.raises(ValueError, match="paged KV plane"):
+            make()
 
 
 def test_prefix_cache_defaults_on_like_jax(params, monkeypatch):

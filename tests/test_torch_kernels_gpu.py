@@ -340,7 +340,8 @@ def _dense_case(dev, kind, hq, hkv, d, s_max, positions, view, seed=0):
 # 64), positions 0, at tile edges, at S_max - 1 and past it, and strided
 # views; S_max = 8192 (chunks of 512 tokens at B = 8); D = 8 in bf16 at
 # group tile 8, where a warp's K rows (32 x 32 bytes) and its step's
-# probabilities (32 x 8 fp32) take the same 1,024 bytes.
+# probabilities (32 x 8 fp32) take the same 1,024 bytes; and the external
+# drafter's shape (D = 64, a layer view).
 DENSE_CASES = {
     "llama3-bf16": ("bf16", 32, 8, 128, 2048,
                     (0, 63, 64, 700, 1023, 1500, 2047, 0), "contiguous"),
@@ -361,6 +362,10 @@ DENSE_CASES = {
     "long-fp32": ("fp32", 32, 8, 128, 8192, (64, 8191, 3000), "layer"),
     "d8-g8-bf16": ("bf16", 16, 2, 8, 300, (0, 31, 32, 100, 299),
                    "contiguous"),
+    # An external speculative drafter's step: Llama-3.2-1B's heads (D=64)
+    # over a layer of its dense cache.
+    "drafter-d64-bf16": ("bf16", 32, 8, 64, 2048,
+                         (0, 63, 64, 700, 1023, 1500, 2047, 0), "layer"),
 }
 
 
@@ -688,3 +693,108 @@ def test_score_logprobs_flash_kernel_matches_plain(cuda_device,
                   torch.zeros_like(want)):
         err = (wrong.float() - want.float()).abs()
         assert bool((err > atol + rtol * want.float().abs()).any())
+
+
+def _spec_requests(cfg, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=n).tolist()
+            for n in (5, 30, 12)]
+
+
+def _serve(eng, prompts, max_new=(9, 14, 6)):
+    rids = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts,
+                                                            max_new)]
+    done = eng.run_to_completion()
+    return [done[r] for r in rids]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_spec_on_card_matches_off(cuda_device, kv_dtype):
+    # fp32 self-draft spec decode on the card (k=2, one draft layer):
+    # greedy tokens equal spec-off's, and the paged kernel launches
+    # n_draft a draft step and num_layers a verify position, the dense
+    # kernel never.
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+
+    cfg, params = _tiny_on(cuda_device)
+    prompts = _spec_requests(cfg, 3)
+    outs = {}
+    for k in (0, 2):
+        eng = ContinuousBatcher(cfg, params=params, num_slots=2,
+                                max_len=128, block_size=16,
+                                kv_dtype=kv_dtype, spec_k=k,
+                                spec_draft_layers=1, spec_adaptive=False,
+                                device=cuda_device)
+        paged0 = tpda.paged_decode_attention.launches
+        dense0 = tda.decode_attention.launches
+        outs[k] = _serve(eng, prompts)
+        L = cfg.num_layers
+        assert tpda.paged_decode_attention.launches - paged0 == (
+            L * eng.base_tick_count
+            + eng.spec_tick_count * (k * 1 + (k + 1) * L))
+        assert tda.decode_attention.launches == dense0
+        assert (eng.spec_tick_count > 0) == (k > 0)
+    assert outs[2] == outs[0]
+
+
+@pytest.mark.gpu
+def test_spec_external_drafter_on_card_runs_dense_kernel(cuda_device):
+    # An external drafter (the target's own weights, so it accepts) on the
+    # card: tokens equal spec-off's; verify launches the paged kernel
+    # num_layers a window position, the drafter the dense kernel its
+    # num_layers a draft step.
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+    from ray_tpu_torch.models.inference import ExternalLlamaDrafter
+
+    cfg, params = _tiny_on(cuda_device)
+    prompts = _spec_requests(cfg, 4)
+    base = _serve(ContinuousBatcher(cfg, params=params, num_slots=2,
+                                    max_len=128, block_size=16,
+                                    device=cuda_device), prompts)
+    k = 3
+    eng = ContinuousBatcher(cfg, params=params, num_slots=2, max_len=128,
+                            block_size=16, spec_k=k, spec_adaptive=False,
+                            drafter=ExternalLlamaDrafter(cfg, params=params),
+                            device=cuda_device)
+    paged0 = tpda.paged_decode_attention.launches
+    dense0 = tda.decode_attention.launches
+    assert _serve(eng, prompts) == base
+    L = cfg.num_layers
+    assert eng.spec_tick_count > 0 and eng.spec_accept_rate > 0.2
+    assert tpda.paged_decode_attention.launches - paged0 == (
+        L * eng.base_tick_count + eng.spec_tick_count * (k + 1) * L)
+    assert tda.decode_attention.launches - dense0 == \
+        eng.spec_tick_count * k * L
+
+
+@pytest.mark.gpu
+def test_sampled_spec_on_card_deterministic(cuda_device):
+    # Sampled spec decode draws from generators on the card: the same seed
+    # gives the same tokens at sync_every 1 and 4 (every request admitted
+    # up front; rewinds replay their steps), another seed others; the
+    # buffered fetch is pinned.
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+
+    cfg, params = _tiny_on(cuda_device)
+    prompts = _spec_requests(cfg, 5)
+    got = {}
+    for sync_every, seed in ((1, 11), (4, 11), (4, 11), (4, 12)):
+        eng = ContinuousBatcher(
+            cfg, params=params, num_slots=4, max_len=128, block_size=16,
+            spec_k=2, spec_draft_layers=1, spec_adaptive=False,
+            sync_every=sync_every, device=cuda_device,
+            sampling=dict(temperature=0.8, top_p=0.9, seed=seed))
+        rids = [eng.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts, (9, 14, 6))]
+        pinned, done = [], {}
+        while eng.has_work():
+            done.update(eng.step())
+            if eng._pending is not None:
+                pinned += [h.is_pinned() for h in eng._pending[0][0]]
+        assert eng.spec_tick_count > 0
+        assert (all(pinned) and len(pinned) > 0) == (sync_every > 1)
+        got.setdefault((sync_every, seed), []).append(
+            [done[r] for r in rids])
+    assert got[(4, 11)][0] == got[(4, 11)][1] == got[(1, 11)][0]
+    assert got[(4, 12)][0] != got[(4, 11)][0]
