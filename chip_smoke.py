@@ -148,17 +148,46 @@ Phases, any failure exits non-zero with no result line:
    same greedy tokens (a divergence passes only if the top-2 logit margin
    there is below 1e-4) at the launch counts of ``want_launches``; and
    sampled spec decode (SPEC_SAMPLING) twice at ``sync_every`` 1 and twice
-   at 4: the same tokens every time.
+   at 4: the same tokens every time;
+21. disaggregated serving: phase 5's model, weights and requests (32 new
+   tokens, greedy) split between a ``role="prefill"`` and a
+   ``role="decode"`` engine (8 slots, max_len 2048, block 64, one copy of
+   the params), driven as a router drives them (``split_drive``: a
+   ``reserve_import`` before each submit, then rounds of a prefill step,
+   ``kv_transfer.transfer_inproc`` of each parked request the decode
+   engine has a slot for, and a decode step, so imports land while other
+   slots decode); a bf16 arena, then an int8 one with 4 requests. Each
+   request must return 32 in-vocab tokens from the decode engine, the
+   prefill engine must never tick, the paged kernel must launch decode
+   ticks x num_layers times, each request must be exported and imported
+   once, the first two imports' blocks must equal their payloads' staging
+   bytes, and no reservation may be left. Reported: the prefill engine's
+   prefill seconds; per request the payload's MiB, ``export_s``,
+   ``import_s``, the import call, and the crc's share of the export and
+   of the import call (one ``zlib.crc32`` of the same buffer); MB/s; the
+   decode engine's tick ms and tokens/s, TTFT p50 from the prefill
+   engine's request records, each beside phase 5's; peak memory;
+   agreement with phase 5 and ``partings``;
+22. split parity inside the engine: in phase 6's 2-layer fp32 model with
+   the kernel, split greedy tokens against the colocated runs of phases 6
+   and 16: model-dtype and int8 arenas x ``sync_every`` 1 and 4 x the
+   prefix cache on and off, a decode engine with ``spec_k=2`` self-draft,
+   and one with an external 1-layer fp32 drafter (the dense kernel after
+   its prefill of each imported prompt); the same tokens (a divergence
+   passes only if the top-2 logit margin there is below 1e-4) at the
+   decode engine's ``want_launches`` counts, the prefill engine never
+   ticking.
 
-Phases 11-12 run after phases 3-4; 13, 15, 17, 18 and 19 inside phase 5
-and 16 and 20 inside phase 6, where their models already live (15, 17
-and 19 before phase 5's profiles, which would slow their host-clock
-times).
+Phases 11-12 run after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
+phase 5 and 16, 20 and 22 inside phase 6, where their models already live
+(15, 17, 19 and 21 before phase 5's profiles, which would slow their
+host-clock times).
 
 The line before the last is the kernels' JSON record (the paged and dense
 entries also carry ``spec_launches``, their launches in phase 19's
-self-draft and external-drafter runs); the last line is
-``{"ok": true, "device": {...}}``.
+self-draft and external-drafter runs, and the paged entry
+``split_launches``, the decode engine's launches in phase 21's bf16 run);
+the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --paged-host-us ROOT`` instead measures only the
 host microseconds a paged call takes (``host_us``, the phase-3 cases at
@@ -748,6 +777,8 @@ def end_to_end(torch, card):
                              params, prompts, outputs["bf16"], card)
     runs["spec"] = timed("phase 19", spec_serving, torch, cfg, params,
                          prompts, outputs, card)
+    runs["split"] = timed("phase 21", split_serving, torch, cfg, params,
+                          prompts, outputs, runs, card)
     for name, run, kw in [("bf16", runs["bf16"], {}),
                           ("dense", runs["dense"], {"paged": False}),
                           ("spec", runs["spec"]["self-bf16"], SPEC_RUN)]:
@@ -860,6 +891,249 @@ def spec_serving(torch, cfg, params, prompts, outputs, card):
         runs[name] = st
     torch.cuda.empty_cache()
     return runs
+
+
+def split_drive(pre, dec, prompts, max_new):
+    """What the router does: for each request, ``reserve_import`` on the
+    decode engine, then the submit to the prefill engine; then rounds of
+    one prefill step, ``transfer_inproc`` (with its reservation) of every
+    parked request the decode engine has a free slot for, and one decode
+    step, until both engines are idle. Returns (the decode engine's
+    outputs in submit order, seconds inside the decode engine's steps)."""
+    from ray_tpu_torch.serve import kv_transfer
+
+    tickets, local, out = {}, {}, {}
+    for p in prompts:
+        ticket = dec.reserve_import(len(p), max_new)
+        if ticket is None:
+            fail(f"split: the decode arena refused a reservation of "
+                 f"{len(p)} + {max_new} tokens")
+        tickets[pre.submit(p, max_new_tokens=max_new)] = ticket
+    dec_s = 0.0
+    while pre.has_work() or dec.has_work() or pre.handoff_ready():
+        pre.step()
+        for rid in pre.handoff_ready():
+            if dec.active_count >= dec.num_slots:
+                break                   # parked until a decode slot frees
+            local[rid] = kv_transfer.transfer_inproc(
+                pre, dec, rid, reservation=tickets.pop(rid))
+        t = time.perf_counter()
+        out.update(dec.step())
+        dec_s += time.perf_counter() - t
+    return [out[local[r]] for r in sorted(local)], dec_s
+
+
+def split_engines(torch, cfg, params, **kw):
+    """A prefill-role and a decode-role engine on one copy of ``params``
+    (8 slots, max_len 2048, block 64), after one short request has run
+    through both."""
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+
+    engines = [ContinuousBatcher(cfg, params=params, num_slots=8,
+                                 max_len=2048, block_size=64, role=role,
+                                 **kw)
+               for role in ("prefill", "decode")]
+    split_drive(*engines, [list(range(1, 17))], 2)
+    torch.cuda.synchronize()
+    return engines
+
+
+def split_run(torch, cfg, params, prompts, max_new, **kw):
+    """Phase 21's measured run: the split drive over ``prompts``, every
+    import timed and the first two held byte for byte against the decode
+    engine's blocks right after they land. Returns (outputs, stats)."""
+    import zlib
+
+    from ray_tpu_torch.ops.decode_attention import decode_attention
+    from ray_tpu_torch.ops.paged_decode_attention import \
+        paged_decode_attention
+    from ray_tpu_torch.serve import kv_transfer
+
+    pre, dec = split_engines(torch, cfg, params, **kw)
+    imports = []
+    real = kv_transfer.import_kv
+
+    def import_kv(engine, payload, **ikw):
+        t = time.perf_counter()
+        rid = real(engine, payload, **ikw)
+        call_s = time.perf_counter() - t
+        staging = payload["staging"]
+        t = time.perf_counter()
+        zlib.crc32(staging)
+        rec = dict(rid=rid, mib=payload["nbytes"] / 2**20,
+                   blocks=payload["num_blocks"],
+                   crc_s=time.perf_counter() - t, import_call_s=call_s)
+        if len(imports) < 2:
+            slot = next(s for s, st in engine._slots.items()
+                        if st["rid"] == rid)
+            got, layout = engine.cache.gather_blocks(
+                engine._slot_blocks[slot][:payload["num_blocks"]])
+            rec["bytes_equal"] = (layout == payload["layout"]
+                                  and got.tobytes() == staging.tobytes())
+        imports.append(rec)
+        return rid
+
+    counts0 = (pre.base_tick_count, pre.spec_tick_count,
+               dec.base_tick_count, pre.handoff_exports,
+               dec.handoff_imports, dec.decoded_tokens, pre.prefill_seconds)
+    done0 = (len(pre.request_breakdowns), len(dec.request_breakdowns))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    kv_transfer.import_kv = import_kv
+    try:
+        outs, dec_s = split_drive(pre, dec, prompts, max_new)
+    finally:
+        kv_transfer.import_kv = real
+    torch.cuda.synchronize()
+    launches = {"paged": paged_decode_attention.launches,
+                "dense": decode_attention.launches}
+    prefilled = list(pre.request_breakdowns)[done0[0]:]
+    decoded = {r["rid"]: r for r in list(dec.request_breakdowns)[done0[1]:]}
+    for rec in imports:
+        # export_s holds the exporter's crc; import_s, as JAX stamps it,
+        # starts after the importer's checks, so that crc is in the call.
+        hand = decoded[rec["rid"]]["handoff"]
+        rec.update(export_s=hand["export_s"], import_s=hand["import_s"],
+                   crc_share_export=rec["crc_s"] / hand["export_s"],
+                   crc_share_import_call=rec["crc_s"] / rec["import_call_s"])
+    ticks = dec.base_tick_count - counts0[2]
+    moved = sum(r["mib"] for r in imports)
+    stats = dict(
+        requests=len(prompts), kv_dtype=dec.kv_dtype,
+        prefill_engine_ticks=(pre.base_tick_count - counts0[0]
+                              + pre.spec_tick_count - counts0[1]),
+        decode_ticks=ticks, launches=launches,
+        exports=pre.handoff_exports - counts0[3],
+        imports=dec.handoff_imports - counts0[4],
+        import_reservations_left=dec.pressure_snapshot()[
+            "import_reservations"],
+        prefill_s=pre.prefill_seconds - counts0[6],
+        handoff_mib=moved,
+        handoff_mb_s=moved * 2**20 / 1e6 / sum(
+            r["export_s"] + r["import_call_s"] for r in imports),
+        tick_ms=dec_s / max(ticks, 1) * 1e3,
+        decode_tok_s=(dec.decoded_tokens - counts0[5]) / dec_s,
+        # Submit to first token on the prefill engine, and the import's
+        # own time to a live slot on the decode engine.
+        ttft_p50_ms=float(np.median([r["ttft_s"] for r in prefilled])) * 1e3,
+        import_ttft_p50_ms=float(np.median(
+            [r["ttft_s"] for r in decoded.values()])) * 1e3,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        per_request=[{k: v for k, v in r.items() if k != "rid"}
+                     for r in imports])
+    del pre, dec
+    torch.cuda.empty_cache()
+    return outs, stats
+
+
+def split_serving(torch, cfg, params, prompts, outputs, runs, card):
+    """Phase 21: phase 5's requests split between a prefill-role and a
+    decode-role engine (bf16 arena, then int8 with 4 requests). Gated: 32
+    in-vocab tokens each from the decode engine, no tick on the prefill
+    engine, paged launches = decode ticks x num_layers, one export and one
+    import a request, the first two imports' blocks equal to their
+    payloads' bytes, every reservation spent. Reported: the handoff's
+    MiB, ``export_s``, ``import_s`` (from after the importer's checks, as
+    JAX stamps it) and the whole import call, the crc's share of the
+    export and of the import call, MB/s over both;
+    decode tick ms, tokens/s and TTFT p50 beside phase 5's; peak memory;
+    agreement with phase 5 and partings."""
+    result = {}
+    for name, ps, kw in [("bf16", prompts, {}),
+                         ("int8", prompts[:4], {"kv_dtype": "int8"})]:
+        outs, st = split_run(torch, cfg, params, ps, 32, **kw)
+        what = f"split {name}"
+        check_outputs(outs, 32, cfg.vocab_size, what)
+        want = {"paged": st["decode_ticks"] * cfg.num_layers, "dense": 0}
+        if st["launches"] != want or st["prefill_engine_ticks"]:
+            fail(f"{what}: launches {st['launches']} (want {want}), "
+                 f"{st['prefill_engine_ticks']} prefill-engine ticks")
+        n = len(ps)
+        if (st["exports"], st["imports"]) != (n, n):
+            fail(f"{what}: {st['exports']} exports and {st['imports']} "
+                 f"imports of {n} requests")
+        if not all(r["bytes_equal"] for r in st["per_request"][:2]):
+            fail(f"{what}: an imported request's blocks differ from its "
+                 f"payload's staging bytes")
+        if st["import_reservations_left"]:
+            fail(f"{what}: {st['import_reservations_left']} reservations "
+                 f"left unspent")
+        st["agree_with_phase5"] = sum(
+            a == b for a, b in zip(outs, outputs[name]))
+        st["partings"] = partings(torch, params, cfg, ps, outs,
+                                  outputs[name], f"split-{name}",
+                                  against=f"phase-5 {name}")
+        st["phase5"] = {k: runs[name][k] for k in (
+            "tick_ms", "decode_tok_s", "ttft_p50_ms", "peak_gib")}
+        st["card"] = card
+        print(f"[split] {name}: {json.dumps(st)}")
+        result[name] = st
+    return result
+
+
+def split_parity(torch, cfg, params, prompts, got, pprompts, warm,
+                 prefix_runs):
+    """Phase 22: in phase 6's 2-layer fp32 model with the kernel, split
+    greedy tokens against the colocated runs of phases 6 and 16: the
+    model-dtype and int8 arenas x sync_every 1 and 4 x the prefix cache on
+    and off (phase 16's shared-prefix requests after its warm request), a
+    decode engine with spec_k=2 self-draft, and one with an external
+    1-layer fp32 drafter (phase 11's dense kernel after the drafter's
+    prefill of each imported prompt); each at the decode engine's launch
+    counts (want_launches), the prefill engine ticking never."""
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+    from ray_tpu_torch.models.inference import ExternalLlamaDrafter
+    from ray_tpu_torch.ops.decode_attention import decode_attention
+    from ray_tpu_torch.ops.paged_decode_attention import \
+        paged_decode_attention
+
+    drafter = ExternalLlamaDrafter(dataclasses.replace(cfg, num_layers=1),
+                                   seed=3, device="cuda")
+    spec = dict(spec_k=2, spec_draft_layers=1, spec_adaptive=False)
+    cases = [(f"{kv} sync_every={k} prefix={'on' if on else 'off'}", pprompts,
+              dict(kv_dtype=kv, sync_every=k, prefix_cache=on), {}, warm,
+              prefix_runs[kv][True])
+             for kv in ("bf16", "int8") for k in (1, 4)
+             for on in (True, False)]
+    cases += [("spec self-draft", prompts, {}, spec, [], got["paged"]),
+              ("spec external", prompts, {}, dict(spec, drafter=drafter),
+               [], got["paged"])]
+    summary = {}
+    for name, ps, kw, dkw, pre_warm, want in cases:
+        pre, dec = (ContinuousBatcher(cfg, params=params, num_slots=8,
+                                      max_len=2048, block_size=64, role=role,
+                                      **kw, **extra)
+                    for role, extra in (("prefill", {}), ("decode", dkw)))
+        if pre_warm:
+            split_drive(pre, dec, pre_warm, 2)
+        ticks0, spec0 = dec.base_tick_count, dec.spec_tick_count
+        rungs0 = dict(dec._spec_ticks)
+        reset_launch_counts()
+        outs, _ = split_drive(pre, dec, ps, 16)
+        st = dict(kernel=True, paged=True,
+                  base_ticks=dec.base_tick_count - ticks0,
+                  spec_ticks=dec.spec_tick_count - spec0,
+                  launches={"paged": paged_decode_attention.launches,
+                            "dense": decode_attention.launches},
+                  spec_rungs={k: n - rungs0.get(k, 0)
+                              for k, n in dec._spec_ticks.items()},
+                  draft_layers=(0 if "drafter" in dkw
+                                else dkw.get("spec_draft_layers", 0)),
+                  drafter_layers=1 if "drafter" in dkw else 0)
+        what = f"split {name}"
+        check_launches(st, cfg.num_layers, what)
+        if pre.base_tick_count or pre.spec_tick_count:
+            fail(f"{what}: the prefill engine ticked")
+        if dkw and not st["spec_ticks"]:
+            fail(f"{what}: no spec tick ran")
+        check_agree(torch, params, cfg, ps, outs, want,
+                    f"{what} and colocated")
+        summary[name] = (st["base_ticks"], st["spec_ticks"],
+                         st["launches"])
+        del pre, dec
+    print(f"[split-parity] ticks (plain, spec) and launches: "
+          f"{json.dumps(summary)}")
+    del drafter
 
 
 def prefix_serving(torch, cfg, params, card):
@@ -1135,6 +1409,8 @@ def engine_parity(torch):
     pprompts, warm, prefix_runs = timed("phase 16", engine_parity_16, torch,
                                         cfg, params, prompts, got, rng)
     timed("phase 20", spec_parity, torch, cfg, params, prompts, got,
+          pprompts, warm, prefix_runs)
+    timed("phase 22", split_parity, torch, cfg, params, prompts, got,
           pprompts, warm, prefix_runs)
     del params
     torch.cuda.empty_cache()
@@ -1646,8 +1922,9 @@ def main():
 
     timing = timed("phases 3-4", kernel_phases, torch)
     dense = timed("phases 11-12", dense_kernel_phases, torch)
-    runs = timed("phases 5, 13, 15, 17, 18, 19", end_to_end, torch, card)
-    timed("phases 6, 14, 16, 20", engine_parity, torch)
+    runs = timed("phases 5, 13, 15, 17, 18, 19, 21", end_to_end, torch,
+                 card)
+    timed("phases 6, 14, 16, 20, 22", engine_parity, torch)
     flash = timed("phases 7-8", flash_phases, torch)
     timed("phase 9", model_parity, torch)
     train = timed("phase 10", train_end_to_end, torch, card)
@@ -1659,6 +1936,7 @@ def main():
         replaces="ray_tpu/ops/paged_decode_attention.py:90",
         launches=runs["bf16"]["launches"]["paged"],
         spec_launches=runs["spec"]["self-bf16"]["launches"]["paged"],
+        split_launches=runs["split"]["bf16"]["launches"]["paged"],
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], kernel_ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],

@@ -39,8 +39,17 @@ its accepted prefix plus one token of the target's
 ``spec_k`` look-ahead tokens, so rejected draft writes stay in the
 slot's own blocks.
 
-Not in this slice (raises ``NotImplementedError`` naming the ROADMAP.md
-item that ports it): disaggregated roles.
+Disaggregated prefill/decode (``role``, paged engines): a "prefill"
+engine admits and prefills, then parks each request at its first token
+(the slot frees, the blocks stay) until :meth:`ContinuousBatcher.export_kv_payload`
+ships its prompt blocks as one host staging buffer with a crc32 manifest
+in the JAX package's wire format; a "decode" engine reserves blocks
+ahead (:meth:`~ContinuousBatcher.reserve_import`), lands a payload in
+them (:meth:`~ContinuousBatcher.import_kv_payload`) and decodes from the
+prefill's first token. Both are called through
+:mod:`ray_tpu_torch.serve.kv_transfer`. Each request leaves a host record
+of its latency split (``request_breakdowns``); ``pressure_snapshot`` is
+the router's and autoscaler's view of the engine.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from __future__ import annotations
 import itertools
 import os
 import time
+import zlib
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -533,19 +543,23 @@ def _spec_ladder(spec_k: int) -> List[int]:
     return sorted(ks)
 
 
+# Version of an exported KV handoff payload's wire format (the JAX
+# package's): import refuses another version rather than scatter bytes it
+# would misread.
+HANDOFF_MANIFEST_VERSION = 1
+
+_ROLES = ("prefill", "decode", "both")
+
+
 def _resolve_role(role: Optional[str]) -> str:
-    """Explicit arg > ``RAY_TPU_SERVE_ROLE`` env > "both"."""
+    """Explicit arg > ``RAY_TPU_SERVE_ROLE`` env > "both" (colocated).
+    "prefill" engines stop each request at its first token and park its
+    blocks for export; "decode" engines also take imported payloads."""
     if role is None:
         role = os.environ.get("RAY_TPU_SERVE_ROLE", "").strip() or "both"
     role = str(role).lower()
-    if role not in ("prefill", "decode", "both"):
-        raise ValueError(
-            f"role must be one of ('prefill', 'decode', 'both'), "
-            f"got {role!r}")
-    if role != "both":
-        raise llama.not_ported(f"role={role!r}",
-                               "item 4c (engine features: the prefill/decode "
-                               "split)")
+    if role not in _ROLES:
+        raise ValueError(f"role must be one of {_ROLES}, got {role!r}")
     return role
 
 
@@ -654,7 +668,17 @@ class ContinuousBatcher:
         the target's own (in fp32; bf16 verify products over B * (k+1)
         rows may tile otherwise than the tick's); sampled acceptance is
         rejection sampling, which keeps the target's distribution and
-        replays across buffered rewinds."""
+        replays across buffered rewinds.
+
+        DISAGGREGATION (``role``, or ``RAY_TPU_SERVE_ROLE``; paged engines
+        only): "both" is the colocated engine. "prefill" admits and
+        prefills, then parks each request at its first token (the first
+        token is returned by :meth:`step`; :meth:`handoff_ready` lists the
+        parked ids) until :meth:`export_kv_payload` ships its prompt
+        blocks. "decode" also lands payloads through
+        :meth:`import_kv_payload`, into blocks :meth:`reserve_import` may
+        hold ahead, and decodes them as its own requests. Greedy tokens of
+        a split request equal the colocated engine's."""
         self.config = config
         self.device = llama.default_device(device)
         self.num_slots = num_slots
@@ -664,6 +688,11 @@ class ContinuousBatcher:
         self.sampling = SamplingParams.coerce(sampling)
         self.paged = _resolve_paged(paged)
         self.role = _resolve_role(role)
+        if self.role != "both" and not self.paged:
+            raise ValueError(
+                "disaggregated prefill/decode roles need the paged KV "
+                "plane (block-granular export/import); use paged=True "
+                "or role='both'")
         self.block_size = int(block_size)
         if self.paged and (self.block_size < 8
                            or self.block_size & (self.block_size - 1)):
@@ -781,6 +810,20 @@ class ContinuousBatcher:
         self._waiting: deque = deque()
         self._rid = itertools.count()
         self._finished: Dict[int, List[int]] = {}
+        # Disaggregation: a prefill engine parks each request's blocks
+        # here from its first token to its export; a decode engine holds
+        # blocks reserved for imports (the router reserves before it
+        # dispatches the prefill, so a payload never meets a full arena).
+        self._handoff_ready: Dict[int, Dict[str, Any]] = {}
+        self._import_reservations: Dict[int, Dict[str, Any]] = {}
+        self._reservation_ids = itertools.count()
+        self.handoff_exports = 0
+        self.handoff_imports = 0
+        # One record a live request (perf_counter stamps of submit,
+        # arena wait, admission and first token, and the caller's trace);
+        # each ends as an entry of request_breakdowns.
+        self._req_meta: Dict[int, Dict[str, Any]] = {}
+        self.request_breakdowns: deque = deque(maxlen=4096)
 
     def _new_cache(self):
         if self.paged:
@@ -863,9 +906,11 @@ class ContinuousBatcher:
         return picked.cpu().numpy().astype(np.float32)
 
     def submit(self, prompt_tokens: List[int],
-               max_new_tokens: int = 32) -> int:
+               max_new_tokens: int = 32,
+               trace: Optional[Dict[str, Any]] = None) -> int:
         """Queue a request; returns its id. It joins the next tick with a
-        free slot (and, paged, enough free arena blocks)."""
+        free slot (and, paged, enough free arena blocks). ``trace`` (the
+        serve request's context) is kept in the request's record."""
         if len(prompt_tokens) + max_new_tokens > self.max_len:
             raise ValueError(
                 f"prompt ({len(prompt_tokens)}) + max_new_tokens "
@@ -885,6 +930,10 @@ class ContinuousBatcher:
                 f"({need} > {self.num_blocks - 1}); raise num_blocks or "
                 f"shorten the request")
         rid = next(self._rid)
+        self._req_meta[rid] = {
+            "submit": time.perf_counter(),
+            "prompt_len": len(prompt_tokens),
+            "weight_version": self._weight_version, "trace": trace}
         self._waiting.append({"rid": rid, "prompt": list(prompt_tokens),
                               "max_new": max_new_tokens})
         return rid
@@ -905,32 +954,46 @@ class ContinuousBatcher:
 
     def cancel(self, rid: int) -> bool:
         """Drop a request: frees its slot and blocks, or its queue spot,
-        or its unread result."""
+        or its parked handoff and unread result."""
         for i, req in enumerate(self._waiting):
             if req["rid"] == rid:
                 del self._waiting[i]
+                self._finish_request(rid, "evicted")
                 return True
         for slot, st in list(self._slots.items()):
             if st["rid"] == rid:
                 del self._slots[slot]
                 self._release_slot(slot)
                 self._dirty = True
+                self._finish_request(rid, "evicted", tokens=len(st["out"]))
                 return True
+        # A parked handoff's blocks must not outlive the request (its
+        # first token already sits in _finished).
+        self.abandon_handoff(rid)
         return self._finished.pop(rid, None) is not None
 
     def reset(self) -> List[int]:
         """Abort everything (recovery after an engine error): rebuild the
         arena or the dense cache, reset the allocator, clear the prefix
-        index (its blocks would alias the zeroed arena) and rewind the
-        step counters. Returns the request ids dropped."""
+        index (its blocks would alias the zeroed arena), parked handoffs
+        and import reservations, and rewind the step counters. Returns
+        the request ids dropped."""
         dropped = [st["rid"] for st in self._slots.values()]
         dropped += [r["rid"] for r in self._waiting]
+        tokens = {st["rid"]: len(st["out"]) for st in self._slots.values()}
+        for rid in dropped:
+            self._finish_request(rid, "aborted", tokens=tokens.get(rid, 0))
+        self._req_meta.clear()
         self._slots.clear()
         self._waiting.clear()
         self._free = list(range(self.num_slots))
         self._finished.clear()
         self._buf = []
         self._pending = None
+        # Parked handoffs and import reservations go with the arena (the
+        # allocator's reset below takes their blocks back).
+        self._handoff_ready.clear()
+        self._import_reservations.clear()
         self.cache = self._draft_cache = None   # free the old caches first
         self.cache = self._new_cache()
         self._draft_cache = self._new_draft_cache()
@@ -983,6 +1046,319 @@ class ContinuousBatcher:
         return {"used": used, "total": self.num_blocks - 1,
                 "cached": cached, "shared": shared, "live_tokens": live,
                 "frag_ratio": max(1.0 - live / cap, 0.0) if cap else 0.0}
+
+    def pressure_snapshot(self) -> Dict[str, Any]:
+        """Live pressure, the router's and autoscaler's input (JAX's keys):
+        queue depth, slot occupancy, free, LRU-cached and look-ahead
+        arena blocks, the prompt backlog, and the role's fields."""
+        free_blocks = self.allocator.free_count if self.paged else 0
+        cached = (self._prefix.cached_count
+                  if self.paged and self._prefix is not None else 0)
+        queued = sum(len(r["prompt"]) for r in self._waiting)
+        return {
+            "queue_depth": len(self._waiting),
+            "active_slots": len(self._slots),
+            "num_slots": self.num_slots,
+            "kv_blocks_free": free_blocks,
+            # Reclaimable on demand: admission may use free + cached.
+            "kv_blocks_cached": cached,
+            "kv_blocks_total": self.num_blocks - 1 if self.paged else 0,
+            # Reserved speculative head-room (already out of the free
+            # count), not committed tokens.
+            "kv_blocks_spec_lookahead": sum(
+                st.get("la_blocks", 0) for st in self._slots.values()),
+            "inflight_prefill_tokens": queued,
+            "role": self.role,
+            # A prefill fleet's backlog: queued prompts and parked exports.
+            "prefill_queue_tokens": queued + sum(
+                len(e["prompt"]) for e in self._handoff_ready.values()),
+            # Where an import could land now: free blocks plus the cached
+            # ones _alloc_blocks would evict.
+            "kv_blocks_importable": free_blocks + cached,
+            "handoff_ready": len(self._handoff_ready),
+            "import_reservations": len(self._import_reservations),
+        }
+
+    # --------------------------------------------------- request records
+    def _note_first_token(self, rec: Dict[str, Any], prefill_t0: float,
+                          first_ts: float) -> None:
+        """The request's first token landed: split its time to first
+        token into queue, arena wait and prefill."""
+        blocked = rec.get("arena_blocked", rec.get("admit", rec["submit"]))
+        admit = rec.get("admit", blocked)
+        rec["first_token"] = first_ts
+        rec["queue_s"] = max(blocked - rec["submit"], 0.0)
+        rec["arena_wait_s"] = max(admit - blocked, 0.0)
+        rec["prefill_s"] = max(first_ts - prefill_t0, 0.0)
+        rec["ttft_s"] = max(first_ts - rec["submit"], 0.0)
+
+    def _finish_request(self, rid: int, outcome: str,
+                        tokens: int = 0) -> None:
+        """The request's last edge (finished, prefilled, evicted or
+        aborted): its record goes to ``request_breakdowns`` with the time
+        a token (over committed tokens, so a spec tick's several count)."""
+        rec = self._req_meta.pop(rid, None)
+        if rec is None:
+            return
+        first = rec.get("first_token")
+        tpot = None
+        if first is not None and tokens > 1:
+            tpot = max(time.perf_counter() - first, 0.0) / (tokens - 1)
+        trace = rec.get("trace") or {}
+        self.request_breakdowns.append({
+            "rid": rid, "outcome": outcome, "tokens": tokens,
+            "queue_s": rec.get("queue_s"),
+            "arena_wait_s": rec.get("arena_wait_s"),
+            "prefill_s": rec.get("prefill_s"),
+            "ttft_s": rec.get("ttft_s"), "tpot_s": tpot,
+            "prefix_tokens": rec.get("prefix_tokens", 0),
+            "prompt_tokens": rec.get("prompt_len", 0),
+            "weight_version": rec.get("weight_version"),
+            "trace_id": trace.get("trace_id"),
+            "request_id": trace.get("request_id"),
+            # An import's handoff split: export_s, channel_s, import_s.
+            "handoff": rec.get("handoff")})
+
+    # --------------------------------------------- disaggregated handoff
+    def _park_for_handoff(self, slot: int, req: Dict[str, Any]) -> None:
+        """A prefill engine's request produced its first token: free the
+        slot for the next admission but keep its blocks (and prefix
+        nodes) until :meth:`export_kv_payload` ships them. The first
+        token goes out through :meth:`step`'s results."""
+        st = self._slots.pop(slot, None)
+        if st is None:
+            return          # finished at its first token: nothing to ship
+        rid = st["rid"]
+        self._free.append(slot)
+        self._handoff_ready[rid] = {
+            "prompt": list(req["prompt"]), "first": st["out"][0],
+            "max_new": st["max_new"],
+            "blocks": self._slot_blocks.pop(slot, []),
+            "nodes": self._slot_nodes.pop(slot, [])}
+        self._finished[rid] = list(st["out"])
+        self._finish_request(rid, "prefilled", tokens=len(st["out"]))
+        self._dirty = True
+
+    def _release_handoff_blocks(self, entry: Dict[str, Any]) -> None:
+        """Give a parked handoff's blocks back: indexed ones deref into
+        the LRU (a resubmitted twin matches them), the rest free."""
+        blocks, nodes = entry["blocks"], entry["nodes"]
+        if nodes:
+            self._prefix.release(nodes)
+            shared = {nd.block for nd in nodes}
+            blocks = [b for b in blocks if b not in shared]
+        if blocks:
+            self.allocator.free(blocks)
+
+    def handoff_ready(self) -> List[int]:
+        """Ids of the requests parked with KV ready to export."""
+        return list(self._handoff_ready)
+
+    def abandon_handoff(self, rid: int) -> bool:
+        """Drop a parked handoff unexported (the client left, or no decode
+        side came for it): its blocks go back."""
+        entry = self._handoff_ready.pop(rid, None)
+        if entry is None:
+            return False
+        self._release_handoff_blocks(entry)
+        return True
+
+    @torch.no_grad()
+    def export_kv_payload(self, rid: int) -> Dict[str, Any]:
+        """A parked request's KV handoff in the JAX package's wire format:
+        its ``ceil(prompt / block_size)`` prompt blocks (K/V and int8
+        scale sidecars) in one host staging buffer
+        (:meth:`PagedKVCache.gather_blocks`), a crc32 of those bytes, and
+        the geometry an importer checks. The blocks go back on return
+        (indexed ones to the LRU). Call it through
+        :mod:`ray_tpu_torch.serve.kv_transfer`."""
+        if self.role == "decode":
+            raise ValueError("decode-role engines do not export KV")
+        entry = self._handoff_ready.pop(rid, None)
+        if entry is None:
+            raise KeyError(
+                f"request {rid} has no handoff-ready KV (not prefilled "
+                f"by a prefill-role engine, or already exported)")
+        prompt = entry["prompt"]
+        nb = -(-len(prompt) // self.block_size)
+        staging, layout = self.cache.gather_blocks(entry["blocks"][:nb])
+        payload = {
+            "version": HANDOFF_MANIFEST_VERSION,
+            "rid": rid,
+            "prompt": prompt,
+            "chunks": prompt_chunks(prompt, self.block_size),
+            "first_token": int(entry["first"]),
+            "max_new": int(entry["max_new"]),
+            "block_size": self.block_size,
+            "kv_dtype": self.kv_dtype,
+            "num_layers": self.config.num_layers,
+            "num_kv_heads": self.config.num_kv_heads,
+            "head_dim": self.config.head_dim,
+            "num_blocks": nb,
+            "layout": layout,
+            "staging": staging,
+            "nbytes": int(staging.nbytes),
+            # gather_blocks' copy has landed: the crc reads whole bytes.
+            "crc32": zlib.crc32(staging),
+        }
+        self._release_handoff_blocks(entry)
+        self.handoff_exports += 1
+        return payload
+
+    def reserve_import(self, prompt_len: int,
+                       max_new: int) -> Optional[int]:
+        """Hold the blocks a coming import of this size needs (the router
+        reserves before it dispatches the prefill). Returns a reservation
+        id, or None when the arena cannot cover it."""
+        if self.role == "prefill":
+            raise ValueError("prefill-role engines do not import KV")
+        self.sweep_reservations()
+        got = self._alloc_blocks(self._blocks_needed(prompt_len, max_new))
+        if got is None:
+            return None
+        res_id = next(self._reservation_ids)
+        self._import_reservations[res_id] = {
+            "blocks": got, "prompt_len": prompt_len, "max_new": max_new,
+            "ts": time.monotonic()}
+        return res_id
+
+    def sweep_reservations(self, ttl_s: Optional[float] = None) -> int:
+        """Free the reservations whose import never came within ``ttl_s``
+        (default ``RAY_TPU_KV_RESERVE_TTL_S``, 30 s). Returns how many."""
+        if not self._import_reservations:
+            return 0
+        if ttl_s is None:
+            ttl_s = float(os.environ.get("RAY_TPU_KV_RESERVE_TTL_S", "30"))
+        cutoff = time.monotonic() - ttl_s
+        stale = [r for r, ent in self._import_reservations.items()
+                 if ent["ts"] < cutoff]
+        for res_id in stale:
+            self.allocator.free(
+                self._import_reservations.pop(res_id)["blocks"])
+        return len(stale)
+
+    def cancel_reservation(self, res_id: int) -> bool:
+        """Free a reservation (its prefill died, or the client left)."""
+        ent = self._import_reservations.pop(res_id, None)
+        if ent is None:
+            return False
+        self.allocator.free(ent["blocks"])
+        return True
+
+    @torch.no_grad()
+    def import_kv_payload(self, payload: Dict[str, Any],
+                          reservation: Optional[int] = None,
+                          trace: Optional[Dict[str, Any]] = None,
+                          breakdown: Optional[Dict[str, float]] = None
+                          ) -> int:
+        """Land an exported payload (this package's or the JAX
+        package's) and decode it here. Checks in JAX's order: version,
+        crc32, geometry, ``max_len``. Then the reservation's blocks (or a
+        fresh grab), the scatter, the prompt's full blocks indexed in the
+        radix tree (shareable at once), and a live slot continuing from
+        the prefill's first token; an external drafter prefills the
+        prompt into its own cache. A buffered engine first applies its
+        ticks in flight, so the import starts at a clean boundary.
+        Returns the request's id on this engine. Call it through
+        :mod:`ray_tpu_torch.serve.kv_transfer`."""
+        if self.role == "prefill":
+            raise ValueError("prefill-role engines do not import KV")
+        if payload.get("version") != HANDOFF_MANIFEST_VERSION:
+            raise ValueError(
+                f"KV handoff version mismatch: payload "
+                f"v{payload.get('version')}, engine expects "
+                f"v{HANDOFF_MANIFEST_VERSION}")
+        crc = zlib.crc32(payload["staging"])
+        if crc != payload["crc32"]:
+            raise ValueError(
+                f"KV handoff crc mismatch (got {crc:#010x}, manifest "
+                f"says {payload['crc32']:#010x}): payload corrupted in "
+                f"transit")
+        for field, mine in (("block_size", self.block_size),
+                            ("kv_dtype", self.kv_dtype),
+                            ("num_layers", self.config.num_layers),
+                            ("num_kv_heads", self.config.num_kv_heads),
+                            ("head_dim", self.config.head_dim)):
+            if payload[field] != mine:
+                raise ValueError(
+                    f"KV handoff geometry mismatch on {field}: payload "
+                    f"{payload[field]!r} vs engine {mine!r}")
+        t0 = time.perf_counter()
+        prompt = list(payload["prompt"])
+        plen = len(prompt)
+        max_new = int(payload["max_new"])
+        if plen + max_new > self.max_len:
+            raise ValueError(
+                f"imported request ({plen}+{max_new} tokens) exceeds "
+                f"this engine's max_len={self.max_len}")
+        self._drain_in_flight()
+        need = self._blocks_needed(plen, max_new)
+        blocks: Optional[List[int]] = None
+        ent = (self._import_reservations.pop(reservation, None)
+               if reservation is not None else None)
+        if ent is not None:
+            if len(ent["blocks"]) >= need:
+                blocks = ent["blocks"][:need]
+                if ent["blocks"][need:]:
+                    self.allocator.free(ent["blocks"][need:])
+            else:
+                # Sized for another request: give it back, grab afresh.
+                self.allocator.free(ent["blocks"])
+        if blocks is None:
+            blocks = self._alloc_blocks(need)
+        if blocks is None:
+            raise RuntimeError(
+                f"decode arena cannot cover the import ({need} blocks "
+                f"needed, {self.allocator.free_count} free); reserve "
+                f"ahead with reserve_import")
+        if not self._free:
+            self.allocator.free(blocks)
+            raise RuntimeError("no free decode slot for the import")
+        nb = int(payload["num_blocks"])
+        self.cache.scatter_blocks(blocks[:nb], payload["staging"],
+                                  payload["layout"])
+        rid = next(self._rid)
+        meta = {"submit": t0, "prompt_len": plen,
+                "weight_version": self._weight_version, "trace": trace,
+                "admit": t0, "blocks": len(blocks),
+                "prefix_tokens": plen}    # the whole prompt came prefilled
+        if breakdown:
+            meta["handoff"] = dict(breakdown)
+        self._req_meta[rid] = meta
+        slot = self._free.pop()
+        self._slot_blocks[slot] = blocks
+        if self._prefix is not None and payload["chunks"]:
+            created = self._prefix.insert(
+                [tuple(c) for c in payload["chunks"]], blocks)
+            if created:
+                self._slot_nodes[slot] = created
+        first = int(payload["first_token"])
+        now = time.perf_counter()
+        self._note_first_token(meta, t0, now)
+        if "handoff" in meta:
+            meta["handoff"]["import_s"] = now - t0
+        if self.token_callback is not None:
+            self.token_callback(rid, first)
+        self._slots[slot] = {
+            "rid": rid, "out": [first], "max_new": max_new, "pos": plen,
+            "last": first,
+            "la_blocks": self._lookahead_blocks(plen, max_new)}
+        self._maybe_finish(slot)
+        if self._draft_cache is not None and slot in self._slots:
+            # The drafter's dense cache never travels: it prefills the
+            # whole prompt here.
+            with llama.fp32_reduction(self.device, self.config.dtype):
+                self._run_draft_prefill([(slot, prompt)])
+        self._dirty = True
+        self.handoff_imports += 1
+        return rid
+
+    def _drain_in_flight(self) -> None:
+        """Apply every buffered tick in flight, leaving a clean boundary
+        (the host's state is the device's): an import may then add a
+        slot, which the next step uploads. A no-op at sync_every=1."""
+        if self._buf or self._pending is not None:
+            self._flush_buffered(force_boundary=True)
 
     # ------------------------------------------------------------ internals
     def _blocks_needed(self, prompt_len: int, max_new: int) -> int:
@@ -1098,6 +1474,11 @@ class ContinuousBatcher:
                 if got is None:
                     if matched:
                         self._prefix.release(matched)
+                    # A slot is free and the head waits on arena space:
+                    # from here its wait is arena wait, not queue wait.
+                    meta = self._req_meta.get(req["rid"])
+                    if meta is not None:
+                        meta.setdefault("arena_blocked", time.perf_counter())
                     break
                 blocks = [nd.block for nd in matched] + got
                 suffix = req["prompt"][m * bs:]
@@ -1110,6 +1491,10 @@ class ContinuousBatcher:
             else:
                 padded_len = min(_bucket(len(suffix)), padded_cap)
             self._waiting.popleft()
+            meta = self._req_meta.get(req["rid"])
+            if meta is not None:
+                meta.update(admit=time.perf_counter(), blocks=len(blocks),
+                            prefix_tokens=m * bs)
             slot = self._free.pop()
             if self.paged:
                 self._slot_blocks[slot] = blocks
@@ -1144,13 +1529,17 @@ class ContinuousBatcher:
             else:
                 first = self._prefill_dense(tokens, slots, last_idx)
             first = first.cpu().numpy()          # N ints: the device sync
-            self.prefill_seconds += time.perf_counter() - t0
+            first_ts = time.perf_counter()
+            self.prefill_seconds += first_ts - t0
             self.prefill_batches += 1
             self.prefill_requests += n
             self.prefill_tokens += int(last_idx[:n].sum()) + n
             for (req, slot, blocks, matched, _, chunks), tok in zip(group,
                                                                     first):
                 tok = int(tok)
+                meta = self._req_meta.get(req["rid"])
+                if meta is not None:
+                    self._note_first_token(meta, t0, first_ts)
                 if self._prefix is not None and chunks:
                     # Index this prompt's full blocks now that their
                     # writes are queued ahead of any later reader. A
@@ -1174,6 +1563,11 @@ class ContinuousBatcher:
                         if self.paged else 0),
                 }
                 self._maybe_finish(slot)
+                if self.role == "prefill":
+                    # A prefill engine stops here: park the blocks for
+                    # export (a request _maybe_finish completed has
+                    # nothing to hand off and stays finished).
+                    self._park_for_handoff(slot, req)
                 if self._draft_cache is not None and slot in self._slots:
                     draft_pending.append((slot, req["prompt"]))
         if draft_pending:
@@ -1285,6 +1679,8 @@ class ContinuousBatcher:
             self._finished[st["rid"]] = st["out"]
             del self._slots[slot]
             self._release_slot(slot)
+            self._finish_request(st["rid"], "finished",
+                                 tokens=len(st["out"]))
 
     def _upload_state(self) -> None:
         tokens = np.zeros(self.num_slots, np.int32)

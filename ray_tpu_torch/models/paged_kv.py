@@ -18,8 +18,16 @@ into their tables read-only. A block is then free (on the allocator's
 free list), live (referenced by >= 1 slot; indexed blocks carry a
 refcount and are never reclaimed while referenced) or cached (refcount
 0, parked in the index's LRU: a later match revives it, arena pressure
-reclaims it leaf-first, oldest-first). Block staging for the
-prefill/decode split comes with that slice.
+reclaims it leaf-first, oldest-first).
+
+Block staging for the prefill/decode split: :meth:`PagedKVCache.gather_blocks`
+packs named blocks (K/V and int8 scale sidecars) into one contiguous host
+``numpy.uint8`` buffer with a layout of ``(name, dtype_str, shape,
+offset, nbytes)`` entries, the JAX package's wire format byte for byte;
+:meth:`PagedKVCache.scatter_blocks` lands such a buffer in named blocks in
+place, whichever package wrote it. Dtypes travel by numpy's name, so no
+numpy bfloat16 dtype is ever built (numpy has none without
+``ml_dtypes``).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import os
 from collections import OrderedDict, deque
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ray_tpu_torch.models import llama
@@ -35,6 +44,12 @@ from ray_tpu_torch.models import llama
 GARBAGE_BLOCK = 0
 
 KV_DTYPES = ("bf16", "int8")
+
+# Arena dtypes by the name numpy (with ml_dtypes, as JAX writes it) gives
+# them in a staging layout, and back.
+_STAGING_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16",
+                  torch.float32: "float32", torch.int8: "int8"}
+_STAGING_DTYPES = {name: dt for dt, name in _STAGING_NAMES.items()}
 
 
 def resolve_kv_dtype(kv_dtype: Optional[str]) -> str:
@@ -111,6 +126,66 @@ class PagedKVCache(NamedTuple):
         if self.k_scale is not None:
             n += 2 * layers * kvh * 4
         return n
+
+    def _parts(self):
+        parts = [("k", self.k), ("v", self.v)]
+        if self.quantized:
+            parts += [("k_scale", self.k_scale), ("v_scale", self.v_scale)]
+        return parts
+
+    def gather_blocks(self, blocks: Sequence[int]):
+        """Copy the named arena blocks (K/V plus int8 scale sidecars) into
+        ONE contiguous host ``numpy.uint8`` staging buffer. Returns
+        ``(staging, layout)``, ``layout`` being ``[(name, dtype_str,
+        shape, offset, nbytes), ...]`` with numpy's dtype names and shapes
+        of Python ints, as the JAX package writes it (see
+        :func:`unpack_staging`).
+
+        The blocks are gathered on the arena's device into one buffer and
+        copied to the host in one blocking copy (into pinned memory on
+        CUDA), so the bytes have landed when this returns: a crc taken
+        next reads them, and the caller may free the blocks at once (a
+        later prefill's writes queue behind the gather on the same
+        stream)."""
+        idx = torch.tensor(list(blocks), dtype=torch.long,
+                           device=self.k.device)
+        parts = [(name, arr.index_select(1, idx))
+                 for name, arr in self._parts()]
+        layout, off = [], 0
+        for name, part in parts:
+            nbytes = part.numel() * part.element_size()
+            layout.append((name, _STAGING_NAMES[part.dtype],
+                           tuple(int(n) for n in part.shape), off, nbytes))
+            off += nbytes
+        flat = torch.cat([part.reshape(-1).view(torch.uint8)
+                          for _, part in parts])
+        if flat.device.type != "cpu":
+            host = torch.empty(off, dtype=torch.uint8, pin_memory=True)
+            host.copy_(flat)
+            flat = host
+        return flat.numpy(), layout      # the array keeps ``flat`` alive
+
+    def scatter_blocks(self, blocks: Sequence[int], staging,
+                       layout) -> "PagedKVCache":
+        """Land a :meth:`gather_blocks` staging buffer (this package's or
+        the JAX package's) in this arena's ``blocks`` IN PLACE: one
+        host-to-device copy of the whole buffer (blocking, so the caller
+        may drop it on return), then ``index_copy_`` on dim 1 of each part,
+        as prefill writes blocks. Returns ``self``."""
+        flat = _staging_tensor(staging)
+        views = unpack_staging(flat, layout)
+        for name, _ in self._parts():
+            if views[name].shape[1] != len(blocks):
+                raise ValueError(
+                    f"scatter_blocks: payload carries "
+                    f"{views[name].shape[1]} blocks for {name}, caller "
+                    f"named {len(blocks)}")
+        dev = self.k.device
+        idx = torch.tensor(list(blocks), dtype=torch.long, device=dev)
+        on_dev = unpack_staging(flat.to(dev), layout)
+        for name, arr in self._parts():
+            arr.index_copy_(1, idx, on_dev[name].to(arr.dtype))
+        return self
 
 
 class BlockAllocator:
@@ -322,6 +397,34 @@ class RadixBlockIndex:
         self._by_block.pop(node.block, None)
         if node.parent is not None:
             node.parent.children.pop(node.chunk, None)
+
+
+def _staging_tensor(staging) -> torch.Tensor:
+    """A staging buffer as a flat uint8 tensor: a torch tensor as it is; a
+    numpy array's memory shared; read-only bytes (a channel's) copied
+    once, since torch views of them would claim to be writable."""
+    if isinstance(staging, torch.Tensor):
+        return staging.reshape(-1).view(torch.uint8)
+    buf = (staging if isinstance(staging, np.ndarray)
+           else np.frombuffer(memoryview(staging), np.uint8))
+    buf = buf.reshape(-1).view(np.uint8)
+    if not buf.flags.writeable:
+        buf = buf.copy()
+    return torch.from_numpy(buf)
+
+
+def unpack_staging(staging, layout) -> Dict[str, torch.Tensor]:
+    """The per-array views of a :meth:`PagedKVCache.gather_blocks` staging
+    buffer (a numpy array, bytes, or a uint8 tensor): ``{name: tensor}``,
+    each a view of the buffer's memory in its layout dtype and shape. The
+    dtype comes from its name through a fixed table (no numpy bfloat16
+    dtype is built)."""
+    flat = _staging_tensor(staging)
+    out = {}
+    for name, dtype, shape, off, nbytes in layout:
+        out[name] = flat[off:off + nbytes].view(
+            _STAGING_DTYPES[str(dtype)]).reshape(tuple(shape))
+    return out
 
 
 def prompt_chunks(prompt_tokens: Sequence[int],

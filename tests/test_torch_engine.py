@@ -250,17 +250,6 @@ def test_submit_validation(params):
     assert e.cancel(rid) and not e.cancel(rid) and not e.has_work()
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"role": "prefill"}, "prefill/decode split"),
-])
-def test_unported_features_raise(params, kwargs, item):
-    _, tp = params
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as info:
-        tcb.ContinuousBatcher(TCFG, params=tp, num_slots=2, max_len=64,
-                              device="cpu", **kwargs)
-    assert item in str(info.value)
-
-
 def test_spec_decode_on_dense_plane_raises(params):
     # Speculative decode runs on the paged plane only, as in JAX.
     jp, tp = params

@@ -1,6 +1,6 @@
 """The port's boundary: weights carried across from JAX bit for bit, the
-Llama parameter layout, and no JAX or ray_tpu import anywhere in
-ray_tpu_torch or chip_smoke.py."""
+Llama parameter layout, and no JAX, ml_dtypes or ray_tpu import anywhere
+in ray_tpu_torch (its serve package included) or chip_smoke.py."""
 
 import os
 import re
@@ -108,9 +108,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.models.inference\n"
         "import ray_tpu_torch.models.training\n"
         "import ray_tpu_torch.ops.attention\n"
+        "import ray_tpu_torch.serve.kv_transfer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'ray_tpu' or "
-        "m.startswith('ray_tpu.'))\n"
+        "m.startswith('ray_tpu.') or m == 'ml_dtypes')\n"
         "print(bad)\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -121,12 +122,14 @@ def test_port_imports_neither_jax_nor_ray_tpu():
 
 def test_source_scan_finds_no_jax_or_ray_tpu_import():
     pattern = re.compile(
-        r"^\s*(import\s+(jax|ray_tpu)\b(?!_torch)|"
-        r"from\s+(jax|ray_tpu)\b(?!_torch))", re.M)
+        r"^\s*(import\s+(jax|ray_tpu|ml_dtypes)\b(?!_torch)|"
+        r"from\s+(jax|ray_tpu|ml_dtypes)\b(?!_torch))", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "ray_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 12
+    assert len(files) >= 14
+    assert os.path.join(REPO, "ray_tpu_torch", "serve",
+                        "kv_transfer.py") in files
     for path in files:
         with open(path) as f:
             hits = pattern.findall(f.read())

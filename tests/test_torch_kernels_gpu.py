@@ -798,3 +798,117 @@ def test_sampled_spec_on_card_deterministic(cuda_device):
             [done[r] for r in rids])
     assert got[(4, 11)][0] == got[(4, 11)][1] == got[(1, 11)][0]
     assert got[(4, 12)][0] != got[(4, 11)][0]
+
+
+def _split_serve(pre, dec, prompts, max_new=(9, 14, 6)):
+    """The router's drive over a prefill-role and a decode-role engine:
+    reserve, submit, then rounds of a prefill step, the transfer of every
+    parked request the decode engine has a slot for, and a decode step.
+    Returns the decode engine's outputs in submit order."""
+    from ray_tpu_torch.serve import kv_transfer
+
+    tickets = {}
+    for p, n in zip(prompts, max_new):
+        ticket = dec.reserve_import(len(p), n)
+        tickets[pre.submit(p, max_new_tokens=n)] = ticket
+    local, out = {}, {}
+    while pre.has_work() or dec.has_work() or pre.handoff_ready():
+        pre.step()
+        for rid in pre.handoff_ready():
+            if dec.active_count >= dec.num_slots:
+                break
+            local[rid] = kv_transfer.transfer_inproc(
+                pre, dec, rid, reservation=tickets.pop(rid))
+        out.update(dec.step())
+    return [out[local[r]] for r in sorted(local)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_split_on_card_matches_colocated(cuda_device, kv_dtype):
+    # fp32 prefill/decode split on the card: the decode engine's tokens
+    # equal the colocated engine's; every paged launch is the decode
+    # engine's (num_layers a tick), the prefill engine never ticks; with 2
+    # decode slots the third import waits for a slot and lands mid-flight.
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+
+    cfg, params = _tiny_on(cuda_device)
+    prompts = _spec_requests(cfg, 6)
+    kw = dict(params=params, num_slots=2, max_len=128, block_size=16,
+              kv_dtype=kv_dtype, device=cuda_device)
+    base = _serve(ContinuousBatcher(cfg, **kw), prompts)
+    pre = ContinuousBatcher(cfg, role="prefill", **kw)
+    dec = ContinuousBatcher(cfg, role="decode", **kw)
+    before = tpda.paged_decode_attention.launches
+    assert _split_serve(pre, dec, prompts) == base
+    assert pre.base_tick_count == pre.spec_tick_count == 0
+    assert tpda.paged_decode_attention.launches - before == \
+        cfg.num_layers * dec.base_tick_count
+    assert pre.handoff_exports == dec.handoff_imports == 3
+    assert dec.pressure_snapshot()["import_reservations"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_staging_crc_reads_landed_bytes(cuda_device, kv_dtype):
+    # The arena is refilled on the card right before each gather, so a crc
+    # taken before the device-to-host copy landed would read stale or
+    # half-written bytes: 20 round trips, each staging buffer equal to the
+    # blocks' bytes read back after a full synchronize, its crc that of
+    # those bytes, and the scatter into another arena on the card equal.
+    import zlib
+
+    from ray_tpu_torch.models.paged_kv import PagedKVCache
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.bfloat16, num_layers=4,
+                                 num_kv_heads=8, num_heads=8, head_dim=128)
+    src = PagedKVCache.create(cfg, 64, 64, kv_dtype, device=cuda_device)
+    dst = PagedKVCache.create(cfg, 64, 64, kv_dtype, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    blocks = list(range(1, 64))
+    for i in range(20):
+        for _, arr in src._parts():
+            fresh = torch.randn(arr.shape, generator=gen,
+                                device=cuda_device) * 50
+            arr.copy_(fresh.to(arr.dtype))
+        staging, layout = src.gather_blocks(blocks)
+        crc = zlib.crc32(staging)
+        torch.cuda.synchronize()
+        want = torch.cat([arr[:, blocks].reshape(-1).view(torch.uint8)
+                          for _, arr in src._parts()]).cpu().numpy()
+        assert staging.tobytes() == want.tobytes(), i
+        assert crc == zlib.crc32(want), i
+        order = blocks[i:] + blocks[:i]
+        dst.scatter_blocks(order, staging, layout)
+        for (_, a), (_, b) in zip(src._parts(), dst._parts()):
+            assert torch.equal(a[:, blocks], b[:, order]), i
+
+
+@pytest.mark.gpu
+def test_card_payload_decodes_on_cpu(cuda_device):
+    # A payload exported on the card (pinned staging) and imported by a
+    # device="cpu" decode engine gives the card's colocated tokens and the
+    # CPU's.
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+    from ray_tpu_torch.serve import kv_transfer
+
+    cfg, params = _tiny_on(cuda_device)
+    _, cpu_params = _tiny_on("cpu")
+    prompts = _spec_requests(cfg, 7)
+    kw = dict(num_slots=4, max_len=128, block_size=16)
+    want = _serve(ContinuousBatcher(cfg, params=params, device=cuda_device,
+                                    **kw), prompts)
+    assert _serve(ContinuousBatcher(cfg, params=cpu_params, device="cpu",
+                                    **kw), prompts) == want
+    pre = ContinuousBatcher(cfg, params=params, role="prefill",
+                            device=cuda_device, **kw)
+    dec = ContinuousBatcher(cfg, params=cpu_params, role="decode",
+                            device="cpu", **kw)
+    rids = [pre.submit(p, max_new_tokens=n)
+            for p, n in zip(prompts, (9, 14, 6))]
+    pre.run_to_completion()
+    payloads = [kv_transfer.export_kv(pre, r) for r in rids]
+    assert all(p["staging"].base.is_pinned() for p in payloads)
+    local = [kv_transfer.import_kv(dec, p) for p in payloads]
+    out = dec.run_to_completion()
+    assert [out[r] for r in local] == want
