@@ -176,7 +176,26 @@ Phases, any failure exits non-zero with no result line:
    its prefill of each imported prompt); the same tokens (a divergence
    passes only if the top-2 logit margin there is below 1e-4) at the
    decode engine's ``want_launches`` counts, the prefill engine never
-   ticking.
+   ticking;
+23. Mixtral parity inside the model: ``MixtralConfig.mixtral_8x7b``'s
+   widths (E=4096, M=14336 an expert, X=8, k=2, Hq=32, KVH=8, D=128,
+   V=32000) at 2 layers in fp32, one sequence of 512 tokens:
+   ``mixtral.loss_fn`` (aux_coeff 0.02) and every param leaf's grad with
+   the flash kernels and with ``attention_kernel=False``, held to phase
+   9's limits; the kernel run must launch fwd, dq and dk/dv; prints
+   ``aux_loss`` and each layer's ``dropped_fraction`` (``moe.moe_layer``
+   on that layer's input);
+24. end to end, Mixtral training: Mixtral-8x7B widths at 4 of its 32
+   layers (6.07 B params, bf16, remat "full"), a 2 x 2048-token batch
+   from ``synthetic_batch`` seed 0, ``default_optimizer(warmup_steps=5,
+   total_steps=1000)`` applied with ``AdamW.apply_``, ``mixtral.loss_fn``
+   (aux_coeff 0.02) under ``llama.fp32_reduction``, 12 steps on that
+   batch: every loss finite, the last cross-entropy below the first,
+   per step 2 L forward, L dq and L dk/dv launches, peak memory under
+   MIXTRAL_TRAIN["peak_gib"]; then step time, tokens/s, MFU over the
+   active params, the capacity padding's share of the expert rows,
+   ``aux_loss`` a step, and one profiled step's device time by group
+   (flash, GEMM, MoE routing, other), its idle share and top kernels.
 
 Phases 11-12 run after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
 phase 5 and 16, 20 and 22 inside phase 6, where their models already live
@@ -185,8 +204,10 @@ host-clock times).
 
 The line before the last is the kernels' JSON record (the paged and dense
 entries also carry ``spec_launches``, their launches in phase 19's
-self-draft and external-drafter runs, and the paged entry
-``split_launches``, the decode engine's launches in phase 21's bf16 run);
+self-draft and external-drafter runs, the paged entry
+``split_launches``, the decode engine's launches in phase 21's bf16 run,
+and the flash entries ``mixtral_launches``, their launches in phase 24's
+run);
 the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --paged-host-us ROOT`` instead measures only the
@@ -231,6 +252,19 @@ MODEL_LOSS_RTOL = 1e-5
 MODEL_GRAD_TOL = 1e-4
 TRAIN = dict(layers=16, batch=2, seq=2048, steps=12, warmup=5, total=1000,
              last_loss_below=0.5)
+# Phases 23-24: Mixtral-8x7B's published widths (MixtralConfig.mixtral_8x7b)
+# cut in depth: 2 layers in fp32 for parity (3.16 B params, 12.7 GB, and
+# as much again of grads a run); 4 of 32 layers in bf16 for training (6.07
+# B params: params, grads and both bf16 moments take 48.5 GB; 6 layers
+# would take 71.8 GB before activations).
+MIXTRAL_PARITY = dict(layers=2, seq=512)
+MIXTRAL_TRAIN = dict(layers=4, batch=2, seq=2048, steps=12, warmup=5,
+                     total=1000, peak_gib=70.0)
+# Device kernels of the MoE routing by name (after flash and GEMMs): the
+# stable sort of top-k, the cumsum of the slots, the index copies and
+# gathers and the one-hot scatters. The embedding lookup and its
+# backward and the loss's target gather match too (a few of a step's).
+ROUTING_KERNELS = re.compile(r"sort|scan|index|gather|scatter", re.I)
 # (name, q dtype, arena kind, table entries, positions, atol, rtol): fp32
 # is exact math in another summation order; bf16/int8 outputs round to
 # bf16 (~2^-8 relative).
@@ -1696,11 +1730,12 @@ def train_flops(cfg, n_params, batch, seq):
             * cfg.head_dim * seq * seq * batch // 2)
 
 
-def profile_step(torch, trainer, state, batch, step_ms):
-    """Device time of one train step by kernel (torch.profiler, device
-    rows only), grouped: the three flash kernels, GEMMs, the rest; the
-    idle share is against ``step_ms``, the unprofiled step (the profiler
-    slows the host)."""
+def profile_step(torch, run, step_ms, routing=False):
+    """Device time of one train step, ``run()`` (which ends in a sync),
+    by kernel (torch.profiler, device rows only), grouped: the three
+    flash kernels, GEMMs, with ``routing`` the MoE routing kernels
+    (ROUTING_KERNELS), the rest; the idle share is against ``step_ms``,
+    the unprofiled step (the profiler slows the host)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1708,8 +1743,7 @@ def profile_step(torch, trainer, state, batch, step_ms):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state, m = trainer.train_step(state, batch)
-        float(m["loss"])
+        run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -1717,6 +1751,8 @@ def profile_step(torch, trainer, state, batch, step_ms):
             if e.device_type == DeviceType.CUDA]
     groups = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
               "gemm": 0.0, "other": 0.0}
+    if routing:
+        groups["moe_routing"] = 0.0
     flash_names = {}
     for key, ms, _ in rows:
         low = key.lower()
@@ -1727,6 +1763,8 @@ def profile_step(torch, trainer, state, batch, step_ms):
                                    set()).add(flash.group(0))
         elif any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
             groups["gemm"] += ms
+        elif routing and ROUTING_KERNELS.search(key):
+            groups["moe_routing"] += ms
         else:
             groups["other"] += ms
     empty = [g for g in ("flash_fwd", "flash_dq", "flash_dkv")
@@ -1737,12 +1775,13 @@ def profile_step(torch, trainer, state, batch, step_ms):
              f"{sorted(r[0][:80] for r in rows if 'flash' in r[0])}")
     busy = sum(groups.values())
     top = sorted(rows, key=lambda r: -r[1])[:8]
-    return state, dict(wall_ms_profiled=wall_ms, device_busy_ms=busy,
-                       idle_share=1.0 - busy / step_ms,
-                       groups_ms=groups,
-                       flash_kernels={g: sorted(n)
-                                      for g, n in flash_names.items()},
-                       top=[(k[:60], ms, n) for k, ms, n in top])
+    return dict(wall_ms_profiled=wall_ms, device_busy_ms=busy,
+                idle_share=1.0 - busy / step_ms,
+                groups_ms=groups,
+                shares={g: ms / busy for g, ms in groups.items()},
+                flash_kernels={g: sorted(n)
+                               for g, n in flash_names.items()},
+                top=[(k[:60], ms, n) for k, ms, n in top])
 
 
 def train_end_to_end(torch, card):
@@ -1797,9 +1836,175 @@ def train_end_to_end(torch, card):
         grad_norm_last=float(metrics["grad_norm"]),
         launches_per_step=want, launches=launches, card=card)
     print(f"[train] {json.dumps(stats)}")
-    state, prof = profile_step(torch, trainer, state, batch, step_s * 1e3)
+    def one_step():
+        float(trainer.train_step(state, batch)[1]["loss"])
+    prof = profile_step(torch, one_step, step_s * 1e3)
     print(f"[train-profile] one step: {json.dumps(prof)}")
     del state, trainer, batch
+    torch.cuda.empty_cache()
+    return stats
+
+
+def mixtral_dropped(torch, params, tokens, cfg):
+    """Each layer's ``dropped_fraction``: ``moe.moe_layer`` on that
+    layer's input, in a no-grad forward (flash launches included, so
+    outside a counted window)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import moe
+
+    dropped = []
+
+    def mlp(h, layer):
+        out, aux = moe.moe_layer(
+            h, {"w_router": layer["w_router"], "w_gate": layer["moe_gate"],
+                "w_up": layer["moe_up"], "w_down": layer["moe_down"]},
+            num_experts=cfg.num_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor)
+        dropped.append(aux["dropped_fraction"])
+        return out, aux["aux_loss"]
+
+    backbone = dataclasses.replace(cfg.backbone(), remat=False)
+    with torch.no_grad(), llama.fp32_reduction(tokens.device, cfg.dtype):
+        llama.hidden_states(params, tokens, backbone, mlp_fn=mlp)
+    return [float(d) for d in dropped]
+
+
+def mixtral_parity(torch):
+    """Phase 23: Mixtral loss_fn and every grad leaf, kernels against
+    plain, at Mixtral-8x7B widths (2 layers, fp32)."""
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    m = MIXTRAL_PARITY
+    cfg = mixtral.MixtralConfig.mixtral_8x7b(dtype=torch.float32,
+                                             num_layers=m["layers"])
+    params = mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(4), device="cuda")
+    leaves = [p.requires_grad_(True) for p in _param_leaves(params)]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, m["seq"]), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    got = {}
+    for kernel in (None, False):
+        before = dict(flash_attention.launches)
+        loss, metrics = mixtral.loss_fn(
+            params, {"tokens": tokens},
+            dataclasses.replace(cfg, attention_kernel=kernel))
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        launched = {n: flash_attention.launches[n] - before[n]
+                    for n in before}
+        if (kernel is None) != (launched["fwd"] > 0 and launched["dq"] > 0
+                                and launched["dkv"] > 0):
+            fail(f"mixtral parity: kernel={kernel} launched {launched}")
+        got[kernel] = (float(loss.detach()),
+                       float(metrics["aux_loss"].detach()), grads)
+    (l1, a1, g1), (l0, a0, g0) = got[None], got[False]
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+                for a, b in zip(g1, g0))
+    dropped = mixtral_dropped(torch, params, tokens, cfg)
+    print(f"[mixtral-parity] fp32 Mixtral-8x7B widths, {cfg.num_layers} "
+          f"layers, {m['seq']} tokens ({mixtral.num_params(cfg) / 1e9:.3f} "
+          f"B params): total loss kernel {l1:.8f} plain {l0:.8f}; aux_loss "
+          f"kernel {a1:.8f} plain {a0:.8f}; worst grad leaf "
+          f"max|diff|/max|grad| {worst:.3e} (limits: loss rtol "
+          f"{MODEL_LOSS_RTOL}, grads {MODEL_GRAD_TOL}); dropped_fraction "
+          f"by layer {dropped}")
+    if not (abs(l1 - l0) <= MODEL_LOSS_RTOL * abs(l0)
+            and worst <= MODEL_GRAD_TOL):
+        fail("mixtral parity: kernel and plain loss_fn disagree")
+    del params, leaves, got, g1, g0, grads
+    torch.cuda.empty_cache()
+
+
+def mixtral_train(torch, card):
+    """Phase 24: Mixtral training at Mixtral-8x7B widths, 4 layers."""
+    from ray_tpu_torch.models import llama, mixtral
+    from ray_tpu_torch.models.training import (default_optimizer,
+                                               synthetic_batch)
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    t = MIXTRAL_TRAIN
+    dev = torch.device("cuda")
+    cfg = mixtral.MixtralConfig.mixtral_8x7b(num_layers=t["layers"])
+    t0 = time.perf_counter()
+    params = mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    leaves = [p.requires_grad_(True) for p in _param_leaves(params)]
+    opt = default_optimizer(warmup_steps=t["warmup"], total_steps=t["total"])
+    state = opt.init(params)
+    batch = synthetic_batch(t["batch"], t["seq"], cfg.vocab_size, seed=0)
+    torch.cuda.synchronize()
+    n_params, active = mixtral.num_params(cfg), mixtral.active_params(cfg)
+    if sum(p.numel() for p in leaves) != n_params:
+        fail("mixtral train: the param leaves do not add up to num_params")
+    print(f"[mixtral-train] Mixtral-8x7B widths, {cfg.num_layers} of 32 "
+          f"layers: {n_params / 1e9:.3f} B params ({active / 1e9:.3f} B "
+          f"active a token), bf16, remat {cfg.remat_policy!r}; init "
+          f"{time.perf_counter() - t0:.1f} s")
+    dropped_first = mixtral_dropped(torch, params, batch["tokens"], cfg)
+
+    def step():
+        with llama.fp32_reduction(dev, cfg.dtype):
+            loss, metrics = mixtral.loss_fn(params, batch, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+            opt.apply_(grads, state, params)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    ce, aux, total, step_ms, per_step = [], [], [], [], []
+    reset_launch_counts()
+    for _ in range(t["steps"]):
+        before = dict(flash_attention.launches)
+        t0 = time.perf_counter()
+        metrics = step()
+        ce.append(float(metrics["loss"]))          # syncs the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        aux.append(float(metrics["aux_loss"]))
+        total.append(float(metrics["total_loss"]))
+        per_step.append({n: flash_attention.launches[n] - before[n]
+                         for n in before})
+    launches = dict(flash_attention.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    L = cfg.num_layers
+    want = {"fwd": 2 * L, "dq": L, "dkv": L}
+    if not (all(np.isfinite(ce + aux + total)) and ce[-1] < ce[0]):
+        fail(f"mixtral train: cross-entropy {ce}, aux {aux}, total {total} "
+             f"(want finite, the last cross-entropy below the first)")
+    if any(d != want for d in per_step):
+        fail(f"mixtral train: launches per step {per_step}, want {want}")
+    if not peak_gib < t["peak_gib"]:
+        fail(f"mixtral train: peak {peak_gib:.2f} GiB, limit "
+             f"{t['peak_gib']}")
+    dropped_last = mixtral_dropped(torch, params, batch["tokens"], cfg)
+    tokens = t["batch"] * t["seq"]
+    # Each layer's expert products run over X * C rows; the kept (token,
+    # choice) pairs fill (1 - dropped) * T * k of them, the rest is
+    # capacity padding (zero rows).
+    rows = cfg.num_experts * max(int(cfg.capacity_factor * tokens
+                                     * cfg.top_k / cfg.num_experts),
+                                 cfg.top_k)
+    padding = [1.0 - (1.0 - d) * tokens * cfg.top_k / rows
+               for d in dropped_last]
+    step_s = float(np.median(step_ms[2:])) / 1e3
+    stats = dict(
+        layers=L, params=n_params, active_params=active,
+        cross_entropy=ce, aux_loss=aux, total_loss=total, step_ms=step_ms,
+        step_ms_median_3_12=step_s * 1e3, tokens_per_s=tokens / step_s,
+        mfu_active=train_flops(cfg.backbone(), active, t["batch"], t["seq"])
+        / step_s / PEAK_OPS_PER_S["bf16"],
+        peak_gib=peak_gib, expert_rows_per_layer=rows,
+        dropped_fraction_first=dropped_first,
+        dropped_fraction_last=dropped_last,
+        capacity_padding_share=padding,
+        launches_per_step=want, launches=launches, card=card)
+    print(f"[mixtral-train] {json.dumps(stats)}")
+    prof = profile_step(torch, lambda: float(step()["loss"]), step_s * 1e3,
+                        routing=True)
+    print(f"[mixtral-profile] one step: {json.dumps(prof)}")
+    stats["profile"] = prof
+    del params, leaves, state, batch
     torch.cuda.empty_cache()
     return stats
 
@@ -1928,6 +2133,8 @@ def main():
     flash = timed("phases 7-8", flash_phases, torch)
     timed("phase 9", model_parity, torch)
     train = timed("phase 10", train_end_to_end, torch, card)
+    timed("phase 23", mixtral_parity, torch)
+    mix = timed("phase 24", mixtral_train, torch, card)
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(
@@ -1949,6 +2156,7 @@ def main():
             source="ray_tpu_torch/ops/csrc/"
                    f"{fa.kernel_route(n, torch.bfloat16)[0]}.cu",
             replaces=FLASH_REPLACES[n], launches=train["launches"][n],
+            mixtral_launches=mix["launches"][n],
             max_abs_err=main_flash["max_abs_err"][n],
             ms=main_flash["ms"][n], plain_ms=main_flash["plain_ms"][n],
             bound_ms=main_flash["bound"][n][0],

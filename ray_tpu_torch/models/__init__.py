@@ -1,1 +1,2 @@
-"""Models of the port: the Llama family and its paged serving engine."""
+"""Models of the port: the Llama family, its paged serving engine, and
+the Mixtral sparse-MoE family."""

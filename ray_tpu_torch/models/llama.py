@@ -147,35 +147,47 @@ def init_params(config: LlamaConfig, generator: torch.Generator = None,
     by fan_in^-0.5, embed unscaled, norms ones), drawn from
     ``generator`` on ``device``. Stacked weights are drawn one layer at a
     time so the fp32 draw never holds more than one layer's slice."""
+    E, M = config.hidden_size, config.intermediate_size
+    return init_backbone(config, lambda stacked: {
+        "w_gate": stacked(E, (E, M)),
+        "w_up": stacked(E, (E, M)),
+        "w_down": stacked(M, (M, E))}, generator, device)
+
+
+def init_backbone(config: LlamaConfig, mlp, generator: torch.Generator =
+                  None, device=None) -> Params:
+    """:func:`init_params` with the MLP's weights from ``mlp(stacked)``,
+    a dict of a layer's other weights; ``stacked(fan_in, shape,
+    dtype=config.dtype)`` draws an ``[L, *shape]`` weight (normal scaled
+    by fan_in^-0.5) one layer at a time from the same generator. A model
+    family swaps its MLP through it (``models/mixtral.py``)."""
     c = config
     device = default_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    L, E, M = c.num_layers, c.hidden_size, c.intermediate_size
+    L, E = c.num_layers, c.hidden_size
     H, KV, D = c.num_heads, c.num_kv_heads, c.head_dim
 
-    def normal(shape, scale):
+    def normal(shape, scale, dtype=c.dtype):
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (x * scale).to(c.dtype)
+        return (x * scale).to(dtype)
 
-    def stacked(fan_in, *shape):
-        out = torch.empty((L,) + shape, dtype=c.dtype, device=device)
+    def stacked(fan_in, shape, dtype=c.dtype):
+        out = torch.empty((L,) + shape, dtype=dtype, device=device)
         for i in range(L):
-            out[i] = normal(shape, fan_in ** -0.5)
+            out[i] = normal(shape, fan_in ** -0.5, dtype)
         return out
 
     layers = {
         "attn_norm": torch.ones((L, E), dtype=c.dtype, device=device),
-        "wq": stacked(E, E, H, D),
-        "wk": stacked(E, E, KV, D),
-        "wv": stacked(E, E, KV, D),
-        "wo": stacked(H * D, H, D, E),
+        "wq": stacked(E, (E, H, D)),
+        "wk": stacked(E, (E, KV, D)),
+        "wv": stacked(E, (E, KV, D)),
+        "wo": stacked(H * D, (H, D, E)),
         "mlp_norm": torch.ones((L, E), dtype=c.dtype, device=device),
-        "w_gate": stacked(E, E, M),
-        "w_up": stacked(E, E, M),
-        "w_down": stacked(M, M, E),
     }
+    layers.update(mlp(stacked))
     return {
         "embed": normal((c.vocab_size, E), 1.0),
         "layers": layers,

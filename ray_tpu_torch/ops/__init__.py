@@ -1,3 +1,8 @@
-"""Tensor ops of the port: norms, RoPE, and the attention ops whose CUDA
-kernels (``csrc/``, built by ``_build``) replace the TPU kernels: dense
-and paged decode attention, flash attention."""
+"""Tensor ops of the port: norms, RoPE, the mixture-of-experts layer, and
+the attention ops whose CUDA kernels (``csrc/``, built by ``_build``)
+replace the TPU kernels: dense and paged decode attention, flash
+attention."""
+
+from ray_tpu_torch.ops.moe import init_moe_params, moe_layer, router_topk
+
+__all__ = ["init_moe_params", "moe_layer", "router_topk"]

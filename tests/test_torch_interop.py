@@ -107,6 +107,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.ops.decode_attention\n"
         "import ray_tpu_torch.models.inference\n"
         "import ray_tpu_torch.models.training\n"
+        "import ray_tpu_torch.models.mixtral, ray_tpu_torch.ops.moe\n"
         "import ray_tpu_torch.ops.attention\n"
         "import ray_tpu_torch.serve.kv_transfer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "

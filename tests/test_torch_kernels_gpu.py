@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.models import llama, training
+from ray_tpu_torch.models import llama, mixtral, training
 from ray_tpu_torch.models.paged_kv import GARBAGE_BLOCK, quantize_kv
 from ray_tpu_torch.ops import attention as tfa
 from ray_tpu_torch.ops import decode_attention as tda
+from ray_tpu_torch.ops import moe
 from ray_tpu_torch.ops import paged_decode_attention as tpda
 
 
@@ -912,3 +913,90 @@ def test_card_payload_decodes_on_cpu(cuda_device):
     local = [kv_transfer.import_kv(dec, p) for p in payloads]
     out = dec.run_to_completion()
     assert [out[r] for r in local] == want
+
+
+# -- the Mixtral family ------------------------------------------------------
+
+def _moe_case(x_dim=32, m=48, experts=4, tied=False, seed=0):
+    p = moe.init_moe_params(x_dim, m, experts, dtype=torch.float32,
+                            generator=torch.Generator().manual_seed(seed),
+                            device="cpu")
+    if tied:                       # a router at zero ties every expert
+        p["w_router"] = torch.zeros_like(p["w_router"])
+    x = torch.randn((2, 64, x_dim),
+                    generator=torch.Generator().manual_seed(seed + 1))
+    return x, p
+
+
+@pytest.mark.gpu
+def test_router_topk_ties_go_to_the_lower_index_on_card(cuda_device):
+    rng = np.random.default_rng(0)
+    for logits in (np.zeros((4096, 8), np.float32),
+                   rng.integers(-2, 3, (4096, 8)).astype(np.float32)):
+        cpu_w, cpu_i = moe.router_topk(torch.from_numpy(logits), 2)
+        w, i = moe.router_topk(torch.from_numpy(logits).to(cuda_device), 2)
+        # The CPU order is JAX's (tests/test_torch_moe.py).
+        assert torch.equal(i.cpu(), cpu_i)
+        torch.testing.assert_close(w.cpu(), cpu_w, atol=1e-7, rtol=0)
+    zeros = moe.router_topk(torch.zeros((16, 8), device=cuda_device), 2)[1]
+    assert torch.equal(zeros.cpu(), torch.tensor([[0, 1]] * 16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tied,cf", [(False, 1.25), (False, 0.5),
+                                     (True, 1.25)])
+def test_moe_layer_on_card_matches_cpu(cuda_device, tied, cf):
+    # fp32 (no TF32): the same routing, drops and slots; the products sum
+    # in another order, within 1e-5 of the largest entry.
+    x, p = _moe_case(tied=tied)
+    kw = dict(num_experts=4, top_k=2, capacity_factor=cf)
+    want, waux = moe.moe_layer(x, p, **kw)
+    got, aux = moe.moe_layer(x.to(cuda_device),
+                             {k: v.to(cuda_device) for k, v in p.items()},
+                             **kw)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert float(aux["dropped_fraction"]) == float(waux["dropped_fraction"])
+    if tied or cf < 1:
+        assert float(waux["dropped_fraction"]) > 0
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    torch.testing.assert_close(aux["aux_loss"].cpu(), waux["aux_loss"],
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_mixtral_loss_flash_kernels_match_plain(cuda_device):
+    # chip_smoke phase 9's limits: loss within 1e-5 relative, each grad
+    # leaf within 1e-4 of its largest entry (fp32 attention in another
+    # summation order, carried through two layers and the routing).
+    import dataclasses
+
+    cfg = mixtral.MixtralConfig.tiny(
+        dtype=torch.float32, vocab_size=512, hidden_size=256,
+        intermediate_size=256, num_heads=4, num_kv_heads=2, head_dim=128)
+    params = mixtral.init_params(cfg, torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    leaves = [p.requires_grad_(True) for v in params.values()
+              for p in (v.values() if isinstance(v, dict) else [v])]
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 256)).astype(np.int32)).to(cuda_device)
+    got = {}
+    for kernel in (None, False):
+        before = dict(tfa.flash_attention.launches)
+        loss, m = mixtral.loss_fn(params, {"tokens": tokens},
+                                  dataclasses.replace(
+                                      cfg, attention_kernel=kernel))
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        launched = {n: tfa.flash_attention.launches[n] - before[n]
+                    for n in before}
+        L = cfg.num_layers
+        assert launched == ({"fwd": L, "dq": L, "dkv": L} if kernel is None
+                            else {"fwd": 0, "dq": 0, "dkv": 0})
+        assert float(m["aux_loss"].detach()) > 0
+        got[kernel] = (float(loss.detach()), grads)
+    (l1, g1), (l0, g0) = got[None], got[False]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    for a, b in zip(g1, g0):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -289,6 +289,35 @@ def test_default_optimizer_matches_optax(kind, tol, mu_dtype):
                                    atol=tol * float(np.abs(_f32(want)).max()))
 
 
+def test_apply_in_pieces_matches_whole_leaves(monkeypatch):
+    # apply_ takes a large leaf a piece at a time. Given one global norm,
+    # the arithmetic is elementwise, so params and moments are bit for
+    # bit those of whole leaves; the norm itself sums in pieces (fp32, in
+    # another order).
+    rng = np.random.default_rng(6)
+    params, grads_seq = _opt_tree(rng, jnp.float32)
+    grads_seq = [params_from_numpy(g, "cpu", dtype=torch.bfloat16)
+                 for g in grads_seq]
+    norms = [tt.AdamW.global_norm(g) for g in grads_seq]
+    runs = []
+    for piece in (1 << 26, 7):
+        monkeypatch.setattr(tt, "_PIECE", piece)
+        opt = tt.default_optimizer(learning_rate=1e-2, warmup_steps=1,
+                                   total_steps=5)
+        p = params_from_numpy(params, "cpu", dtype=torch.bfloat16)
+        state = opt.init(p)
+        for g, norm in zip(grads_seq, norms):
+            state = opt.apply_(g, state, p, g_norm=norm)
+        runs.append((p, state, [tt.AdamW.global_norm(g) for g in grads_seq]))
+    (p0, s0, n0), (p1, s1, n1) = runs
+    for (name, a), (_, b) in zip(_named_leaves(p0), _named_leaves(p1)):
+        assert torch.equal(a, b), name
+    for a, b in zip(s0.mu + s0.nu, s1.mu + s1.nu):
+        assert torch.equal(a, b)
+    assert n0 == norms
+    torch.testing.assert_close(n1, n0, rtol=1e-6, atol=0)
+
+
 def test_schedule_matches_optax():
     opt = tt.default_optimizer(learning_rate=3e-4, warmup_steps=10,
                                total_steps=100)
