@@ -195,7 +195,23 @@ Phases, any failure exits non-zero with no result line:
    MIXTRAL_TRAIN["peak_gib"]; then step time, tokens/s, MFU over the
    active params, the capacity padding's share of the expert rows,
    ``aux_loss`` a step, and one profiled step's device time by group
-   (flash, GEMM, MoE routing, other), its idle share and top kernels.
+   (flash, GEMM, MoE routing, other), its idle share and top kernels;
+25. the sharded trainer on a one-rank mesh: a one-rank NCCL process
+   group (``file://`` under a temp dir, ``device_id`` cuda:0, destroyed
+   at the end of the phase; a failed init fails the phase). First a tiny
+   fp32 model at head dim 128 (``SHARDED_PARITY``, so the fp32 flash
+   kernels run inside ``local_map``) takes 2 steps on
+   ``make_mesh(MeshConfig())`` with ``DEFAULT_RULES`` and on the
+   one-device trainer: each step's loss and every grad leaf within
+   ``SHARDED["tol"]`` (relative; a leaf against its max). Then phase 10's
+   run on that mesh: ``ShardedTrainer(cfg, mesh, rules=DEFAULT_RULES)``
+   at Llama-3-8B widths and 16 layers, ``init_state(0)``, phase 10's
+   batch, 12 steps: step 1's loss within ``SHARDED["tol"]`` of phase 10's
+   (the same params and batch), every loss finite, the last below the
+   first, 2 L / L / L flash launches a step, peak memory under
+   ``SHARDED["peak_gib"]``; ``[sharded-train]`` prints step ms, tokens/s,
+   MFU and peak beside phase 10's and the largest relative loss gap over
+   the 12 steps, then one profiled step (``[sharded-profile]``).
 
 Phases 11-12 run after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
 phase 5 and 16, 20 and 22 inside phase 6, where their models already live
@@ -207,8 +223,20 @@ entries also carry ``spec_launches``, their launches in phase 19's
 self-draft and external-drafter runs, the paged entry
 ``split_launches``, the decode engine's launches in phase 21's bf16 run,
 and the flash entries ``mixtral_launches``, their launches in phase 24's
-run);
+run, and ``sharded_launches``, their launches in phase 25's 12 steps);
 the last line is ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --mesh-check`` instead needs four cards: it
+spawns four ranks of one NCCL group (``tcp://localhost``, a free port)
+and runs ``ShardedTrainer`` on four-rank meshes (``MESH_CHECK``): phase
+25's tiny fp32 model at fsdp=4, fsdp=2 x tensor=2, tensor=4 (its 2 kv
+heads stay whole) and data=2 x fsdp=2 with 2 microbatches, 3 steps each,
+every loss within ``SHARDED["tol"]`` and every grad norm within 1e-4 of
+the one-device trainer on rank 0, each rank holding its share of
+``w_gate`` and launching the flash kernels; then phase 10's model at
+fsdp=4 (a 4 x 2048 batch, one row a rank) for ``MESH_CHECK["steps"]``
+steps: step ms, tokens/s a card, MFU, peak and launches
+(``[mesh-train]``). It prints ``[mesh-check]`` lines and no result line.
 
 ``python3 chip_smoke.py --paged-host-us ROOT`` instead measures only the
 host microseconds a paged call takes (``host_us``, the phase-3 cases at
@@ -257,6 +285,19 @@ TRAIN = dict(layers=16, batch=2, seq=2048, steps=12, warmup=5, total=1000,
 # as much again of grads a run); 4 of 32 layers in bf16 for training (6.07
 # B params: params, grads and both bf16 moments take 48.5 GB; 6 layers
 # would take 71.8 GB before activations).
+# Phase 25: the sharded trainer on a one-rank mesh; its tiny fp32 parity
+# model takes the flash path (head dim 128).
+SHARDED = dict(tol=1e-5, peak_gib=70.0, parity_steps=2)
+SHARDED_PARITY = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=2,
+                      head_dim=128, max_seq_len=256, batch=2, seq=256)
+# --mesh-check: four ranks, phase 25's parity model on four layouts (name,
+# mesh sizes, microbatches), then phase 10's model at fsdp=4.
+MESH_CHECK = dict(world=4, parity_steps=3, batch=8, layouts=[
+    ("fsdp4", dict(fsdp=4), 1), ("fsdp2_tp2", dict(fsdp=2, tensor=2), 1),
+    ("tp4_kv2", dict(fsdp=1, tensor=4), 1),
+    ("dp2_fsdp2_micro2", dict(data=2, fsdp=2), 2)],
+    train_mesh=dict(fsdp=4), train_batch=4, steps=8)
 MIXTRAL_PARITY = dict(layers=2, seq=512)
 MIXTRAL_TRAIN = dict(layers=4, batch=2, seq=2048, steps=12, warmup=5,
                      total=1000, peak_gib=70.0)
@@ -1845,6 +1886,315 @@ def train_end_to_end(torch, card):
     return stats
 
 
+def sharded_parity(torch, mesh):
+    """Phase 25's tiny fp32 model: the one-rank mesh against one device,
+    loss and every grad leaf at each of SHARDED["parity_steps"] steps."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (ShardedTrainer,
+                                               default_optimizer,
+                                               synthetic_batch)
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.parallel import DEFAULT_RULES
+
+    p = dict(SHARDED_PARITY)
+    batch_size, seq = p.pop("batch"), p.pop("seq")
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32, **p)
+
+    def opt():
+        return default_optimizer(warmup_steps=2, total_steps=50,
+                                 learning_rate=1e-2)
+
+    one = ShardedTrainer(cfg, optimizer=opt())
+    sharded = ShardedTrainer(cfg, mesh, optimizer=opt(),
+                             rules=DEFAULT_RULES)
+    s1, s2 = one.init_state(0), sharded.init_state(0)
+    batch = synthetic_batch(batch_size, seq, cfg.vocab_size, seed=1)
+    worst_loss = worst_grad = 0.0
+    for _ in range(SHARDED["parity_steps"]):
+        l1, _, g1 = one.grads(s1.params, batch)
+        before = dict(flash_attention.launches)
+        l2, _, g2 = sharded.grads(s2.params, sharded.shard_batch(batch))
+        torch.cuda.synchronize()
+        launched = {n: flash_attention.launches[n] - before[n]
+                    for n in before}
+        if launched != dict.fromkeys(before, cfg.num_layers):
+            fail(f"sharded parity: the mesh step launched {launched}, "
+                 f"want {cfg.num_layers} of each")
+        worst_loss = max(worst_loss, abs(float(l2) - float(l1))
+                         / abs(float(l1)))
+        worst_grad = max(worst_grad, max(
+            float((b.full_tensor() - a).abs().max())
+            / max(float(a.abs().max()), 1e-30) for a, b in zip(g1, g2)))
+        s1, _ = one.train_step(s1, batch)
+        s2, _ = sharded.train_step(s2, batch)
+    print(f"[sharded-parity] fp32 tiny (D=128, {cfg.num_layers} layers, "
+          f"{batch_size} x {seq}), one-rank mesh vs one device over "
+          f"{SHARDED['parity_steps']} steps: worst loss rel "
+          f"{worst_loss:.3e}, worst grad leaf max|diff|/max|grad| "
+          f"{worst_grad:.3e} (limit {SHARDED['tol']})")
+    if worst_loss > SHARDED["tol"] or worst_grad > SHARDED["tol"]:
+        fail("sharded parity: the one-rank mesh step disagrees with the "
+             "one-device step")
+
+
+def sharded_train(torch, card, train):
+    """Phase 25: the sharded trainer on a one-rank mesh."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_mesh(MeshConfig())
+            sharded_parity(torch, mesh)
+            return _sharded_run(torch, card, train, mesh)
+        finally:
+            dist.destroy_process_group()
+
+
+def _sharded_run(torch, card, train, mesh):
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (ShardedTrainer,
+                                               default_optimizer,
+                                               synthetic_batch)
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.parallel import DEFAULT_RULES
+
+    t = TRAIN
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_layers=t["layers"])
+    trainer = ShardedTrainer(cfg, mesh, optimizer=default_optimizer(
+        warmup_steps=t["warmup"], total_steps=t["total"]),
+        rules=DEFAULT_RULES)
+    state = trainer.init_state(0)
+    batch = trainer.shard_batch(synthetic_batch(t["batch"], t["seq"],
+                                                cfg.vocab_size, seed=0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], []
+    reset_launch_counts()
+    for _ in range(t["steps"]):
+        before = dict(flash_attention.launches)
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(float(metrics["loss"]))      # syncs the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({n: flash_attention.launches[n] - before[n]
+                         for n in before})
+    launches = dict(flash_attention.launches)
+    L = cfg.num_layers
+    want = {"fwd": 2 * L, "dq": L, "dkv": L}
+    ref = train["losses"]
+    first_gap = abs(losses[0] - ref[0]) / abs(ref[0])
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"sharded train: losses {losses} (want finite, last below "
+             f"first)")
+    if first_gap > SHARDED["tol"]:
+        fail(f"sharded train: step 1 loss {losses[0]} against phase 10's "
+             f"{ref[0]} (relative gap {first_gap:.3e})")
+    if any(d != want for d in per_step):
+        fail(f"sharded train: launches per step {per_step}, want {want}")
+    step_s = float(np.median(step_ms[2:])) / 1e3
+    tokens = t["batch"] * t["seq"]
+    stats = dict(
+        mesh=llama.mesh_shape(mesh), layers=L, losses=losses,
+        step_ms=step_ms, step_ms_median_3_12=step_s * 1e3,
+        tokens_per_s=tokens / step_s,
+        mfu=train_flops(cfg, llama.num_params(cfg), t["batch"], t["seq"])
+        / step_s / PEAK_OPS_PER_S["bf16"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        step1_loss_gap=first_gap,
+        max_loss_gap=max(abs(a - b) / abs(b) for a, b in zip(losses, ref)),
+        launches_per_step=want, launches=launches, card=card)
+    stats["phase10"] = {k: train[k] for k in (
+        "step_ms_median_3_12", "tokens_per_s", "mfu", "peak_gib")}
+    if stats["peak_gib"] > SHARDED["peak_gib"]:
+        fail(f"sharded train: peak {stats['peak_gib']:.2f} GiB over "
+             f"{SHARDED['peak_gib']}")
+    print(f"[sharded-train] {json.dumps(stats)}")
+
+    def one_step():
+        float(trainer.train_step(state, batch)[1]["loss"])
+    prof = profile_step(torch, one_step, step_s * 1e3)
+    print(f"[sharded-profile] one step: {json.dumps(prof)}")
+    del state, trainer, batch
+    torch.cuda.empty_cache()
+    return stats
+
+
+def mesh_check(torch):
+    """``--mesh-check``: the sharded trainer on four cards."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from ray_tpu_torch.ops import _build
+
+    world = MESH_CHECK["world"]
+    if torch.cuda.device_count() < world:
+        fail(f"--mesh-check needs {world} cards, found "
+             f"{torch.cuda.device_count()}")
+    _build.build_all()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(mesh_rank, args=(world, f"tcp://localhost:{port}",
+                                        "nccl"),
+                       nprocs=world, start_method="spawn", join=True)
+
+
+def mesh_rank(rank, world, init_method, backend):
+    """One rank of ``--mesh-check`` (``backend`` "gloo" runs it on the
+    CPU)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if backend == "nccl":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+        extra = dict(device_id=device)
+    else:
+        device, extra = torch.device("cpu"), {}
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world, **extra)
+    try:
+        for name, sizes, micro in MESH_CHECK["layouts"]:
+            res = mesh_parity_case(torch, rank, device, sizes, micro)
+            if rank == 0:
+                print(f"[mesh-check] {name}: {json.dumps(res)}",
+                      flush=True)
+        res = mesh_train(torch, device)
+        if rank == 0:
+            res["card"] = card_line() if backend == "nccl" else "cpu"
+            print(f"[mesh-train] {json.dumps(res)}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_parity_case(torch, rank, device, sizes, micro):
+    """Phase 25's fp32 parity model on a four-rank mesh against the
+    one-device trainer on rank 0: loss and grad norm each step."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (ShardedTrainer,
+                                               default_optimizer,
+                                               synthetic_batch)
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.parallel import DEFAULT_RULES, MeshConfig, make_mesh
+
+    p = dict(SHARDED_PARITY)
+    p.pop("batch")
+    seq = p.pop("seq")
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32, **p)
+
+    def opt():
+        return default_optimizer(warmup_steps=2, total_steps=50,
+                                 learning_rate=1e-2)
+
+    mesh = make_mesh(MeshConfig(**sizes), device_type=device.type)
+    sharded = ShardedTrainer(cfg, mesh, optimizer=opt(),
+                             rules=DEFAULT_RULES, microbatches=micro)
+    state = sharded.init_state(0)
+    batch = synthetic_batch(MESH_CHECK["batch"], seq, cfg.vocab_size,
+                            seed=1, device=device)
+    one = one_state = None
+    if rank == 0:
+        one = ShardedTrainer(cfg, optimizer=opt(), microbatches=micro,
+                             device=device)
+        one_state = one.init_state(0)
+    worst_loss = worst_norm = 0.0
+    for _ in range(MESH_CHECK["parity_steps"]):
+        before = dict(flash_attention.launches)
+        state, m = sharded.train_step(state, batch)
+        launched = {n: flash_attention.launches[n] - before[n]
+                    for n in before}
+        if device.type == "cuda" and launched != dict.fromkeys(
+                before, cfg.num_layers * micro):
+            fail(f"mesh check {sizes}: launched {launched} a step")
+        if rank == 0:
+            one_state, m1 = one.train_step(one_state, batch)
+            worst_loss = max(worst_loss, abs(float(m["loss"])
+                                             - float(m1["loss"]))
+                             / abs(float(m1["loss"])))
+            worst_norm = max(worst_norm, abs(float(m["grad_norm"])
+                                             - float(m1["grad_norm"]))
+                             / abs(float(m1["grad_norm"])))
+    w = state.params["layers"]["w_gate"]
+    share = w.numel() // (sizes.get("fsdp", 1) * sizes.get("tensor", 1))
+    if w.to_local().numel() != share:
+        fail(f"mesh check {sizes}: rank {rank} holds "
+             f"{w.to_local().numel()} of w_gate's {w.numel()}, want "
+             f"{share}")
+    if rank == 0 and (worst_loss > SHARDED["tol"] or worst_norm > 1e-4):
+        fail(f"mesh check {sizes}: loss gap {worst_loss:.3e}, grad norm "
+             f"gap {worst_norm:.3e} against one device")
+    return dict(mesh=llama.mesh_shape(mesh), microbatches=micro,
+                worst_loss_rel=worst_loss, worst_grad_norm_rel=worst_norm,
+                w_gate_local=w.to_local().numel(), w_gate=w.numel())
+
+
+def mesh_train(torch, device):
+    """Phase 10's model at MESH_CHECK["train_mesh"] over four ranks."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (ShardedTrainer,
+                                               default_optimizer,
+                                               synthetic_batch)
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.parallel import DEFAULT_RULES, MeshConfig, make_mesh
+
+    t = TRAIN
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_layers=t["layers"])
+    mesh = make_mesh(MeshConfig(**MESH_CHECK["train_mesh"]),
+                     device_type=device.type)
+    trainer = ShardedTrainer(cfg, mesh, optimizer=default_optimizer(
+        warmup_steps=t["warmup"], total_steps=t["total"]),
+        rules=DEFAULT_RULES)
+    state = trainer.init_state(0)
+    batch = trainer.shard_batch(synthetic_batch(
+        MESH_CHECK["train_batch"], t["seq"], cfg.vocab_size, seed=0,
+        device=device))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], []
+    for _ in range(MESH_CHECK["steps"]):
+        before = dict(flash_attention.launches)
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(float(metrics["loss"]))      # syncs the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({n: flash_attention.launches[n] - before[n]
+                         for n in before})
+    L = cfg.num_layers
+    want = {"fwd": 2 * L, "dq": L, "dkv": L}
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"mesh train: losses {losses}")
+    if device.type == "cuda" and any(d != want for d in per_step):
+        fail(f"mesh train: launches per step {per_step}, want {want}")
+    step_s = float(np.median(step_ms[2:])) / 1e3
+    world = mesh.size()
+    tokens = MESH_CHECK["train_batch"] * t["seq"]
+    return dict(
+        mesh=llama.mesh_shape(mesh), layers=L, losses=losses,
+        step_ms=step_ms, step_ms_median_3_on=step_s * 1e3,
+        tokens_per_s=tokens / step_s, tokens_per_s_per_card=tokens / step_s
+        / world,
+        mfu_per_card=train_flops(cfg, llama.num_params(cfg),
+                                 MESH_CHECK["train_batch"], t["seq"])
+        / step_s / world / PEAK_OPS_PER_S["bf16"],
+        peak_gib_rank0=(torch.cuda.max_memory_allocated() / 2**30
+                        if device.type == "cuda" else None),
+        w_gate_local=state.params["layers"]["w_gate"].to_local().numel(),
+        launches_per_step=want)
+
+
 def mixtral_dropped(torch, params, tokens, cfg):
     """Each layer's ``dropped_fraction``: ``moe.moe_layer`` on that
     layer's input, in a no-grad forward (flash launches included, so
@@ -2097,6 +2447,10 @@ def main():
         print(card_line())
         paged_host_us(torch, sys.argv[2])
         return
+    if sys.argv[1:2] == ["--mesh-check"]:
+        print(card_line())
+        mesh_check(torch)
+        return
     if sys.argv[1:2] == ["--dense-ms"]:
         print(card_line())
         dense_ms(torch, sys.argv[2])
@@ -2133,6 +2487,7 @@ def main():
     flash = timed("phases 7-8", flash_phases, torch)
     timed("phase 9", model_parity, torch)
     train = timed("phase 10", train_end_to_end, torch, card)
+    sharded = timed("phase 25", sharded_train, torch, card, train)
     timed("phase 23", mixtral_parity, torch)
     mix = timed("phase 24", mixtral_train, torch, card)
 
@@ -2157,6 +2512,7 @@ def main():
                    f"{fa.kernel_route(n, torch.bfloat16)[0]}.cu",
             replaces=FLASH_REPLACES[n], launches=train["launches"][n],
             mixtral_launches=mix["launches"][n],
+            sharded_launches=sharded["launches"][n],
             max_abs_err=main_flash["max_abs_err"][n],
             ms=main_flash["ms"][n], plain_ms=main_flash["plain_ms"][n],
             bound_ms=main_flash["bound"][n][0],

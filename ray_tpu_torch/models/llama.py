@@ -9,6 +9,13 @@ layer stack is a Python loop over the unbound stack (JAX's
 selective policy when ``remat`` is on; attention is the flash path of
 :mod:`ray_tpu_torch.ops.attention`. The serving path builds its layers in
 :mod:`ray_tpu_torch.models.continuous_batching`.
+
+On a :class:`~torch.distributed.device_mesh.DeviceMesh` the params and
+tokens are DTensors placed by the logical-axis rules
+(:mod:`ray_tpu_torch.parallel`); the activations are constrained at the
+JAX model's points, and attention and the LM head run on each rank's
+local tensors through ``local_map`` (JAX's ``shard_map``), so the flash
+kernels see plain tensors.
 """
 
 from __future__ import annotations
@@ -20,12 +27,18 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import (local_map,
+                                                   register_sharding)
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from ray_tpu_torch.parallel import mesh as pmesh
+from ray_tpu_torch.parallel.sharding import constrain, placements_for
 
 Params = Dict[str, Any]
 
@@ -141,6 +154,24 @@ def logical_axes(config: LlamaConfig) -> Params:
     }
 
 
+def param_shapes(config: LlamaConfig) -> Params:
+    """Dict of shapes matching :func:`init_params` (and
+    :func:`logical_axes`)."""
+    c = config
+    L, E, M = c.num_layers, c.hidden_size, c.intermediate_size
+    H, KV, D = c.num_heads, c.num_kv_heads, c.head_dim
+    return {
+        "embed": (c.vocab_size, E),
+        "layers": {"attn_norm": (L, E), "wq": (L, E, H, D),
+                   "wk": (L, E, KV, D), "wv": (L, E, KV, D),
+                   "wo": (L, H, D, E), "mlp_norm": (L, E),
+                   "w_gate": (L, E, M), "w_up": (L, E, M),
+                   "w_down": (L, M, E)},
+        "final_norm": (E,),
+        "lm_head": (E, c.vocab_size),
+    }
+
+
 def init_params(config: LlamaConfig, generator: torch.Generator = None,
                 device=None) -> Params:
     """Random init with the JAX package's distributions (normal scaled
@@ -228,10 +259,18 @@ def num_params(config: LlamaConfig) -> int:
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
-    """Axis sizes of ``mesh``: None (one device) or a mapping of axis
-    name to size. The port runs on one device; meshes arrive with
-    ROADMAP.md queue A, item 7."""
+    """Axis sizes of ``mesh``: a :class:`DeviceMesh` (all six axes), None
+    (one device) or a mapping of axis name to size."""
+    if isinstance(mesh, DeviceMesh):
+        return pmesh.mesh_shape(mesh)
     return dict(mesh) if mesh is not None else {}
+
+
+def on_mesh(mesh) -> bool:
+    """True when ``mesh`` is a :class:`DeviceMesh`: params, tokens and
+    activations are DTensors. None and a mapping of sizes are one
+    device."""
+    return isinstance(mesh, DeviceMesh)
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -254,13 +293,56 @@ def _select_attention(config: LlamaConfig, mesh) -> str:
 
 def _attend(q, k, v, config: LlamaConfig, mesh):
     mode = _select_attention(config, mesh)
-    if mode == "reference":
-        return mha_reference(q, k, v, causal=True)
-    if mode == "ring":
+    if mode == "ring" or mesh_shape(mesh).get("seq", 1) > 1:
         raise not_ported("ring attention over the mesh's seq axis",
                          SHARDING_ITEM)
-    return flash_attention(q, k, v, causal=True,
-                           use_kernel=config.attention_kernel)
+    if mode == "reference":
+        fn = functools.partial(mha_reference, causal=True)
+    else:
+        fn = functools.partial(flash_attention, causal=True,
+                               use_kernel=config.attention_kernel)
+    if not on_mesh(mesh):
+        return fn(q, k, v)
+    return _local_attention(fn, q, k, v, mesh)
+
+
+def _local_kv_heads(hq: int, hkv: int, tensor: int, rank: int):
+    """The kv head of each of the q heads ``[rank * hq / tensor, (rank +
+    1) * hq / tensor)`` that rank ``rank`` of the tensor axis holds, for
+    kv heads that are not split over the axis."""
+    local, group = hq // tensor, hq // hkv
+    return [(rank * local + j) // group for j in range(local)]
+
+
+def _local_attention(fn, q, k, v, mesh):
+    """``fn(q, k, v)`` on each rank's local tensors (JAX's ``shard_map``):
+    the batch split over (data, fsdp) and the heads over tensor, as the
+    constraints before it placed them. When the kv heads do not divide
+    the tensor axis they stay whole on every rank: each rank takes the kv
+    head of each of its q heads (one kv head a q head), and the kv grads
+    are partial sums over the axis."""
+    q_pl = placements_for(mesh, q.shape, "batch", "seq", "act_heads", None)
+    kv_pl = placements_for(mesh, k.shape, "batch", "seq", "act_kv_heads",
+                           None)
+    kv_grad_pl, select = kv_pl, None
+    names = mesh.mesh_dim_names
+    if "tensor" in names:
+        t = names.index("tensor")
+        if q_pl[t] != kv_pl[t]:
+            select = torch.tensor(_local_kv_heads(
+                q.shape[2], k.shape[2], mesh.size(t),
+                mesh.get_local_rank("tensor")), device=q.device)
+            kv_grad_pl = kv_pl[:t] + (Partial(),) + kv_pl[t + 1:]
+
+    def local(q, k, v):
+        if select is not None:
+            k, v = k.index_select(2, select), v.index_select(2, select)
+        return fn(q, k, v)
+
+    return local_map(local, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad_pl, kv_grad_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 # -- remat -------------------------------------------------------------------
@@ -275,6 +357,14 @@ def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
 
 checkpoint_name.register_fake(lambda x, name: torch.empty_like(x))
 checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
+
+
+@register_sharding(torch.ops.ray_tpu_torch.checkpoint_name.default)
+def _checkpoint_name_sharding(x, name):
+    """An identity keeps any placement of its input."""
+    return [([p], [p, None]) for p in
+            [Replicate(), Partial()] + [Shard(d) for d in range(x.ndim)]]
+
 
 _SAVED_NAMES = {"attn_out": ("attn_out",),
                 "mlp_only": ("q", "k", "v", "attn_out")}
@@ -342,12 +432,33 @@ class _HeadLogits(torch.autograd.Function):
         return dx, dhead
 
 
-def head_logits(x, head):
+def head_logits(x, head, mesh=None):
     """fp32 logits [..., V] of hidden states [..., E] through the LM head
-    [E, V] (both in the model dtype)."""
+    [E, V] (both in the model dtype). On a mesh, x is [B, S, E] and the
+    product runs on local tensors: x split by batch, the head gathered
+    over fsdp and split by vocab over tensor, so the logits come out
+    split by vocab; the x grads are partial over the vocab split and the
+    head grads over the batch split."""
+    if on_mesh(mesh):
+        return _local_head_logits(x, head, mesh)
     lead = x.shape[:-1]
     out = _HeadLogits.apply(x.reshape(-1, x.shape[-1]), head)
     return out.view(*lead, head.shape[1])
+
+
+def _local_head_logits(x, head, mesh):
+    x_pl = placements_for(mesh, x.shape, "batch", "seq", "act_embed")
+    head_pl = placements_for(mesh, head.shape, None, "act_vocab")
+    out_pl = tuple(Shard(2) if h != Replicate() else p
+                   for p, h in zip(x_pl, head_pl))
+    x_grad = tuple(Partial() if h != Replicate() else p
+                   for p, h in zip(x_pl, head_pl))
+    head_grad = tuple(Partial() if p != Replicate() else h
+                      for p, h in zip(x_pl, head_pl))
+    return local_map(head_logits, out_placements=list(out_pl),
+                     in_placements=(x_pl, head_pl),
+                     in_grad_placements=(x_grad, head_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(x, head)
 
 
 def _proj(h2, w, config: LlamaConfig):
@@ -356,12 +467,14 @@ def _proj(h2, w, config: LlamaConfig):
     return h2 @ w.to(config.dtype).reshape(h2.shape[1], -1)
 
 
-def _dense_mlp(h, layer, config: LlamaConfig):
+def _dense_mlp(h, layer, config: LlamaConfig, mesh=None):
     c = config
     h2 = h.reshape(-1, h.shape[-1])
     gate = _proj(h2, layer["w_gate"], c)
     up = _proj(h2, layer["w_up"], c)
-    down = _proj(F.silu(gate) * up, layer["w_down"], c)
+    act = (F.silu(gate) * up).view(*h.shape[:-1], -1)
+    act = constrain(act, mesh, "batch", "seq", "act_mlp")
+    down = _proj(act.reshape(h2.shape[0], -1), layer["w_down"], c)
     return (down.view(h.shape),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
@@ -373,13 +486,18 @@ def _layer(x, aux_sum, layer, cos, sin, config: LlamaConfig, mesh, mlp):
     q = _proj(h2, layer["wq"], c).view(b, s, c.num_heads, c.head_dim)
     k = _proj(h2, layer["wk"], c).view(b, s, c.num_kv_heads, c.head_dim)
     v = _proj(h2, layer["wv"], c).view(b, s, c.num_kv_heads, c.head_dim)
-    q = _named(apply_rope(q, cos, sin), "q", c)
-    k = _named(apply_rope(k, cos, sin), "k", c)
-    v = _named(v, "v", c)
+    q = constrain(apply_rope(q, cos, sin), mesh, "batch", "seq",
+                  "act_heads", None)
+    k = constrain(apply_rope(k, cos, sin), mesh, "batch", "seq",
+                  "act_kv_heads", None)
+    v = constrain(v, mesh, "batch", "seq", "act_kv_heads", None)
+    q, k, v = _named(q, "q", c), _named(k, "k", c), _named(v, "v", c)
     o = _named(_attend(q, k, v, c, mesh), "attn_out", c)
     x = x + _proj(o.reshape(b * s, -1), layer["wo"], c).view(b, s, e)
+    x = constrain(x, mesh, "batch", "seq", "act_embed")
     down, aux = mlp(rms_norm(x, layer["mlp_norm"], c.rms_eps), layer)
-    return x + down, aux_sum + aux
+    x = constrain(x + down, mesh, "batch", "seq", "act_embed")
+    return x, aux_sum + aux
 
 
 def forward(params: Params, tokens, config: LlamaConfig, mesh=None,
@@ -403,8 +521,13 @@ def forward(params: Params, tokens, config: LlamaConfig, mesh=None,
     embed = params["embed"]
     cos, sin = rope_frequencies(c.head_dim, tokens.shape[1], c.rope_theta,
                                 device=embed.device)
-    x = F.embedding(tokens, embed.to(c.dtype))
-    mlp = mlp_fn or functools.partial(_dense_mlp, config=c)
+    if on_mesh(mesh):
+        _check_on_mesh(params, tokens)
+        cos, sin = (DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                       run_check=False) for t in (cos, sin))
+    x = embed_tokens(tokens, embed.to(c.dtype), mesh)
+    x = constrain(x, mesh, "batch", "seq", "act_embed")
+    mlp = mlp_fn or functools.partial(_dense_mlp, config=c, mesh=mesh)
     stacked = {name: torch.unbind(w, 0)
                for name, w in params["layers"].items()}
     n_layers = len(next(iter(stacked.values())))
@@ -421,7 +544,57 @@ def forward(params: Params, tokens, config: LlamaConfig, mesh=None,
     x = rms_norm(x, params["final_norm"], c.rms_eps)
     if return_hidden:
         return x, aux
-    return head_logits(x, params["lm_head"].to(c.dtype))
+    logits = head_logits(x, params["lm_head"].to(c.dtype), mesh)
+    return constrain(logits, mesh, "batch", "seq", "act_vocab")
+
+
+def embed_tokens(tokens, table, mesh=None):
+    """Rows of ``table`` [V, E] for ``tokens`` [B, S]. On a mesh the
+    lookup runs on local tensors, Megatron's vocab-parallel embedding:
+    the table gathered over fsdp and split by vocab over tensor, each
+    rank's rows for the ids in its vocab range and zeros elsewhere, so
+    the output is a partial sum over the vocab split (one rank's term is
+    the row, the rest are zeros: exact). DTensor's own embedding rule
+    could not take the backward of that split."""
+    if not on_mesh(mesh):
+        return F.embedding(tokens, table)
+    tok_pl = placements_for(mesh, tokens.shape, "batch", "seq")
+    table_pl = placements_for(mesh, table.shape, "act_vocab", None)
+    names = mesh.mesh_dim_names
+    split = "tensor" in names and table_pl[names.index("tensor")] != \
+        Replicate()
+    lo = mesh.get_local_rank("tensor") * (table.shape[0] // mesh.size(
+        names.index("tensor"))) if split else 0
+
+    def local(ids, rows):
+        if not split:
+            return F.embedding(ids, rows)
+        mine = (ids >= lo) & (ids < lo + rows.shape[0])
+        out = F.embedding(torch.where(mine, ids - lo, 0), rows)
+        return torch.where(mine[..., None], out, 0.0)
+
+    out_pl = tuple(Partial() if t != Replicate() else p
+                   for p, t in zip(tok_pl, table_pl))
+    table_grad = tuple(Partial() if p != Replicate() else t
+                       for p, t in zip(tok_pl, table_pl))
+    return local_map(local, out_placements=list(out_pl),
+                     in_placements=(tok_pl, table_pl),
+                     in_grad_placements=(tok_pl, table_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         tokens, table)
+
+
+def _check_on_mesh(params, tokens):
+    """On a mesh every param leaf and the tokens are DTensors: a plain
+    tensor there would be one rank's full tensor taken for the whole."""
+    plain = [name for name, v in {**params, "tokens": tokens}.items()
+             for t in (v.values() if isinstance(v, dict) else [v])
+             if not isinstance(t, DTensor)]
+    if plain:
+        raise TypeError(
+            f"on a DeviceMesh the params and tokens must be DTensors "
+            f"(plain: {plain}); place them with ShardedTrainer or "
+            f"parallel.shard_tree")
 
 
 def hidden_states(params: Params, tokens, config: LlamaConfig, mesh=None,
@@ -431,14 +604,33 @@ def hidden_states(params: Params, tokens, config: LlamaConfig, mesh=None,
                    mlp_fn=mlp_fn)
 
 
-def _chunk_stats(xc, head, tc, mc):
-    """Masked NLL sum and correct-prediction count of one sequence chunk."""
-    logits = head_logits(xc, head)
+def _logit_stats(logits, tc, mc):
+    """Masked NLL sum and correct-prediction count of fp32 logits."""
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, tc[..., None])[..., 0]
     nll = (lse - picked) * mc
     correct = (logits.argmax(dim=-1) == tc) * mc
     return nll.sum(), correct.sum()
+
+
+def _chunk_stats(xc, head, tc, mc, mesh=None):
+    """Masked NLL sum and correct-prediction count of one sequence chunk.
+    On a mesh the chunk's vocab-split logits are gathered over the tensor
+    axis before the softmax (each tensor rank holds the chunk's whole
+    logits: memory, not values), and the sums come out partial over the
+    batch split."""
+    logits = head_logits(xc, head, mesh)
+    if not on_mesh(mesh):
+        return _logit_stats(logits, tc, mc)
+    logits = constrain(logits, mesh, "batch", "seq", None)
+    pl = tuple(logits.placements)
+    tm_pl = placements_for(mesh, tc.shape, "batch", "seq")
+    sums = tuple(Partial() if p != Replicate() else p for p in pl)
+    return local_map(_logit_stats, out_placements=(list(sums), list(sums)),
+                     in_placements=(pl, tm_pl, tm_pl),
+                     in_grad_placements=(pl, tm_pl, tm_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         logits, tc, mc)
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
@@ -467,12 +659,11 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     while s % n_chunks:
         n_chunks -= 1
     step = s // n_chunks
-    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    correct_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    nll_sum = correct_sum = 0.0
     for i in range(n_chunks):
         sl = slice(i * step, (i + 1) * step)
         nll, correct = checkpoint(_chunk_stats, x[:, sl], head,
-                                  targets[:, sl], m[:, sl],
+                                  targets[:, sl], m[:, sl], mesh,
                                   use_reentrant=False)
         nll_sum = nll_sum + nll
         correct_sum = correct_sum + correct

@@ -1,11 +1,17 @@
-"""One-device train step for the Llama family (port of
+"""Sharded train step for the Llama family (port of
 ``ray_tpu/models/training.py``).
 
-:class:`ShardedTrainer` keeps the JAX trainer's interface on one device:
-``init_state``, ``train_step`` with token-weighted gradient accumulation
-over microbatches, and ``metrics["grad_norm"]``. Sharding over a mesh
-(the logical-axis ``rules``, ``shard_batch``) waits for ROADMAP.md queue
-A, item 7, and the checkpoint plane hooks for item 8; they raise.
+:class:`ShardedTrainer` keeps the JAX trainer's interface: ``init_state``,
+``train_step`` with token-weighted gradient accumulation over
+microbatches, ``shard_batch`` and ``metrics["grad_norm"]``. On a
+:class:`~torch.distributed.device_mesh.DeviceMesh`
+(:func:`ray_tpu_torch.parallel.make_mesh`) params and moments are
+DTensors placed by the logical-axis rule table, the batch is split over
+(data, fsdp), and each grad is redistributed to its param's placements
+before the optimizer sees it: the reduce-scatter or all-reduce that the
+JAX step's ``out_shardings`` imply. Without a mesh the step runs on one
+device. The checkpoint plane hooks wait for ROADMAP.md queue A, item 8;
+they raise.
 
 :func:`default_optimizer` is optax's ``chain(clip_by_global_norm,
 adamw(warmup_cosine_decay_schedule))`` written out in PyTorch with the
@@ -22,8 +28,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.parallel import sharding as shd
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -108,10 +117,36 @@ class AdamW:
     @staticmethod
     def global_norm(grads) -> torch.Tensor:
         """sqrt of the sum of squares over every leaf, in fp32 (a leaf
-        piece by piece, :func:`_pieces`)."""
-        return torch.sqrt(sum(piece.float().square().sum()
-                              for g in _leaves(grads)
-                              for piece in _pieces(g)))
+        piece by piece, :func:`_pieces`). DTensor leaves are summed on
+        each rank's local shard; a leaf replicated on a mesh dim counts
+        only from the ranks at coordinate 0 there, so it counts once. One
+        all-reduce over the mesh of a sum per placement pattern, added up
+        in one order: the same plain tensor on every rank."""
+        leaves = _leaves(grads)
+        if not any(isinstance(g, DTensor) for g in leaves):
+            return torch.sqrt(sum(_square_sum(g) for g in leaves))
+        mesh = leaves[0].device_mesh
+        if mesh.size() != torch.distributed.get_world_size():
+            raise ValueError("global_norm needs a mesh over every rank")
+        coord = mesh.get_coordinate()
+        patterns, sums = [], []
+        for g in leaves:
+            if g.device_mesh != mesh or any(p.is_partial()
+                                            for p in g.placements):
+                raise ValueError("global_norm takes grads on one mesh in "
+                                 "their params' placements")
+            split = tuple(p.is_shard() for p in g.placements)
+            if split not in patterns:
+                patterns.append(split)
+                sums.append(0.0)
+            if all(s or c == 0 for s, c in zip(split, coord)):
+                i = patterns.index(split)
+                sums[i] = sums[i] + _square_sum(g.to_local())
+        total = torch.stack([torch.as_tensor(s, dtype=torch.float32,
+                                             device=leaves[0].device)
+                             for s in sums])
+        torch.distributed.all_reduce(total)
+        return torch.sqrt(sum(total.unbind()))
 
     def _leaf(self, g, mu, nu, p, g_norm, clip, count_inc, step_size):
         """One leaf's (update, new mu, new nu)."""
@@ -160,6 +195,7 @@ class AdamW:
                                                          g_norm)
         for leaf in zip(_leaves(grads), state.mu, state.nu,
                         _leaves(params)):
+            leaf = _local_views(leaf)
             if all(t.is_contiguous() for t in leaf):
                 leaf = [_pieces(t) for t in leaf]
             else:
@@ -179,6 +215,22 @@ class AdamW:
 # near 1 GiB in bf16 however large the leaf. A Mixtral-8x7B expert leaf
 # of 4 layers holds 1.9 G elements (3.8 GB in bf16).
 _PIECE = 1 << 26
+
+
+def _square_sum(t: torch.Tensor) -> torch.Tensor:
+    return sum(piece.float().square().sum() for piece in _pieces(t))
+
+
+def _local_views(tensors):
+    """Each rank's local tensors of DTensors that share one placement
+    (the optimizer's work is elementwise); plain tensors as they are."""
+    if not isinstance(tensors[0], DTensor):
+        return tensors
+    placements = {tuple(t.placements) for t in tensors}
+    if len(placements) != 1:
+        raise ValueError(f"param, grad and moments differ in placements "
+                         f"{placements}")
+    return [t.to_local() for t in tensors]
 
 
 def _pieces(t: torch.Tensor):
@@ -220,52 +272,105 @@ class TrainState:
 
 
 _CHECKPOINT = "item 8 (ray_tpu_torch/train and ray_tpu_torch/checkpoint)"
+BATCH_SPEC = (("data", "fsdp"),)
+
+
+def _divisible_spec(spec, shape, mesh):
+    """Drop mesh axes from ``spec`` where they do not divide the dim
+    (``mesh``: a DeviceMesh or a mapping of axis sizes)."""
+    return shd.divisible_spec(spec, shape, llama.mesh_shape(mesh))
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    kind = mesh.device_type
+    want = torch.device(kind, torch.cuda.current_device()) \
+        if kind == "cuda" else torch.device(kind)
+    if device is not None and torch.device(device).type != kind:
+        raise ValueError(f"device {device} is not the mesh's {kind!r}")
+    return want
+
+
+def _plain(t):
+    """A DTensor's global value as a plain tensor on every rank."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 class ShardedTrainer:
-    """The JAX trainer's train step on one device.
+    """The JAX trainer's train step, on one device or on a mesh.
 
-    ``device`` defaults to ``cuda`` (raises without a GPU; pass
-    ``device="cpu"`` for the plain path). ``mesh`` may be None or a
-    one-device mapping of axis sizes; a larger mesh, or ``rules``,
-    raises until sharding is ported.
+    ``mesh``: a DeviceMesh from :func:`ray_tpu_torch.parallel.make_mesh`
+    (params, moments and batch sharded by ``rules``, default
+    :data:`~ray_tpu_torch.parallel.DEFAULT_RULES`), or None or a mapping
+    of axis sizes whose product is 1 (one device). ``device`` defaults to
+    ``cuda`` (raises without a GPU; pass ``device="cpu"`` for the plain
+    path); on a mesh it is the mesh's device.
     """
 
     def __init__(self, config: llama.LlamaConfig, mesh=None,
                  optimizer: Optional[AdamW] = None, rules=None,
                  microbatches: int = 1, grad_accum_dtype: Any = None,
                  device=None):
-        if rules is not None:
-            raise llama.not_ported("logical-axis sharding rules",
-                                   llama.SHARDING_ITEM)
-        if math.prod(llama.mesh_shape(mesh).values()) > 1:
-            raise llama.not_ported("a mesh of more than one device",
-                                   llama.SHARDING_ITEM)
+        if llama.on_mesh(mesh):
+            device = _mesh_device(mesh, device)
+        elif math.prod(llama.mesh_shape(mesh).values()) > 1:
+            raise ValueError(
+                f"a mesh of more than one device ({llama.mesh_shape(mesh)})"
+                f" must be a DeviceMesh from ray_tpu_torch.parallel."
+                f"make_mesh, not a mapping of sizes")
         self.config = config
         self.mesh = mesh
+        self.rules = rules
         self.device = llama.default_device(device)
         self.optimizer = optimizer or default_optimizer()
         # Token-weighted accumulation over M microbatches, one optimizer
         # update; the accumulator is fp32 unless asked otherwise.
         self.microbatches = max(int(microbatches), 1)
         self.grad_accum_dtype = grad_accum_dtype or torch.float32
+        self.param_specs = self.param_placements = None
+        if llama.on_mesh(mesh):
+            # A mesh axis that does not divide a dim (2 kv heads on
+            # tensor=4) leaves that dim replicated, as GSPMD requires.
+            self.param_specs = shd.tree_map(
+                lambda spec, shape: _divisible_spec(spec, shape, mesh),
+                shd.tree_specs(llama.logical_axes(config), rules),
+                llama.param_shapes(config))
+            self.param_placements = shd.tree_map(
+                lambda spec: shd.spec_placements(spec, mesh),
+                self.param_specs)
 
     # -- state -------------------------------------------------------------
     def state_from_params(self, params) -> TrainState:
         """A fresh state (step 0, zero moments) around a copy of
         ``params`` on the trainer's device (for example a JAX param tree
-        through :func:`ray_tpu_torch.interop.params_from_numpy`)."""
-        return self._fresh_state(_unflatten(
+        through :func:`ray_tpu_torch.interop.params_from_numpy`); on a
+        mesh the full params, rank 0's, are distributed."""
+        return self._fresh_state(self._place(_unflatten(
             params, [p.detach().to(self.device, copy=True)
-                     for p in _leaves(params)]))
+                     for p in _leaves(params)])))
 
     def init_state(self, seed: int = 0) -> TrainState:
+        """Params drawn from a generator seeded with ``seed``. On a mesh
+        every rank draws the full params and keeps its shards (a sharded
+        init is later work)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return self._fresh_state(
-            llama.init_params(self.config, gen, device=self.device))
+        return self._fresh_state(self._place(
+            llama.init_params(self.config, gen, device=self.device),
+            src_data_rank=None))
+
+    def _place(self, params, src_data_rank=0):
+        """Full params distributed onto the mesh by their placements
+        (``src_data_rank=None``: each rank keeps its shard of its own
+        copy, the same on every rank); off a mesh, as they are."""
+        if self.param_placements is None:
+            return params
+        return shd.tree_map(
+            lambda t, pl: distribute_tensor(t, self.mesh, pl,
+                                            src_data_rank=src_data_rank),
+            params, self.param_placements)
 
     def _fresh_state(self, params) -> TrainState:
-        """The state owns ``params``: steps update them in place."""
+        """The state owns ``params``: steps update them in place. The
+        moments take the params' placements."""
         for p in _leaves(params):
             p.requires_grad_(True)
         return TrainState(step=0, params=params,
@@ -273,10 +378,12 @@ class ShardedTrainer:
 
     # -- gradients ---------------------------------------------------------
     def _grads_direct(self, params, batch):
+        leaves = _leaves(params)
         loss, metrics = llama.loss_fn(params, batch, self.config, self.mesh)
-        grads = torch.autograd.grad(loss, _leaves(params))
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                list(grads))
+        grads = torch.autograd.grad(loss, leaves)
+        return (_plain(loss.detach()),
+                {k: _plain(v.detach()) for k, v in metrics.items()},
+                [_placed_like(g, p) for g, p in zip(grads, leaves)])
 
     def _grads_microbatched(self, params, batch):
         """Token-weighted accumulation over M microbatches: each
@@ -284,6 +391,10 @@ class ShardedTrainer:
         summed grads are the single-batch grads up to fp32 reduction
         order, whatever the per-microbatch mask imbalance."""
         M = self.microbatches
+        # On a mesh microbatch i holds the global rows [i g/M, (i+1) g/M)
+        # split over the batch axes, as JAX's reshape to [M, g/M] does;
+        # each rank's own rows cut into M would be other microbatches.
+        batch = {k: _plain(v) for k, v in batch.items()}
         tokens = batch["tokens"]
         g = tokens.shape[0]
         if g % M:
@@ -300,15 +411,17 @@ class ShardedTrainer:
         correct_sum = torch.zeros((), device=tokens.device)
         micro = g // M
         for i in range(M):
-            mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
+            mb = {k: self._shard_rows(v[i * micro:(i + 1) * micro],
+                                      src_data_rank=None)
+                  for k, v in batch.items()}
             loss, metrics = llama.loss_fn(params, mb, self.config, self.mesh)
-            scaled = loss * (metrics["tokens"] / total)
+            scaled = loss * (metrics["tokens"] / self._replicated(total))
             grads = torch.autograd.grad(scaled, leaves)
-            for acc, gi in zip(gsum, grads):
-                acc.add_(gi.to(acc.dtype))
-            loss_sum = loss_sum + scaled.detach()
-            correct_sum = correct_sum + (metrics["accuracy"]
-                                         * metrics["tokens"]).detach()
+            for acc, gi, p in zip(gsum, grads, leaves):
+                acc.add_(_placed_like(gi, p).to(acc.dtype))
+            loss_sum = loss_sum + _plain(scaled.detach())
+            correct_sum = correct_sum + _plain(
+                (metrics["accuracy"] * metrics["tokens"]).detach())
         grads = [acc.to(p.dtype) for acc, p in zip(gsum, leaves)]
         metrics = {"loss": loss_sum, "accuracy": correct_sum / total,
                    "tokens": total}
@@ -333,7 +446,7 @@ class ShardedTrainer:
             raise ValueError(
                 f"global batch {g} not divisible by "
                 f"microbatches={self.microbatches}")
-        batch = {k: v.to(self.device) for k, v in batch.items()}
+        batch = self.shard_batch(batch)
         with llama.fp32_reduction(self.device, self.config.dtype):
             _, metrics, grads = self.grads(state.params, batch)
             metrics["grad_norm"] = AdamW.global_norm(grads)
@@ -344,8 +457,29 @@ class ShardedTrainer:
                           opt_state=opt_state), metrics
 
     def shard_batch(self, batch):
-        raise llama.not_ported("shard_batch (batch sharding over a mesh)",
-                               llama.SHARDING_ITEM)
+        """The batch on the trainer's device; on a mesh its rows split
+        over (data, fsdp) (replicated where those axes do not divide the
+        batch). DTensors are left as they are."""
+        return {k: v if isinstance(v, DTensor)
+                else self._shard_rows(v.to(self.device))
+                for k, v in batch.items()}
+
+    def _shard_rows(self, x, src_data_rank=0):
+        if not llama.on_mesh(self.mesh):
+            return x
+        spec = _divisible_spec(BATCH_SPEC, x.shape, self.mesh)
+        return distribute_tensor(x, self.mesh,
+                                 shd.spec_placements(spec, self.mesh),
+                                 src_data_rank=src_data_rank)
+
+    def _replicated(self, t):
+        """A plain tensor, the same on every rank, as a replicated
+        DTensor on the mesh (itself off a mesh)."""
+        if not llama.on_mesh(self.mesh):
+            return t
+        return DTensor.from_local(t, self.mesh,
+                                  [Replicate()] * self.mesh.ndim,
+                                  run_check=False)
 
     # -- checkpoint plane hooks --------------------------------------------
     def save_state(self, plane, state: TrainState, step=None):
@@ -355,6 +489,15 @@ class ShardedTrainer:
     def restore_state(self, plane, step=None):
         raise llama.not_ported("restore_state (the checkpoint plane)",
                                _CHECKPOINT)
+
+
+def _placed_like(g, p):
+    """Grad ``g`` in param ``p``'s placements: the reduce-scatter or
+    all-reduce of a partial sum (a plain grad is returned as it is)."""
+    if not isinstance(p, DTensor) or tuple(g.placements) == tuple(
+            p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def synthetic_batch(batch_size: int, seq_len: int, vocab_size: int,

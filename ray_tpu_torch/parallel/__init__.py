@@ -1,0 +1,29 @@
+"""Mesh and sharding primitives of the port (``ray_tpu/parallel``): a
+named device mesh over ``torch.distributed`` ranks and the logical-axis
+rule table, whose specs become DTensor placements. GPipe (``pipeline``)
+is ROADMAP.md queue A, item 7c."""
+
+from ray_tpu_torch.parallel.mesh import (
+    MESH_AXES,
+    MeshConfig,
+    batch_axes,
+    make_mesh,
+    mesh_shape,
+    num_model_replicas,
+    single_device_mesh,
+)
+from ray_tpu_torch.parallel.sharding import (
+    DEFAULT_RULES,
+    constrain,
+    logical_to_spec,
+    shard_tree,
+    tree_shardings,
+    tree_specs,
+)
+
+__all__ = [
+    "MESH_AXES", "MeshConfig", "batch_axes", "make_mesh", "mesh_shape",
+    "num_model_replicas", "single_device_mesh",
+    "DEFAULT_RULES", "constrain", "logical_to_spec", "shard_tree",
+    "tree_shardings", "tree_specs",
+]

@@ -418,18 +418,37 @@ def test_synthetic_batch_is_seeded():
         a["mask"], torch.ones_like(a["tokens"]))
 
 
-def test_unported_hooks_raise():
+def test_unported_hooks_raise(tmp_path):
+    # Rules, meshes and shard_batch run since the mesh path is ported:
+    # rules place nothing on one device, a mapping of sizes larger than
+    # one device is refused in favour of a DeviceMesh, and a one-rank
+    # DeviceMesh with the rules takes the one-device step's values.
     tc = tl.LlamaConfig.tiny(dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tt.ShardedTrainer(tc, rules={"embed": "fsdp"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    assert tt.ShardedTrainer(tc, rules={"embed": "fsdp"},
+                             device="cpu").param_specs is None
+    with pytest.raises(ValueError, match="make_mesh"):
         tt.ShardedTrainer(tc, mesh={"data": 1, "fsdp": 2}, device="cpu")
     trainer = tt.ShardedTrainer(tc, mesh={"data": 1, "fsdp": 1},
                                 device="cpu", microbatches=3)
     state = trainer.init_state(0)
     batch = tt.synthetic_batch(4, 16, tc.vocab_size, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trainer.shard_batch(batch)
+    placed = trainer.shard_batch(batch)
+    assert all(torch.equal(placed[k], batch[k]) for k in batch)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        from ray_tpu_torch.parallel import make_mesh as torch_mesh
+
+        on_mesh = tt.ShardedTrainer(tc, mesh=torch_mesh(device_type="cpu"),
+                                    rules={"embed": "fsdp"})
+        mstate = on_mesh.init_state(0)
+        _, want = tt.ShardedTrainer(tc, device="cpu").train_step(
+            tt.ShardedTrainer(tc, device="cpu").init_state(0), batch)
+        mstate, got = on_mesh.train_step(mstate, on_mesh.shard_batch(batch))
+        np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                                   rtol=1e-6)
+    finally:
+        torch.distributed.destroy_process_group()
     with pytest.raises(NotImplementedError, match="item 8"):
         trainer.save_state(None, state)
     with pytest.raises(NotImplementedError, match="item 8"):
