@@ -211,7 +211,24 @@ Phases, any failure exits non-zero with no result line:
    first, 2 L / L / L flash launches a step, peak memory under
    ``SHARDED["peak_gib"]``; ``[sharded-train]`` prints step ms, tokens/s,
    MFU and peak beside phase 10's and the largest relative loss gap over
-   the 12 steps, then one profiled step (``[sharded-profile]``).
+   the 12 steps, then one profiled step (``[sharded-profile]``);
+26. the seq path, inside phase 25's NCCL group on
+   ``make_mesh(MeshConfig(seq=1))`` (a ring of one): (a) phase 25's tiny
+   fp32 model with ``attention="ring"`` against the one-device trainer
+   with the fp32 flash kernels, 2 steps: loss within ``SHARDED["tol"]``
+   relative, every grad leaf within ``MODEL_GRAD_TOL``, and no flash
+   launch on the ring's steps (``[ring-parity]``); (b) ``ulysses_attention``
+   inside ``local_map`` at FLASH_CASES[0]'s shape (B=2, S=2048, Hq=32,
+   KVH=8, D=128, bf16, causal), forward and backward: out, dq, dk and dv
+   against ``mha_reference`` at that case's tolerances, and exactly one
+   launch of each flash kernel (``[ulysses]``); (c) phase 10's run with
+   ``attention="ring"``: step 1's loss within ``SEQ["loss_rtol"]`` of
+   phase 10's, every loss finite, the last below the first, no flash
+   launch, peak under ``SEQ["peak_gib"]``; ``[seq-train]`` prints step
+   ms, tokens/s, MFU, peak, idle share (``[seq-profile]``, one profiled
+   step) and the attention's share of device time (one layer's ring
+   forward and forward-and-backward timed alone, times the layers, over
+   the profiled step's device time) beside phase 25's.
 
 Phases 11-12 run after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
 phase 5 and 16, 20 and 22 inside phase 6, where their models already live
@@ -223,20 +240,27 @@ entries also carry ``spec_launches``, their launches in phase 19's
 self-draft and external-drafter runs, the paged entry
 ``split_launches``, the decode engine's launches in phase 21's bf16 run,
 and the flash entries ``mixtral_launches``, their launches in phase 24's
-run, and ``sharded_launches``, their launches in phase 25's 12 steps);
+run, ``sharded_launches``, their launches in phase 25's 12 steps, and
+``ulysses_launches``, their launches in phase 26b);
 the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --mesh-check`` instead needs four cards: it
 spawns four ranks of one NCCL group (``tcp://localhost``, a free port)
-and runs ``ShardedTrainer`` on four-rank meshes (``MESH_CHECK``): phase
-25's tiny fp32 model at fsdp=4, fsdp=2 x tensor=2, tensor=4 (its 2 kv
-heads stay whole) and data=2 x fsdp=2 with 2 microbatches, 3 steps each,
+and runs on four-rank meshes (``MESH_CHECK``): ``ShardedTrainer`` with
+phase 25's tiny fp32 model at fsdp=4, fsdp=2 x tensor=2, tensor=4 (its 2
+kv heads stay whole), data=2 x fsdp=2 with 2 microbatches, and with ring
+attention at tensor=2 x seq=2, fsdp=2 x seq=2 and seq=4, 3 steps each,
 every loss within ``SHARDED["tol"]`` and every grad norm within 1e-4 of
 the one-device trainer on rank 0, each rank holding its share of
-``w_gate`` and launching the flash kernels; then phase 10's model at
-fsdp=4 (a 4 x 2048 batch, one row a rank) for ``MESH_CHECK["steps"]``
-steps: step ms, tokens/s a card, MFU, peak and launches
-(``[mesh-train]``). It prints ``[mesh-check]`` lines and no result line.
+``w_gate`` and launching the flash kernels (none on a seq axis)
+(``[mesh-check]``); ``ulysses_attention`` at seq=4 on phase 26b's shape
+against ``mha_reference``, one launch of each flash kernel a rank
+(``[mesh-ulysses]``); ``pipelined`` at stage=4 and stage=2 x fsdp=2,
+output and grads against the sequential stages on every rank
+(``[mesh-pipeline]``); then phase 10's model at fsdp=4 (a 4 x 2048
+batch, one row a rank) and at seq=4 (one 8,192-token row) for
+``MESH_CHECK["steps"]`` steps: step ms, tokens/s a card, MFU, peak and
+launches (``[mesh-train]``). It prints no result line.
 
 ``python3 chip_smoke.py --paged-host-us ROOT`` instead measures only the
 host microseconds a paged call takes (``host_us``, the phase-3 cases at
@@ -291,13 +315,33 @@ SHARDED = dict(tol=1e-5, peak_gib=70.0, parity_steps=2)
 SHARDED_PARITY = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
                       num_layers=2, num_heads=4, num_kv_heads=2,
                       head_dim=128, max_seq_len=256, batch=2, seq=256)
-# --mesh-check: four ranks, phase 25's parity model on four layouts (name,
-# mesh sizes, microbatches), then phase 10's model at fsdp=4.
+# Phase 26: the seq path on phase 25's one-rank mesh. 26a: phase 25's
+# parity model with ring attention against the one-device fp32 flash
+# kernels (loss within SHARDED["tol"], grads within MODEL_GRAD_TOL); 26b:
+# Ulysses at FLASH_CASES[0] (the training attention shape, bf16, causal)
+# against mha_reference at that case's tolerances; 26c: phase 10's run
+# with ring attention, step 1's loss within loss_rtol of phase 10's (fp32
+# block math against the bf16 flash kernels: rounding only).
+SEQ = dict(loss_rtol=1e-3, peak_gib=70.0, ulysses_seed=40, timed_iters=5)
+# --mesh-check: four ranks, phase 25's parity model on seven layouts
+# (name, mesh sizes, microbatches; ring attention on the seq layouts),
+# Ulysses at seq=4 on phase 26b's shape, the two pipelines of
+# tests/test_moe_pipeline.py (name, mesh sizes, stages, width,
+# microbatches, rows), then phase 10's model at fsdp=4 (a 2048-token row
+# a rank) and at seq=4 (one row of Llama-3-8B's published 8,192-token
+# context).
 MESH_CHECK = dict(world=4, parity_steps=3, batch=8, layouts=[
     ("fsdp4", dict(fsdp=4), 1), ("fsdp2_tp2", dict(fsdp=2, tensor=2), 1),
     ("tp4_kv2", dict(fsdp=1, tensor=4), 1),
-    ("dp2_fsdp2_micro2", dict(data=2, fsdp=2), 2)],
-    train_mesh=dict(fsdp=4), train_batch=4, steps=8)
+    ("dp2_fsdp2_micro2", dict(data=2, fsdp=2), 2),
+    ("tp2_sp2", dict(fsdp=1, tensor=2, seq=2), 1),
+    ("fsdp2_sp2", dict(fsdp=2, seq=2), 1), ("sp4", dict(fsdp=1, seq=4), 1)],
+    ulysses_mesh=dict(fsdp=1, seq=4),
+    pipelines=[("stage4", dict(stage=4, fsdp=1), 4, 16, 8, 32),
+               ("stage2_fsdp2", dict(stage=2, fsdp=2), 2, 8, 4, 8)],
+    train=[("fsdp4", dict(fsdp=4), 4, 2048), ("sp4", dict(fsdp=1, seq=4), 1,
+                                              8192)],
+    steps=8)
 MIXTRAL_PARITY = dict(layers=2, seq=512)
 MIXTRAL_TRAIN = dict(layers=4, batch=2, seq=2048, steps=12, warmup=5,
                      total=1000, peak_gib=70.0)
@@ -1771,12 +1815,13 @@ def train_flops(cfg, n_params, batch, seq):
             * cfg.head_dim * seq * seq * batch // 2)
 
 
-def profile_step(torch, run, step_ms, routing=False):
+def profile_step(torch, run, step_ms, routing=False, flash=True):
     """Device time of one train step, ``run()`` (which ends in a sync),
     by kernel (torch.profiler, device rows only), grouped: the three
-    flash kernels, GEMMs, with ``routing`` the MoE routing kernels
-    (ROUTING_KERNELS), the rest; the idle share is against ``step_ms``,
-    the unprofiled step (the profiler slows the host)."""
+    flash kernels (each must have run, unless ``flash`` is False), GEMMs,
+    with ``routing`` the MoE routing kernels (ROUTING_KERNELS), the rest;
+    the idle share is against ``step_ms``, the unprofiled step (the
+    profiler slows the host)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1810,7 +1855,7 @@ def profile_step(torch, run, step_ms, routing=False):
             groups["other"] += ms
     empty = [g for g in ("flash_fwd", "flash_dq", "flash_dkv")
              if groups[g] <= 0.0]
-    if empty:
+    if flash and empty:
         fail(f"train profile: no device time in {empty} (a renamed flash "
              f"kernel would land in 'other'); kernels: "
              f"{sorted(r[0][:80] for r in rows if 'flash' in r[0])}")
@@ -1886,9 +1931,11 @@ def train_end_to_end(torch, card):
     return stats
 
 
-def sharded_parity(torch, mesh):
-    """Phase 25's tiny fp32 model: the one-rank mesh against one device,
-    loss and every grad leaf at each of SHARDED["parity_steps"] steps."""
+def mesh_parity(torch, mesh, attention):
+    """SHARDED_PARITY's fp32 model with ``attention`` on ``mesh`` against
+    the one-device trainer (the fp32 flash kernels), SHARDED["parity_steps"]
+    steps: (worst relative loss gap, worst grad leaf's max|diff| over its
+    max|grad|, the mesh step's flash launches at each step)."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.models.training import (ShardedTrainer,
                                                default_optimizer,
@@ -1904,22 +1951,21 @@ def sharded_parity(torch, mesh):
         return default_optimizer(warmup_steps=2, total_steps=50,
                                  learning_rate=1e-2)
 
-    one = ShardedTrainer(cfg, optimizer=opt())
-    sharded = ShardedTrainer(cfg, mesh, optimizer=opt(),
-                             rules=DEFAULT_RULES)
+    one = ShardedTrainer(dataclasses.replace(cfg, attention="flash"),
+                         optimizer=opt())
+    sharded = ShardedTrainer(dataclasses.replace(cfg, attention=attention),
+                             mesh, optimizer=opt(), rules=DEFAULT_RULES)
     s1, s2 = one.init_state(0), sharded.init_state(0)
     batch = synthetic_batch(batch_size, seq, cfg.vocab_size, seed=1)
     worst_loss = worst_grad = 0.0
+    launches = []
     for _ in range(SHARDED["parity_steps"]):
         l1, _, g1 = one.grads(s1.params, batch)
         before = dict(flash_attention.launches)
         l2, _, g2 = sharded.grads(s2.params, sharded.shard_batch(batch))
         torch.cuda.synchronize()
-        launched = {n: flash_attention.launches[n] - before[n]
-                    for n in before}
-        if launched != dict.fromkeys(before, cfg.num_layers):
-            fail(f"sharded parity: the mesh step launched {launched}, "
-                 f"want {cfg.num_layers} of each")
+        launches.append({n: flash_attention.launches[n] - before[n]
+                         for n in before})
         worst_loss = max(worst_loss, abs(float(l2) - float(l1))
                          / abs(float(l1)))
         worst_grad = max(worst_grad, max(
@@ -1927,18 +1973,104 @@ def sharded_parity(torch, mesh):
             / max(float(a.abs().max()), 1e-30) for a, b in zip(g1, g2)))
         s1, _ = one.train_step(s1, batch)
         s2, _ = sharded.train_step(s2, batch)
-    print(f"[sharded-parity] fp32 tiny (D=128, {cfg.num_layers} layers, "
-          f"{batch_size} x {seq}), one-rank mesh vs one device over "
+    print(f"[{'ring' if attention == 'ring' else 'sharded'}-parity] fp32 "
+          f"tiny (D=128, {cfg.num_layers} layers, {batch_size} x {seq}), "
+          f"one-rank mesh ({attention}) vs one device (flash) over "
           f"{SHARDED['parity_steps']} steps: worst loss rel "
           f"{worst_loss:.3e}, worst grad leaf max|diff|/max|grad| "
-          f"{worst_grad:.3e} (limit {SHARDED['tol']})")
+          f"{worst_grad:.3e}; mesh launches a step {launches}")
+    return worst_loss, worst_grad, launches, cfg.num_layers
+
+
+def sharded_parity(torch, mesh):
+    """Phase 25's tiny fp32 model: the one-rank mesh against one device,
+    loss and every grad leaf within SHARDED["tol"] at each step, the
+    flash kernels launched once a layer."""
+    worst_loss, worst_grad, launches, L = mesh_parity(torch, mesh, "auto")
+    if any(d != dict.fromkeys(d, L) for d in launches):
+        fail(f"sharded parity: the mesh step launched {launches}, want "
+             f"{L} of each")
     if worst_loss > SHARDED["tol"] or worst_grad > SHARDED["tol"]:
         fail("sharded parity: the one-rank mesh step disagrees with the "
              "one-device step")
 
 
+def ring_parity(torch, mesh):
+    """Phase 26a: the same model with ring attention on the one-rank mesh
+    against the one-device fp32 flash kernels: loss within
+    SHARDED["tol"], grads within MODEL_GRAD_TOL, and the ring's steps
+    launch no flash kernel (the ring path ran)."""
+    worst_loss, worst_grad, launches, _ = mesh_parity(torch, mesh, "ring")
+    if any(any(d.values()) for d in launches):
+        fail(f"ring parity: the ring step launched flash kernels "
+             f"{launches}")
+    if worst_loss > SHARDED["tol"] or worst_grad > MODEL_GRAD_TOL:
+        fail(f"ring parity: loss gap {worst_loss:.3e} (limit "
+             f"{SHARDED['tol']}), grad gap {worst_grad:.3e} (limit "
+             f"{MODEL_GRAD_TOL})")
+    return dict(worst_loss_rel=worst_loss, worst_grad_rel=worst_grad,
+                launches=launches)
+
+
+def ulysses_check(torch, mesh, rank=0):
+    """Phase 26b (and --mesh-check's Ulysses): ``ulysses_attention``
+    inside ``local_map`` on ``mesh``'s seq axis at FLASH_CASES[0], forward
+    and backward, against ``mha_reference`` on the whole tensors at that
+    case's tolerances on rank 0; each rank launches each flash kernel
+    once."""
+    import functools
+
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+
+    from ray_tpu_torch.ops import ulysses_attention
+    from ray_tpu_torch.ops.attention import flash_attention, mha_reference
+    from ray_tpu_torch.parallel.sharding import spec_placements
+
+    name, kind, causal, sq, sk, atol, rtol = FLASH_CASES[0]
+    q, k, v, do = flash_inputs(torch, kind, sq, sk, SEQ["ulysses_seed"])
+    pl = spec_placements(("fsdp", "seq"), mesh)
+    args = [distribute_tensor(t, mesh, pl).requires_grad_()
+            for t in (q, k, v)]
+    op = local_map(functools.partial(ulysses_attention, mesh=mesh,
+                                     axis_name="seq", causal=causal),
+                   out_placements=list(pl), in_placements=(pl,) * 3,
+                   device_mesh=mesh)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = op(*args)
+    grads = torch.autograd.grad(out, args, distribute_tensor(do, mesh, pl))
+    torch.cuda.synchronize()
+    launches = dict(flash_attention.launches)
+    if launches != {"fwd": 1, "dq": 1, "dkv": 1}:
+        fail(f"ulysses: rank {rank} launched {launches}, want 1/1/1")
+    got = [t.full_tensor() for t in (out,) + tuple(grads)]
+    errs = {}
+    if rank == 0:
+        ref_in = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref = mha_reference(*ref_in, causal=causal)
+        want = (ref,) + torch.autograd.grad(ref, ref_in, do)
+        for label, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+            err, ok, n_bad = close(torch, g, w, atol, rtol)
+            errs[label] = err
+            if not ok:
+                fail(f"ulysses ({name}) disagrees with mha_reference "
+                     f"({label}): max_abs_err={err}, {n_bad} elements "
+                     f"out (atol {atol}, rtol {rtol})")
+        print(f"[ulysses] {name} (B={FLASH_SHAPE['B']}, S={sq}, Hq="
+              f"{FLASH_SHAPE['HQ']}, KVH={FLASH_SHAPE['KVH']}, D="
+              f"{FLASH_SHAPE['D']}) on mesh {list(mesh.mesh_dim_names)} "
+              f"{list(mesh.shape)}: "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" (atol {atol}, rtol {rtol}); launches {launches}")
+    del q, k, v, do, args, out, grads, got
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=errs, launches=launches)
+
+
 def sharded_train(torch, card, train):
-    """Phase 25: the sharded trainer on a one-rank mesh."""
+    """Phase 25, the sharded trainer on a one-rank mesh, then phase 26,
+    the seq path on the same NCCL group: (phase 25's stats, phase 26's)."""
     import tempfile
 
     import torch.distributed as dist
@@ -1952,12 +2084,55 @@ def sharded_train(torch, card, train):
         try:
             mesh = make_mesh(MeshConfig())
             sharded_parity(torch, mesh)
-            return _sharded_run(torch, card, train, mesh)
+            sharded = _sharded_run(torch, card, train, mesh)
+            seq = timed("phase 26", seq_phases, torch, card, train,
+                        make_mesh(MeshConfig(seq=1)))
+            return sharded, seq
         finally:
             dist.destroy_process_group()
 
 
-def _sharded_run(torch, card, train, mesh):
+def seq_phases(torch, card, train, mesh):
+    """Phase 26 on a one-rank mesh: 26a ring parity, 26b Ulysses with the
+    flash kernels, 26c phase 10's run with ring attention."""
+    out = {"ring_parity": ring_parity(torch, mesh),
+           "ulysses": ulysses_check(torch, mesh)}
+    out["train"] = _sharded_run(torch, card, train, mesh, attention="ring")
+    return out
+
+
+def ring_attention_ms(torch, cfg, batch, seq):
+    """CUDA-event ms of one layer's ring attention at the run's shape on
+    a one-rank mesh (one block over the whole sequence): the forward and
+    the forward with its backward."""
+    import functools
+
+    from ray_tpu_torch.ops import ring_attention
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(seq=1))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(heads):
+        return torch.randn((batch, seq, heads, cfg.head_dim), generator=gen,
+                           device="cuda").to(cfg.dtype).requires_grad_()
+    q, k, v = rnd(cfg.num_heads), rnd(cfg.num_kv_heads), \
+        rnd(cfg.num_kv_heads)
+    do = torch.randn_like(q)
+    ring = functools.partial(ring_attention, mesh=mesh, axis_name="seq",
+                             causal=True)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fwd = time_ms(torch, lambda: ring(q, k, v), flush, SEQ["timed_iters"])
+    fwd_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        ring(q, k, v), (q, k, v), do), flush, SEQ["timed_iters"])
+    del q, k, v, do, flush
+    torch.cuda.empty_cache()
+    return fwd, fwd_bwd
+
+
+def _sharded_run(torch, card, train, mesh, attention="auto"):
+    """Phase 10's run through ``ShardedTrainer`` on the one-rank ``mesh``
+    (phase 25), or with ring attention (phase 26c)."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.models.training import (ShardedTrainer,
                                                default_optimizer,
@@ -1966,8 +2141,10 @@ def _sharded_run(torch, card, train, mesh):
     from ray_tpu_torch.parallel import DEFAULT_RULES
 
     t = TRAIN
+    ring = attention == "ring"
+    tag = "seq-train" if ring else "sharded-train"
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
-                              num_layers=t["layers"])
+                              num_layers=t["layers"], attention=attention)
     trainer = ShardedTrainer(cfg, mesh, optimizer=default_optimizer(
         warmup_steps=t["warmup"], total_steps=t["total"]),
         rules=DEFAULT_RULES)
@@ -1988,22 +2165,23 @@ def _sharded_run(torch, card, train, mesh):
                          for n in before})
     launches = dict(flash_attention.launches)
     L = cfg.num_layers
-    want = {"fwd": 2 * L, "dq": L, "dkv": L}
+    want = ({"fwd": 0, "dq": 0, "dkv": 0} if ring
+            else {"fwd": 2 * L, "dq": L, "dkv": L})
     ref = train["losses"]
     first_gap = abs(losses[0] - ref[0]) / abs(ref[0])
+    loss_tol = SEQ["loss_rtol"] if ring else SHARDED["tol"]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"sharded train: losses {losses} (want finite, last below "
-             f"first)")
-    if first_gap > SHARDED["tol"]:
-        fail(f"sharded train: step 1 loss {losses[0]} against phase 10's "
-             f"{ref[0]} (relative gap {first_gap:.3e})")
+        fail(f"{tag}: losses {losses} (want finite, last below first)")
+    if first_gap > loss_tol:
+        fail(f"{tag}: step 1 loss {losses[0]} against phase 10's "
+             f"{ref[0]} (relative gap {first_gap:.3e}, limit {loss_tol})")
     if any(d != want for d in per_step):
-        fail(f"sharded train: launches per step {per_step}, want {want}")
+        fail(f"{tag}: launches per step {per_step}, want {want}")
     step_s = float(np.median(step_ms[2:])) / 1e3
     tokens = t["batch"] * t["seq"]
     stats = dict(
-        mesh=llama.mesh_shape(mesh), layers=L, losses=losses,
-        step_ms=step_ms, step_ms_median_3_12=step_s * 1e3,
+        mesh=llama.mesh_shape(mesh), attention=attention, layers=L,
+        losses=losses, step_ms=step_ms, step_ms_median_3_12=step_s * 1e3,
         tokens_per_s=tokens / step_s,
         mfu=train_flops(cfg, llama.num_params(cfg), t["batch"], t["seq"])
         / step_s / PEAK_OPS_PER_S["bf16"],
@@ -2013,17 +2191,30 @@ def _sharded_run(torch, card, train, mesh):
         launches_per_step=want, launches=launches, card=card)
     stats["phase10"] = {k: train[k] for k in (
         "step_ms_median_3_12", "tokens_per_s", "mfu", "peak_gib")}
-    if stats["peak_gib"] > SHARDED["peak_gib"]:
-        fail(f"sharded train: peak {stats['peak_gib']:.2f} GiB over "
-             f"{SHARDED['peak_gib']}")
-    print(f"[sharded-train] {json.dumps(stats)}")
+    peak_limit = SEQ["peak_gib"] if ring else SHARDED["peak_gib"]
+    if stats["peak_gib"] > peak_limit:
+        fail(f"{tag}: peak {stats['peak_gib']:.2f} GiB over {peak_limit}")
 
     def one_step():
         float(trainer.train_step(state, batch)[1]["loss"])
-    prof = profile_step(torch, one_step, step_s * 1e3)
-    print(f"[sharded-profile] one step: {json.dumps(prof)}")
+    prof = profile_step(torch, one_step, step_s * 1e3, flash=not ring)
+    stats["idle_share"] = prof["idle_share"]
     del state, trainer, batch
     torch.cuda.empty_cache()
+    if ring:
+        fwd, fwd_bwd = ring_attention_ms(torch, cfg, t["batch"], t["seq"])
+        # Under remat "full" a step runs each layer's ring forward twice
+        # and its backward once: L x (forward + forward-and-backward).
+        stats["ring_layer_ms"] = dict(fwd=fwd, fwd_bwd=fwd_bwd)
+        stats["attention_share"] = L * (fwd + fwd_bwd) / prof[
+            "device_busy_ms"]
+    else:
+        stats["attention_share"] = sum(
+            prof["groups_ms"][g] for g in ("flash_fwd", "flash_dq",
+                                           "flash_dkv")) / prof[
+            "device_busy_ms"]
+    print(f"[{tag}] {json.dumps(stats)}")
+    print(f"[{tag.split('-')[0]}-profile] one step: {json.dumps(prof)}")
     return stats
 
 
@@ -2064,18 +2255,68 @@ def mesh_rank(rank, world, init_method, backend):
         device, extra = torch.device("cpu"), {}
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world, **extra)
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    card = card_line() if backend == "nccl" else "cpu"
     try:
         for name, sizes, micro in MESH_CHECK["layouts"]:
             res = mesh_parity_case(torch, rank, device, sizes, micro)
             if rank == 0:
                 print(f"[mesh-check] {name}: {json.dumps(res)}",
                       flush=True)
-        res = mesh_train(torch, device)
+        res = ulysses_check(torch, make_mesh(
+            MeshConfig(**MESH_CHECK["ulysses_mesh"]),
+            device_type=device.type), rank)
         if rank == 0:
-            res["card"] = card_line() if backend == "nccl" else "cpu"
-            print(f"[mesh-train] {json.dumps(res)}", flush=True)
+            print(f"[mesh-ulysses] {json.dumps(res)}", flush=True)
+        for case in MESH_CHECK["pipelines"]:
+            res = mesh_pipeline(torch, rank, device, *case)
+            if rank == 0:
+                print(f"[mesh-pipeline] {case[0]}: {json.dumps(res)}",
+                      flush=True)
+        for name, sizes, rows, seq in MESH_CHECK["train"]:
+            res = mesh_train(torch, device, sizes, rows, seq)
+            if rank == 0:
+                res["card"] = card
+                print(f"[mesh-train] {name}: {json.dumps(res)}",
+                      flush=True)
     finally:
         dist.destroy_process_group()
+
+
+def mesh_pipeline(torch, rank, device, name, sizes, stages, width, micro,
+                  rows):
+    """``pipelined`` on a four-rank mesh (tanh(x @ w + b) a stage, fp32)
+    against the sequential stages on each rank: the output within 1e-5
+    and the grads within 1e-4."""
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.parallel.pipeline import pipelined
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    w = torch.randn((stages, width, width), generator=gen, device=device)
+    b = torch.randn((stages, width), generator=gen, device=device) * 0.1
+    x = torch.randn((rows, width), generator=gen, device=device)
+    params = {"w": (w * 0.5).requires_grad_(), "b": b.requires_grad_()}
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    run = pipelined(stage_fn, make_mesh(MeshConfig(**sizes),
+                                        device_type=device.type),
+                    num_microbatches=micro)
+    out = run(params, x)
+    got = torch.autograd.grad((out ** 2).sum(), list(params.values()))
+    h = x
+    for s in range(stages):
+        h = stage_fn({k: v[s] for k, v in params.items()}, h)
+    want = torch.autograd.grad((h ** 2).sum(), list(params.values()))
+    out_err = float((out - h).abs().max())
+    grad_err = max(float((a - c).abs().max()) for a, c in zip(got, want))
+    if out_err > 1e-5 or grad_err > 1e-4:
+        fail(f"mesh pipeline {name}: rank {rank} out err {out_err:.3e}, "
+             f"grad err {grad_err:.3e} against the sequential stages")
+    return dict(mesh=sizes, stages=stages, microbatches=micro,
+                out_max_abs_err=out_err, grad_max_abs_err=grad_err)
 
 
 def mesh_parity_case(torch, rank, device, sizes, micro):
@@ -2109,13 +2350,15 @@ def mesh_parity_case(torch, rank, device, sizes, micro):
                              device=device)
         one_state = one.init_state(0)
     worst_loss = worst_norm = 0.0
+    # On a seq axis "auto" picks ring attention: no flash kernel.
+    want = 0 if sizes.get("seq", 1) > 1 else cfg.num_layers * micro
     for _ in range(MESH_CHECK["parity_steps"]):
         before = dict(flash_attention.launches)
         state, m = sharded.train_step(state, batch)
         launched = {n: flash_attention.launches[n] - before[n]
                     for n in before}
-        if device.type == "cuda" and launched != dict.fromkeys(
-                before, cfg.num_layers * micro):
+        if device.type == "cuda" and launched != dict.fromkeys(before,
+                                                               want):
             fail(f"mesh check {sizes}: launched {launched} a step")
         if rank == 0:
             one_state, m1 = one.train_step(one_state, batch)
@@ -2139,8 +2382,10 @@ def mesh_parity_case(torch, rank, device, sizes, micro):
                 w_gate_local=w.to_local().numel(), w_gate=w.numel())
 
 
-def mesh_train(torch, device):
-    """Phase 10's model at MESH_CHECK["train_mesh"] over four ranks."""
+def mesh_train(torch, device, sizes, rows, seq):
+    """Phase 10's model on a four-rank mesh of ``sizes`` (ring attention
+    on a seq axis), a ``rows`` x ``seq`` batch, MESH_CHECK["steps"]
+    steps."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.models.training import (ShardedTrainer,
                                                default_optimizer,
@@ -2151,15 +2396,13 @@ def mesh_train(torch, device):
     t = TRAIN
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
                               num_layers=t["layers"])
-    mesh = make_mesh(MeshConfig(**MESH_CHECK["train_mesh"]),
-                     device_type=device.type)
+    mesh = make_mesh(MeshConfig(**sizes), device_type=device.type)
     trainer = ShardedTrainer(cfg, mesh, optimizer=default_optimizer(
         warmup_steps=t["warmup"], total_steps=t["total"]),
         rules=DEFAULT_RULES)
     state = trainer.init_state(0)
     batch = trainer.shard_batch(synthetic_batch(
-        MESH_CHECK["train_batch"], t["seq"], cfg.vocab_size, seed=0,
-        device=device))
+        rows, seq, cfg.vocab_size, seed=0, device=device))
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2173,21 +2416,22 @@ def mesh_train(torch, device):
         per_step.append({n: flash_attention.launches[n] - before[n]
                          for n in before})
     L = cfg.num_layers
-    want = {"fwd": 2 * L, "dq": L, "dkv": L}
+    want = ({"fwd": 0, "dq": 0, "dkv": 0} if sizes.get("seq", 1) > 1
+            else {"fwd": 2 * L, "dq": L, "dkv": L})
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"mesh train: losses {losses}")
+        fail(f"mesh train {sizes}: losses {losses}")
     if device.type == "cuda" and any(d != want for d in per_step):
-        fail(f"mesh train: launches per step {per_step}, want {want}")
+        fail(f"mesh train {sizes}: launches per step {per_step}, want "
+             f"{want}")
     step_s = float(np.median(step_ms[2:])) / 1e3
     world = mesh.size()
-    tokens = MESH_CHECK["train_batch"] * t["seq"]
+    tokens = rows * seq
     return dict(
-        mesh=llama.mesh_shape(mesh), layers=L, losses=losses,
-        step_ms=step_ms, step_ms_median_3_on=step_s * 1e3,
+        mesh=llama.mesh_shape(mesh), layers=L, batch=[rows, seq],
+        losses=losses, step_ms=step_ms, step_ms_median_3_on=step_s * 1e3,
         tokens_per_s=tokens / step_s, tokens_per_s_per_card=tokens / step_s
         / world,
-        mfu_per_card=train_flops(cfg, llama.num_params(cfg),
-                                 MESH_CHECK["train_batch"], t["seq"])
+        mfu_per_card=train_flops(cfg, llama.num_params(cfg), rows, seq)
         / step_s / world / PEAK_OPS_PER_S["bf16"],
         peak_gib_rank0=(torch.cuda.max_memory_allocated() / 2**30
                         if device.type == "cuda" else None),
@@ -2487,7 +2731,8 @@ def main():
     flash = timed("phases 7-8", flash_phases, torch)
     timed("phase 9", model_parity, torch)
     train = timed("phase 10", train_end_to_end, torch, card)
-    sharded = timed("phase 25", sharded_train, torch, card, train)
+    sharded, seq = timed("phases 25-26", sharded_train, torch, card,
+                         train)
     timed("phase 23", mixtral_parity, torch)
     mix = timed("phase 24", mixtral_train, torch, card)
 
@@ -2513,6 +2758,7 @@ def main():
             replaces=FLASH_REPLACES[n], launches=train["launches"][n],
             mixtral_launches=mix["launches"][n],
             sharded_launches=sharded["launches"][n],
+            ulysses_launches=seq["ulysses"]["launches"][n],
             max_abs_err=main_flash["max_abs_err"][n],
             ms=main_flash["ms"][n], plain_ms=main_flash["plain_ms"][n],
             bound_ms=main_flash["bound"][n][0],

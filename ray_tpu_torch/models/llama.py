@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
 from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from ray_tpu_torch.parallel import mesh as pmesh
 from ray_tpu_torch.parallel.sharding import constrain, placements_for
@@ -280,10 +281,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet: ROADMAP.md queue A, {item}")
 
 
-SHARDING_ITEM = "item 7 (ray_tpu_torch/parallel and sequence-parallel " \
-    "attention)"
-
-
 def _select_attention(config: LlamaConfig, mesh) -> str:
     mode = config.attention
     if mode == "auto":
@@ -293,9 +290,14 @@ def _select_attention(config: LlamaConfig, mesh) -> str:
 
 def _attend(q, k, v, config: LlamaConfig, mesh):
     mode = _select_attention(config, mesh)
-    if mode == "ring" or mesh_shape(mesh).get("seq", 1) > 1:
-        raise not_ported("ring attention over the mesh's seq axis",
-                         SHARDING_ITEM)
+    if mode == "ring":
+        if not on_mesh(mesh):
+            raise ValueError(
+                f"attention 'ring' runs over the seq axis of a DeviceMesh "
+                f"from ray_tpu_torch.parallel.make_mesh, got mesh {mesh!r}")
+        fn = functools.partial(ring_attention, mesh=mesh, axis_name="seq",
+                               causal=True)
+        return _local_attention(fn, q, k, v, mesh, seq="seq")
     if mode == "reference":
         fn = functools.partial(mha_reference, causal=True)
     else:
@@ -314,18 +316,27 @@ def _local_kv_heads(hq: int, hkv: int, tensor: int, rank: int):
     return [(rank * local + j) // group for j in range(local)]
 
 
-def _local_attention(fn, q, k, v, mesh):
+def _local_attention(fn, q, k, v, mesh, seq=None):
     """``fn(q, k, v)`` on each rank's local tensors (JAX's ``shard_map``):
     the batch split over (data, fsdp) and the heads over tensor, as the
-    constraints before it placed them. When the kv heads do not divide
-    the tensor axis they stay whole on every rank: each rank takes the kv
-    head of each of its q heads (one kv head a q head), and the kv grads
-    are partial sums over the axis."""
-    q_pl = placements_for(mesh, q.shape, "batch", "seq", "act_heads", None)
-    kv_pl = placements_for(mesh, k.shape, "batch", "seq", "act_kv_heads",
+    constraints before it placed them. The sequence is whole on every
+    rank, gathered over the seq axis, unless ``seq="seq"``: then each
+    rank holds its chunk of it, as the ring needs (a length the seq axis
+    does not divide raises). When the kv heads do not divide the tensor
+    axis they stay whole on every rank: each rank takes the kv head of
+    each of its q heads (one kv head a q head), and the kv grads are
+    partial sums over the axis."""
+    q_pl = placements_for(mesh, q.shape, "batch", seq, "act_heads", None)
+    kv_pl = placements_for(mesh, k.shape, "batch", seq, "act_kv_heads",
                            None)
-    kv_grad_pl, select = kv_pl, None
     names = mesh.mesh_dim_names
+    if seq and "seq" in names and q_pl[names.index("seq")] != Shard(1):
+        raise ValueError(
+            f"ring attention: sequence length {q.shape[1]} is not split "
+            f"over the seq axis of size {mesh.size(names.index('seq'))} "
+            f"(it must divide the length, and the rules must map 'seq' to "
+            f"it)")
+    kv_grad_pl, select = kv_pl, None
     if "tensor" in names:
         t = names.index("tensor")
         if q_pl[t] != kv_pl[t]:
@@ -467,33 +478,91 @@ def _proj(h2, w, config: LlamaConfig):
     return h2 @ w.to(config.dtype).reshape(h2.shape[1], -1)
 
 
+def _seq_split(x, mesh) -> bool:
+    """True when DTensor ``x`` [B, S, ...] has S split over the seq axis."""
+    if not on_mesh(mesh) or "seq" not in mesh.mesh_dim_names:
+        return False
+    return x.placements[mesh.mesh_dim_names.index("seq")] == Shard(1)
+
+
+def _rows(x, mesh=None):
+    """``x`` [B, S, ...] as token rows [B * S, N]. DTensor cannot flatten
+    B and S while S is split over the seq axis (torch 2.11 refuses; later
+    versions make a strided placement), so there each rank flattens its
+    own chunk: the rows come out split over each mesh dim that split B
+    or S, in the ranks' order, which permutes the global token order. The
+    ops on rows are row-wise, and :func:`_unrows` puts each row back."""
+    if not _seq_split(x, mesh):
+        return x.reshape(x.shape[0] * x.shape[1], -1)
+    if any(isinstance(p, Shard) and p.dim > 2 for p in x.placements):
+        raise ValueError(f"token rows of a tensor split past dim 2: "
+                         f"{x.placements}")
+    pl = [Shard(0 if p.dim < 2 else 1) if isinstance(p, Shard) else p
+          for p in x.placements]
+    local = x.to_local()
+    return DTensor.from_local(
+        local.reshape(local.shape[0] * local.shape[1], -1), mesh, pl,
+        run_check=False)
+
+
+def _unrows(y, like, mesh, *tail):
+    """Token rows ``y`` [B * S, N] of :func:`_rows` back to [B, S,
+    *tail] (default [B, S, N]), B and S placed as in ``like`` [B, S,
+    ...], the tensor the rows came from."""
+    b, s = like.shape[:2]
+    tail = tail or (-1,)
+    if not _seq_split(like, mesh):
+        return y.view(b, s, *tail)
+    rows = [isinstance(p, Shard) and p.dim < 2 for p in like.placements]
+    # The rows split as _rows split them, a feature split or a partial
+    # sum kept: then each rank's rows are its own chunk's tokens.
+    y = y.redistribute(mesh, [
+        Shard(0) if r else (Replicate() if p == Shard(0) else p)
+        for r, p in zip(rows, y.placements)])
+    pl = [q if r else (Shard(2) if isinstance(p, Shard) else p)
+          for r, q, p in zip(rows, like.placements, y.placements)]
+    local = like.to_local()
+    out = DTensor.from_local(
+        y.to_local().view(local.shape[0], local.shape[1], -1), mesh, pl,
+        run_check=False)
+    return out.view(b, s, *tail)
+
+
 def _dense_mlp(h, layer, config: LlamaConfig, mesh=None):
     c = config
-    h2 = h.reshape(-1, h.shape[-1])
+    h2 = _rows(h, mesh)
     gate = _proj(h2, layer["w_gate"], c)
     up = _proj(h2, layer["w_up"], c)
-    act = (F.silu(gate) * up).view(*h.shape[:-1], -1)
+    act = _unrows(F.silu(gate) * up, h, mesh)
     act = constrain(act, mesh, "batch", "seq", "act_mlp")
-    down = _proj(act.reshape(h2.shape[0], -1), layer["w_down"], c)
-    return (down.view(h.shape),
+    down = _proj(_rows(act, mesh), layer["w_down"], c)
+    return (_unrows(down, act, mesh, h.shape[-1]),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _layer(x, aux_sum, layer, cos, sin, config: LlamaConfig, mesh, mlp):
     c = config
     b, s, e = x.shape
-    h2 = rms_norm(x, layer["attn_norm"], c.rms_eps).reshape(b * s, e)
-    q = _proj(h2, layer["wq"], c).view(b, s, c.num_heads, c.head_dim)
-    k = _proj(h2, layer["wk"], c).view(b, s, c.num_kv_heads, c.head_dim)
-    v = _proj(h2, layer["wv"], c).view(b, s, c.num_kv_heads, c.head_dim)
+    h = rms_norm(x, layer["attn_norm"], c.rms_eps)
+    h2 = _rows(h, mesh)
+    q = _unrows(_proj(h2, layer["wq"], c), h, mesh, c.num_heads, c.head_dim)
+    k = _unrows(_proj(h2, layer["wk"], c), h, mesh, c.num_kv_heads,
+                c.head_dim)
+    v = _unrows(_proj(h2, layer["wv"], c), h, mesh, c.num_kv_heads,
+                c.head_dim)
     q = constrain(apply_rope(q, cos, sin), mesh, "batch", "seq",
                   "act_heads", None)
     k = constrain(apply_rope(k, cos, sin), mesh, "batch", "seq",
                   "act_kv_heads", None)
     v = constrain(v, mesh, "batch", "seq", "act_kv_heads", None)
     q, k, v = _named(q, "q", c), _named(k, "k", c), _named(v, "v", c)
-    o = _named(_attend(q, k, v, c, mesh), "attn_out", c)
-    x = x + _proj(o.reshape(b * s, -1), layer["wo"], c).view(b, s, e)
+    # The output split as q is (a no-op but for attention that gathered
+    # the sequence, which keeps this rank's part): token rows of a split
+    # sequence are flattened rank by rank (_rows).
+    o = constrain(_attend(q, k, v, c, mesh), mesh, "batch", "seq",
+                  "act_heads", None)
+    o = _named(o, "attn_out", c)
+    x = x + _unrows(_proj(_rows(o, mesh), layer["wo"], c), o, mesh, e)
     x = constrain(x, mesh, "batch", "seq", "act_embed")
     down, aux = mlp(rms_norm(x, layer["mlp_norm"], c.rms_eps), layer)
     x = constrain(x + down, mesh, "batch", "seq", "act_embed")

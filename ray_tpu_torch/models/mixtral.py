@@ -134,7 +134,8 @@ def _one_device(mesh):
     if big:
         raise llama.not_ported(
             f"Mixtral over a mesh with axes {big} (expert parallelism "
-            f"over the 'expert' axis, sharding)", llama.SHARDING_ITEM)
+            f"over the 'expert' axis, sharding)",
+            "item 7d (expert parallelism for Mixtral)")
 
 
 def _moe_mlp(config: MixtralConfig):

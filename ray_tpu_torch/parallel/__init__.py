@@ -1,7 +1,9 @@
 """Mesh and sharding primitives of the port (``ray_tpu/parallel``): a
 named device mesh over ``torch.distributed`` ranks and the logical-axis
-rule table, whose specs become DTensor placements. GPipe (``pipeline``)
-is ROADMAP.md queue A, item 7c."""
+rule table, whose specs become DTensor placements. ``axis`` holds the
+named-axis collectives that code inside ``local_map`` calls (JAX's
+``jax.lax`` ops under ``shard_map``); GPipe's ``pipelined`` is imported
+from ``parallel.pipeline``, as in the JAX package."""
 
 from ray_tpu_torch.parallel.mesh import (
     MESH_AXES,

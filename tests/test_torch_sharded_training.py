@@ -56,9 +56,13 @@ def _jax_optimizer():
                     weight_decay=o["weight_decay"]))
 
 # name -> (world size, mesh sizes, tiny-config overrides, microbatches).
-# The layouts of tests/test_model_training.py without a seq axis, at 2
-# and 4 ranks, plus GQA with the kv heads replicated (2 kv heads on
-# tensor=4), microbatching, remat and a head dim the flash path takes.
+# The layouts of tests/test_model_training.py at 2 and 4 ranks, plus GQA
+# with the kv heads replicated (2 kv heads on tensor=4), microbatching,
+# remat and a head dim the flash path takes; on a seq axis, ring
+# attention ("auto"; "flash" attends the gathered sequence): tensor=2 x
+# seq=2 is __graft_entry__.py's layout at 4 devices. The 63 loss
+# positions cut into 7 chunks of 9, which seq=2 and seq=4 do not divide:
+# the chunks run replicated over seq.
 CASES = {
     "dp": (2, dict(data=2, fsdp=1), {}, 1),
     "fsdp2": (2, dict(fsdp=2), {}, 1),
@@ -70,6 +74,13 @@ CASES = {
     "remat_full": (4, dict(fsdp=2, tensor=2),
                    dict(remat=True, remat_policy="full"), 1),
     "flash_d128": (4, dict(fsdp=2, tensor=2), dict(head_dim=128), 1),
+    "tp2_sp2": (4, dict(fsdp=1, tensor=2, seq=2), {}, 1),
+    "fsdp2_sp2": (4, dict(fsdp=2, seq=2), {}, 1),
+    "sp4": (4, dict(fsdp=1, seq=4), {}, 1),
+    "sp2_remat_full": (2, dict(fsdp=1, seq=2),
+                       dict(remat=True, remat_policy="full"), 1),
+    "sp2_flash": (2, dict(fsdp=1, seq=2), dict(attention="flash"), 1),
+    "tp2_sp2_micro2": (4, dict(fsdp=1, tensor=2, seq=2), {}, 2),
 }
 
 

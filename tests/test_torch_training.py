@@ -455,11 +455,14 @@ def test_unported_hooks_raise(tmp_path):
         trainer.restore_state(None)
     with pytest.raises(ValueError, match="not divisible"):
         trainer.train_step(state, batch)
+    # Ring attention runs over a DeviceMesh's seq axis: with no mesh, or
+    # a mapping of sizes whose seq ("auto" picks the ring) is > 1, it
+    # has no axis to run on.
     tokens = torch.zeros((1, 16), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="make_mesh"):
         tl.forward(state.params, tokens,
                    dataclasses.replace(tc, attention="ring"))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="make_mesh"):
         tl.forward(state.params, tokens, tc, mesh={"seq": 2})
     if not torch.cuda.is_available():
         # Entry points run on cuda unless asked: no silent CPU fallback.
