@@ -228,9 +228,34 @@ Phases, any failure exits non-zero with no result line:
    ms, tokens/s, MFU, peak, idle share (``[seq-profile]``, one profiled
    step) and the attention's share of device time (one layer's ring
    forward and forward-and-backward timed alone, times the layers, over
-   the profiled step's device time) beside phase 25's.
+   the profiled step's device time) beside phase 25's;
+27. Mixtral on the mesh, inside phase 25's NCCL group: phase 24's run
+   (Mixtral-8x7B widths, 4 of 32 layers, bf16, remat "full", phase 10's
+   batch, 12 steps) with the params placed on ``make_mesh(MeshConfig())``
+   by ``mixtral.logical_axes``, its loss and grads through the
+   expert-parallel layer (``moe.moe_layer`` on a DeviceMesh), each grad
+   redistributed to its param's placements before ``AdamW.apply_``: step
+   1's loss within ``SHARDED["tol"]`` of phase 24's (the same params and
+   batch), every loss finite, the last below the first, 2 L / L / L
+   flash launches a step, peak under ``MIXTRAL_TRAIN["peak_gib"]``;
+   ``[mixtral-mesh-train]`` prints step ms, tokens/s, MFU over the active
+   params and peak beside phase 24's, and one profiled step's idle share
+   and MoE routing ms (``[mixtral-mesh-profile]``);
+28. the checkpoint plane, inside the same group: ``ShardedTrainer`` at
+   Llama-3-8B widths cut to 2 layers (``CKPT``; bf16 params and both
+   bf16 moments, 8.9 GB a saved step) on the one-rank mesh takes phase
+   10's batch; step 1 is saved asynchronously while step 2 runs, then
+   step 2 is saved, under a temp dir (its file system's free bytes
+   checked first against two steps and a margin; removed at the end).
+   Each restore, onto the mesh and onto a one-device trainer, must equal
+   the saved state bit for bit, and a third step from each must give the
+   uninterrupted run's step-3 loss bit for bit; a flipped byte in step
+   2's shard must make ``restore()`` fall back to step 1. ``[ckpt]``
+   prints the bytes, the blocked ms of each snapshot, the save seconds,
+   the restore seconds, GB/s each way and the crc32's share of each.
 
-Phases 11-12 run after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
+Phases 23-24 run before phases 25-28 (27 compares with 24), phases
+11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
 phase 5 and 16, 20 and 22 inside phase 6, where their models already live
 (15, 17, 19 and 21 before phase 5's profiles, which would slow their
 host-clock times).
@@ -240,7 +265,8 @@ entries also carry ``spec_launches``, their launches in phase 19's
 self-draft and external-drafter runs, the paged entry
 ``split_launches``, the decode engine's launches in phase 21's bf16 run,
 and the flash entries ``mixtral_launches``, their launches in phase 24's
-run, ``sharded_launches``, their launches in phase 25's 12 steps, and
+run, ``mixtral_mesh_launches``, their launches in phase 27's run,
+``sharded_launches``, their launches in phase 25's 12 steps, and
 ``ulysses_launches``, their launches in phase 26b);
 the last line is ``{"ok": true, "device": {...}}``.
 
@@ -260,7 +286,18 @@ output and grads against the sequential stages on every rank
 (``[mesh-pipeline]``); then phase 10's model at fsdp=4 (a 4 x 2048
 batch, one row a rank) and at seq=4 (one 8,192-token row) for
 ``MESH_CHECK["steps"]`` steps: step ms, tokens/s a card, MFU, peak and
-launches (``[mesh-train]``). It prints no result line.
+launches (``[mesh-train]``). Then expert parallelism (``MESH_MOE``): a
+tiny fp32 Mixtral at head dim 128, capacity 0.5, at expert=4, expert=2
+x fsdp=2 and expert=2 x tensor=2, 3 steps each, loss and grad norm
+within 1e-5 of one device on rank 0, each rank holding X / expert of
+the experts (``[mesh-moe]``); Mixtral-8x7B widths at 16 of 32 layers on
+expert=2 x fsdp=2, phase 10's 2 x 2048 batch, 5 steps: step ms, tokens/s
+a card, MFU over the active params and peak (``[mesh-mixtral]``); phase
+28's model after one step saved at fsdp=4 (a shard a rank, a TCPStore
+KV), restored at fsdp=2 x tensor=2 and on rank 0 alone, bit for bit
+(``[mesh-ckpt]``). ``--mesh-check SECTION ...`` runs only the named
+sections of ``MESH_SECTIONS`` (trainer, moe, mixtral, ckpt). It prints
+no result line.
 
 ``python3 chip_smoke.py --paged-host-us ROOT`` instead measures only the
 host microseconds a paged call takes (``host_us``, the phase-3 cases at
@@ -345,6 +382,30 @@ MESH_CHECK = dict(world=4, parity_steps=3, batch=8, layouts=[
 MIXTRAL_PARITY = dict(layers=2, seq=512)
 MIXTRAL_TRAIN = dict(layers=4, batch=2, seq=2048, steps=12, warmup=5,
                      total=1000, peak_gib=70.0)
+# Phase 28: ShardedTrainer at Llama-3-8B widths cut to 2 layers (1.49 B
+# params; bf16 params and both bf16 moments, 8.9 GB a saved step), phase
+# 10's batch and optimizer; two steps saved, so the temp dir's file
+# system must hold disk_margin x two steps.
+CKPT = dict(layers=2, disk_margin=1.2)
+# --mesh-check's expert-parallel sections. moe: a tiny fp32 Mixtral at
+# head dim 128 (the fp32 flash kernels run), pairs dropping at capacity
+# 0.5, on each layout against one device on rank 0; mixtral: Mixtral-8x7B
+# widths at 16 of 32 layers on expert=2 x fsdp=2 (~6.1 B params a card),
+# phase 10's batch, a row for each fsdp group; ckpt: phase 28's model
+# saved at fsdp=4, restored at fsdp=2 x tensor=2 and on one rank.
+MESH_MOE = dict(
+    config=dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                num_layers=2, num_heads=4, num_kv_heads=2, head_dim=128,
+                max_seq_len=256, num_experts=4, top_k=2,
+                capacity_factor=0.5),
+    batch=4, seq=256, steps=3, tol=1e-5,
+    layouts=[("expert4", dict(expert=4, fsdp=1)),
+             ("expert2_fsdp2", dict(expert=2, fsdp=2)),
+             ("expert2_tp2", dict(expert=2, tensor=2, fsdp=1))],
+    train=dict(layers=16, sizes=dict(expert=2, fsdp=2), steps=5,
+               peak_gib=75.0),
+    ckpt=dict(save=dict(fsdp=4), restore=dict(fsdp=2, tensor=2)))
+MESH_SECTIONS = ("trainer", "moe", "mixtral", "ckpt")
 # Device kernels of the MoE routing by name (after flash and GEMMs): the
 # stable sort of top-k, the cumsum of the slots, the index copies and
 # gathers and the one-hot scatters. The embedding lookup and its
@@ -2068,9 +2129,11 @@ def ulysses_check(torch, mesh, rank=0):
     return dict(max_abs_err=errs, launches=launches)
 
 
-def sharded_train(torch, card, train):
+def sharded_train(torch, card, train, mix):
     """Phase 25, the sharded trainer on a one-rank mesh, then phase 26,
-    the seq path on the same NCCL group: (phase 25's stats, phase 26's)."""
+    the seq path, phase 27, Mixtral on the mesh, and phase 28, the
+    checkpoint plane, on the same NCCL group: (phase 25's stats, phase
+    26's, 27's, 28's)."""
     import tempfile
 
     import torch.distributed as dist
@@ -2087,7 +2150,10 @@ def sharded_train(torch, card, train):
             sharded = _sharded_run(torch, card, train, mesh)
             seq = timed("phase 26", seq_phases, torch, card, train,
                         make_mesh(MeshConfig(seq=1)))
-            return sharded, seq
+            mix_mesh = timed("phase 27", mixtral_mesh_train, torch, card,
+                             mix, mesh)
+            ckpt = timed("phase 28", checkpoint_phase, torch, card, mesh)
+            return sharded, seq, mix_mesh, ckpt
         finally:
             dist.destroy_process_group()
 
@@ -2218,8 +2284,9 @@ def _sharded_run(torch, card, train, mesh, attention="auto"):
     return stats
 
 
-def mesh_check(torch):
-    """``--mesh-check``: the sharded trainer on four cards."""
+def mesh_check(torch, sections=MESH_SECTIONS):
+    """``--mesh-check``: the sharded trainer on four cards (``sections``
+    of MESH_SECTIONS, all by default)."""
     import socket
 
     import torch.multiprocessing as mp
@@ -2235,11 +2302,11 @@ def mesh_check(torch):
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     mp.start_processes(mesh_rank, args=(world, f"tcp://localhost:{port}",
-                                        "nccl"),
+                                        "nccl", sections),
                        nprocs=world, start_method="spawn", join=True)
 
 
-def mesh_rank(rank, world, init_method, backend):
+def mesh_rank(rank, world, init_method, backend, sections=MESH_SECTIONS):
     """One rank of ``--mesh-check`` (``backend`` "gloo" runs it on the
     CPU)."""
     import torch
@@ -2255,33 +2322,56 @@ def mesh_rank(rank, world, init_method, backend):
         device, extra = torch.device("cpu"), {}
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world, **extra)
-    from ray_tpu_torch.parallel import MeshConfig, make_mesh
-
     card = card_line() if backend == "nccl" else "cpu"
     try:
-        for name, sizes, micro in MESH_CHECK["layouts"]:
-            res = mesh_parity_case(torch, rank, device, sizes, micro)
-            if rank == 0:
-                print(f"[mesh-check] {name}: {json.dumps(res)}",
-                      flush=True)
-        res = ulysses_check(torch, make_mesh(
-            MeshConfig(**MESH_CHECK["ulysses_mesh"]),
-            device_type=device.type), rank)
-        if rank == 0:
-            print(f"[mesh-ulysses] {json.dumps(res)}", flush=True)
-        for case in MESH_CHECK["pipelines"]:
-            res = mesh_pipeline(torch, rank, device, *case)
-            if rank == 0:
-                print(f"[mesh-pipeline] {case[0]}: {json.dumps(res)}",
-                      flush=True)
-        for name, sizes, rows, seq in MESH_CHECK["train"]:
-            res = mesh_train(torch, device, sizes, rows, seq)
+        if "trainer" in sections:
+            mesh_trainer(torch, rank, device, card)
+        if "moe" in sections:
+            for name, sizes in MESH_MOE["layouts"]:
+                res = mesh_moe_case(torch, rank, device, sizes)
+                if rank == 0:
+                    print(f"[mesh-moe] {name}: {json.dumps(res)}",
+                          flush=True)
+        if "mixtral" in sections:
+            res = mesh_mixtral(torch, device)
             if rank == 0:
                 res["card"] = card
-                print(f"[mesh-train] {name}: {json.dumps(res)}",
-                      flush=True)
+                print(f"[mesh-mixtral] {json.dumps(res)}", flush=True)
+        if "ckpt" in sections:
+            res = mesh_ckpt(torch, rank, device)
+            if rank == 0:
+                res["card"] = card
+                print(f"[mesh-ckpt] {json.dumps(res)}", flush=True)
     finally:
         dist.destroy_process_group()
+
+
+def mesh_trainer(torch, rank, device, card):
+    """``--mesh-check``'s trainer section: the parity layouts, Ulysses,
+    the pipelines and phase 10's model on four ranks."""
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    for name, sizes, micro in MESH_CHECK["layouts"]:
+        res = mesh_parity_case(torch, rank, device, sizes, micro)
+        if rank == 0:
+            print(f"[mesh-check] {name}: {json.dumps(res)}",
+                  flush=True)
+    res = ulysses_check(torch, make_mesh(
+        MeshConfig(**MESH_CHECK["ulysses_mesh"]),
+        device_type=device.type), rank)
+    if rank == 0:
+        print(f"[mesh-ulysses] {json.dumps(res)}", flush=True)
+    for case in MESH_CHECK["pipelines"]:
+        res = mesh_pipeline(torch, rank, device, *case)
+        if rank == 0:
+            print(f"[mesh-pipeline] {case[0]}: {json.dumps(res)}",
+                  flush=True)
+    for name, sizes, rows, seq in MESH_CHECK["train"]:
+        res = mesh_train(torch, device, sizes, rows, seq)
+        if rank == 0:
+            res["card"] = card
+            print(f"[mesh-train] {name}: {json.dumps(res)}",
+                  flush=True)
 
 
 def mesh_pipeline(torch, rank, device, name, sizes, stages, width, micro,
@@ -2514,13 +2604,12 @@ def mixtral_parity(torch):
 
 def mixtral_train(torch, card):
     """Phase 24: Mixtral training at Mixtral-8x7B widths, 4 layers."""
-    from ray_tpu_torch.models import llama, mixtral
+    from ray_tpu_torch.models import mixtral
     from ray_tpu_torch.models.training import (default_optimizer,
                                                synthetic_batch)
     from ray_tpu_torch.ops.attention import flash_attention
 
     t = MIXTRAL_TRAIN
-    dev = torch.device("cuda")
     cfg = mixtral.MixtralConfig.mixtral_8x7b(num_layers=t["layers"])
     t0 = time.perf_counter()
     params = mixtral.init_params(
@@ -2540,11 +2629,7 @@ def mixtral_train(torch, card):
     dropped_first = mixtral_dropped(torch, params, batch["tokens"], cfg)
 
     def step():
-        with llama.fp32_reduction(dev, cfg.dtype):
-            loss, metrics = mixtral.loss_fn(params, batch, cfg)
-            grads = torch.autograd.grad(loss, leaves)
-            opt.apply_(grads, state, params)
-        return {k: v.detach() for k, v in metrics.items()}
+        return mixtral_one_step(torch, cfg, params, opt, state, batch)[0]
 
     torch.cuda.reset_peak_memory_stats()
     ce, aux, total, step_ms, per_step = [], [], [], [], []
@@ -2601,6 +2686,509 @@ def mixtral_train(torch, card):
     del params, leaves, state, batch
     torch.cuda.empty_cache()
     return stats
+
+
+def mixtral_mesh_step(torch, cfg, params, opt, opt_state, batch, mesh):
+    """One Mixtral optimizer step on ``mesh`` (phase 24's step through
+    the 7d path): loss and grads on DTensors, each grad redistributed to
+    its param's placements, ``AdamW.apply_`` in place. Returns the
+    metrics (full values) and the grad norm."""
+    from ray_tpu_torch.models import llama, mixtral
+    from ray_tpu_torch.models.training import AdamW, _placed_like
+
+    leaves = _param_leaves(params)
+    dev = leaves[0].device
+    with llama.fp32_reduction(dev, cfg.dtype):
+        loss, metrics = mixtral.loss_fn(params, batch, cfg, mesh)
+        grads = torch.autograd.grad(loss, leaves)
+        grads = [_placed_like(g, p) for g, p in zip(grads, leaves)]
+        norm = AdamW.global_norm(grads)
+        opt.apply_(grads, opt_state, params, g_norm=norm)
+    return {k: v.detach().full_tensor() for k, v in metrics.items()}, norm
+
+
+def mixtral_on_mesh(torch, cfg, mesh, seed, device):
+    """``mixtral.init_params`` from ``seed`` (the full params on every
+    rank, each keeping its shards) placed by ``mixtral.logical_axes``:
+    the leaves require grad."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.parallel import tree_shardings
+    from ray_tpu_torch.parallel.sharding import tree_map
+
+    params = mixtral.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), device=device)
+    placed = tree_map(lambda t, pl: distribute_tensor(
+        t, mesh, pl, src_data_rank=None), params,
+        tree_shardings(mesh, mixtral.logical_axes(cfg)))
+    del params
+    for p in _param_leaves(placed):
+        p.requires_grad_(True)
+    return placed
+
+
+def mesh_batch(torch, batch, mesh):
+    """Each tensor of ``batch`` split by the rules' (batch, seq)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ray_tpu_torch.parallel.sharding import placements_for
+
+    return {k: distribute_tensor(v, mesh, placements_for(
+        mesh, v.shape, "batch", "seq")) for k, v in batch.items()}
+
+
+def mixtral_mesh_train(torch, card, mix, mesh):
+    """Phase 27: phase 24's run on the one-rank ``mesh`` through the
+    expert-parallel layer."""
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.models.training import (default_optimizer,
+                                               synthetic_batch)
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    t = MIXTRAL_TRAIN
+    cfg = mixtral.MixtralConfig.mixtral_8x7b(num_layers=t["layers"])
+    params = mixtral_on_mesh(torch, cfg, mesh, 0, "cuda")
+    opt = default_optimizer(warmup_steps=t["warmup"], total_steps=t["total"])
+    state = opt.init(params)
+    batch = mesh_batch(torch, synthetic_batch(t["batch"], t["seq"],
+                                              cfg.vocab_size, seed=0), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ce, aux, step_ms, per_step = [], [], [], []
+    reset_launch_counts()
+    for _ in range(t["steps"]):
+        before = dict(flash_attention.launches)
+        t0 = time.perf_counter()
+        metrics, _ = mixtral_mesh_step(torch, cfg, params, opt, state,
+                                       batch, mesh)
+        ce.append(float(metrics["loss"]))          # syncs the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        aux.append(float(metrics["aux_loss"]))
+        per_step.append({n: flash_attention.launches[n] - before[n]
+                         for n in before})
+    launches = dict(flash_attention.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    L = cfg.num_layers
+    want = {"fwd": 2 * L, "dq": L, "dkv": L}
+    gap = abs(ce[0] - mix["cross_entropy"][0]) / abs(mix["cross_entropy"][0])
+    if not (all(np.isfinite(ce + aux)) and ce[-1] < ce[0]):
+        fail(f"mixtral mesh train: cross-entropy {ce}, aux {aux} (want "
+             f"finite, the last cross-entropy below the first)")
+    if gap > SHARDED["tol"]:
+        fail(f"mixtral mesh train: step 1 loss {ce[0]} against phase 24's "
+             f"{mix['cross_entropy'][0]} (relative gap {gap:.3e}, limit "
+             f"{SHARDED['tol']})")
+    if any(d != want for d in per_step):
+        fail(f"mixtral mesh train: launches per step {per_step}, want "
+             f"{want}")
+    if not peak_gib < t["peak_gib"]:
+        fail(f"mixtral mesh train: peak {peak_gib:.2f} GiB, limit "
+             f"{t['peak_gib']}")
+    step_s = float(np.median(step_ms[2:])) / 1e3
+    tokens = t["batch"] * t["seq"]
+    active = mixtral.active_params(cfg)
+    stats = dict(
+        mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), layers=L,
+        cross_entropy=ce, aux_loss=aux, step_ms=step_ms,
+        step_ms_median_3_12=step_s * 1e3, tokens_per_s=tokens / step_s,
+        mfu_active=train_flops(cfg.backbone(), active, t["batch"], t["seq"])
+        / step_s / PEAK_OPS_PER_S["bf16"],
+        peak_gib=peak_gib, step1_loss_gap=gap,
+        max_loss_gap=max(abs(a - b) / abs(b) for a, b in zip(
+            ce, mix["cross_entropy"])),
+        launches_per_step=want, launches=launches, card=card)
+    stats["phase24"] = {k: mix[k] for k in (
+        "step_ms_median_3_12", "tokens_per_s", "mfu_active", "peak_gib")}
+
+    def one_step():
+        float(mixtral_mesh_step(torch, cfg, params, opt, state, batch,
+                                mesh)[0]["loss"])
+    prof = profile_step(torch, one_step, step_s * 1e3, routing=True)
+    stats["idle_share"] = prof["idle_share"]
+    stats["moe_routing_ms"] = prof["groups_ms"]["moe_routing"]
+    print(f"[mixtral-mesh-train] {json.dumps(stats)}")
+    print(f"[mixtral-mesh-profile] one step: {json.dumps(prof)}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _state_leaves(state):
+    """A TrainState's params and both moments, in the params' order."""
+    from ray_tpu_torch.models.training import _leaves
+
+    return _leaves(state.params) + state.opt_state.mu + state.opt_state.nu
+
+
+def _state_bytes(state):
+    return sum(t.numel() * t.element_size() for t in _state_leaves(state))
+
+
+def _same_state(torch, got, want, what):
+    """``got`` equals ``want`` bit for bit: step, count, and each leaf in
+    full (both may be DTensors)."""
+    if (got.step, got.opt_state.count) != (want.step, want.opt_state.count):
+        fail(f"{what}: restored step/count {got.step}/"
+             f"{got.opt_state.count}, saved {want.step}/"
+             f"{want.opt_state.count}")
+    for a, b in zip(_state_leaves(got), _state_leaves(want)):
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        b = b.full_tensor() if hasattr(b, "full_tensor") else b
+        if a.dtype != b.dtype or not torch.equal(a.detach(), b.detach()):
+            fail(f"{what}: a restored leaf differs from the saved one")
+
+
+def _flip_byte(path, offset=4096):
+    """Flip one byte of a file in place (silent media corruption)."""
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        byte = f.read(1)
+        f.seek(offset)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+def _ckpt_trainer(mesh=None, device=None):
+    """Phase 28's trainer: Llama-3-8B widths at CKPT["layers"] layers,
+    phase 10's optimizer, on ``mesh`` or on one device."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (ShardedTrainer,
+                                               default_optimizer)
+    from ray_tpu_torch.parallel import DEFAULT_RULES
+
+    t = TRAIN
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_layers=CKPT["layers"])
+    opt = default_optimizer(warmup_steps=t["warmup"], total_steps=t["total"])
+    if mesh is None:
+        return ShardedTrainer(cfg, optimizer=opt, device=device)
+    return ShardedTrainer(cfg, mesh, optimizer=opt, rules=DEFAULT_RULES)
+
+
+def _scratch_dir(need_bytes, what):
+    """A fresh temp dir, after checking that its file system has
+    ``need_bytes`` free."""
+    import shutil
+    import tempfile
+
+    root = tempfile.gettempdir()
+    free = shutil.disk_usage(root).free
+    if free < need_bytes:
+        fail(f"{what}: {root} has {free} bytes free, the run needs "
+             f"{need_bytes}")
+    return tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root), free
+
+
+def checkpoint_phase(torch, card, mesh):
+    """Phase 28: ShardedTrainer's state through the checkpoint plane on
+    the card: two async saves, restores onto the one-rank ``mesh`` and
+    onto one device, a third step from each, and the fallback past a
+    corrupt shard."""
+    import shutil
+
+    from ray_tpu_torch.checkpoint import CheckpointPlane
+    from ray_tpu_torch.models.training import synthetic_batch
+
+    t = TRAIN
+    trainer = _ckpt_trainer(mesh)
+    state = trainer.init_state(0)
+    batch = synthetic_batch(t["batch"], t["seq"],
+                            trainer.config.vocab_size, seed=0)
+    nbytes = _state_bytes(state)
+    tmp, free = _scratch_dir(int(CKPT["disk_margin"] * 2 * nbytes),
+                             "ckpt")
+    plane = CheckpointPlane(tmp, run="phase28")
+    try:
+        state, m1 = trainer.train_step(state, trainer.shard_batch(batch))
+        float(m1["loss"])
+        h1 = trainer.save_state(plane, state)
+        # Step 2 runs while step 1's persist streams out.
+        t0 = time.perf_counter()
+        state, m2 = trainer.train_step(state, trainer.shard_batch(batch))
+        float(m2["loss"])
+        step2_ms = (time.perf_counter() - t0) * 1e3
+        overlapped = not h1.done()
+        h2 = trainer.save_state(plane, state)
+        r1, r2 = h1.result(), h2.result()
+        if not (r1["committed"] and r2["committed"]) or plane.steps() != [
+                1, 2]:
+            fail(f"ckpt: saves {r1}, {r2}; committed steps {plane.steps()}")
+        restored = {}
+        for name, target in (("mesh", trainer), ("one", _ckpt_trainer())):
+            t0 = time.perf_counter()
+            got = target.restore_state(plane)
+            torch.cuda.synchronize()
+            restored[name] = (target, got, time.perf_counter() - t0,
+                              dict(plane.last_restore))
+            _same_state(torch, got, state, f"ckpt restore onto {name}")
+        # A third step: the uninterrupted run, then each restored state.
+        state, m3 = trainer.train_step(state, trainer.shard_batch(batch))
+        want = float(m3["loss"])
+        third = {}
+        for name, (target, got, _, _) in restored.items():
+            _, m = target.train_step(got, target.shard_batch(batch))
+            third[name] = float(m["loss"])
+        if any(v != want for v in third.values()):
+            fail(f"ckpt: step 3 loss {third} from the restored states, "
+                 f"{want} uninterrupted")
+        restore_s = {n: v[2] for n, v in restored.items()}
+        reads = {n: v[3] for n, v in restored.items()}
+        restored.clear()
+        torch.cuda.empty_cache()
+        # Corrupt the newest step's shard: restore falls back to step 1.
+        _flip_byte(f"{plane.step_dir(2)}/shard-00000-of-00001.npz")
+        fallback = plane.restore()
+        if plane.last_restore["step"] != 1 or fallback.step != 1:
+            fail(f"ckpt: restore after corrupting step 2 read step "
+                 f"{plane.last_restore['step']}, want 1")
+        del fallback
+        stats = dict(
+            layers=trainer.config.num_layers, bytes=r2["bytes"],
+            state_bytes=nbytes, free_bytes=free,
+            blocked_ms=[h1.blocked_ms, h2.blocked_ms],
+            save_s=[r1["save_s"], r2["save_s"]],
+            save_gb_s=r2["bytes"] / r2["save_s"] / 1e9,
+            save_crc_share=r2["crc_s"] / r2["save_s"],
+            step2_ms_during_persist=step2_ms, persist_overlapped=overlapped,
+            restore_s=restore_s,
+            restore_gb_s={n: r["bytes"] / s / 1e9 for (n, s), r in zip(
+                restore_s.items(), reads.values())},
+            restore_crc_share={n: r["crc_s"] / restore_s[n]
+                               for n, r in reads.items()},
+            step3_loss=want, step3_loss_restored=third,
+            fallback_step=1, card=card)
+        print(f"[ckpt] {json.dumps(stats)}")
+        return stats
+    finally:
+        plane.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mixtral_one_step(torch, cfg, params, opt, opt_state, batch):
+    """Phase 24's step on one device: (metrics, grad norm)."""
+    from ray_tpu_torch.models import llama, mixtral
+    from ray_tpu_torch.models.training import AdamW
+
+    leaves = _param_leaves(params)
+    with llama.fp32_reduction(leaves[0].device, cfg.dtype):
+        loss, metrics = mixtral.loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        norm = AdamW.global_norm(grads)
+        opt.apply_(grads, opt_state, params, g_norm=norm)
+    return {k: v.detach() for k, v in metrics.items()}, norm
+
+
+def mesh_moe_case(torch, rank, device, sizes):
+    """``[mesh-moe]``: MESH_MOE's tiny fp32 Mixtral on a four-rank mesh
+    of ``sizes``, MESH_MOE["steps"] optimizer steps, against one device
+    on rank 0: the loss and the grad norm each step within
+    MESH_MOE["tol"]; each rank holds X / expert of the experts and
+    launches each flash kernel once a layer and step."""
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.models.training import (default_optimizer,
+                                               synthetic_batch)
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    m = MESH_MOE
+    cfg = mixtral.MixtralConfig.tiny(dtype=torch.float32, **m["config"])
+
+    def opt():
+        return default_optimizer(warmup_steps=2, total_steps=50,
+                                 learning_rate=1e-2)
+
+    mesh = make_mesh(MeshConfig(**sizes), device_type=device.type)
+    params = mixtral_on_mesh(torch, cfg, mesh, 0, device)
+    mesh_opt = opt()
+    state = mesh_opt.init(params)
+    batch = synthetic_batch(m["batch"], m["seq"], cfg.vocab_size, seed=1,
+                            device=device)
+    placed = mesh_batch(torch, batch, mesh)
+    if rank == 0:
+        one = mixtral.init_params(cfg, torch.Generator(
+            device=device).manual_seed(0), device=device)
+        for p in _param_leaves(one):
+            p.requires_grad_(True)
+        one_opt = opt()
+        one_state = one_opt.init(one)
+    worst_loss = worst_norm = 0.0
+    losses = []
+    L = cfg.num_layers
+    for _ in range(m["steps"]):
+        before = dict(flash_attention.launches)
+        metrics, norm = mixtral_mesh_step(torch, cfg, params, mesh_opt,
+                                          state, placed, mesh)
+        launched = {n: flash_attention.launches[n] - before[n]
+                    for n in before}
+        if device.type == "cuda" and launched != dict.fromkeys(before, L):
+            fail(f"mesh moe {sizes}: launched {launched} a step")
+        losses.append(float(metrics["total_loss"]))
+        if rank == 0:
+            m1, n1 = mixtral_one_step(torch, cfg, one, one_opt, one_state,
+                                      batch)
+            worst_loss = max(worst_loss, abs(losses[-1] - float(
+                m1["total_loss"])) / abs(float(m1["total_loss"])))
+            worst_norm = max(worst_norm, abs(float(norm) - float(n1))
+                             / abs(float(n1)))
+    local = params["layers"]["moe_gate"].to_local().shape[1]
+    if local != cfg.num_experts // sizes["expert"]:
+        fail(f"mesh moe {sizes}: rank {rank} holds {local} experts of "
+             f"{cfg.num_experts}")
+    if rank == 0 and (worst_loss > m["tol"] or worst_norm > m["tol"]):
+        fail(f"mesh moe {sizes}: loss gap {worst_loss:.3e}, grad norm gap "
+             f"{worst_norm:.3e} against one device")
+    return dict(mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                total_loss=losses, worst_loss_rel=worst_loss,
+                worst_grad_norm_rel=worst_norm, local_experts=local)
+
+
+def mesh_mixtral(torch, device):
+    """``[mesh-mixtral]``: Mixtral-8x7B widths at MESH_MOE["train"]'s
+    depth on its four-rank mesh, phase 10's batch, its steps."""
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.models.training import (default_optimizer,
+                                               synthetic_batch)
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    t, tm = TRAIN, MESH_MOE["train"]
+    cfg = mixtral.MixtralConfig.mixtral_8x7b(num_layers=tm["layers"])
+    mesh = make_mesh(MeshConfig(**tm["sizes"]), device_type=device.type)
+    params = mixtral_on_mesh(torch, cfg, mesh, 0, device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    opt = default_optimizer(warmup_steps=t["warmup"], total_steps=t["total"])
+    state = opt.init(params)
+    batch = mesh_batch(torch, synthetic_batch(
+        t["batch"], t["seq"], cfg.vocab_size, seed=0, device=device), mesh)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ce, step_ms, per_step = [], [], []
+    for _ in range(tm["steps"]):
+        before = dict(flash_attention.launches)
+        t0 = time.perf_counter()
+        metrics, _ = mixtral_mesh_step(torch, cfg, params, opt, state,
+                                       batch, mesh)
+        ce.append(float(metrics["loss"]))          # syncs the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({n: flash_attention.launches[n] - before[n]
+                         for n in before})
+    L = cfg.num_layers
+    want = {"fwd": 2 * L, "dq": L, "dkv": L}
+    if not all(np.isfinite(ce)):
+        fail(f"mesh mixtral: cross-entropy {ce}")
+    if device.type == "cuda" and any(d != want for d in per_step):
+        fail(f"mesh mixtral: launches per step {per_step}, want {want}")
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if device.type == "cuda" else None)
+    if peak is not None and not peak < tm["peak_gib"]:
+        fail(f"mesh mixtral: peak {peak:.2f} GiB, limit {tm['peak_gib']}")
+    step_s = float(np.median(step_ms[2:])) / 1e3
+    world, tokens = mesh.size(), t["batch"] * t["seq"]
+    held = sum(p.to_local().numel() for p in _param_leaves(params))
+    stats = dict(
+        mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), layers=L,
+        batch=[t["batch"], t["seq"]], cross_entropy=ce, step_ms=step_ms,
+        step_ms_median_3_on=step_s * 1e3,
+        tokens_per_s_per_card=tokens / step_s / world,
+        mfu_active_per_card=train_flops(cfg.backbone(), mixtral.active_params(
+            cfg), t["batch"], t["seq"]) / step_s / world
+        / PEAK_OPS_PER_S["bf16"],
+        params_per_card=held, peak_gib_rank0=peak, launches_per_step=want)
+    del params, state, batch
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return stats
+
+
+def _tcp_kv(rank, world):
+    """A TCPStore across the ranks (rank 0 hosts it on a free port) as
+    the checkpoint plane's KV."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.checkpoint import StoreKV
+
+    port = [None]
+    if rank == 0:
+        store = dist.TCPStore("localhost", 0, world, True,
+                              wait_for_workers=False)
+        port = [store.port]
+    dist.broadcast_object_list(port, src=0)
+    if rank:
+        store = dist.TCPStore("localhost", port[0], world, False)
+    return StoreKV(store)
+
+
+def mesh_ckpt(torch, rank, device):
+    """``[mesh-ckpt]``: phase 28's model after one step saved at the
+    MESH_MOE["ckpt"] save layout (a shard a rank, a TCPStore KV), then
+    restored at its restore layout and on one rank (rank 0), every leaf
+    equal bit for bit."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.checkpoint import CheckpointPlane
+    from ray_tpu_torch.models.training import synthetic_batch
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    c, t = MESH_MOE["ckpt"], TRAIN
+    kv = _tcp_kv(rank, dist.get_world_size())
+    trainer = _ckpt_trainer(make_mesh(MeshConfig(**c["save"]),
+                                      device_type=device.type))
+    state = trainer.init_state(0)
+    state, _ = trainer.train_step(state, trainer.shard_batch(
+        synthetic_batch(t["batch"], t["seq"], trainer.config.vocab_size,
+                        seed=0, device=device)))
+    nbytes = _state_bytes(state)
+    root = [None]
+    if rank == 0:
+        root = [_scratch_dir(int(CKPT["disk_margin"] * nbytes),
+                             "mesh ckpt")[0]]
+    dist.broadcast_object_list(root, src=0)
+    plane = CheckpointPlane(root[0], run="mesh", kv=kv)
+    try:
+        h = trainer.save_state(plane, state)
+        saved = h.result()
+        dist.barrier()
+        t0 = time.perf_counter()
+        other = _ckpt_trainer(make_mesh(MeshConfig(**c["restore"]),
+                                        device_type=device.type))
+        got = other.restore_state(plane)
+        restore_s = time.perf_counter() - t0
+        _same_state(torch, got, state, f"mesh ckpt restore at "
+                    f"{c['restore']}")
+        local_wq = tuple(got.params["layers"]["wq"].to_local().shape)
+        del got
+        # The saved state in full on every rank (collectives), then rank 0
+        # restores it onto one device.
+        full = [t.full_tensor() for t in _state_leaves(state)]
+        one_s = None
+        if rank == 0:
+            t0 = time.perf_counter()
+            one = _ckpt_trainer(device=device).restore_state(plane)
+            one_s = time.perf_counter() - t0
+            mine = _state_leaves(one)
+            if not all(a.dtype == b.dtype and torch.equal(a.detach(), b)
+                       for a, b in zip(mine, full)):
+                fail("mesh ckpt: the one-rank restore differs from the "
+                     "saved state")
+            del one, mine
+        del full
+        dist.barrier()
+        manifest = plane.manifest(int(state.step))
+        return dict(save=c["save"], restore=c["restore"], bytes=nbytes,
+                    blocked_ms=h.blocked_ms, save_s=saved["save_s"],
+                    shards=len(manifest["shards"]),
+                    committed_by=manifest["committed_by"],
+                    restore_s=restore_s, restore_one_rank_s=one_s,
+                    restored_wq_local=local_wq)
+    finally:
+        plane.close()
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(root[0], ignore_errors=True)
 
 
 def build_report(log):
@@ -2693,7 +3281,11 @@ def main():
         return
     if sys.argv[1:2] == ["--mesh-check"]:
         print(card_line())
-        mesh_check(torch)
+        sections = tuple(sys.argv[2:]) or MESH_SECTIONS
+        if not set(sections) <= set(MESH_SECTIONS):
+            fail(f"--mesh-check sections {sections}: each one of "
+                 f"{MESH_SECTIONS}")
+        mesh_check(torch, sections)
         return
     if sys.argv[1:2] == ["--dense-ms"]:
         print(card_line())
@@ -2731,10 +3323,10 @@ def main():
     flash = timed("phases 7-8", flash_phases, torch)
     timed("phase 9", model_parity, torch)
     train = timed("phase 10", train_end_to_end, torch, card)
-    sharded, seq = timed("phases 25-26", sharded_train, torch, card,
-                         train)
     timed("phase 23", mixtral_parity, torch)
     mix = timed("phase 24", mixtral_train, torch, card)
+    sharded, seq, mix_mesh, _ = timed("phases 25-28", sharded_train, torch,
+                                      card, train, mix)
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(
@@ -2757,6 +3349,7 @@ def main():
                    f"{fa.kernel_route(n, torch.bfloat16)[0]}.cu",
             replaces=FLASH_REPLACES[n], launches=train["launches"][n],
             mixtral_launches=mix["launches"][n],
+            mixtral_mesh_launches=mix_mesh["launches"][n],
             sharded_launches=sharded["launches"][n],
             ulysses_launches=seq["ulysses"]["launches"][n],
             max_abs_err=main_flash["max_abs_err"][n],

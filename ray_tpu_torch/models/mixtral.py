@@ -10,9 +10,14 @@ the model dtype), ``moe_gate``/``moe_up`` ``[L, X, E, M]`` and
 ``moe_down`` ``[L, X, M, E]``. :func:`params_from_numpy` carries a JAX
 tree across with each leaf's own dtype.
 
-One device only: the ``expert`` mesh axis (dispatch and combine as
-all-to-alls) waits for meshes, ROADMAP.md queue A, item 7, and a mesh
-with any axis larger than 1 raises.
+On a :class:`~torch.distributed.device_mesh.DeviceMesh` (any layout of
+``parallel.make_mesh``: data, fsdp, expert, tensor and seq, ring or
+Ulysses attention) the params are DTensors placed by
+:func:`logical_axes` through the rules, ``shard_tree(params,
+tree_shardings(mesh, logical_axes(cfg)), mesh)``, and the expert layer
+is the expert-parallel one of :func:`ray_tpu_torch.ops.moe.moe_layer`.
+A mapping of axis sizes is one device: an axis of it larger than 1
+raises.
 """
 
 from __future__ import annotations
@@ -129,16 +134,20 @@ def params_from_numpy(tree, device=None) -> Params:
     return interop.params_from_numpy(tree, llama.default_device(device))
 
 
-def _one_device(mesh):
+def _mesh(mesh):
+    """``mesh`` as the MoE takes it: a DeviceMesh, or None for one
+    device (a mapping of sizes, each 1)."""
+    if llama.on_mesh(mesh):
+        return mesh
     big = {k: v for k, v in llama.mesh_shape(mesh).items() if v > 1}
     if big:
-        raise llama.not_ported(
-            f"Mixtral over a mesh with axes {big} (expert parallelism "
-            f"over the 'expert' axis, sharding)",
-            "item 7d (expert parallelism for Mixtral)")
+        raise ValueError(
+            f"Mixtral over mesh axes {big} runs on a DeviceMesh from "
+            f"ray_tpu_torch.parallel.make_mesh, not a mapping of sizes")
+    return None
 
 
-def _moe_mlp(config: MixtralConfig):
+def _moe_mlp(config: MixtralConfig, mesh=None):
     c = config
 
     def mlp_fn(h, layer):
@@ -149,7 +158,7 @@ def _moe_mlp(config: MixtralConfig):
              "w_up": layer["moe_up"],
              "w_down": layer["moe_down"]},
             num_experts=c.num_experts, top_k=c.top_k,
-            capacity_factor=c.capacity_factor)
+            capacity_factor=c.capacity_factor, mesh=mesh)
         return out, aux["aux_loss"]
 
     return mlp_fn
@@ -157,9 +166,8 @@ def _moe_mlp(config: MixtralConfig):
 
 def forward(params: Params, tokens, config: MixtralConfig, mesh=None):
     """Logits [B, S, V] (fp32) for integer tokens [B, S]."""
-    _one_device(mesh)
     return llama.forward(params, tokens, config.backbone(), mesh,
-                         mlp_fn=_moe_mlp(config))
+                         mlp_fn=_moe_mlp(config, _mesh(mesh)))
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
@@ -168,10 +176,9 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     with ``metrics["loss"]`` the CE, ``"aux_loss"`` the aux summed over
     layers and ``"total_loss"``. On CUDA with bf16 params, run it under
     :func:`llama.fp32_reduction` as the trainer's step does."""
-    _one_device(mesh)
     return llama.loss_fn(params, batch, config.backbone(), mesh,
                          vocab_chunks=vocab_chunks,
-                         mlp_fn=_moe_mlp(config),
+                         mlp_fn=_moe_mlp(config, _mesh(mesh)),
                          aux_coeff=config.aux_coeff)
 
 

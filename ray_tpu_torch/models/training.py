@@ -10,8 +10,9 @@ DTensors placed by the logical-axis rule table, the batch is split over
 (data, fsdp), and each grad is redistributed to its param's placements
 before the optimizer sees it: the reduce-scatter or all-reduce that the
 JAX step's ``out_shardings`` imply. Without a mesh the step runs on one
-device. The checkpoint plane hooks wait for ROADMAP.md queue A, item 8;
-they raise.
+device. ``save_state``/``restore_state`` go through the checkpoint plane
+(:mod:`ray_tpu_torch.checkpoint`), whose files the JAX package's plane
+writes too.
 
 :func:`default_optimizer` is optax's ``chain(clip_by_global_norm,
 adamw(warmup_cosine_decay_schedule))`` written out in PyTorch with the
@@ -271,7 +272,6 @@ class TrainState:
     opt_state: OptState
 
 
-_CHECKPOINT = "item 8 (ray_tpu_torch/train and ray_tpu_torch/checkpoint)"
 BATCH_SPEC = (("data", "fsdp"),)
 
 
@@ -483,12 +483,56 @@ class ShardedTrainer:
 
     # -- checkpoint plane hooks --------------------------------------------
     def save_state(self, plane, state: TrainState, step=None):
-        raise llama.not_ported("save_state (the checkpoint plane)",
-                               _CHECKPOINT)
+        """Async-save ``state`` through a checkpoint plane
+        (:class:`ray_tpu_torch.checkpoint.CheckpointPlane`). The
+        device-to-host copy is complete before this returns (the next
+        step updates the state in place); serialization, write and
+        manifest commit run in the background. Returns the SaveHandle."""
+        return plane.save_async(int(state.step if step is None else step),
+                                state)
 
-    def restore_state(self, plane, step=None):
-        raise llama.not_ported("restore_state (the checkpoint plane)",
-                               _CHECKPOINT)
+    def restore_state(self, plane, step=None) -> TrainState:
+        """Restore a committed checkpoint onto THIS trainer's layout.
+
+        The saving layout is irrelevant: each leaf is assembled whole and
+        distributed by this trainer's placements (save on fsdp=4, restore
+        on fsdp=2 x tensor=2 or on one device, bit for bit). A step the
+        JAX package's ``ShardedTrainer.save_state`` wrote reads by its
+        ``TrainState``'s leaf order."""
+        from ray_tpu_torch.checkpoint import plane as ckpt
+
+        shapes = llama.param_shapes(self.config)
+        order = ckpt.key_paths(shapes)
+
+        def place(path, t):
+            """A param or moment onto the trainer's device and layout
+            (each rank holds the full tensor: it keeps its shard)."""
+            if path[0] == "params":
+                where = path[1:]
+            elif path[:2] in (("opt_state", "mu"), ("opt_state", "nu")):
+                where = path[2:]
+            else:
+                return t
+            t = t.to(self.device)
+            if self.param_placements is None:
+                return t
+            return distribute_tensor(
+                t, self.mesh, ckpt.at_path(self.param_placements, where),
+                src_data_rank=None)
+
+        got = plane.restore(place, step=step,
+                            paths=ckpt.train_state_paths(order))
+        saved = ckpt.sorted_key_paths(got.params)
+        if sorted(saved) != sorted(order):
+            raise ValueError(f"checkpoint params {saved} are not this "
+                             f"trainer's {order}")
+        mu = dict(zip(saved, got.opt_state.mu))
+        nu = dict(zip(saved, got.opt_state.nu))
+        params = _unflatten(shapes, [ckpt.at_path(got.params, p).requires_grad_(
+            True) for p in order])
+        return TrainState(step=got.step, params=params, opt_state=OptState(
+            count=got.opt_state.count, mu=[mu[p] for p in order],
+            nu=[nu[p] for p in order]))
 
 
 def _placed_like(g, p):

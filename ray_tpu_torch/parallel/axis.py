@@ -1,6 +1,6 @@
 """Named-axis collectives: the port's stand-ins for the ``jax.lax`` ops
 that code inside ``shard_map`` calls on one mesh axis (``axis_index``,
-``psum``, ``ppermute``, ``all_to_all``).
+``psum``, ``ppermute``, ``all_to_all``, ``all_gather``).
 
 They run on each rank's local tensors inside ``local_map`` over a
 :class:`~torch.distributed.device_mesh.DeviceMesh` and talk over the
@@ -11,8 +11,9 @@ A rank's index on an axis is its coordinate there, which is its rank in
 that dim's group (a mesh lays ranks out row-major, so the group's ranks
 rise with the coordinate).
 
-Each op is differentiable, and its backward is the transpose JAX's
-autodiff gives it:
+Each op but :func:`all_gather` (its callers gather integer routing ids)
+is differentiable, and its backward is the transpose JAX's autodiff
+gives it:
 
 * :func:`ppermute`: the cotangent travels the pairs backwards, the
   inverse permutation; a rank that received nothing sends zeros back;
@@ -180,3 +181,16 @@ def psum(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return x
     return _PSum.apply(x, _group(mesh, axis))
+
+
+def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str,
+               dim: int = 0) -> torch.Tensor:
+    """``jax.lax.all_gather(..., tiled=True)`` without a backward: every
+    rank's ``x`` concatenated along ``dim`` in index order, the same on
+    each rank of ``axis``."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.detach().contiguous(), group=_group(mesh, axis))
+    return torch.cat(parts, dim)

@@ -271,14 +271,46 @@ def test_four_optimizer_steps_match_optax():
     assert tstate.count == 4
 
 
-def test_mesh_with_expert_axis_raises_naming_item_7():
-    _, tc = _configs()
+def test_mesh_with_expert_axis_raises_naming_item_7(tmp_path):
+    """Expert parallelism is ported (ROADMAP item 7d): on a one-rank
+    DeviceMesh the Mixtral loss and grads go through the expert-parallel
+    layer and equal one device's, drops included. A mapping of sizes is
+    one device: an axis of it larger than 1 has no mesh to run on and
+    raises (the multi-rank cases: tests/test_torch_expert_parallel.py)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from ray_tpu_torch.parallel import (MeshConfig, make_mesh, shard_tree,
+                                        tree_shardings)
+
+    _, tc = _configs(capacity_factor=0.5)
     tp = tmx.init_params(tc, torch.Generator().manual_seed(0), "cpu")
-    tokens = torch.zeros((1, 16), dtype=torch.int32)
+    tokens = torch.from_numpy(_tokens(2, 16, tc.vocab_size))
     for mesh in ({"expert": 2}, {"expert": 1, "fsdp": 2}):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(ValueError, match="make_mesh"):
             tmx.forward(tp, tokens, tc, mesh=mesh)
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(ValueError, match="make_mesh"):
             tmx.loss_fn(tp, {"tokens": tokens}, tc, mesh=mesh)
     out = tmx.forward(tp, tokens, tc, mesh={"expert": 1, "fsdp": 1})
-    assert out.shape == (1, 16, tc.vocab_size)
+    assert out.shape == (2, 16, tc.vocab_size)
+    want_loss, _, want = _torch_grads(tp, tokens.numpy(), tc)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(expert=1, fsdp=1), device_type="cpu")
+        # The same seed's params, placed by the rules.
+        placed = shard_tree(
+            tmx.init_params(tc, torch.Generator().manual_seed(0), "cpu"),
+            tree_shardings(mesh, tmx.logical_axes(tc)), mesh)
+        names = [n for n, _ in _named_leaves(placed)]
+        leaves = [p.requires_grad_(True) for _, p in _named_leaves(placed)]
+        toks = distribute_tensor(tokens, mesh, (Replicate(),))
+        loss, _ = tmx.loss_fn(placed, {"tokens": toks}, tc, mesh)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        torch.distributed.destroy_process_group()
+    np.testing.assert_allclose(float(loss.full_tensor()), float(want_loss),
+                               rtol=1e-6)
+    for n, g in zip(names, grads):
+        w = want[n]
+        gap = float((g.full_tensor() - w).abs().max() / w.abs().max())
+        assert gap <= 1e-5, (n, gap)

@@ -161,7 +161,9 @@ def test_make_mesh_with_size_one_axes(one_rank_group):
         assert tpar.num_model_replicas(mesh) == 1
     assert tpar.mesh_shape(tpar.single_device_mesh("cpu")) == \
         dict.fromkeys(tpar.MESH_AXES, 1)
-    tmx._one_device(mesh)              # Mixtral reads it as one device
+    # Mixtral runs on the mesh itself; a mapping of ones is one device.
+    assert tmx._mesh(mesh) is mesh
+    assert tmx._mesh(tpar.mesh_shape(mesh)) is None
     with pytest.raises(ValueError, match="needs 2 devices"):
         tpar.make_mesh(tpar.MeshConfig(data=2, fsdp=1), device_type="cpu")
 

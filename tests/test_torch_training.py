@@ -449,10 +449,20 @@ def test_unported_hooks_raise(tmp_path):
                                    rtol=1e-6)
     finally:
         torch.distributed.destroy_process_group()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trainer.save_state(None, state)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trainer.restore_state(None)
+    # The checkpoint hooks are ported (ROADMAP item 8a): a save and a
+    # restore give the state back bit for bit.
+    from ray_tpu_torch.checkpoint import CheckpointPlane
+
+    plane = CheckpointPlane(str(tmp_path / "ckpt"), run="hooks")
+    assert trainer.save_state(plane, state).result()["committed"]
+    restored = trainer.restore_state(plane)
+    plane.close()
+    assert restored.step == state.step == 0
+    assert restored.opt_state.count == state.opt_state.count
+    for a, b in zip(tt._leaves(restored.params) + restored.opt_state.mu
+                    + restored.opt_state.nu, tt._leaves(state.params)
+                    + state.opt_state.mu + state.opt_state.nu):
+        assert a.dtype == b.dtype and torch.equal(a, b)
     with pytest.raises(ValueError, match="not divisible"):
         trainer.train_step(state, batch)
     # Ring attention runs over a DeviceMesh's seq axis: with no mesh, or
