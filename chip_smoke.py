@@ -253,6 +253,39 @@ Phases, any failure exits non-zero with no result line:
    2's shard must make ``restore()`` fall back to step 1. ``[ckpt]``
    prints the bytes, the blocked ms of each snapshot, the save seconds,
    the restore seconds, GB/s each way and the crc32's share of each.
+29. the LLM deployments in process: ``ContinuousLlamaDeployment`` at
+   Llama-3-8B (phase 5's random weights, drawn by the engine from seed 0;
+   8 slots, max_len 2048) takes phase 5's 12 prompts as 12 concurrent
+   ``generate`` streams from threads, 32 tokens each: every stream gives
+   32 in-vocab tokens and the paged kernel launches num_layers times a
+   tick; TTFT p50 at the caller, decode tokens/s, tick ms and agreement
+   with phase 5 (``partings``) reported (``[deploy]``). Then
+   ``score_logprobs`` of two served requests, num_layers flash forward
+   launches a call, and ``LlamaDeployment`` at 2 layers of Llama-3-8B's
+   widths: 6 concurrent calls through ``@serve.batch``, the batch sizes
+   it formed printed (``[deploy-batch]``);
+30. the serve runtime on the card: ``serve.run`` of
+   ``build_continuous_llama_app``'s app (its card request, ``num_gpus:
+   1``, and its bind arguments) with the class swapped for
+   ``CountingLlm``, the port's class with a method that reads the
+   replica process's launch counts, in one replica process on its own
+   card, ``start_http(port=0)``, phase 5's 12 prompts
+   as 12 concurrent NDJSON streams over HTTP, 32 tokens each: 32
+   in-vocab tokens each and num_layers paged launches a tick inside the
+   replica; the replica's cold start, TTFT p50 and tokens/s at the
+   client beside phase 29's (``[runtime]``). Then ``serve.drain`` during
+   a burst of 8 streams (every stream complete) and a SIGKILL of the
+   replica after a greedy stream delivered 8 tokens: the stream finishes
+   through the recovery journal on the respawned replica; its agreement
+   with the uninterrupted run (``partings``) and the time from the kill
+   to the next token reported (``[runtime-drain]``, ``[runtime-kill]``);
+31. runtime parity: phase 6's 2-layer fp32 model in a replica on the
+   card: the greedy tokens of phase 6's requests over HTTP equal phase
+   6's in-process paged engine's (a divergence passes only below
+   TOP2_MARGIN), and a kill mid-decode resumes to the same tokens
+   (``[runtime-parity]``). Every replica process has exited and its
+   memory is back before phase 10 (``[mem]`` lines at each start and
+   end).
 
 Phases 23-24 run before phases 25-28 (27 compares with 24), phases
 11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
@@ -264,8 +297,11 @@ The line before the last is the kernels' JSON record (the paged and dense
 entries also carry ``spec_launches``, their launches in phase 19's
 self-draft and external-drafter runs, the paged entry
 ``split_launches``, the decode engine's launches in phase 21's bf16 run,
-and the flash entries ``mixtral_launches``, their launches in phase 24's
-run, ``mixtral_mesh_launches``, their launches in phase 27's run,
+the paged entry ``deployment_launches`` and ``replica_launches``, its
+launches in phases 29 and 30's 12 streams, the flash forward entry
+``deployment_scoring_launches``, its launches in phase 29's two scoring
+calls, and the flash entries ``mixtral_launches``, their launches in
+phase 24's run, ``mixtral_mesh_launches``, their launches in phase 27's run,
 ``sharded_launches``, their launches in phase 25's 12 steps, and
 ``ulysses_launches``, their launches in phase 26b);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -306,18 +342,29 @@ checkouts' wrappers can be compared on one card; it prints one
 ``[host]`` JSON line. ``python3 chip_smoke.py --dense-ms ROOT`` likewise
 times only the dense kernel of ROOT's package at the timed phase-12
 cases (kernel ms, L2 flushed, and host microseconds a call) and prints
-one ``[dense-ms]`` JSON line.
+one ``[dense-ms]`` JSON line. ``python3 chip_smoke.py --serve-ticks``
+splits the deployment's tick (:func:`serve_ticks`): phase 29's engine
+stepped by phase 5's loop, by the tick thread under 12 stream threads and
+under one reader, in process and in a replica process; per burst the
+decode steps' wall and CPU ms, the gaps between steps and, under the
+profiler, device busy ms (``[ticks]`` lines, no result line).
 """
 
 import dataclasses
+import gc
+import http.client
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
+
+from ray_tpu_torch.llm import ContinuousLlamaDeployment
 
 PEAK_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
@@ -916,6 +963,14 @@ def check_outputs(outs, n, vocab, what):
                  f"(want {n} in [0, {vocab}))")
 
 
+def phase5_prompts(cfg):
+    """Phase 5's 12 prompts: lengths 17-700 and ids from seed 0."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(17, 701, size=12)
+    return [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+            for n in lens]
+
+
 def end_to_end(torch, card):
     from ray_tpu_torch.models import llama
 
@@ -927,11 +982,8 @@ def end_to_end(torch, card):
     print(f"[e2e] Llama-3-8B params: {llama.num_params(cfg) / 1e9:.3f} B "
           f"({sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.2f} GiB), "
           f"random init {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    lens = rng.integers(17, 701, size=12)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
-               for n in lens]
-    print(f"[e2e] prompt lengths {sorted(int(x) for x in lens)}")
+    prompts = phase5_prompts(cfg)
+    print(f"[e2e] prompt lengths {sorted(len(p) for p in prompts)}")
     runs, outputs = {}, {}
     for name, ps, kw in [("bf16", prompts, {}),
                          ("int8", prompts[:4], {"kv_dtype": "int8"}),
@@ -971,7 +1023,7 @@ def end_to_end(torch, card):
                             prompts, outputs["bf16"], card)
     del params
     torch.cuda.empty_cache()
-    return runs
+    return runs, (prompts, outputs["bf16"])
 
 
 def spec_tick_check(torch, cfg, params, prompts, card):
@@ -1519,19 +1571,22 @@ def top2_margin(torch, params, cfg, seq):
     return float(top[0] - top[1]), float(top[0])
 
 
-def partings(torch, params, cfg, prompts, got, want, what, against="paged"):
+def partings(torch, params, cfg, prompts, got, want, what, against="paged",
+             margin=None):
     """Where the bf16 run ``what`` (``got``) parts from the run
     ``against`` (``want``): for each such request, (request, first parting
     token, top-2 margin, top logit) of the next token after the prompt and
     the tokens both runs share, from a bf16 full forward. A margin near
     bf16's rounding of a logit of that size (2^-8 relative) is a near-tie
-    that another summation order flips."""
+    that another summation order flips. ``margin(seq)`` stands for
+    ``top2_margin`` where the weights live elsewhere (a replica)."""
+    top2 = margin or (lambda seq: top2_margin(torch, params, cfg, seq))
     out = []
     for i, (a, b) in enumerate(zip(got, want)):
         if a == b:
             continue
         j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
-        margin, top = top2_margin(torch, params, cfg, prompts[i] + b[:j])
+        margin, top = top2(prompts[i] + b[:j])
         print(f"[parity] bf16 {what} and {against} runs part at request {i}, "
               f"token {j}: top-2 margin {margin:.4e}, top logit {top:.4f} "
               f"(bf16 rounding there {abs(top) * 2**-8:.4e})")
@@ -1539,14 +1594,16 @@ def partings(torch, params, cfg, prompts, got, want, what, against="paged"):
     return out
 
 
-def check_agree(torch, params, cfg, prompts, got, want, what):
+def check_agree(torch, params, cfg, prompts, got, want, what, margin=None):
     """Greedy tokens ``got`` against ``want`` request by request; a
-    divergence passes only at a top-2 margin below TOP2_MARGIN."""
+    divergence passes only at a top-2 margin below TOP2_MARGIN
+    (``margin(seq)`` as in ``partings``)."""
+    top2 = margin or (lambda seq: top2_margin(torch, params, cfg, seq))
     for i, (a, b) in enumerate(zip(got, want)):
         if a == b:
             continue
         j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
-        margin, _ = top2_margin(torch, params, cfg, prompts[i] + b[:j])
+        margin, _ = top2(prompts[i] + b[:j])
         print(f"[parity] {what}: request {i} diverges at token {j}: "
               f"top-2 margin {margin:.3e}")
         if margin >= TOP2_MARGIN:
@@ -1594,6 +1651,7 @@ def engine_parity(torch):
           pprompts, warm, prefix_runs)
     del params
     torch.cuda.empty_cache()
+    return cfg, prompts, got["paged"]
 
 
 def engine_parity_16(torch, cfg, params, prompts, got, rng):
@@ -3216,6 +3274,670 @@ def build_report(log):
     return out
 
 
+# ------------------------------------------------- phases 29-31: serving
+SERVE_NAME = "llm"
+# Phase 29's LlamaDeployment: its layers at Llama-3-8B's widths, the
+# concurrent calls and their new tokens.
+DEPLOY_BATCH = dict(layers=2, calls=6, max_tokens=8)
+# Phase 30: the streams of the drain's burst, and the tokens a stream has
+# delivered when its replica is killed (phase 31 kills at half its 16).
+RUNTIME = dict(burst=8, kill_after=8)
+
+
+class CountingLlm(ContinuousLlamaDeployment._cls_or_fn):
+    """Phases 30-31's deployment: the port's ``ContinuousLlamaDeployment``
+    with its random weights drawn from ``seed`` (0: the engine's own draw,
+    phase 5's weights; 1: phase 6's) and two methods this process calls in
+    the replica process: the decode kernels' launch counts with the
+    engine's counters, and ``top2_margin`` under the replica's weights.
+    User code: the replica process finds it here by name."""
+
+    def __init__(self, config, seed=0, **engine):
+        import torch
+
+        from ray_tpu_torch.models import llama
+
+        params = None
+        if seed:
+            params = llama.init_params(
+                config, torch.Generator(device="cuda").manual_seed(seed),
+                device="cuda")
+        super().__init__(config=config, params=params, **engine)
+        self.marks = []
+
+    def generate(self, prompt_token_ids, max_tokens=16):
+        """The port's ``generate``, timing each request from its entry
+        into user code in the replica to its first token."""
+        entry = time.perf_counter()
+        for i, token in enumerate(super().generate(prompt_token_ids,
+                                                   max_tokens)):
+            if i == 0:
+                self.marks.append((entry, time.perf_counter()))
+            yield token
+
+    def counters(self, reset=False):
+        """Launch counts and engine counters; since the last reset, the
+        requests' (entry, first token) marks and engine records."""
+        from ray_tpu_torch.ops.decode_attention import decode_attention
+        from ray_tpu_torch.ops.paged_decode_attention import \
+            paged_decode_attention
+
+        with self._lock:
+            out = dict(paged=paged_decode_attention.launches,
+                       dense=decode_attention.launches,
+                       ticks=self.batcher.base_tick_count,
+                       prefill_s=self.batcher.prefill_seconds,
+                       decoded=self.batcher.decoded_tokens,
+                       marks=list(self.marks),
+                       records=list(self.batcher.request_breakdowns))
+            if reset:
+                paged_decode_attention.launches = 0
+                decode_attention.launches = 0
+                self.marks = []
+                self.batcher.request_breakdowns.clear()
+        return out
+
+    def margin(self, seq):
+        import torch
+
+        with self._lock:
+            return top2_margin(torch, self.batcher.params, self.config,
+                               list(seq))
+
+
+def breakdown(records, n):
+    """Medians over the engine's last ``n`` request records: its time to
+    first token from the submit and the queue share of it."""
+    recs = [r for r in list(records)[-n:] if r.get("ttft_s") is not None]
+    return dict(engine_ttft_p50_ms=float(np.median(
+        [r["ttft_s"] for r in recs])) * 1e3,
+        engine_queue_p50_ms=float(np.median(
+            [r["queue_s"] for r in recs])) * 1e3)
+
+
+def mem(torch, tag):
+    free, total = torch.cuda.mem_get_info()
+    print(f"[mem] {tag}: {free / 2**30:.2f} of {total / 2**30:.2f} GiB "
+          f"free")
+    return free
+
+
+def stream_all(start, n):
+    """``start(i)`` (an iterable of tokens) for each i < n on a thread of
+    its own, all released together: (tokens by request, seconds from the
+    release to each first token, wall seconds)."""
+    outs, first, errors = [None] * n, [None] * n, []
+    barrier = threading.Barrier(n + 1)
+
+    def run(i):
+        barrier.wait()
+        try:
+            toks = []
+            for t in start(i):
+                if first[i] is None:
+                    first[i] = time.perf_counter()
+                toks.append(t)
+            outs[i] = toks
+        except Exception as e:  # noqa: BLE001 — failed below
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"streams failed: {errors or 'a stream hung'}")
+    return outs, [None if f is None else f - t0 for f in first], wall
+
+
+def http_tokens(port, payload, timeout=600):
+    """The token ids of one NDJSON stream from the HTTP ingress, as they
+    arrive."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", f"/{SERVE_NAME}/stream/generate",
+                     body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise RuntimeError(f"HTTP {resp.status}: {resp.read()[:300]}")
+        while True:
+            line = resp.readline()
+            if not line:
+                return
+            item = json.loads(line)
+            if not isinstance(item, int):
+                raise RuntimeError(f"a greedy stream sent {item!r}")
+            yield item
+    finally:
+        conn.close()
+
+
+def wait_routed(timeout_s=600):
+    """The routed replica of SERVE_NAME once one is up and no drain is in
+    flight."""
+    from ray_tpu_torch.serve import api as serve_api
+
+    controller = serve_api._get_controller()
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        reps = controller.get_replicas(SERVE_NAME)
+        if reps and not controller.draining_count(SERVE_NAME):
+            return reps[0]
+        time.sleep(0.1)
+    fail(f"no replica of {SERVE_NAME} came up within {timeout_s} s")
+
+
+def served_stats(outs, ttft, wall, ticks, launches, prefill_s, decoded,
+                 num_layers, vocab, what):
+    """The gates of a served burst (every stream 32 in-vocab tokens,
+    num_layers paged launches a tick and no dense one) and its numbers."""
+    check_outputs(outs, 32, vocab, what)
+    if launches != {"paged": num_layers * ticks, "dense": 0}:
+        fail(f"{what}: launches {launches} for {ticks} ticks x "
+             f"{num_layers} layers")
+    decode_s = wall - prefill_s
+    return dict(requests=len(outs), ticks=ticks, launches=launches,
+                wall_s=wall, ttft_p50_ms=float(np.median(ttft)) * 1e3,
+                client_tok_s=sum(map(len, outs)) / wall,
+                tick_ms=decode_s / max(ticks, 1) * 1e3,
+                decode_tok_s=decoded / decode_s, prefill_s=prefill_s)
+
+
+def deploy_phase(torch, card, served):
+    """Phase 29: the deployments in process (module docstring)."""
+    from ray_tpu_torch.llm import LlamaDeployment
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.ops.decode_attention import decode_attention
+    from ray_tpu_torch.ops.paged_decode_attention import \
+        paged_decode_attention
+
+    mem(torch, "phase 29 start")
+    prompts, phase5 = served
+    cfg = llama.LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    dep = ContinuousLlamaDeployment._cls_or_fn(config=cfg, num_slots=8,
+                                               max_len=2048)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    list(dep.generate(prompts[0][:16], 2))       # warm-up, as serve() does
+    eng = dep.batcher
+    ticks0, pre0, dec0 = (eng.base_tick_count, eng.prefill_seconds,
+                          eng.decoded_tokens)
+    reset_launch_counts()
+    outs, ttft, wall = stream_all(lambda i: dep.generate(prompts[i], 32),
+                                  len(prompts))
+    st = served_stats(
+        outs, ttft, wall, eng.base_tick_count - ticks0,
+        {"paged": paged_decode_attention.launches,
+         "dense": decode_attention.launches},
+        eng.prefill_seconds - pre0, eng.decoded_tokens - dec0,
+        cfg.num_layers, cfg.vocab_size, "phase 29")
+    st.update(init_s=init_s, agree_with_phase5=sum(
+        a == b for a, b in zip(outs, phase5)), partings=partings(
+        torch, eng.params, cfg, prompts, outs, phase5, "phase 29",
+        against="phase-5"), card=card)
+    launched = []
+    for i in SCORE_REQUESTS:
+        before = flash_attention.launches["fwd"]
+        lp = np.asarray(dep.score_logprobs(prompts[i], outs[i]))
+        launched.append(flash_attention.launches["fwd"] - before)
+        if launched[-1] != cfg.num_layers or lp.shape != (32,) or not (
+                np.all(np.isfinite(lp)) and np.all(lp <= 0)):
+            fail(f"phase 29 scoring of request {i}: {launched[-1]} flash "
+                 f"forward launches, logprobs {lp[:4]}...")
+    st["scoring_launches"] = sum(launched)
+    st.update(breakdown(eng.request_breakdowns, len(prompts)))
+    print(f"[deploy] {json.dumps(st)}")
+    st["outputs"] = outs
+    dep.close()
+    del dep, eng
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, num_layers=DEPLOY_BATCH["layers"])
+    ld = LlamaDeployment._cls_or_fn(config=small, max_len=2048)
+    sizes = []
+    inner = ld.generator.generate
+
+    def recording(batch, **kw):
+        sizes.append(len(batch))
+        return inner(batch, **kw)
+
+    ld.generator.generate = recording
+    n, new = DEPLOY_BATCH["calls"], DEPLOY_BATCH["max_tokens"]
+    outs2, _, wall2 = stream_all(lambda i: ld(
+        {"prompt_token_ids": prompts[i], "max_tokens": new})["token_ids"], n)
+    check_outputs(outs2, new, cfg.vocab_size, "phase 29 LlamaDeployment")
+    if sum(sizes) != n or max(sizes) > 8:
+        fail(f"phase 29 LlamaDeployment: batches {sizes} for {n} calls")
+    print(f"[deploy-batch] {json.dumps(dict(calls=n, batch_sizes=sizes, wall_s=wall2, layers=small.num_layers, card=card))}")
+    del ld, inner, recording
+    gc.collect()                  # the recording wrapper closes a cycle
+    torch.cuda.empty_cache()
+    mem(torch, "phase 29 end")
+    return st
+
+
+def runtime_phase(torch, card, served, deploy):
+    """Phase 30: the serve runtime on the card (module docstring)."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import build_continuous_llama_app
+    from ray_tpu_torch.models import llama
+
+    mem(torch, "phase 30 start")
+    prompts, phase5 = served
+    cfg = llama.LlamaConfig.llama3_8b()
+    # The builder's app (its card request and engine knobs), served by the
+    # counting subclass so the replica's launches can be read.
+    built = build_continuous_llama_app(cfg, num_slots=8, max_len=2048)
+    app = serve.deployment(
+        CountingLlm, name=SERVE_NAME,
+        ray_actor_options=built.deployment.ray_actor_options).bind(
+        *built.args, **built.kwargs)
+    t0 = time.perf_counter()
+    handle = serve.run(app)
+    cold_s = time.perf_counter() - t0
+    replica = wait_routed()
+    mem(torch, "phase 30 replica up")
+    port = serve.start_http(port=0)
+    list(http_tokens(port, {"prompt_token_ids": prompts[0][:16],
+                            "max_tokens": 2}))           # warm-up
+    c0 = handle.counters.remote(True).result(timeout_s=120)
+    outs, ttft, wall = stream_all(lambda i: http_tokens(
+        port, {"prompt_token_ids": prompts[i], "max_tokens": 32}),
+        len(prompts))
+    c1 = handle.counters.remote().result(timeout_s=120)
+
+    def margin(seq):
+        return handle.margin.remote(seq).result(timeout_s=300)
+
+    st = served_stats(outs, ttft, wall, c1["ticks"] - c0["ticks"],
+                      {"paged": c1["paged"], "dense": c1["dense"]},
+                      c1["prefill_s"] - c0["prefill_s"],
+                      c1["decoded"] - c0["decoded"], cfg.num_layers,
+                      cfg.vocab_size, "phase 30")
+    marks = np.array(c1["marks"])
+    st.update(breakdown(c1["records"], len(prompts)),
+              replica_entry_spread_ms=float(np.ptp(marks[:, 0])) * 1e3,
+              replica_ttft_p50_ms=float(np.median(
+                  marks[:, 1] - marks[:, 0])) * 1e3)
+    st.update(cold_start_s=cold_s, replica_init_s=replica.info["init_s"],
+              agree_with_phase5=sum(a == b for a, b in zip(outs, phase5)),
+              agree_with_phase29=sum(
+                  a == b for a, b in zip(outs, deploy["outputs"])),
+              partings=partings(torch, None, cfg, prompts, outs, phase5,
+                                "phase 30", against="phase-5",
+                                margin=margin),
+              phase29={k: deploy[k] for k in (
+                  "ttft_p50_ms", "client_tok_s", "tick_ms",
+                  "decode_tok_s")}, card=card)
+    print(f"[runtime] {json.dumps(st)}")
+
+    # serve.drain during a burst: every stream admitted, then the drain.
+    burst = RUNTIME["burst"]
+    admitted = [threading.Event() for _ in range(burst)]
+
+    def start(i):
+        for t in http_tokens(port, {"prompt_token_ids": prompts[i],
+                                    "max_tokens": 32}):
+            admitted[i].set()
+            yield t
+
+    box = {}
+    th = threading.Thread(target=lambda: box.update(
+        res=stream_all(start, burst)))
+    th.start()
+    if not all(e.wait(timeout=300) for e in admitted):
+        fail("phase 30: the drain's burst never started streaming")
+    t_drain = time.perf_counter()
+    if serve.drain(SERVE_NAME, 1) != 1:
+        fail("phase 30: serve.drain started no drain")
+    th.join(timeout=900)
+    if "res" not in box:
+        fail("phase 30: a stream of the drain's burst failed")
+    check_outputs(box["res"][0], 32, cfg.vocab_size, "phase 30 drain")
+    replica = wait_routed()
+    drain = dict(streams=burst, dropped=0,
+                 replacement_up_s=time.perf_counter() - t_drain,
+                 replacement_init_s=replica.info["init_s"], card=card)
+    print(f"[runtime-drain] {json.dumps(drain)}")
+
+    # SIGKILL the replica after a greedy stream delivered kill_after tokens.
+    k = RUNTIME["kill_after"]
+    toks, times, t_kill = [], [], None
+    for t in http_tokens(port, {"prompt_token_ids": prompts[1],
+                                "max_tokens": 32}):
+        toks.append(t)
+        times.append(time.perf_counter())
+        if len(toks) == k:
+            os.kill(replica.pid, signal.SIGKILL)
+            t_kill = time.perf_counter()
+    check_outputs([toks], 32, cfg.vocab_size, "phase 30 kill")
+    wait_routed()
+    gaps = np.diff(times[k - 1:])
+    kill = dict(killed_after=k, next_token_after_kill_s=times[k] - t_kill,
+                longest_gap_after_kill_s=float(gaps.max()),
+                agree_with_uninterrupted=toks == outs[1],
+                partings=partings(torch, None, cfg, prompts[1:2], [toks],
+                                  outs[1:2], "phase 30 killed",
+                                  against="uninterrupted", margin=margin),
+                card=card)
+    print(f"[runtime-kill] {json.dumps(kill)}")
+    serve.shutdown()
+    mem(torch, "phase 30 end")
+    st.update(drain=drain, kill=kill)
+    return st
+
+
+def runtime_parity(torch, card, parity):
+    """Phase 31: phase 6's 2-layer fp32 model in a replica on the card,
+    over HTTP, against phase 6's in-process paged engine (module
+    docstring)."""
+    from ray_tpu_torch import serve
+
+    mem(torch, "phase 31 start")
+    cfg, prompts, want = parity
+    new = len(want[0])
+    handle = serve.run(serve.deployment(
+        CountingLlm, name=SERVE_NAME, ray_actor_options={"num_gpus": 1})
+        .bind(config=cfg, seed=1, num_slots=8, max_len=2048))
+    replica = wait_routed()
+    port = serve.start_http(port=0)
+
+    def margin(seq):
+        return handle.margin.remote(seq).result(timeout_s=300)
+
+    got = [list(http_tokens(port, {"prompt_token_ids": p,
+                                   "max_tokens": new})) for p in prompts]
+    check_agree(torch, None, cfg, prompts, got, want,
+                "a replica over HTTP and phase 6's in-process engine",
+                margin=margin)
+    toks = []
+    for t in http_tokens(port, {"prompt_token_ids": prompts[-1],
+                                "max_tokens": new}):
+        toks.append(t)
+        if len(toks) == new // 2:
+            os.kill(replica.pid, signal.SIGKILL)
+    check_agree(torch, None, cfg, prompts[-1:], [toks], want[-1:],
+                "a replica killed mid-decode and phase 6's engine",
+                margin=margin)
+    st = dict(requests=len(prompts), tokens=new, identical=got == want,
+              killed_identical=toks == want[-1], card=card)
+    print(f"[runtime-parity] {json.dumps(st)}")
+    serve.shutdown()
+    mem(torch, "phase 31 end")
+    return st
+
+
+def serve_phases(torch, card, served, parity):
+    """Phases 29-31; every replica process has exited and its device
+    memory is back at the end."""
+    free0 = mem(torch, "phases 29-31 start")
+    out = {"deploy": timed("phase 29", deploy_phase, torch, card, served)}
+    out["runtime"] = timed("phase 30", runtime_phase, torch, card, served,
+                           out["deploy"])
+    out["parity"] = timed("phase 31", runtime_parity, torch, card, parity)
+    deadline = time.monotonic() + 30
+    while torch.cuda.mem_get_info()[0] < free0 - 2**30 and \
+            time.monotonic() < deadline:
+        time.sleep(0.5)
+    if mem(torch, "phases 29-31 end") < free0 - 2**30:
+        fail("phases 29-31: the replicas' device memory did not come back")
+    return out
+
+
+# ------------------------------------------ --serve-ticks: the tick study
+def step_records(eng):
+    """Record every later ``eng.step()``: (start, wall s, the stepping
+    thread's CPU s, base ticks it ran, whether it prefilled)."""
+    recs, inner = [], eng.step
+
+    def step(*args, **kw):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        ticks0, batches0 = eng.base_tick_count, eng.prefill_batches
+        out = inner(*args, **kw)
+        recs.append((t0, time.perf_counter() - t0, time.thread_time() - c0,
+                     eng.base_tick_count - ticks0,
+                     eng.prefill_batches != batches0))
+        return out
+
+    eng.step = step
+    return recs
+
+
+def step_summary(recs):
+    """A burst's steps: over its decode-only steps (one tick, no
+    prefill), the median wall ms and the mean wall and stepping-thread
+    CPU ms (the thread CPU clock may tick in 10 ms, so its mean over many
+    steps is read, not its median), and the gaps between steps on the
+    stepping thread (the engine lock, the loop, the wait for work)."""
+    recs = list(recs)
+    dec = [r for r in recs if r[3] == 1 and not r[4]]
+    gaps = [b[0] - a[0] - a[1] for a, b in zip(recs, recs[1:])]
+
+    def p50(xs):
+        return float(np.median(xs)) * 1e3 if xs else None
+
+    def mean(xs):
+        return float(np.mean(xs)) * 1e3 if xs else None
+
+    return dict(steps=len(recs), decode_steps=len(dec),
+                prefill_steps=sum(bool(r[4]) for r in recs),
+                ticks=sum(r[3] for r in recs),
+                decode_step_ms=p50([r[1] for r in dec]),
+                decode_step_mean_ms=mean([r[1] for r in dec]),
+                decode_step_cpu_mean_ms=mean([r[2] for r in dec]),
+                steps_ms=sum(r[1] for r in recs) * 1e3,
+                steps_cpu_ms=sum(r[2] for r in recs) * 1e3,
+                gap_p50_ms=p50(gaps), gaps_ms=sum(gaps) * 1e3,
+                span_ms=(recs[-1][0] + recs[-1][1] - recs[0][0]) * 1e3
+                if recs else None)
+
+
+class DeviceBusy:
+    """torch.profiler over a stretch of work: the device-side rows'
+    (kernels, copies) busy ms. The profiler keeps its state on the thread
+    that starts it, so ``own_thread`` starts and stops it on a thread of
+    its own: a replica serves the study's two calls on any pool thread."""
+
+    def __init__(self, own_thread=False):
+        self._done, self._out, self._thread = threading.Event(), None, None
+        if not own_thread:
+            self._prof = self._start()
+            return
+        started = threading.Event()
+
+        def run():
+            prof = self._start()
+            started.set()
+            self._done.wait()
+            self._out = self._read(prof)
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        started.wait(120)
+
+    @staticmethod
+    def _start():
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+        return prof
+
+    @staticmethod
+    def _read(prof):
+        import torch
+        from torch.autograd import DeviceType
+
+        torch.cuda.synchronize()
+        prof.stop()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        return dict(device_busy_ms=sum(e.self_device_time_total
+                                       for e in rows) / 1e3,
+                    device_ops=sum(e.count for e in rows))
+
+    def stop(self):
+        if self._thread is None:
+            return self._read(self._prof)
+        self._done.set()
+        self._thread.join(timeout=300)
+        return self._out
+
+
+class TickStudyLlm(CountingLlm):
+    """``--serve-ticks``' deployment: ``CountingLlm`` whose engine records
+    its steps (:func:`step_records`), with the study's controls as a
+    method. User code: the replica process finds it here by name."""
+
+    def __init__(self, config, **engine):
+        super().__init__(config, **engine)
+        self.recs = step_records(self.batcher)
+        self.busy = None
+
+    def study(self, op, prompts=None):
+        import torch
+
+        if op == "reset":
+            self.recs.clear()
+            return None
+        if op == "profile":
+            self.busy = DeviceBusy(own_thread=True)
+            return None
+        if op == "stop":
+            busy, self.busy = self.busy.stop(), None
+            return busy
+        if op == "one-reader":
+            return one_reader(torch, self, prompts)
+        return step_summary(self.recs)
+
+
+def one_reader(torch, dep, prompts, new=32):
+    """Every prompt opened on ``dep`` from this thread, then their queues
+    read after the last token: the tick thread steps with no consumer
+    thread to wake but this one (request 0's reader)."""
+    dep.recs.clear()
+    t0 = time.perf_counter()
+    opened = [dep._open(lambda p=p: dep.batcher.submit(
+        list(p), max_new_tokens=new)) for p in prompts]
+    outs = [list(dep._tokens(rid, q)) for rid, q in opened]
+    wall = time.perf_counter() - t0
+    check_outputs(outs, new, dep.config.vocab_size, "one-reader")
+    return dict(wall_ms=wall * 1e3, **step_summary(dep.recs))
+
+
+def loop_burst(torch, dep, prompts, new=32):
+    """Phase 5's loop on ``dep``'s own engine from this thread, under the
+    engine lock, so the tick thread stays out: every prompt submitted,
+    then ``run_to_completion``."""
+    eng = dep.batcher
+    dep.recs.clear()
+    with dep._lock:
+        t0 = time.perf_counter()
+        rids = [eng.submit(list(p), max_new_tokens=new) for p in prompts]
+        done = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check_outputs([done[r] for r in rids], new, dep.config.vocab_size,
+                  "loop")
+    return dict(wall_ms=wall * 1e3, **step_summary(dep.recs))
+
+
+def thread_burst(torch, dep, prompts, new=32):
+    """Phase 29's burst: one ``generate`` stream a thread."""
+    dep.recs.clear()
+    outs, _, wall = stream_all(lambda i: dep.generate(prompts[i], new),
+                               len(prompts))
+    check_outputs(outs, new, dep.config.vocab_size, "threads")
+    return dict(wall_ms=wall * 1e3, **step_summary(dep.recs))
+
+
+def serve_ticks(torch, card, cfg=None, engine=None, rounds=2):
+    """``--serve-ticks``: where the deployment's tick goes. Llama-3-8B
+    (phase 5's weights and prompts, 8 slots, max_len 2048) in process:
+    phase 5's loop on the deployment's engine, phase 29's 12 threads, and
+    one reader; then in a replica process: phase 30's 12 HTTP streams and
+    one reader inside the replica. The timed bursts run first, in turns
+    (``rounds`` of each), and the profiled ones (device busy ms) after
+    them all: a profiler leaves later launches costlier on the host.
+    Prints ``[ticks]`` lines."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import llama
+
+    cfg = cfg or llama.LlamaConfig.llama3_8b()
+    engine = dict(num_slots=8, max_len=2048, **(engine or {}))
+    prompts = phase5_prompts(cfg)
+    warm = prompts[0][:16]
+
+    def study(where, bursts):
+        runs = {name: [] for name in bursts}
+        for _ in range(rounds):
+            for name, burst in bursts.items():
+                runs[name].append(burst())
+        for name, burst in bursts.items():
+            print("[ticks] " + json.dumps(dict(
+                where=where, burst=name, timed=runs[name],
+                profiled=burst(profile=True), card=card)), flush=True)
+
+    dep = TickStudyLlm(cfg, **engine)
+    list(dep.generate(warm, 2))
+
+    def in_process(fn):
+        def burst(profile=False):
+            busy = DeviceBusy() if profile else None
+            res = fn(torch, dep, prompts)
+            return dict(res, **busy.stop()) if busy else res
+        return burst
+
+    study("in process", {"loop": in_process(loop_burst),
+                         "threads": in_process(thread_burst),
+                         "one-reader": in_process(one_reader)})
+    dep.close()
+    del dep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    handle = serve.run(serve.deployment(
+        TickStudyLlm, name=SERVE_NAME,
+        ray_actor_options={"num_gpus": 1}).bind(cfg, **engine))
+    control = handle.options("study")
+    port = serve.start_http(port=0)
+
+    def in_replica(fn):
+        def burst(profile=False):
+            control.remote("reset").result(timeout_s=60)
+            if profile:
+                control.remote("profile").result(timeout_s=60)
+            res = fn()
+            if profile:
+                res.update(control.remote("stop").result(timeout_s=300))
+            return res
+        return burst
+
+    def http():
+        outs, _, wall = stream_all(lambda i: http_tokens(
+            port, {"prompt_token_ids": prompts[i], "max_tokens": 32}),
+            len(prompts))
+        check_outputs(outs, 32, cfg.vocab_size, "replica http")
+        return dict(wall_ms=wall * 1e3,
+                    **control.remote("summary").result(timeout_s=60))
+
+    try:
+        list(http_tokens(port, {"prompt_token_ids": warm, "max_tokens": 2}))
+        study("replica", {
+            "http": in_replica(http),
+            "one-reader": in_replica(lambda: control.remote(
+                "one-reader", prompts).result(timeout_s=600))})
+    finally:
+        serve.shutdown()
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3291,6 +4013,14 @@ def main():
         print(card_line())
         dense_ms(torch, sys.argv[2])
         return
+    if sys.argv[1:2] == ["--serve-ticks"]:
+        from ray_tpu_torch.ops import _build
+
+        card = card_line()
+        print(card)
+        _build.build_all()
+        serve_ticks(torch, card)
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -3317,9 +4047,11 @@ def main():
 
     timing = timed("phases 3-4", kernel_phases, torch)
     dense = timed("phases 11-12", dense_kernel_phases, torch)
-    runs = timed("phases 5, 13, 15, 17, 18, 19, 21", end_to_end, torch,
-                 card)
-    timed("phases 6, 14, 16, 20, 22", engine_parity, torch)
+    runs, served = timed("phases 5, 13, 15, 17, 18, 19, 21", end_to_end,
+                         torch, card)
+    parity = timed("phases 6, 14, 16, 20, 22", engine_parity, torch)
+    serving = timed("phases 29-31", serve_phases, torch, card, served,
+                    parity)
     flash = timed("phases 7-8", flash_phases, torch)
     timed("phase 9", model_parity, torch)
     train = timed("phase 10", train_end_to_end, torch, card)
@@ -3336,6 +4068,8 @@ def main():
         launches=runs["bf16"]["launches"]["paged"],
         spec_launches=runs["spec"]["self-bf16"]["launches"]["paged"],
         split_launches=runs["split"]["bf16"]["launches"]["paged"],
+        deployment_launches=serving["deploy"]["launches"]["paged"],
+        replica_launches=serving["runtime"]["launches"]["paged"],
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], kernel_ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
@@ -3352,6 +4086,9 @@ def main():
             mixtral_mesh_launches=mix_mesh["launches"][n],
             sharded_launches=sharded["launches"][n],
             ulysses_launches=seq["ulysses"]["launches"][n],
+            **({"deployment_scoring_launches":
+                serving["deploy"]["scoring_launches"]} if n == "fwd"
+               else {}),
             max_abs_err=main_flash["max_abs_err"][n],
             ms=main_flash["ms"][n], plain_ms=main_flash["plain_ms"][n],
             bound_ms=main_flash["bound"][n][0],

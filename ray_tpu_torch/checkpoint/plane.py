@@ -832,12 +832,32 @@ def list_manifests_kv(kv) -> List[Dict[str, Any]]:
     return out
 
 
+def jax_leaf_paths(param_paths: Sequence[Sequence[str]],
+                   n_leaves: int) -> List[Tuple[str, ...]]:
+    """Key paths of a step the JAX package wrote (it keeps no tree file)
+    for a model whose params have ``param_paths``: a ``TrainState``'s
+    (:func:`train_state_paths`) or the bare params' (sorted), told apart
+    by the step's number of leaves."""
+    params = sorted(tuple(p) for p in param_paths)
+    if n_leaves == len(params):
+        return params
+    paths = train_state_paths(params)
+    if n_leaves == len(paths):
+        return paths
+    raise ValueError(
+        f"a step of {n_leaves} leaves is neither these {len(params)} "
+        f"params nor their TrainState ({len(paths)} leaves)")
+
+
 def load_latest(root: str, run: Optional[str] = None,
-                step: Optional[int] = None) -> Any:
+                step: Optional[int] = None,
+                param_paths: Optional[Sequence[Sequence[str]]] = None
+                ) -> Any:
     """Filesystem-only restore: the newest committed manifest under
     ``root`` (one run's dir, or a root holding runs) as host tensors. A
     committed step whose shard data fails crc32 verification is skipped
-    (logged) for the next-newest."""
+    (logged) for the next-newest. ``param_paths`` (the model's param key
+    paths) reads a step the JAX package wrote (:func:`jax_leaf_paths`)."""
     root = os.path.abspath(root)
     if run is not None:
         run_dirs = [os.path.join(root, run)]
@@ -868,7 +888,12 @@ def load_latest(root: str, run: Optional[str] = None,
         try:
             with open(os.path.join(d, "MANIFEST.json")) as f:
                 manifest = json.load(f)
-            kind, leaf_paths, leaves, _ = _assemble(d, manifest)
+            paths = None
+            if param_paths is not None and not os.path.exists(
+                    os.path.join(d, TREE_FILE)):
+                paths = jax_leaf_paths(param_paths,
+                                       len(inspect_dir(d)["leaves"]))
+            kind, leaf_paths, leaves, _ = _assemble(d, manifest, paths)
             return unflatten_state(kind, leaf_paths, leaves)
         except _CORRUPTION_ERRORS as e:
             last_err = e

@@ -20,11 +20,11 @@ creeps in beside the journal.
 Each payload carries its ``breakdown`` (``export_s``, then ``import_s``),
 which lands in the decode engine's request record.
 
-Not ported yet (ROADMAP.md queue A, item 6, the serve runtime): the shm
-channel between replicas (:func:`send_handoff`, and :func:`receive_handoff`
-past its journal gate), its reaper, and the ``kv_transfer`` chaos sites;
-the transfer metrics (and the ``deployment`` tag they carry) wait for
-item 9.
+Not ported yet (ROADMAP.md queue A, item 6c, the prefill/decode split
+over the serve runtime): the shm channel between replicas
+(:func:`send_handoff`, and :func:`receive_handoff` past its journal
+gate), its reaper, and the ``kv_transfer`` chaos sites; the transfer
+metrics (and the ``deployment`` tag they carry) wait for item 9.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from ray_tpu_torch.models import llama
 __all__ = ["export_kv", "import_kv", "send_handoff", "receive_handoff",
            "transfer_inproc"]
 
-_RUNTIME_ITEM = "item 6 (ray_tpu_torch/llm and the serve runtime it rides)"
+_RUNTIME_ITEM = "item 6c (the prefill/decode split over the serve runtime)"
 
 
 # The fault kinds JAX's chaos plans inject at this site.
@@ -78,8 +78,8 @@ def import_kv(engine, payload: Dict[str, Any], *,
 
 
 def send_handoff(engine, rid: int) -> Dict[str, Any]:
-    """Export into a fresh shm channel: the channel is the serve
-    runtime's, not ported yet."""
+    """Export into a fresh shm channel: the channel between replicas is
+    not ported yet (item 6c)."""
     raise llama.not_ported("send_handoff (the shm channel)", _RUNTIME_ITEM)
 
 
@@ -88,7 +88,7 @@ def receive_handoff(engine, manifest: Dict[str, Any], *,
                     trace: Optional[Dict[str, Any]] = None) -> int:
     """Collect a journaled handoff from its shm channel. A manifest the
     router never journaled is refused, as in JAX; past that gate the
-    channel is the serve runtime's, not ported yet."""
+    channel between replicas is not ported yet (item 6c)."""
     if not manifest.get("journaled"):
         raise RuntimeError(
             "KV handoff manifest was not journaled: every cross-replica "

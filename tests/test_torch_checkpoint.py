@@ -308,6 +308,19 @@ def test_restores_a_jax_checkpoint_bit_for_bit(tmp_path, dtype_name):
                                    rtol=1e-5)
 
 
+def test_jax_leaf_paths_tell_a_state_from_bare_params():
+    from ray_tpu_torch.models import llama as tl
+
+    params = plane_mod.key_paths(tl.param_shapes(
+        tl.LlamaConfig.tiny(num_layers=1)))
+    n = len(params)
+    assert plane_mod.jax_leaf_paths(params, n) == sorted(params)
+    assert plane_mod.jax_leaf_paths(params, 3 * n + 3) == \
+        train_state_paths(params)
+    with pytest.raises(ValueError, match="neither"):
+        plane_mod.jax_leaf_paths(params, n + 1)
+
+
 def test_jax_checkpoint_needs_its_leaf_paths(tmp_path):
     _jax_saved(tmp_path, "float32")
     plane = CheckpointPlane(str(tmp_path), run="jax")

@@ -27,13 +27,13 @@ import torch
 from ray_tpu.models import continuous_batching as jcb
 from ray_tpu.models import llama as jl
 from ray_tpu.serve import kv_transfer as jkt
-from ray_tpu.serve.recovery import RequestJournal
 from ray_tpu_torch.interop import params_to_numpy
 from ray_tpu_torch.models import continuous_batching as tcb
 from ray_tpu_torch.models import inference as tinf
 from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.models import paged_kv as tkv
 from ray_tpu_torch.serve import kv_transfer
+from ray_tpu_torch.serve.recovery import RequestJournal
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JCFG = jl.LlamaConfig.tiny(dtype=jnp.float32)
@@ -306,9 +306,9 @@ def test_journal_gate_and_unported_channel(setup, monkeypatch):
 
 
 def test_handoff_noted_once_on_a_journal(setup):
-    """transfer_inproc notes exactly one handoff on a journal (JAX's
-    RequestJournal, duck-typed), and a repeated note of the same attempt
-    is the same entry."""
+    """transfer_inproc notes exactly one handoff on the port's
+    RequestJournal, and a repeated note of the same attempt is the same
+    entry."""
     _, tp, gen = setup
     prompt = _ints(np.random.default_rng(54), 32)
     pre = _engine(tp, "prefill")

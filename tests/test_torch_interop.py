@@ -110,6 +110,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.models.mixtral, ray_tpu_torch.ops.moe\n"
         "import ray_tpu_torch.ops.attention\n"
         "import ray_tpu_torch.serve.kv_transfer\n"
+        "import ray_tpu_torch.llm, ray_tpu_torch.llm.batch\n"
+        "import ray_tpu_torch.serve.proxy, ray_tpu_torch.serve.recovery\n"
+        "import ray_tpu_torch.runtime.replica\n"
+        "import ray_tpu_torch.runtime.controller\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'ray_tpu' or "
         "m.startswith('ray_tpu.') or m == 'ml_dtypes')\n"
@@ -129,8 +133,9 @@ def test_source_scan_finds_no_jax_or_ray_tpu_import():
     for root, _, names in os.walk(os.path.join(REPO, "ray_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 14
-    assert os.path.join(REPO, "ray_tpu_torch", "serve",
-                        "kv_transfer.py") in files
+    for module in ("serve/kv_transfer.py", "serve/proxy.py",
+                   "llm/__init__.py", "runtime/replica.py"):
+        assert os.path.join(REPO, "ray_tpu_torch", module) in files
     for path in files:
         with open(path) as f:
             hits = pattern.findall(f.read())
