@@ -283,9 +283,30 @@ Phases, any failure exits non-zero with no result line:
    card: the greedy tokens of phase 6's requests over HTTP equal phase
    6's in-process paged engine's (a divergence passes only below
    TOP2_MARGIN), and a kill mid-decode resumes to the same tokens
-   (``[runtime-parity]``). Every replica process has exited and its
-   memory is back before phase 10 (``[mem]`` lines at each start and
-   end).
+   (``[runtime-parity]``);
+32. the prefill/decode split over the runtime: ``deploy_disagg_llama``
+   at Llama-3-8B (phase 5's weights, 8 slots, max_len 2048, block 64;
+   the class swapped for ``CountingLlm``), one prefill and one decode
+   replica at half a card each on the one card, behind ``start_http``,
+   ``RAY_TPU_DISAGG_PREFILL_THRESHOLD=0``: phase 5's 12 prompts as 12
+   concurrent NDJSON streams, 32 tokens each: 32 in-vocab tokens each,
+   num_layers paged launches a tick in the decode replica and none in
+   the prefill replica, one handoff a request; agreement with phase 5
+   (``partings``), TTFT p50 and tokens/s at the client beside phase
+   30's, the decode replica's tick ms, per request the handoff's MiB,
+   ``export_s``, ``channel_s`` and ``import_s``, cold start and each
+   replica's peak memory (``[disagg]``). Then a clean run of phase 5's
+   request 0 cut to DISAGG["chaos_tokens"], and the same request under
+   ``kill_transfer:stage=export`` (one resubmit, one handoff, attempt
+   1) and ``stage=import`` (one resume, handoffs of attempts 0 and 1),
+   each through the ingress's router with its journal, its tokens equal
+   to the clean run's, and the seconds from the firing to the next
+   token (``[disagg-chaos]``); then phase 6's 2-layer fp32 model as a
+   pair over HTTP: phase 6's greedy tokens, after a ``kill_transfer``
+   too (``[disagg-parity]``). No ``/dev/shm/rtch-*`` segment may be
+   left that was not there at the start. Every replica process has
+   exited and its memory is back before phase 10 (``[mem]`` lines at
+   each start and end).
 
 Phases 23-24 run before phases 25-28 (27 compares with 24), phases
 11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
@@ -297,8 +318,9 @@ The line before the last is the kernels' JSON record (the paged and dense
 entries also carry ``spec_launches``, their launches in phase 19's
 self-draft and external-drafter runs, the paged entry
 ``split_launches``, the decode engine's launches in phase 21's bf16 run,
-the paged entry ``deployment_launches`` and ``replica_launches``, its
-launches in phases 29 and 30's 12 streams, the flash forward entry
+the paged entry ``deployment_launches``, ``replica_launches`` and
+``disagg_launches``, its launches in phases 29, 30 and 32's (the decode
+replica's) 12 streams, the flash forward entry
 ``deployment_scoring_launches``, its launches in phase 29's two scoring
 calls, and the flash entries ``mixtral_launches``, their launches in
 phase 24's run, ``mixtral_mesh_launches``, their launches in phase 27's run,
@@ -348,6 +370,8 @@ stepped by phase 5's loop, by the tick thread under 12 stream threads and
 under one reader, in process and in a replica process; per burst the
 decode steps' wall and CPU ms, the gaps between steps and, under the
 profiler, device busy ms (``[ticks]`` lines, no result line).
+``python3 chip_smoke.py --channel-mbs`` times only the split's shm
+channel (:func:`channel_mbs`; one ``[channel]`` line, no result line).
 """
 
 import dataclasses
@@ -3304,6 +3328,26 @@ class CountingLlm(ContinuousLlamaDeployment._cls_or_fn):
                 device="cuda")
         super().__init__(config=config, params=params, **engine)
         self.marks = []
+        self.handoffs = []        # phase 32: each import's size
+        self.tick_s = 0.0         # seconds inside steps that ticked
+        inner = self.batcher.step
+
+        def step():
+            t, n = time.perf_counter(), self.batcher.base_tick_count
+            out = inner()
+            if self.batcher.base_tick_count > n:
+                self.tick_s += time.perf_counter() - t
+            return out
+
+        self.batcher.step = step
+
+    def decode_from(self, request):
+        """The port's ``decode_from``, recording the handoff's size."""
+        m = request["manifest"]
+        self.handoffs.append(dict(prompt_tokens=len(m["prompt"]),
+                                  mib=m["nbytes"] / 2**20,
+                                  blocks=m["num_blocks"]))
+        yield from super().decode_from(request)
 
     def generate(self, prompt_token_ids, max_tokens=16):
         """The port's ``generate``, timing each request from its entry
@@ -3317,7 +3361,10 @@ class CountingLlm(ContinuousLlamaDeployment._cls_or_fn):
 
     def counters(self, reset=False):
         """Launch counts and engine counters; since the last reset, the
-        requests' (entry, first token) marks and engine records."""
+        requests' (entry, first token) marks and engine records, the
+        imports' sizes and this process's peak device memory."""
+        import torch
+
         from ray_tpu_torch.ops.decode_attention import decode_attention
         from ray_tpu_torch.ops.paged_decode_attention import \
             paged_decode_attention
@@ -3326,14 +3373,19 @@ class CountingLlm(ContinuousLlamaDeployment._cls_or_fn):
             out = dict(paged=paged_decode_attention.launches,
                        dense=decode_attention.launches,
                        ticks=self.batcher.base_tick_count,
+                       tick_s=self.tick_s,
                        prefill_s=self.batcher.prefill_seconds,
                        decoded=self.batcher.decoded_tokens,
                        marks=list(self.marks),
-                       records=list(self.batcher.request_breakdowns))
+                       records=list(self.batcher.request_breakdowns),
+                       handoffs=list(self.handoffs),
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
             if reset:
                 paged_decode_attention.launches = 0
                 decode_attention.launches = 0
                 self.marks = []
+                self.handoffs = []
+                torch.cuda.reset_peak_memory_stats()
                 self.batcher.request_breakdowns.clear()
         return out
 
@@ -3394,12 +3446,12 @@ def stream_all(start, n):
     return outs, [None if f is None else f - t0 for f in first], wall
 
 
-def http_tokens(port, payload, timeout=600):
+def http_tokens(port, payload, timeout=600, name=SERVE_NAME):
     """The token ids of one NDJSON stream from the HTTP ingress, as they
     arrive."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
-        conn.request("POST", f"/{SERVE_NAME}/stream/generate",
+        conn.request("POST", f"/{name}/stream/generate",
                      body=json.dumps(payload),
                      headers={"Content-Type": "application/json"})
         resp = conn.getresponse()
@@ -3417,19 +3469,19 @@ def http_tokens(port, payload, timeout=600):
         conn.close()
 
 
-def wait_routed(timeout_s=600):
-    """The routed replica of SERVE_NAME once one is up and no drain is in
+def wait_routed(timeout_s=600, name=SERVE_NAME):
+    """The routed replica of ``name`` once one is up and no drain is in
     flight."""
     from ray_tpu_torch.serve import api as serve_api
 
     controller = serve_api._get_controller()
     deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline:
-        reps = controller.get_replicas(SERVE_NAME)
-        if reps and not controller.draining_count(SERVE_NAME):
+        reps = controller.get_replicas(name)
+        if reps and not controller.draining_count(name):
             return reps[0]
         time.sleep(0.1)
-    fail(f"no replica of {SERVE_NAME} came up within {timeout_s} s")
+    fail(f"no replica of {name} came up within {timeout_s} s")
 
 
 def served_stats(outs, ttft, wall, ticks, launches, prefill_s, decoded,
@@ -3673,20 +3725,236 @@ def runtime_parity(torch, card, parity):
     return st
 
 
+# ------------------------------------------ phase 32: the split, served
+# The role group's name; the chaos requests' prompt: phase 5's request 0
+# cut to chaos_tokens (under one 64-token block, so no prefix cache holds
+# any of it and every run of it prefills alike); the fp32 pair's kill.
+DISAGG = dict(name="dllm", chaos_tokens=48, parity_kill="import")
+
+
+def shm_segments():
+    """The shm channel segments on this host (``/dev/shm/rtch-*``)."""
+    return sorted(n for n in os.listdir("/dev/shm") if n.startswith("rtch-"))
+
+
+def deploy_group(cfg, **engine):
+    """``deploy_disagg_llama`` (its builders' half-card requests, its two
+    ``serve.run`` calls and its role group) with the deployment class
+    swapped for ``CountingLlm``. Returns (group, seconds to deploy)."""
+    from ray_tpu_torch import llm as tllm
+    from ray_tpu_torch import serve
+
+    real = tllm.ContinuousLlamaDeployment
+    tllm.ContinuousLlamaDeployment = serve.deployment(
+        CountingLlm, name="ContinuousLlamaDeployment")
+    try:
+        t0 = time.perf_counter()
+        group = tllm.deploy_disagg_llama(DISAGG["name"], config=cfg,
+                                         **engine)
+        cold = time.perf_counter() - t0
+    finally:
+        tllm.ContinuousLlamaDeployment = real
+    for role in ("prefill", "decode"):
+        wait_routed(name=group[role])
+    return group, cold
+
+
+def role_counters(group, reset=False):
+    from ray_tpu_torch import serve
+
+    return {role: serve.get_deployment_handle(group[role]).counters
+            .remote(reset).result(timeout_s=120)
+            for role in ("prefill", "decode")}
+
+
+def chaos_stream(payload, spec, seed):
+    """One stream to the role group through the ingress's router under a
+    chaos plan: (tokens, journal, seconds from the firing to the first
+    token after it)."""
+    from ray_tpu_torch._private import chaos
+    from ray_tpu_torch.serve import api as serve_api
+
+    chaos.configure(spec, seed=seed)
+    try:
+        s = serve_api._router().stream(DISAGG["name"], "generate", payload)
+        s._timeout = 600.0
+        toks, times = [], []
+        for t in s:
+            toks.append(t)
+            times.append(time.time())
+        fired = [e for e in chaos.injection_log()
+                 if e["action"] == "kill_transfer"]
+    finally:
+        chaos.configure(None)
+    if len(fired) != 1:
+        fail(f"phase 32 {spec}: {len(fired)} firings (want 1)")
+    after = [t for t in times if t > fired[0]["ts"]]
+    return toks, s.journal, (after[0] - fired[0]["ts"]) if after else None
+
+
+def check_journal(j, what, resumes, midstream, attempts, outcomes):
+    got = (j.resumes, j.resumed_midstream,
+           [e["attempt"] for e in j.handoffs], j.handoff_outcomes)
+    want = (resumes, midstream, attempts, outcomes)
+    if got != want:
+        fail(f"phase 32 {what}: journal (resumes, resumed mid-stream, "
+             f"handoff attempts, outcomes) {got}, want {want}")
+
+
+def disagg_phase(torch, card, served, parity, runtime):
+    """Phase 32: the prefill/decode split over the runtime (module
+    docstring)."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import llama
+
+    mem(torch, "phase 32 start")
+    segments0 = shm_segments()
+    os.environ["RAY_TPU_DISAGG_PREFILL_THRESHOLD"] = "0"
+    prompts, phase5 = served
+    cfg = llama.LlamaConfig.llama3_8b()
+    group, cold_s = deploy_group(cfg, num_slots=8, max_len=2048,
+                                 block_size=64)
+    controller = serve.start()
+    reps = {role: controller.get_replicas(group[role])[0]
+            for role in ("prefill", "decode")}
+    cards = {role: r.info["cuda_visible_devices"] for role, r in reps.items()}
+    if len(set(cards.values())) != 1:
+        fail(f"phase 32: the pair is on cards {cards}, not one card")
+    mem(torch, "phase 32 pair up")
+    port = serve.start_http(port=0)
+    name = DISAGG["name"]
+    list(http_tokens(port, {"prompt_token_ids": prompts[0][:16],
+                            "max_tokens": 2}, name=name))     # warm-up
+    c0 = role_counters(group, reset=True)
+    outs, ttft, wall = stream_all(lambda i: http_tokens(
+        port, {"prompt_token_ids": prompts[i], "max_tokens": 32},
+        name=name), len(prompts))
+    c1 = role_counters(group)
+    check_outputs(outs, 32, cfg.vocab_size, "phase 32")
+    dec0, dec1, pre1 = c0["decode"], c1["decode"], c1["prefill"]
+    ticks = dec1["ticks"] - dec0["ticks"]
+    launches = {"paged": dec1["paged"], "dense": dec1["dense"]}
+    if launches != {"paged": cfg.num_layers * ticks, "dense": 0} or \
+            pre1["ticks"] - c0["prefill"]["ticks"] or pre1["paged"]:
+        fail(f"phase 32: decode replica launches {launches} for {ticks} "
+             f"ticks x {cfg.num_layers} layers; prefill replica "
+             f"{pre1['ticks'] - c0['prefill']['ticks']} ticks, "
+             f"{pre1['paged']} paged launches")
+    records = list(dec1["records"])
+    per_request = []
+    for h in dec1["handoffs"]:
+        rec = next(r for r in records
+                   if r["prompt_tokens"] == h["prompt_tokens"])
+        records.remove(rec)
+        per_request.append(dict(h, **{k: rec["handoff"][k] for k in (
+            "export_s", "channel_s", "import_s")}))
+    if len(per_request) != len(prompts):
+        fail(f"phase 32: {len(per_request)} handoffs for {len(prompts)} "
+             f"requests")
+
+    def margin(seq):
+        return serve.get_deployment_handle(group["decode"]).margin.remote(
+            seq).result(timeout_s=300)
+
+    moved = sum(r["mib"] for r in per_request)
+    st = dict(
+        requests=len(prompts), ticks=ticks, launches=launches,
+        launches_per_tick=launches["paged"] / max(ticks, 1),
+        wall_s=wall, ttft_p50_ms=float(np.median(ttft)) * 1e3,
+        client_tok_s=sum(map(len, outs)) / wall,
+        tick_ms=(dec1["tick_s"] - dec0["tick_s"]) / max(ticks, 1) * 1e3,
+        decode_tok_s=(dec1["decoded"] - dec0["decoded"]) / max(
+            dec1["tick_s"] - dec0["tick_s"], 1e-9),
+        handoff_mib=moved, handoff_mb_s=moved * 2**20 / 1e6 / sum(
+            r["export_s"] + r["channel_s"] + r["import_s"]
+            for r in per_request),
+        per_request=per_request, cold_start_s=cold_s,
+        replica_init_s={role: r.info["init_s"] for role, r in reps.items()},
+        peak_gib={role: c1[role]["peak_gib"] for role in c1},
+        agree_with_phase5=sum(a == b for a, b in zip(outs, phase5)),
+        partings=partings(torch, None, cfg, prompts, outs, phase5,
+                          "phase 32", against="phase-5", margin=margin),
+        phase30={k: runtime[k] for k in ("ttft_p50_ms", "client_tok_s",
+                                         "tick_ms")}, card=card)
+    print(f"[disagg] {json.dumps(st)}")
+
+    # Chaos: a clean run of the chaos prompt, then a kill on each side of
+    # the handoff; each recovers exactly once to the clean run's tokens.
+    payload = {"prompt_token_ids": prompts[0][:DISAGG["chaos_tokens"]],
+               "max_tokens": 32}
+    clean = list(http_tokens(port, payload, name=name))
+    chaos_st = {}
+    for stage, seed, want_j in (
+            ("export", 7, (1, False, [1], {"prefill_died": 1, "ok": 1})),
+            ("import", 11, (1, True, [0, 1],
+                            {"ok": 2, "decode_died": 1}))):
+        toks, j, after_s = chaos_stream(
+            payload, f"kill_transfer:stage={stage}", seed)
+        check_journal(j, f"kill at {stage}", *want_j)
+        if toks != clean:
+            fail(f"phase 32 kill at {stage}: tokens differ from the clean "
+                 f"run's")
+        chaos_st[stage] = dict(first_token_after_kill_s=after_s,
+                               resumes=j.resumes, handoffs=len(j.handoffs))
+        for role in ("prefill", "decode"):
+            wait_routed(name=group[role])
+    print(f"[disagg-chaos] {json.dumps(dict(chaos_st, tokens_equal=True, prompt_tokens=len(payload['prompt_token_ids']), card=card))}")
+    serve.stop_http()
+    for role in ("prefill", "decode"):
+        serve.delete(group[role])
+    serve.unregister_role_group(name)
+
+    # fp32 parity: phase 6's 2-layer model split over HTTP.
+    pcfg, pprompts, want = parity
+    new = len(want[0])
+    group, _ = deploy_group(pcfg, seed=1, num_slots=8, max_len=2048)
+    port = serve.start_http(port=0)
+
+    def pmargin(seq):
+        return serve.get_deployment_handle(group["decode"]).margin.remote(
+            seq).result(timeout_s=300)
+
+    got = [list(http_tokens(port, {"prompt_token_ids": p,
+                                   "max_tokens": new}, name=name))
+           for p in pprompts]
+    check_agree(torch, None, pcfg, pprompts, got, want,
+                "a split pair over HTTP and phase 6's in-process engine",
+                margin=pmargin)
+    killed, j, _ = chaos_stream(
+        {"prompt_token_ids": pprompts[-1], "max_tokens": new},
+        f"kill_transfer:stage={DISAGG['parity_kill']}", 13)
+    if j.resumes != 1:
+        fail(f"phase 32 fp32 kill: {j.resumes} resumes")
+    check_agree(torch, None, pcfg, pprompts[-1:], [killed], want[-1:],
+                "a split pair after a kill_transfer and phase 6's engine",
+                margin=pmargin)
+    print(f"[disagg-parity] {json.dumps(dict(requests=len(pprompts), tokens=new, identical=got == want, killed_identical=killed == want[-1], card=card))}")
+    serve.shutdown()
+    os.environ.pop("RAY_TPU_DISAGG_PREFILL_THRESHOLD", None)
+    left = sorted(set(shm_segments()) - set(segments0))
+    if left:
+        fail(f"phase 32 left shm segments behind: {left}")
+    mem(torch, "phase 32 end")
+    st.update(chaos=chaos_st)
+    return st
+
+
 def serve_phases(torch, card, served, parity):
-    """Phases 29-31; every replica process has exited and its device
+    """Phases 29-32; every replica process has exited and its device
     memory is back at the end."""
-    free0 = mem(torch, "phases 29-31 start")
+    free0 = mem(torch, "phases 29-32 start")
     out = {"deploy": timed("phase 29", deploy_phase, torch, card, served)}
     out["runtime"] = timed("phase 30", runtime_phase, torch, card, served,
                            out["deploy"])
     out["parity"] = timed("phase 31", runtime_parity, torch, card, parity)
+    out["disagg"] = timed("phase 32", disagg_phase, torch, card, served,
+                          parity, out["runtime"])
     deadline = time.monotonic() + 30
     while torch.cuda.mem_get_info()[0] < free0 - 2**30 and \
             time.monotonic() < deadline:
         time.sleep(0.5)
-    if mem(torch, "phases 29-31 end") < free0 - 2**30:
-        fail("phases 29-31: the replicas' device memory did not come back")
+    if mem(torch, "phases 29-32 end") < free0 - 2**30:
+        fail("phases 29-32: the replicas' device memory did not come back")
     return out
 
 
@@ -3938,6 +4206,63 @@ def serve_ticks(torch, card, cfg=None, engine=None, rounds=2):
         serve.shutdown()
 
 
+# --channel-mbs: staging-sized arrays through the shm channel, phase 32's
+# smallest and largest handoffs.
+CHANNEL_MIB = (8, 88)
+
+
+def channel_mbs(rounds=5):
+    """``--channel-mbs``: MB/s of the port's shm channel for a numpy
+    uint8 array of each CHANNEL_MIB size (a handoff's staging buffer):
+    the write, the attach and the read (a reader mapping the segment
+    afresh, as the decode replica does), each the median of ``rounds``,
+    with the segment mapped populated (as the channel maps it) and
+    faulted in page by page; and a pickle round trip of the same array
+    in memory. One ``[channel]`` JSON line."""
+    import mmap
+    import pickle
+
+    from ray_tpu_torch.experimental import channel as chmod
+
+    out = {}
+    populated = chmod._MAP_FLAGS
+    try:
+        for name, flags in (("populated", populated),
+                            ("faulted", mmap.MAP_SHARED)):
+            chmod._MAP_FLAGS = flags
+            for mib in CHANNEL_MIB:
+                a = np.random.default_rng(mib).integers(
+                    0, 255, size=mib << 20, dtype=np.uint8)
+                times = []
+                for _ in range(rounds):
+                    t0 = time.perf_counter()
+                    ch = chmod.Channel(capacity=a.nbytes + (64 << 10))
+                    ch.write(a)
+                    t1 = time.perf_counter()
+                    r = ch.reader(0)
+                    t2 = time.perf_counter()
+                    b = r.read(timeout=60)
+                    t3 = time.perf_counter()
+                    r.destroy()
+                    ch.destroy()
+                    if not np.array_equal(a, b):
+                        fail(f"--channel-mbs: {mib} MiB read back wrong")
+                    times.append((t1 - t0, t2 - t1, t3 - t2))
+                w, at, rd = (float(np.median(x)) for x in zip(*times))
+                out[f"{name}-{mib}MiB"] = dict(
+                    write_s=w, attach_s=at, read_s=rd,
+                    write_mb_s=a.nbytes / 1e6 / w,
+                    read_mb_s=a.nbytes / 1e6 / (at + rd))
+        for mib in CHANNEL_MIB:
+            a = np.zeros(mib << 20, np.uint8)
+            t0 = time.perf_counter()
+            pickle.loads(pickle.dumps(a, protocol=5))
+            out[f"pickle-roundtrip-{mib}MiB_s"] = time.perf_counter() - t0
+    finally:
+        chmod._MAP_FLAGS = populated
+    print("[channel] " + json.dumps(out))
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4013,6 +4338,10 @@ def main():
         print(card_line())
         dense_ms(torch, sys.argv[2])
         return
+    if sys.argv[1:2] == ["--channel-mbs"]:
+        print(card_line())
+        channel_mbs()
+        return
     if sys.argv[1:2] == ["--serve-ticks"]:
         from ray_tpu_torch.ops import _build
 
@@ -4050,7 +4379,7 @@ def main():
     runs, served = timed("phases 5, 13, 15, 17, 18, 19, 21", end_to_end,
                          torch, card)
     parity = timed("phases 6, 14, 16, 20, 22", engine_parity, torch)
-    serving = timed("phases 29-31", serve_phases, torch, card, served,
+    serving = timed("phases 29-32", serve_phases, torch, card, served,
                     parity)
     flash = timed("phases 7-8", flash_phases, torch)
     timed("phase 9", model_parity, torch)
@@ -4070,6 +4399,7 @@ def main():
         split_launches=runs["split"]["bf16"]["launches"]["paged"],
         deployment_launches=serving["deploy"]["launches"]["paged"],
         replica_launches=serving["runtime"]["launches"]["paged"],
+        disagg_launches=serving["disagg"]["launches"]["paged"],
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], kernel_ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],

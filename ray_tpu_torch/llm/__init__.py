@@ -15,14 +15,21 @@ Both take ``device=None``, meaning ``cuda``, which raises with no GPU
 (pass ``device="cpu"`` for the plain path). Used in process through
 ``Deployment._cls_or_fn``, or served from replica processes with
 ``serve.run(build_continuous_llama_app(...))``. The builders serve on
-``cuda`` only (they take no ``device``), so each of their replicas asks
-the runtime for a card of its own (:data:`ONE_CARD`).
+``cuda`` only (they take no ``device``): a colocated replica asks the
+runtime for a card of its own (:data:`ONE_CARD`); a disaggregated pair's
+replicas ask half a card each (:data:`HALF_CARD`), so one prefill and
+one decode replica share a card, as the JAX package's pair shares its
+host's chip.
 
-Not ported yet: the KV handoff between replicas behind :meth:`prefill`
-and :meth:`decode_from` (``kv_transfer.send_handoff`` /
-``receive_handoff`` raise naming item 6c), :func:`deploy_disagg_llama`
-(item 6c), the weight-sync subscriber (item 10), and the flight event
-and metrics of a weight swap (item 9).
+:func:`deploy_disagg_llama` serves the prefill/decode split: a prefill
+replica runs :meth:`ContinuousLlamaDeployment.prefill` and hands the KV
+blocks off through a shm channel (``kv_transfer.send_handoff``); a
+decode replica streams every token from
+:meth:`ContinuousLlamaDeployment.decode_from`. The replica lifecycle's
+chaos sites (``serve_replica``, ``phase=prefill|decode``) are JAX's.
+
+Not ported yet: the weight-sync subscriber (item 10), and the flight
+event and metrics of a weight swap (item 9).
 """
 
 from __future__ import annotations
@@ -37,14 +44,17 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import serve
+from ray_tpu_torch._private import chaos
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.inference import LlamaGenerator
 
 logger = logging.getLogger(__name__)
 
-# The builders' replica options: every replica gets a card of its own
-# (``CUDA_VISIBLE_DEVICES``), so N replicas do not all land on cuda:0.
+# The builders' replica options: a colocated replica gets a card of its
+# own (``CUDA_VISIBLE_DEVICES``), so N replicas do not all land on
+# cuda:0; a disaggregated pair's prefill and decode replica share one.
 ONE_CARD = {"num_gpus": 1}
+HALF_CARD = {"num_gpus": 0.5}
 
 
 class _FairLock:
@@ -184,6 +194,9 @@ class ContinuousLlamaDeployment:
         self._queues: Dict[int, "queue.Queue"] = {}
         self._lock = _FairLock()
         self._work = threading.Event()
+        # Notified when a tick finishes requests: an import waiting for
+        # a free decode slot retries.
+        self._slot_freed = threading.Condition()
         self._closed = False
         self.batcher = ContinuousBatcher(
             self.config, params=params, num_slots=num_slots,
@@ -223,6 +236,9 @@ class ContinuousLlamaDeployment:
                     q = self._queues.get(rid)
                     if q is not None:
                         q.put(None)  # end-of-stream
+                if finished:
+                    with self._slot_freed:
+                        self._slot_freed.notify_all()
             except Exception as e:  # noqa: BLE001 — the engine's boundary
                 # Engine error (OOM, a bad request reaching the kernel):
                 # fail every in-flight stream explicitly and reset the
@@ -314,24 +330,46 @@ class ContinuousLlamaDeployment:
         return [float(x) for x in lp]
 
     # ---------------------------------------------------------- streams
-    def _open(self, submit) -> tuple:
+    def _open(self, submit, ready=None) -> tuple:
         """Register a request (``submit()`` under the engine lock returns
-        its id) and its token queue; wake the tick thread."""
+        its id) and its token queue; wake the tick thread. With
+        ``ready``, the submit waits until ``ready()`` holds under the
+        lock: an import waits for a free decode slot as a submit waits
+        in the engine's queue (its bytes wait in their channel)."""
         q: "queue.Queue" = queue.Queue()
-        with self._lock:
-            rid = submit()
-            self._queues[rid] = q
+        while True:
+            with self._lock:
+                if ready is None or ready():
+                    rid = submit()
+                    self._queues[rid] = q
+                    break
+            with self._slot_freed:
+                self._slot_freed.wait(timeout=0.05)
         self._work.set()
         return rid, q
 
-    def _tokens(self, rid: int, q: "queue.Queue"):
+    def _tokens(self, rid: int, q: "queue.Queue",
+                emitted: Optional[int] = None,
+                first: Optional[int] = None):
         """Yield a request's tokens as the ticks produce them. A stream
         abandoned before its end (a client gone, a cancelled replica
         stream) cancels the request, so it stops burning decode ticks; a
         buffered engine first applies its ticks in flight
-        (``_drain_in_flight``), so the cancel lands at a clean boundary."""
+        (``_drain_in_flight``), so the cancel lands at a clean boundary.
+        With ``emitted`` (the tokens this stream already delivered), the
+        chaos site ``serve_replica``/``phase=decode,token=N`` fires
+        before the Nth token's yield: a rule with ``token=N`` dies with
+        exactly N tokens delivered. ``first`` is a token yielded before
+        the queue's (an imported request's, produced by the prefill)."""
         done = False
         try:
+            if first is not None:
+                if emitted is not None:
+                    if chaos.enabled():
+                        chaos.inject("serve_replica", phase="decode",
+                                     token=emitted)
+                    emitted += 1
+                yield first
             while True:
                 token = q.get(timeout=300)
                 if token is None:
@@ -340,6 +378,11 @@ class ContinuousLlamaDeployment:
                 if isinstance(token, Exception):
                     done = True
                     raise token
+                if emitted is not None:
+                    if chaos.enabled():
+                        chaos.inject("serve_replica", phase="decode",
+                                     token=emitted)
+                    emitted += 1
                 yield token
         finally:
             self._queues.pop(rid, None)
@@ -368,18 +411,30 @@ class ContinuousLlamaDeployment:
             # the replica. (An ORIGINAL prompt may end with EOS.)
             return
         trace = self._request_trace()
+        if chaos.enabled():
+            # Queued or prefilling: nothing streamed yet.
+            chaos.inject("serve_replica", phase="prefill",
+                         tokens=len(prompt_token_ids))
         rid, q = self._open(lambda: self.batcher.submit(
             list(prompt_token_ids), max_new_tokens=int(max_tokens),
             trace=trace))
-        yield from self._tokens(rid, q)
+        yield from self._tokens(rid, q, emitted=0)
 
     # --------------------------------- disaggregated prefill/decode
     def prefill(self, payload: Dict[str, Any]) -> Dict[str, Any]:
-        """Prefill-role unary: admission and paged prefill, then the KV
-        handoff. A request that finishes at its first token returns
-        ``{"done": [...]}``; a parked one goes to
-        ``kv_transfer.send_handoff``, whose channel between replicas
-        raises naming item 6c (the parked blocks are released first)."""
+        """Prefill-role unary: admission and paged prefill for the
+        payload, then the KV handoff. Returns the transfer's manifest
+        (the staging bytes wait in a shm channel; the manifest carries
+        its reader attach-spec): the router journals it and opens the
+        decode stream. A request that finishes at its first token
+        (``max_tokens == 1``, an EOS first token, or a resumed prompt
+        already ending in EOS) returns ``{"done": [...]}``: nothing to
+        hand off.
+
+        Chaos: ``serve_replica``/``phase=prefill`` before the submit
+        (nothing journaled: the router resubmits) and
+        ``kv_transfer``/``stage=export`` inside the export (a prefill
+        death mid-export: the same resubmit)."""
         from ray_tpu_torch.serve import kv_transfer
 
         prompt = list(payload["prompt_token_ids"])
@@ -389,6 +444,9 @@ class ContinuousLlamaDeployment:
                 and prompt and prompt[-1] == self.batcher.eos_token:
             return {"done": []}
         trace = self._request_trace()
+        if chaos.enabled():
+            chaos.inject("serve_replica", phase="prefill",
+                         tokens=len(prompt))
         rid, q = self._open(lambda: self.batcher.submit(
             prompt, max_new_tokens=max_tokens, trace=trace))
         tokens = list(self._tokens(rid, q))
@@ -397,7 +455,9 @@ class ContinuousLlamaDeployment:
                 return {"done": tokens}
             try:
                 return kv_transfer.send_handoff(self.batcher, rid)
-            except NotImplementedError:
+            except Exception:
+                # The parked blocks go back to the arena: nothing will
+                # collect them.
                 self.batcher.abandon_handoff(rid)
                 raise
 
@@ -421,10 +481,17 @@ class ContinuousLlamaDeployment:
 
     def decode_from(self, request: Dict[str, Any]):
         """Decode-role streaming entry: collect the journaled KV handoff
-        named by ``request["manifest"]`` and stream every token, the
-        prefill's first token included. ``kv_transfer.receive_handoff``
-        refuses an unjournaled manifest and raises naming item 6c past
-        that gate."""
+        named by ``request["manifest"]`` (the channel read, the crc
+        check, the scatter into reserved blocks, the radix insert) and
+        stream every token, the prefill's first token included. It
+        reaches the caller only through this stream, so the router's
+        journal stays the one ledger of what was delivered.
+        ``kv_transfer.receive_handoff`` refuses an unjournaled manifest.
+
+        Chaos: ``kv_transfer``/``stage=import`` inside the import (a
+        decode death after the journaled handoff: the router replays a
+        fresh prefill) and ``serve_replica``/``phase=decode,token=N``
+        before each token."""
         from ray_tpu_torch.serve import kv_transfer
 
         manifest = request["manifest"]
@@ -434,10 +501,17 @@ class ContinuousLlamaDeployment:
                 ticket.get("nonce") == self._nonce:
             res_id = ticket.get("res_id")
         trace = self._request_trace()
+        if not manifest.get("journaled"):
+            # Refused before anything waits (receive_handoff's gate).
+            kv_transfer.receive_handoff(self.batcher, manifest)
+        # The engine's first-token callback fires during the import,
+        # before the queue is registered under the fresh id: the
+        # manifest's first token is delivered here instead.
         rid, q = self._open(lambda: kv_transfer.receive_handoff(
-            self.batcher, manifest, reservation=res_id, trace=trace))
-        yield int(manifest["first_token"])
-        yield from self._tokens(rid, q)
+            self.batcher, manifest, reservation=res_id, trace=trace),
+            ready=lambda: self.batcher.free_slots > 0)
+        yield from self._tokens(rid, q, emitted=0,
+                                first=int(manifest["first_token"]))
 
     def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
         """Non-streaming completion."""
@@ -481,17 +555,19 @@ def build_disagg_llama_apps(name: str = "llm",
                             **engine_kwargs):
     """(prefill_app, decode_app) Application pair for disaggregated
     serving, named ``<name>-prefill`` / ``<name>-decode``: the same
-    engine knobs on both sides, the paged-KV plane forced on. Binding
-    only: serving them split needs the role group and the channel of
-    item 6c."""
+    engine knobs on both sides (the import refuses another block size,
+    KV dtype or model), the paged-KV plane forced on (a role hands off
+    arena blocks). Each replica asks half a card (:data:`HALF_CARD`), so
+    a pair shares one. Deploy both and declare the role group, or use
+    :func:`deploy_disagg_llama`, which does all three."""
     engine_kwargs.setdefault("paged", True)
     prefill = ContinuousLlamaDeployment.options(
         name=f"{name}-prefill", num_replicas=num_prefill,
-        ray_actor_options=ONE_CARD).bind(
+        ray_actor_options=HALF_CARD).bind(
         config=config, role="prefill", **engine_kwargs)
     decode = ContinuousLlamaDeployment.options(
         name=f"{name}-decode", num_replicas=num_decode,
-        ray_actor_options=ONE_CARD).bind(
+        ray_actor_options=HALF_CARD).bind(
         config=config, role="decode", **engine_kwargs)
     return prefill, decode
 
@@ -500,15 +576,24 @@ def deploy_disagg_llama(name: str = "llm",
                         config: Optional[llama.LlamaConfig] = None,
                         num_prefill: int = 1, num_decode: int = 1,
                         **engine_kwargs) -> Dict[str, str]:
-    """A disaggregated (prefill, decode) pair behind one role group."""
-    raise llama.not_ported(
-        "deploy_disagg_llama (role groups and the KV channel)",
-        "item 6c (the prefill/decode split over the serve runtime)")
+    """Deploy a disaggregated (prefill, decode) pair and register the
+    role group under the logical ``name``: streaming requests to
+    ``/<name>/stream/...`` classify and split at the ingress from then
+    on. Returns the group's mapping."""
+    prefill_app, decode_app = build_disagg_llama_apps(
+        name=name, config=config, num_prefill=num_prefill,
+        num_decode=num_decode, **engine_kwargs)
+    serve.run(prefill_app)
+    serve.run(decode_app)
+    serve.register_role_group(name, prefill=f"{name}-prefill",
+                              decode=f"{name}-decode")
+    return {"prefill": f"{name}-prefill", "decode": f"{name}-decode"}
 
 
 from ray_tpu_torch.llm.batch import LLMBatchWorker, batch_generate  # noqa: E402
 
-__all__ = ["ContinuousLlamaDeployment", "LLMBatchWorker", "LlamaDeployment",
+__all__ = ["ContinuousLlamaDeployment", "HALF_CARD", "LLMBatchWorker",
+           "LlamaDeployment", "ONE_CARD",
            "batch_generate", "build_continuous_llama_app",
            "build_disagg_llama_apps", "build_llama_app",
            "deploy_disagg_llama"]

@@ -64,6 +64,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import chaos
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.inference import (KVCache, SelfDrafter,
                                             _attend_cached,
@@ -592,6 +593,9 @@ def _named_leaves(tree, prefix=""):
 class ContinuousBatcher:
     """Iteration-level scheduler over a fixed pool of KV-cache slots."""
 
+    # Names co-resident engines apart at the chaos site (JAX's engine tag).
+    _engine_ids = itertools.count()
+
     def __init__(self, config: llama.LlamaConfig, params=None,
                  num_slots: int = 8, max_len: int = 512, seed: int = 0,
                  eos_token: Optional[int] = None, token_callback=None,
@@ -682,6 +686,7 @@ class ContinuousBatcher:
         self.config = config
         self.device = llama.default_device(device)
         self.num_slots = num_slots
+        self._engine_tag = f"slots{num_slots}-{next(self._engine_ids)}"
         self.max_len = max_len
         self.eos_token = eos_token
         self.sync_every = max(1, int(sync_every))
@@ -1015,6 +1020,11 @@ class ContinuousBatcher:
     @property
     def active_count(self) -> int:
         return len(self._slots)
+
+    @property
+    def free_slots(self) -> int:
+        """Slots free for an admission or an import."""
+        return len(self._free)
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -1840,7 +1850,10 @@ class ContinuousBatcher:
         slots, and return the requests that finished (with
         ``sync_every > 1``, finish detection lags up to 2K ticks).
         Prefill and tick run under :func:`llama.fp32_reduction` (bf16
-        GEMMs reduce in fp32)."""
+        GEMMs reduce in fp32). The chaos site ``serve_tick``
+        (``delay_tick``) stutters the tick with every request alive."""
+        if chaos.enabled():
+            chaos.inject("serve_tick", engine=self._engine_tag)
         with llama.fp32_reduction(self.device, self.config.dtype):
             if self.sync_every > 1:
                 self._step_buffered()

@@ -16,19 +16,26 @@ thread of its own every ``RECONCILE_S``:
   deadline, retires them and starts their replacements.
 
 A replica that asks for GPUs (``ray_actor_options={"num_gpus": n}``)
-gets ``n`` cards of its own through ``CUDA_VISIBLE_DEVICES``, the
-counterpart of ``ray_tpu/_private/node_manager/server.py:1037``; a
-deployment asking for more cards than the host has raises, and a
-replacement waits for a card to free.
+gets its cards through ``CUDA_VISIBLE_DEVICES``, the counterpart of
+``ray_tpu/_private/node_manager/server.py:1037``: ``n`` cards of its own
+for a whole ``n``, or a share of one card for a fraction below 1, as Ray
+takes ``num_gpus`` (replicas whose fractions sum to at most 1 share a
+card, packed first-fit onto the cards already shared). A deployment that
+does not fit the host's cards raises, and a replacement waits for its
+share to free.
+
+The controller also carries the chaos plan (:mod:`ray_tpu_torch._private.chaos`)
+to its replica processes: it pushes the plan and the firings spent so far
+to every replica when either changes, and to every replica it spawns.
 
 The controller's KV (``kv``: None for a dict of its own, a dict, or a
 ``torch.distributed`` store such as ``TCPStore``/``FileStore``, as the
 checkpoint plane's :class:`~ray_tpu_torch.checkpoint.plane.StoreKV`)
 holds ``deployments``: each deployment's replica count, pids and cards,
-rewritten on every routing change, so another process can read the
-serve state. The autoscaler, the pool arbiter, preemption notices and
-compact placement groups are not ported (ROADMAP.md queue A, after
-item 13).
+rewritten on every routing change, and ``role_groups`` (the
+disaggregated pairs), so another process can read the serve state. The
+autoscaler, the pool arbiter, preemption notices and compact placement
+groups are not ported (ROADMAP.md queue A, after item 13).
 """
 
 from __future__ import annotations
@@ -39,11 +46,12 @@ import os
 import threading
 import time
 from concurrent.futures import wait as wait_futures
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from ray_tpu_torch._private import chaos
 from ray_tpu_torch.checkpoint.plane import StoreKV, as_kv
 from ray_tpu_torch.runtime.replica import ReplicaProcess
 
@@ -61,12 +69,39 @@ def _visible_gpus() -> List[str]:
     return [str(i) for i in range(torch.cuda.device_count())]
 
 
-def _gpus_per_replica(actor_options: Dict[str, Any]) -> int:
-    n = actor_options.get("num_gpus") or 0
-    if n != int(n) or n < 0:
-        raise ValueError(f"num_gpus={n}: the port's replicas take whole "
-                         f"cards")
-    return int(n)
+# A card's shares may sum to 1 within this slack (0.1 + 0.2 + 0.7).
+_SHARE_EPS = 1e-9
+
+
+def _gpus_per_replica(actor_options: Dict[str, Any]) -> float:
+    """A replica's ``num_gpus``: 0, a fraction of one card below 1, or a
+    whole number of cards."""
+    n = float(actor_options.get("num_gpus") or 0)
+    if n < 0 or (n >= 1 and n != int(n)):
+        raise ValueError(f"num_gpus={n}: a replica takes a fraction of "
+                         f"one GPU below 1, or whole GPUs")
+    return int(n) if n >= 1 else n
+
+
+def _place(use: Dict[str, float], cards: List[str],
+           gpus: float) -> Optional[List[str]]:
+    """The cards a replica asking ``gpus`` takes given each card's used
+    share (``use`` is updated), or None when they are not free. A
+    fraction goes to the first card it fits, shared cards first."""
+    if gpus >= 1:
+        free = [c for c in cards if use.get(c, 0.0) <= _SHARE_EPS]
+        if len(free) < gpus:
+            return None
+        taken = free[:int(gpus)]
+        for c in taken:
+            use[c] = 1.0
+        return taken
+    order = sorted(cards, key=lambda c: use.get(c, 0.0) <= _SHARE_EPS)
+    for c in order:
+        if use.get(c, 0.0) + gpus <= 1.0 + _SHARE_EPS:
+            use[c] = use.get(c, 0.0) + gpus
+            return [c]
+    return None
 
 
 class ServeController:
@@ -94,11 +129,16 @@ class ServeController:
         self._loads_cache: Dict[str, Any] = {}
         self._pressure_cache: Dict[str, Any] = {}
         self._probes: Dict[int, Any] = {}       # id(replica) -> (t0, future)
-        self._gpu_free: Optional[List[str]] = None
-        self._gpu_held: Dict[int, List[str]] = {}  # id(replica) -> cards
+        self._cards: Optional[List[str]] = None  # this host's, by id
+        self._card_use: Dict[str, float] = {}    # card -> share in use
+        # id(replica) -> (its cards, its share of each)
+        self._gpu_held: Dict[int, Tuple[List[str], float]] = {}
         self._listeners: List[Callable[[str], None]] = []
+        # Logical name -> {"prefill": name, "decode": name}.
+        self._role_groups: Dict[str, Dict[str, str]] = {}
         self._lock = threading.RLock()
         self._stop = threading.Event()
+        chaos.subscribe(self._push_chaos)
         self._thread = threading.Thread(target=self._reconcile_loop,
                                         daemon=True, name="serve-controller")
         self._thread.start()
@@ -120,18 +160,22 @@ class ServeController:
                 "max_concurrency": max_concurrency, "actor_options": opts,
                 "gpus": _gpus_per_replica(opts), "retry_at": 0.0}
         with self._lock:
-            # The cards a redeploy frees count as free: the running
+            # The shares a redeploy frees count as free: the running
             # deployment goes only once the new spec is known to fit.
-            want = spec["gpus"] * spec["num_replicas"]
-            free = len(self._gpus()) - sum(
-                len(c) for c in self._gpu_held.values()) + sum(
-                len(self._gpu_held.get(id(r), []))
-                for r in self._replicas_of(name))
-            if want > free:
+            use = dict(self._card_use)
+            for r in self._replicas_of(name):
+                cards, share = self._gpu_held.get(id(r), ([], 0.0))
+                for c in cards:
+                    use[c] -= share
+            busy = sum(use.values())
+            if spec["gpus"] and any(
+                    _place(use, self._host_cards(), spec["gpus"]) is None
+                    for _ in range(spec["num_replicas"])):
                 raise ValueError(
                     f"deployment {name!r} asks for {spec['num_replicas']} "
                     f"replicas x {spec['gpus']} GPU(s); this host has "
-                    f"{len(self._gpus())}, {free} free for it")
+                    f"{len(self._host_cards())}, {busy:g} of them in use "
+                    f"by other deployments")
         self.delete(name)
         with self._lock:
             started = [self._start_replica(name, spec)
@@ -149,29 +193,30 @@ class ServeController:
             self._routes_changed(name)
         return True
 
-    def _gpus(self) -> List[str]:
-        if self._gpu_free is None:
-            self._gpu_free = _visible_gpus()
-        return self._gpu_free + [g for held in self._gpu_held.values()
-                                 for g in held]
+    def _host_cards(self) -> List[str]:
+        if self._cards is None:
+            self._cards = _visible_gpus()
+        return self._cards
 
     def _start_replica(self, name: str, spec) -> Optional[ReplicaProcess]:
-        """Spawn one replica (None when its cards are not free yet)."""
+        """Spawn one replica (None when its share of cards is not free
+        yet). It gets the chaos plan before its first request."""
         env = {}
         cards: List[str] = []
         if spec["gpus"]:
-            self._gpus()
-            if len(self._gpu_free) < spec["gpus"]:
+            cards = _place(self._card_use, self._host_cards(), spec["gpus"])
+            if cards is None:
                 return None
-            cards = [self._gpu_free.pop(0) for _ in range(spec["gpus"])]
             env["CUDA_VISIBLE_DEVICES"] = ",".join(cards)
         replica = ReplicaProcess(
             name, spec["cls"], spec["args"], spec["kwargs"],
             spec["is_function"], sync_workers=spec["max_concurrency"],
             env=env,
             num_threads=int(spec["actor_options"].get("num_cpus", 1) or 1))
+        replica.push_chaos(chaos.state())
         if cards:
-            self._gpu_held[id(replica)] = cards
+            self._gpu_held[id(replica)] = (
+                cards, 1.0 if spec["gpus"] >= 1 else spec["gpus"])
         return replica
 
     def _retire(self, replica: ReplicaProcess, kill: bool = False) -> None:
@@ -182,9 +227,20 @@ class ServeController:
             replica.stop()
         with self._lock:
             self._probes.pop(id(replica), None)
-            cards = self._gpu_held.pop(id(replica), [])
-            if cards:
-                self._gpu_free.extend(cards)
+            cards, share = self._gpu_held.pop(id(replica), ([], 0.0))
+            for c in cards:
+                self._card_use[c] = max(self._card_use[c] - share, 0.0)
+
+    def _push_chaos(self) -> None:
+        """The chaos plan or its firings changed: every replica process
+        gets the new state."""
+        shared = chaos.state()
+        with self._lock:
+            replicas = [r for name in set(self.deployments) | set(
+                self._starting) | set(self._draining)
+                for r in self._replicas_of(name)]
+        for r in replicas:
+            r.push_chaos(shared)
 
     def _replicas_of(self, name: str) -> List[ReplicaProcess]:
         """Every replica process of ``name``: routed, starting, draining."""
@@ -204,10 +260,31 @@ class ServeController:
         return spec is not None
 
     def shutdown(self) -> None:
+        chaos.unsubscribe(self._push_chaos)
         self._stop.set()
         self._thread.join(timeout=10)
         for name in list(self.deployments):
             self.delete(name)
+
+    # -------------------------------------------------------- role groups
+    def set_role_group(self, name: str, group: Dict[str, str]) -> None:
+        with self._lock:
+            self._role_groups[name] = dict(group)
+            self._write_role_groups()
+
+    def get_role_group(self, name: str) -> Optional[Dict[str, str]]:
+        with self._lock:
+            group = self._role_groups.get(name)
+            return dict(group) if group else None
+
+    def delete_role_group(self, name: str) -> bool:
+        with self._lock:
+            found = self._role_groups.pop(name, None) is not None
+            self._write_role_groups()
+            return found
+
+    def _write_role_groups(self) -> None:
+        self.kv.put("role_groups", json.dumps(self._role_groups).encode())
 
     # ------------------------------------------------------------- routes
     def subscribe(self, callback: Callable[[str], None]) -> None:
@@ -230,7 +307,8 @@ class ServeController:
                 logger.exception("route listener failed")
         record = {n: {"num_replicas": s["num_replicas"],
                       "replicas": [{"pid": r.pid,
-                                    "cards": self._gpu_held.get(id(r), [])}
+                                    "cards": self._gpu_held.get(
+                                        id(r), ([], 0.0))[0]}
                                    for r in self.replicas.get(n, [])]}
                   for n, s in self.deployments.items()}
         self.kv.put("deployments", json.dumps(record).encode())

@@ -21,6 +21,12 @@ serves it over one duplex connection to the serving process.
   journal (:mod:`ray_tpu_torch.serve.recovery`) turns into a resubmit or
   a resume.
 
+A chaos plan (:mod:`ray_tpu_torch._private.chaos`) reaches the replica
+as a ``chaos_state`` message, which it installs before reading the next
+one; a firing of a capped rule in the replica asks the serving process
+(``chaos`` out, ``chaos_reply`` back), which counts and logs it before
+the replica acts, and a kill ends the process (``os._exit``).
+
 A deployment's class or function crosses by reference: the replica
 imports it by module and qualified name (a ``@serve.deployment`` name
 resolves to the class it wraps), so it must be defined at module level,
@@ -39,6 +45,7 @@ import logging
 import os
 import pickle
 import queue
+import sys
 import threading
 import time
 import traceback
@@ -50,6 +57,7 @@ import torch
 import torch.multiprocessing as mp
 
 from ray_tpu_torch import exceptions
+from ray_tpu_torch._private import chaos
 
 logger = logging.getLogger(__name__)
 
@@ -231,6 +239,12 @@ class Replica:
         t0 = time.monotonic()
         deadline = t0 + max(float(deadline_s), 0.0)
         while remaining > 0 and time.monotonic() < deadline:
+            if chaos.enabled():
+                # Death while draining: the in-flight streams fall back
+                # to the journal's resume path; delay_drain (the
+                # serve_drain site) stretches the wait instead.
+                chaos.inject("serve_replica", phase="drain")
+                chaos.inject("serve_drain")
             await asyncio.sleep(0.02)
             with self._m_lock:
                 remaining = self._ongoing
@@ -286,12 +300,21 @@ class _ReplicaServer:
     hands each message to the event loop, where every request runs as a
     task of its own and writes its replies back."""
 
+    #: Seconds a capped chaos firing waits for the serving process's
+    #: answer (no answer: it does not fire).
+    CHAOS_ASK_S = 30.0
+
     def __init__(self, conn, replica: Replica):
         self.conn = conn
         self.replica = replica
         self.loop = asyncio.new_event_loop()
         self.tasks: Dict[int, asyncio.Task] = {}
         self.cancelled = set()
+        # Replies go from the loop; chaos asks from any thread (the sync
+        # pool, the engine's tick thread).
+        self._send_lock = threading.Lock()
+        self._chaos_ids = itertools.count(1)
+        self._chaos_waits: Dict[int, Future] = {}
 
     def serve(self) -> None:
         threading.Thread(target=self._read, daemon=True,
@@ -306,7 +329,19 @@ class _ReplicaServer:
                 break            # the serving process is gone: exit too
             if msg[0] == "exit":
                 break
+            if msg[0] == "chaos_state":
+                # Installed here, before any later message is read: a
+                # request sent after a push runs under the pushed plan.
+                chaos.install(msg[2])
+                continue
+            if msg[0] == "chaos_reply":
+                waiter = self._chaos_waits.pop(msg[1], None)
+                if waiter is not None:
+                    waiter.set_result(bool(msg[2]))
+                continue
             self.loop.call_soon_threadsafe(self._dispatch, msg)
+        for waiter in list(self._chaos_waits.values()):
+            waiter.set_result(False)
         self.loop.call_soon_threadsafe(self.loop.stop)
 
     def _send(self, kind: str, rid: int, value: Any = None) -> None:
@@ -315,7 +350,31 @@ class _ReplicaServer:
         except Exception as e:  # noqa: BLE001 — an unpicklable result
             data = pickle.dumps(("error", rid, _portable(TypeError(
                 f"the replica's {kind} cannot be pickled: {e}"))))
-        self.conn.send_bytes(data)
+        with self._send_lock:
+            self.conn.send_bytes(data)
+
+    def chaos_arbiter(self, generation: int, rule, entry) -> bool:
+        """:func:`chaos.set_arbiter`'s function in a replica: a capped
+        rule's firing asks the serving process (which counts and logs
+        it) and waits for its answer; an unlimited rule's is reported
+        and fires."""
+        ask = rule.times >= 0
+        seq = next(self._chaos_ids)
+        waiter: Future = Future()
+        if ask:
+            self._chaos_waits[seq] = waiter
+        try:
+            self._send("chaos", seq, (generation, rule.id, entry, ask))
+        except (OSError, ValueError):
+            self._chaos_waits.pop(seq, None)
+            return False
+        if not ask:
+            return True
+        try:
+            return waiter.result(timeout=self.CHAOS_ASK_S)
+        except TimeoutError:
+            self._chaos_waits.pop(seq, None)
+            return False
 
     def _dispatch(self, msg) -> None:
         kind, rid = msg[0], msg[1]
@@ -377,6 +436,9 @@ def _child_main(conn, spec: bytes, env: Dict[str, str],
     (or the constructor's error) and serve until the serving process
     goes."""
     os.environ.update(env)
+    # A chaos kill ends this process for real (the serving process's
+    # journal sees a replica death).
+    os.environ["RAY_TPU_CHAOS_HARD_EXIT"] = "1"
     torch.set_num_threads(max(1, num_threads))
     t0 = time.perf_counter()
     try:
@@ -390,7 +452,13 @@ def _child_main(conn, spec: bytes, env: Dict[str, str],
     conn.send_bytes(pickle.dumps(("ready", 0, {
         "pid": os.getpid(), "init_s": time.perf_counter() - t0,
         "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")})))
-    _ReplicaServer(conn, replica).serve()
+    server = _ReplicaServer(conn, replica)
+    chaos.set_arbiter(server.chaos_arbiter)
+    server.serve()
+    # Handoff channels whose reader never came go with the replica.
+    kv_transfer = sys.modules.get("ray_tpu_torch.serve.kv_transfer")
+    if kv_transfer is not None:
+        kv_transfer.reap_channels(force=True)
     # Worker threads (the pool, an engine's tick thread) must not hold
     # the exit: the serving process asked for it or is gone.
     os._exit(0)
@@ -576,6 +644,9 @@ class ReplicaProcess:
             if kind == "init_error":
                 self._ready.set_exception(value)
                 continue
+            if kind == "chaos":
+                self._chaos_fired(rid, *value)
+                continue
             with self._lock:
                 waiter = (self._pending.get(rid) if kind == "item"
                           else self._pending.pop(rid, None))
@@ -588,6 +659,25 @@ class ReplicaProcess:
             else:
                 waiter.set_result(value)
         self._died()
+
+    def push_chaos(self, shared) -> None:
+        """Send :func:`chaos.state` to the replica, which installs it
+        before it reads its next message."""
+        try:
+            self._send(pickle.dumps(("chaos_state", 0, shared)))
+        except (OSError, ValueError):
+            pass                      # the process is gone already
+
+    def _chaos_fired(self, seq: int, generation: int, rule_id: str,
+                     entry: Dict[str, Any], ask: bool) -> None:
+        """A firing in the replica: decided (and logged) by this
+        process's plan; a capped rule's answer goes back."""
+        ok = chaos.arbitrate(generation, rule_id, entry)
+        if ask:
+            try:
+                self._send(pickle.dumps(("chaos_reply", seq, ok)))
+            except (OSError, ValueError):
+                pass
 
     def _died_error(self) -> exceptions.ActorDiedError:
         return exceptions.ActorDiedError(

@@ -17,11 +17,16 @@
   wraps them in the recovery journal, :mod:`ray_tpu_torch.serve.recovery`);
 * the HTTP ingress (:func:`start_http`, :mod:`ray_tpu_torch.serve.proxy`).
 
+* role groups (:func:`register_role_group`): a logical name for a
+  (prefill, decode) pair of deployments, held by the controller beside
+  the routes (and in its KV); the ingress classifies a stream to the
+  name and splits it across the pair
+  (:class:`~ray_tpu_torch.serve.recovery.DisaggRecoverableStream`).
+
 Not ported: the autoscaler, deployment graphs (a bound ``Application``
 as an init argument), config-file deploys and the gRPC ingress (ROADMAP.md
-queue A, after item 13); role groups and the disaggregated path (item
-6c); request tracing, route events over a pubsub and the serve metrics
-(item 9).
+queue A, after item 13); request tracing, route events over a pubsub and
+the serve metrics (item 9).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import zlib
 from typing import Any, Dict, List, Optional
 
 from ray_tpu_torch import exceptions
+from ray_tpu_torch._private import chaos
 from ray_tpu_torch.models.llama import not_ported
 
 #: Seconds a call waits for a deployment with no routed replica to get
@@ -43,7 +49,6 @@ from ray_tpu_torch.models.llama import not_ported
 #: model, CUDA included).
 NO_REPLICA_WAIT_S = 120.0
 
-_DISAGG_ITEM = "item 6c (the prefill/decode split over the runtime)"
 _LATER_ITEM = "the serve items queued after item 13"
 
 _controller = None
@@ -70,9 +75,32 @@ def _get_controller():
 
 
 # ------------------------------------------------------------ role groups
+# A logical deployment name that maps to a (prefill, decode) pair of
+# deployments. The ingress consults it to classify-and-split requests;
+# everything else sees two ordinary deployments. ``serve.run`` the two
+# deployments first, then declare the group (:func:`deploy_disagg_llama`
+# does all three).
 def register_role_group(name: str, *, prefill: str, decode: str) -> None:
-    """Disaggregated prefill/decode role groups are not ported yet."""
-    raise not_ported("role groups (disaggregated serving)", _DISAGG_ITEM)
+    """Declare ``name`` as a disaggregated role group: streaming LLM
+    requests to ``name`` are classified at the ingress and either split
+    (prefill on ``prefill``, KV handoff, decode on ``decode``) or sent
+    to ``decode`` whole (its engines run colocated admission too)."""
+    if not prefill or not decode:
+        raise ValueError("role group needs both a prefill and a decode "
+                         "deployment name")
+    start().set_role_group(name, {"prefill": prefill, "decode": decode})
+
+
+def get_role_group(name: str) -> Optional[Dict[str, str]]:
+    """``{"prefill": ..., "decode": ...}`` of a registered group, else
+    None (also when serve is not running)."""
+    controller = _controller
+    return None if controller is None else controller.get_role_group(name)
+
+
+def unregister_role_group(name: str) -> bool:
+    controller = _controller
+    return controller is not None and controller.delete_role_group(name)
 
 
 # -------------------------------------------------------------- responses
@@ -401,6 +429,13 @@ class DeploymentHandle:
         now = time.monotonic()
         if now - st.pressure_ts < self.PRESSURE_TTL_S:
             return st.shared_pressure
+        if chaos.enabled():
+            # A dropped pressure fetch: keep serving whatever the cache
+            # holds (possibly nothing); the admission gate and the
+            # affinity policy must stay safe on stale data.
+            d = chaos.inject("serve_pressure", deployment=self._name)
+            if d and d.get("drop"):
+                return st.shared_pressure
         st.pressure_ts = now
         snaps = list(_get_controller().get_replica_pressure(self._name))
         with st.lock:

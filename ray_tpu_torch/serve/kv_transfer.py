@@ -15,51 +15,95 @@ creeps in beside the journal.
   tree and starts decoding;
 * :func:`transfer_inproc` does both for two engines in one process, the
   staging buffer passed by reference, and notes the handoff on a journal
-  when given one.
+  when given one;
+* :func:`send_handoff` / :func:`receive_handoff` move a handoff between
+  replica processes: the prefill side exports and writes the staging
+  bytes (a host ``numpy.uint8`` buffer, JAX's wire format) into a fresh
+  shm channel (:class:`~ray_tpu_torch.experimental.channel.Channel`) and
+  returns the small manifest (the payload without the bytes, plus the
+  channel's reader attach-spec), which crosses the ordinary replica
+  pipe; the decode side reads the bytes, unlinks the segment and
+  imports. A manifest the router never journaled is refused
+  (``RequestJournal.note_handoff``): an unjournaled transfer could bill
+  a request twice after a death on either side.
 
-Each payload carries its ``breakdown`` (``export_s``, then ``import_s``),
-which lands in the decode engine's request record.
+Chaos sites ``kv_transfer`` (``kill_transfer`` / ``delay_transfer``,
+matchable on ``stage=export|import``) fire inside the owning replica
+process before the gather and before the scatter, so an injected death
+is a real process death the journal must recover from.
 
-Not ported yet (ROADMAP.md queue A, item 6c, the prefill/decode split
-over the serve runtime): the shm channel between replicas
-(:func:`send_handoff`, and :func:`receive_handoff` past its journal
-gate), its reaper, and the ``kv_transfer`` chaos sites; the transfer
-metrics (and the ``deployment`` tag they carry) wait for item 9.
+Each payload carries its ``breakdown`` (``export_s``, ``channel_s``
+summed over the write and the read, then ``import_s``), which lands in
+the decode engine's request record. The transfer metrics (and the
+``deployment`` tag they carry) wait for ROADMAP item 9.
+
+Knobs: ``RAY_TPU_KV_TRANSFER_TIMEOUT_S`` (the channel read's wait,
+default 30), ``RAY_TPU_KV_TRANSFER_TTL_S`` (the reap of a channel whose
+reader never came, default 120).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
-from ray_tpu_torch.models import llama
+import numpy as np
+
+from ray_tpu_torch._private import chaos
 
 __all__ = ["export_kv", "import_kv", "send_handoff", "receive_handoff",
-           "transfer_inproc"]
+           "transfer_inproc", "reap_channels", "transfer_timeout_s"]
 
-_RUNTIME_ITEM = "item 6c (the prefill/decode split over the serve runtime)"
-
-
-# The fault kinds JAX's chaos plans inject at this site.
-_TRANSFER_FAULTS = {"kill_transfer", "delay_transfer"}
+#: The payload key that rides the channel alone (everything else is the
+#: manifest).
+_BODY_KEY = "staging"
 
 
-def _chaos_site(stage: str) -> None:
-    """JAX injects ``RAY_TPU_CHAOS``'s transfer faults here; the port has
-    no chaos harness yet, so a plan that asks for one raises rather than
-    run without its faults."""
-    kinds = {entry.split(":", 1)[0].strip()
-             for entry in os.environ.get("RAY_TPU_CHAOS", "").split(";")}
-    if kinds & _TRANSFER_FAULTS:
-        raise llama.not_ported(f"the kv_transfer chaos site "
-                               f"(stage={stage})", _RUNTIME_ITEM)
+def transfer_timeout_s() -> float:
+    """The channel read's wait for the staging bytes (read per transfer,
+    so tests and operators retune it live)."""
+    return float(os.environ.get("RAY_TPU_KV_TRANSFER_TIMEOUT_S", "30"))
+
+
+def _channel_ttl_s() -> float:
+    return float(os.environ.get("RAY_TPU_KV_TRANSFER_TTL_S", "120"))
+
+
+# Writer-side channels awaiting their one reader. The decode side
+# unlinks the segment after reading; entries here matter only when the
+# decode side never comes (a death mid-handoff, a dropped manifest) and
+# are reaped past the TTL, so orphaned segments cannot pile up.
+_PENDING: List[Tuple[Any, float]] = []
+_PENDING_LOCK = threading.Lock()
+
+
+def reap_channels(force: bool = False) -> int:
+    """Destroy writer-side channels whose reader never came (all of them
+    with ``force=True``: a replica's stop). Returns the count reaped.
+    Destroying a segment the reader already unlinked is a no-op."""
+    now = time.monotonic()
+    reaped = 0
+    with _PENDING_LOCK:
+        keep = []
+        for ch, deadline in _PENDING:
+            if force or now >= deadline:
+                ch.destroy()
+                reaped += 1
+            else:
+                keep.append((ch, deadline))
+        _PENDING[:] = keep
+    return reaped
 
 
 def export_kv(engine, rid: int) -> Dict[str, Any]:
     """A parked request's payload from a prefill-role engine (staging
-    bytes inline), with ``breakdown = {"export_s": seconds}``."""
-    _chaos_site("export")
+    bytes inline), with ``breakdown = {"export_s": seconds}``. The chaos
+    site ``kv_transfer``/``stage=export`` fires before the gather, in the
+    prefill replica's process. The caller holds the engine lock."""
+    if chaos.enabled():
+        chaos.inject("kv_transfer", stage="export", rid=rid)
     t0 = time.perf_counter()
     payload = engine.export_kv_payload(rid)
     payload["breakdown"] = {"export_s": time.perf_counter() - t0}
@@ -70,32 +114,72 @@ def import_kv(engine, payload: Dict[str, Any], *,
               reservation: Optional[int] = None,
               trace: Optional[Dict[str, Any]] = None) -> int:
     """Land a payload in a decode-role engine (crc-checked, radix-indexed,
-    its slot live). Returns the engine's id for the request."""
-    _chaos_site("import")
+    its slot live). Returns the engine's id for the request. The chaos
+    site ``kv_transfer``/``stage=import`` fires before the scatter, in
+    the decode replica's process. The caller holds the engine lock."""
+    if chaos.enabled():
+        chaos.inject("kv_transfer", stage="import",
+                     rid=payload.get("rid"))
     return engine.import_kv_payload(payload, reservation=reservation,
                                     trace=trace,
                                     breakdown=payload.get("breakdown"))
 
 
 def send_handoff(engine, rid: int) -> Dict[str, Any]:
-    """Export into a fresh shm channel: the channel between replicas is
-    not ported yet (item 6c)."""
-    raise llama.not_ported("send_handoff (the shm channel)", _RUNTIME_ITEM)
+    """Export and stage into a fresh shm channel. Returns the manifest:
+    the payload without the staging bytes, plus the channel's reader
+    attach-spec under ``"channel"``. The first write to a fresh channel
+    never blocks, so the prefill replica is free once this returns. Not
+    importable yet: the router journals the handoff and stamps
+    ``manifest["journaled"]`` first."""
+    from ray_tpu_torch.experimental.channel import Channel
+
+    reap_channels()
+    payload = export_kv(engine, rid)
+    # The host bytes themselves (a pinned torch tensor would pickle as a
+    # handle to shared storage, not as the bytes JAX's reader expects).
+    staging = np.asarray(payload.pop(_BODY_KEY), dtype=np.uint8)
+    t0 = time.perf_counter()
+    ch = Channel(capacity=int(staging.nbytes) + (64 << 10), n_readers=1)
+    ch.write(staging)
+    with _PENDING_LOCK:
+        _PENDING.append((ch, time.monotonic() + _channel_ttl_s()))
+    payload["breakdown"]["channel_s"] = time.perf_counter() - t0
+    payload["channel"] = ch.reader(0)
+    return payload
 
 
 def receive_handoff(engine, manifest: Dict[str, Any], *,
                     reservation: Optional[int] = None,
-                    trace: Optional[Dict[str, Any]] = None) -> int:
-    """Collect a journaled handoff from its shm channel. A manifest the
-    router never journaled is refused, as in JAX; past that gate the
-    channel between replicas is not ported yet (item 6c)."""
+                    trace: Optional[Dict[str, Any]] = None,
+                    timeout_s: Optional[float] = None) -> int:
+    """Collect a journaled handoff on the decode side: attach to the
+    manifest's channel, read the staging bytes (``channel_s`` adds the
+    read to the write), unlink the segment, and import. A manifest the
+    router never journaled is refused: the journal gate is the
+    exactly-once guarantee, so an unstamped manifest is a programming
+    error, not a retryable one."""
     if not manifest.get("journaled"):
         raise RuntimeError(
             "KV handoff manifest was not journaled: every cross-replica "
             "transfer must pass through RequestJournal.note_handoff "
             "(DisaggRecoverableStream) before import")
-    raise llama.not_ported("receive_handoff (the shm channel)",
-                           _RUNTIME_ITEM)
+    ch = manifest["channel"]
+    t0 = time.perf_counter()
+    try:
+        staging = ch.read(timeout=timeout_s if timeout_s is not None
+                          else transfer_timeout_s())
+    finally:
+        ch.destroy()          # consumed (or never coming): unlink it
+    payload = {k: v for k, v in manifest.items()
+               if k not in ("channel", "journaled")}
+    payload[_BODY_KEY] = staging
+    breakdown = dict(payload.get("breakdown") or {})
+    breakdown["channel_s"] = (breakdown.get("channel_s", 0.0)
+                              + time.perf_counter() - t0)
+    payload["breakdown"] = breakdown
+    return import_kv(engine, payload, reservation=reservation,
+                     trace=trace)
 
 
 def transfer_inproc(src_engine, dst_engine, rid: int, *,

@@ -10,11 +10,16 @@
   shedding, answered with 429 and ``Retry-After``;
 * ``GET /-/healthz`` and ``GET /-/routes``. ``PUT /-/deploy`` answers 501:
   config-file deploys (``serve/config.py``) are queued after item 13, as
-  is the gRPC ingress. Role groups (the disaggregated classify-and-split)
-  wait for item 6c, request tracing for item 9.
+  is the gRPC ingress; request tracing waits for item 9;
+* role groups: a stream to a group's name is classified
+  (:meth:`_Router._classify_disagg`) and split across its prefill and
+  decode deployments, or run whole on the decode group; a unary call
+  runs on the decode group.
 
 Every stream goes through the recovery journal
-(:class:`~ray_tpu_torch.serve.recovery.RecoverableStream`).
+(:class:`~ray_tpu_torch.serve.recovery.RecoverableStream`, or
+:class:`~ray_tpu_torch.serve.recovery.DisaggRecoverableStream` when
+split).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import logging
 import os
 import threading
 import zlib
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
@@ -120,8 +126,15 @@ class AdmissionGate:
                                          "32") or 0)
         if threshold <= 0:
             return None
+        from ray_tpu_torch.serve import api as serve_api
+
+        # A role group's name has no replicas of its own: the decode
+        # group's pressure is the signal (its arena is where every
+        # request ends up).
+        group = serve_api.get_role_group(deployment)
+        target = group["decode"] if group else deployment
         try:
-            snaps = self._router.handle(deployment)._fetch_shared_pressure()
+            snaps = self._router.handle(target)._fetch_shared_pressure()
         except RuntimeError:     # serve not running: fail open
             return None
         reachable = [s for s in snaps
@@ -137,10 +150,15 @@ class AdmissionGate:
 class _Router:
     """Shared deployment-handle cache for the ingress."""
 
+    #: Recently dispatched prefix fingerprints the classifier treats as
+    #: probably cached on the decode side (a bounded LRU).
+    FP_SEEN_CAP = 512
+
     def __init__(self):
         self._handles: Dict[str, object] = {}
         self._lock = threading.Lock()
         self.gate = AdmissionGate(self)
+        self._fp_seen: "OrderedDict[str, None]" = OrderedDict()
 
     def handle(self, name: str):
         from ray_tpu_torch.serve.api import DeploymentHandle
@@ -157,10 +175,71 @@ class _Router:
         if method and method.startswith("_"):
             raise LookupError("method not found")
 
+    # ------------------------------------------- disaggregated classify
+    def _note_fp(self, fp: str) -> None:
+        with self._lock:
+            self._fp_seen.pop(fp, None)
+            self._fp_seen[fp] = None
+            while len(self._fp_seen) > self.FP_SEEN_CAP:
+                self._fp_seen.popitem(last=False)
+
+    def _classify_disagg(self, group: Dict[str, str], payload) -> bool:
+        """True: split (prefill replica, KV handoff, decode replica);
+        False: the decode group runs the request colocated. The estimate
+        is the net prefill cost, the prompt's tokens less the
+        fingerprint-matched prefix a decode replica likely holds (a seen
+        fingerprint means its block-aligned head is hot in some radix
+        cache, so prefilling it there is cheap). Split when that clears
+        ``RAY_TPU_DISAGG_PREFILL_THRESHOLD`` tokens (default 128; <= 0
+        splits every LLM request), or when the pressure feed shows every
+        decode replica already queueing ``RAY_TPU_DISAGG_QUEUE_TOKENS``
+        prefill tokens (> 0 enables)."""
+        prompt = payload.get("prompt_token_ids") or ()
+        plen = len(prompt)
+        fp = prefix_fingerprint(payload)
+        covered = 0
+        if fp:
+            chunk = int(os.environ.get("RAY_TPU_PREFIX_FP_CHUNK", "64"))
+            max_chunks = int(os.environ.get("RAY_TPU_PREFIX_FP_CHUNKS",
+                                            "4"))
+            with self._lock:
+                seen = fp in self._fp_seen
+            if seen:
+                covered = min(plen,
+                              min(max_chunks, plen // max(chunk, 1))
+                              * chunk)
+            self._note_fp(fp)
+        net_prefill = plen - covered
+        threshold = float(os.environ.get(
+            "RAY_TPU_DISAGG_PREFILL_THRESHOLD", "128"))
+        if net_prefill >= threshold:
+            return True
+        floor = float(os.environ.get("RAY_TPU_DISAGG_QUEUE_TOKENS",
+                                     "0") or 0)
+        if floor > 0:
+            try:
+                snaps = self.handle(
+                    group["decode"])._fetch_shared_pressure()
+            except RuntimeError:      # no controller: the size rule only
+                snaps = []
+            live = [s for s in snaps if s and not s.get("unreachable")]
+            if live and all(
+                    float(s.get("prefill_queue_tokens") or 0) >= floor
+                    for s in live):
+                return True
+        return False
+
     def call(self, name: str, method: Optional[str], payload,
              model_id: str = "", timeout_s: float = 60.0,
              request_ctx: Optional[Dict[str, Any]] = None):
+        from ray_tpu_torch.serve import api as serve_api
+
         self._check_public(method)
+        group = serve_api.get_role_group(name)
+        if group is not None:
+            # A unary completion runs colocated on the decode group (its
+            # engines take plain submits); only streams split.
+            name = group["decode"]
         h = self.handle(name).options(
             method, multiplexed_model_id=model_id,
             request_context=request_ctx,
@@ -175,11 +254,32 @@ class _Router:
         resubmit; mid-decode LLM requests resume as prompt + emitted
         tokens) and drain rejects re-route for free. Its ``.journal``
         tells the ingress whether to send the ``x-ray-tpu-resumed``
-        marker."""
-        from ray_tpu_torch.serve.recovery import (RecoverableStream,
-                                                  RequestJournal)
+        marker.
+
+        A role group's name classifies first: a request whose net
+        prefill justifies the transfer splits across the (prefill,
+        decode) pair with a journaled KV handoff
+        (:class:`~ray_tpu_torch.serve.recovery.DisaggRecoverableStream`);
+        the rest run colocated on the decode group."""
+        from ray_tpu_torch.serve import api as serve_api
+        from ray_tpu_torch.serve.recovery import (DisaggRecoverableStream,
+                                                  RecoverableStream,
+                                                  RequestJournal,
+                                                  is_llm_payload)
 
         self._check_public(method)
+        group = serve_api.get_role_group(name)
+        if group is not None:
+            if is_llm_payload(payload) and \
+                    self._classify_disagg(group, payload):
+                journal = RequestJournal(name, method, payload,
+                                         model_id=model_id,
+                                         request_ctx=request_ctx)
+                return DisaggRecoverableStream(
+                    self.handle(group["prefill"]),
+                    self.handle(group["decode"]),
+                    journal, per_item_timeout_s=60.0)
+            name = group["decode"]
         journal = RequestJournal(name, method, payload, model_id=model_id,
                                  request_ctx=request_ctx)
         return RecoverableStream(self.handle(name), journal,

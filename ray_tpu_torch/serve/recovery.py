@@ -28,10 +28,15 @@ Budget: ``RAY_TPU_SERVE_MAX_RESUMES`` (default 2) death recoveries per
 request; exhaustion raises the typed
 :class:`~ray_tpu_torch.exceptions.ResumeExhaustedError`.
 
+:class:`DisaggRecoverableStream` is the same journal over a (prefill,
+decode) role group: the KV handoff between them is journaled exactly
+once per attempt, a prefill death resubmits and a decode death after
+the handoff resumes as a fresh prefill.
+
 The JAX package also records each recovery as a flight event and in the
-serve metrics; in the port they wait for ROADMAP item 9, and recoveries
-are logged. ``DisaggRecoverableStream`` (the prefill/decode split) waits
-for item 6c.
+serve metrics; in the port they wait for ROADMAP item 9: recoveries are
+logged, and the split's outcomes are counted on the journal
+(``RequestJournal.handoff_outcomes``).
 """
 
 from __future__ import annotations
@@ -131,6 +136,10 @@ class RequestJournal:
         # behalf (crc32, bytes, attempt): the prefill/decode split's
         # exactly-once billing (``kv_transfer.transfer_inproc`` notes it).
         self.handoffs: List[Dict[str, Any]] = []
+        # The split's outcomes (ok, prefill_died, decode_died), counted
+        # here until the serve metrics (JAX's SERVE_HANDOFFS) come with
+        # ROADMAP item 9.
+        self.handoff_outcomes: Dict[str, int] = {}
 
     @property
     def llm(self) -> bool:
@@ -161,6 +170,10 @@ class RequestJournal:
         entry = {**meta, "attempt": attempt}
         self.handoffs.append(entry)
         return entry
+
+    def count_handoff(self, outcome: str) -> None:
+        self.handoff_outcomes[outcome] = \
+            self.handoff_outcomes.get(outcome, 0) + 1
 
     def resume_payload(self) -> Any:
         """The next attempt's submission, derived from the journal:
@@ -232,6 +245,9 @@ class RecoverableStream:
         self._replica = gen._replica
         self._inner = gen
 
+    def _death_cause(self) -> str:
+        return "resume" if self.journal.emitted else "resubmit"
+
     def _evict(self) -> None:
         if self._replica is not None:
             self._handle._evict(self._replica)
@@ -266,7 +282,7 @@ class RecoverableStream:
             return
         if j.resumes >= max_resumes():
             raise exhausted_error(j.deployment, j.resumes) from err
-        cause = "resume" if j.emitted else "resubmit"
+        cause = self._death_cause()
         j.resumes += 1
         if j.emitted:
             j.resumed_midstream = True
@@ -298,6 +314,190 @@ class RecoverableStream:
             close()
 
 
+class DisaggRecoverableStream(RecoverableStream):
+    """Recoverable stream over a (prefill, decode) role-group pair, the
+    split twin of :class:`RecoverableStream`. Dispatch is staged: reserve
+    the decode slot, run the unary ``prefill`` on the prefill group (it
+    returns the KV handoff's manifest; the staging bytes wait in the shm
+    channel it names), journal the handoff, then open the
+    ``decode_from`` stream on the decode group. Every token, the
+    prefill's first one included, reaches the caller through the decode
+    stream, so the journal's ``emitted`` stays the one ledger of what
+    was delivered.
+
+    A death on either side lands in the same journal:
+
+    * **prefill death** (unary: nothing delivered, nothing journaled):
+      the submission resubmits to another prefill replica
+      (``cause="resubmit"``, budgeted like any death retry);
+    * **decode death after the handoff**: a replay from the journal as
+      a fresh prefill (``cause="resume"``: the first token crossed
+      replicas, so it is visible state even with nothing delivered).
+      The replay journals a new attempt's entry, and
+      :meth:`RequestJournal.note_handoff` refuses a second entry for the
+      same attempt, so a request is never billed twice.
+
+    The decode slot's reservation is cancelled on every path that does
+    not spend it (a prefill that finished the request, a spent budget,
+    an abandoned stream)."""
+
+    def __init__(self, prefill_handle, decode_handle,
+                 journal: RequestJournal,
+                 per_item_timeout_s: Optional[float] = 60.0):
+        super().__init__(decode_handle, journal, per_item_timeout_s)
+        self._prefill_handle = prefill_handle
+        # True between note_handoff and the stream's end: a death in
+        # that window is a decode death after the handoff.
+        self._handoff_live = False
+        # (ticket, the decode replica holding it) until spent or freed.
+        self._reservation = None
+
+    def _death_cause(self) -> str:
+        return ("resume" if (self.journal.emitted or self._handoff_live)
+                else "resubmit")
+
+    def _resume_after_death(self, err: BaseException) -> None:
+        j = self.journal
+        handoff_was_live = self._handoff_live
+        if handoff_was_live:
+            j.count_handoff("decode_died")
+        pre = j.resumes
+        super()._resume_after_death(err)
+        if handoff_was_live and j.resumes > pre:
+            # The first token crossed replicas: even with nothing
+            # delivered the replay is visible, so a sampled request
+            # carries the resumed marker.
+            j.resumed_midstream = True
+
+    # ---------------------------------------------------------- dispatch
+    def _cancel_reservation(self) -> None:
+        """Release the unspent ticket on the replica that holds it (a
+        dead replica's went with it; tickets also expire engine-side)."""
+        held, self._reservation = self._reservation, None
+        if held is None or held[0] is None:
+            return
+        ticket, replica = held
+        try:
+            replica.call("cancel_reserve", (ticket,), {}).result(timeout=5)
+        except Exception:  # noqa: BLE001 — expires engine-side anyway
+            logger.info("serve: a decode reservation's cancel failed")
+
+    def _reserve(self, payload: Any, fp: str) -> None:
+        """Reserve the decode slot before any prefill work (advisory: a
+        miss means the import allocates on arrival; the ticket carries
+        its replica's nonce, so another replica refuses it)."""
+        j = self.journal
+        prompt = (payload.get("prompt_token_ids") or ()
+                  if isinstance(payload, dict) else ())
+        try:
+            budget = int(payload.get("max_tokens", 16)) \
+                if isinstance(payload, dict) else 16
+        except (TypeError, ValueError):
+            budget = 16
+        self._cancel_reservation()
+        try:
+            resp = self._handle.options(
+                "reserve_kv", multiplexed_model_id=j.model_id,
+                prefix_key=fp).remote(len(prompt), budget)
+            self._reservation = (resp.result(timeout_s=5), resp._replica)
+        except Exception:  # noqa: BLE001 — the reservation is advisory
+            self._reservation = None
+
+    def _prefill_attempt(self, payload: Any, rctx, fp: str):
+        """One journaled prefill attempt: the manifest, or None when the
+        chosen prefill replica died or drained (the journal advanced and
+        the caller retries)."""
+        j = self.journal
+        h = self._prefill_handle.options(
+            "prefill", multiplexed_model_id=j.model_id,
+            request_context=rctx, prefix_key=fp)
+        resp = h.remote(payload)
+        try:
+            # The response's own death retry is bypassed: a prefill death
+            # is this journal's to budget.
+            return resp._future.result(timeout=self._timeout)
+        except exceptions.ReplicaDrainingError:
+            # Clean reject: a free reroute, bounded by the shared cap.
+            j.drain_rejects += 1
+            if j.drain_rejects > DRAIN_REJECT_CAP:
+                raise exceptions.ReplicaDrainingError(
+                    f"every prefill replica of {j.deployment!r} rejected "
+                    f"the request as draining ({j.drain_rejects} rejects)")
+            self._prefill_handle._evict(resp._replica)
+            return None
+        except exceptions.ActorDiedError as e:
+            # Nothing reached the caller and nothing was journaled: the
+            # submission resubmits to another prefill replica, budgeted.
+            self._prefill_handle._evict(resp._replica)
+            j.count_handoff("prefill_died")
+            if j.resumes >= max_resumes():
+                raise exhausted_error(j.deployment, j.resumes) from e
+            j.resumes += 1
+            logger.warning(
+                "serve: resubmitting prefill for %r after replica death "
+                "(attempt %d/%d)", j.deployment, j.resumes, max_resumes())
+            return None
+
+    def _dispatch(self, payload: Any) -> None:
+        from ray_tpu_torch.serve.proxy import prefix_fingerprint
+
+        j = self.journal
+        self._handoff_live = False
+        fp = prefix_fingerprint(payload)
+        # (1) Reserve the decode slot before any prefill work.
+        self._reserve(payload, fp)
+        # (2) Prefill, a journaled unary retry loop.
+        try:
+            while True:
+                rctx = j.request_ctx
+                if rctx is not None and (j.resumes or j.drain_rejects):
+                    rctx = {**rctx, "attempt": j.resumes + j.drain_rejects}
+                manifest = self._prefill_attempt(payload, rctx, fp)
+                if manifest is not None:
+                    break
+        except BaseException:
+            self._cancel_reservation()
+            raise
+        if isinstance(manifest, dict) and "done" in manifest:
+            # The request finished at prefill (max_tokens 1, EOS first,
+            # or a resumed prompt already ending in EOS): nothing to hand
+            # off; its tokens stream out and are journaled as any items.
+            self._cancel_reservation()
+            self._replica = None
+            self._inner = iter(list(manifest["done"]))
+            return
+        # (3) Journal the handoff before the decode side can touch it:
+        # only a stamped manifest imports, so a request is never billed
+        # for an unjournaled transfer.
+        j.note_handoff({
+            "crc32": manifest.get("crc32"),
+            "nbytes": manifest.get("nbytes"),
+            "num_blocks": manifest.get("num_blocks"),
+            "attempt": j.resumes,
+        })
+        manifest = {**manifest, "journaled": True}
+        self._handoff_live = True
+        # (4) The decode stream: every token, the first included. A
+        # ticket of another replica than the stream's is released.
+        dh = self._handle.options(
+            "decode_from", stream=True, multiplexed_model_id=j.model_id,
+            request_context=rctx, prefix_key=fp)
+        ticket = self._reservation[0] if self._reservation else None
+        gen = dh.remote({"manifest": manifest, "reservation": ticket})
+        gen._timeout = self._timeout
+        if self._reservation is not None and \
+                self._reservation[1] is gen._replica:
+            self._reservation = None          # spent by the import
+        self._cancel_reservation()
+        self._replica = gen._replica
+        self._inner = gen
+        j.count_handoff("ok")
+
+    def close(self) -> None:
+        self._cancel_reservation()
+        super().close()
+
+
 def note_unary_resumed(deployment: str, tenant: str) -> None:
     """A unary call completed after >= 1 death retry (the metrics wait
     for item 9; logged)."""
@@ -315,8 +515,8 @@ def note_unary_retry(deployment: str, cause: str) -> None:
                    cause)
 
 
-__all__ = ["COMPLETE", "DRAIN_REJECT_CAP", "RESUMED_MARKER",
-           "RecoverableStream", "RequestJournal", "exhausted_error",
+__all__ = ["COMPLETE", "DRAIN_REJECT_CAP", "DisaggRecoverableStream",
+           "RESUMED_MARKER", "RecoverableStream", "RequestJournal", "exhausted_error",
            "is_llm_payload", "is_sampled", "max_resumes",
            "note_unary_exhausted", "note_unary_resumed",
            "note_unary_retry"]

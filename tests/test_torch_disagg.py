@@ -27,6 +27,7 @@ import torch
 from ray_tpu.models import continuous_batching as jcb
 from ray_tpu.models import llama as jl
 from ray_tpu.serve import kv_transfer as jkt
+from ray_tpu_torch._private import chaos
 from ray_tpu_torch.interop import params_to_numpy
 from ray_tpu_torch.models import continuous_batching as tcb
 from ray_tpu_torch.models import inference as tinf
@@ -287,22 +288,38 @@ def test_import_inserts_prefix_into_radix_shareable(setup):
     assert dst.prefix_hit_tokens == 32 and dst.prefix_hit_rate > 0
 
 
-def test_journal_gate_and_unported_channel(setup, monkeypatch):
-    _, tp, _ = setup
+def test_journal_gate_and_unported_channel(setup):
+    """receive_handoff refuses a manifest the router never journaled;
+    past the gate, send_handoff -> stamp -> receive_handoff lands the
+    request through a shm channel (its segment unlinked by the reader)
+    with the generator's tokens, and the export's chaos site fires in
+    this process."""
+    _, tp, gen = setup
     dst = _engine(tp, "decode")
     with pytest.raises(RuntimeError, match="journal"):
         kv_transfer.receive_handoff(dst, {"channel": None})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        kv_transfer.receive_handoff(dst, {"channel": None,
-                                          "journaled": True})
     pre = _engine(tp, "prefill")
-    rid = _park(pre, _ints(np.random.default_rng(58), 20), 4)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        kv_transfer.send_handoff(pre, rid)
-    monkeypatch.setenv("RAY_TPU_CHAOS", "kill_transfer:stage=export")
-    with pytest.raises(NotImplementedError, match="chaos.*item 6"):
-        kv_transfer.export_kv(pre, rid)
-    assert rid in pre.handoff_ready()           # nothing was exported
+    prompt = _ints(np.random.default_rng(58), 20)
+    rid = _park(pre, prompt, 4)
+    chaos.configure("delay_transfer:stage=export,secs=0.001", seed=1)
+    try:
+        manifest = kv_transfer.send_handoff(pre, rid)
+        (fired,) = chaos.injection_log()
+    finally:
+        chaos.configure(None)
+    assert fired["coords"] == {"stage": "export", "rid": rid}
+    assert rid not in pre.handoff_ready()       # exported
+    assert "staging" not in manifest and manifest["nbytes"] > 0
+    segment = f"/dev/shm{manifest['channel'].name}"
+    assert os.path.exists(segment)
+    with pytest.raises(RuntimeError, match="journal"):
+        kv_transfer.receive_handoff(dst, manifest)
+    drid = kv_transfer.receive_handoff(dst, {**manifest, "journaled": True})
+    assert not os.path.exists(segment)
+    assert dst.run_to_completion()[drid] == _reference(gen, prompt, 4)
+    (record,) = [r["handoff"] for r in dst.request_breakdowns
+                 if r.get("handoff")]
+    assert record["channel_s"] > 0 and record["import_s"] > 0
 
 
 def test_handoff_noted_once_on_a_journal(setup):

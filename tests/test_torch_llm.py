@@ -24,6 +24,7 @@ import torch
 from ray_tpu import llm as jllm
 from ray_tpu.models import llama as jl
 from ray_tpu_torch import llm as tllm
+from ray_tpu_torch import serve
 from ray_tpu_torch.interop import params_to_numpy
 from ray_tpu_torch.models import llama as tl
 
@@ -202,32 +203,50 @@ def test_reserve_kv_nonce_rules_match_jax(params):
 
 
 def test_unported_entry_points_raise_naming_their_item(pair, params):
-    _, tdep = pair
+    """enable_weight_sync still raises naming item 10; decode_from refuses
+    an unjournaled manifest, and past that gate a prefill replica's
+    handoff lands through the shm channel with JAX's tokens;
+    deploy_disagg_llama asks half a card a replica (none here)."""
+    jdep, tdep = pair
     with pytest.raises(NotImplementedError, match="item 10"):
         tdep.enable_weight_sync(None)
     with pytest.raises(RuntimeError, match="journal"):
         list(tdep.decode_from({"manifest": {"first_token": 1}}))
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        list(tdep.decode_from({"manifest": {"first_token": 1,
-                                            "journaled": True}}))
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        tllm.deploy_disagg_llama(config=TCFG)
     tp, _ = params
-    pre = tllm.ContinuousLlamaDeployment._cls_or_fn(
-        config=TCFG, params=tp, device="cpu", role="prefill", num_slots=2,
-        max_len=64, block_size=16, prefix_cache=False)
+    geometry = dict(config=TCFG, params=tp, device="cpu", num_slots=2,
+                    max_len=64, block_size=16, prefix_cache=False)
+    pre = tllm.ContinuousLlamaDeployment._cls_or_fn(role="prefill",
+                                                    **geometry)
+    dec = tllm.ContinuousLlamaDeployment._cls_or_fn(role="decode",
+                                                    **geometry)
     try:                 # the prefix cache off: released blocks free
         free = pre.batcher.allocator.free_count
-        with pytest.raises(NotImplementedError, match="item 6c"):
-            pre.prefill({"prompt_token_ids": _prompts(5)[1],
-                         "max_tokens": 4})
+        prompt = _prompts(5)[1]
+        manifest = pre.prefill({"prompt_token_ids": prompt,
+                                "max_tokens": 4})
+        assert "staging" not in manifest and manifest["nbytes"] > 0
         assert pre.batcher.handoff_ready() == []
         assert pre.batcher.allocator.free_count == free
+        with pytest.raises(RuntimeError, match="journal"):
+            list(dec.decode_from({"manifest": manifest}))
+        ticket = dec.reserve_kv(len(prompt), 4)
+        got = list(dec.decode_from({"manifest": {**manifest,
+                                                 "journaled": True},
+                                    "reservation": ticket}))
+        assert got == [int(t) for t in jdep.generate(prompt, 4)]
+        assert not dec.cancel_reserve(ticket)        # spent by the import
     finally:
         pre.close()
+        dec.close()
+    try:
+        with pytest.raises(ValueError, match="GPU"):
+            tllm.deploy_disagg_llama(config=TCFG)
+    finally:
+        serve.shutdown()
     prefill_app, decode_app = tllm.build_disagg_llama_apps(config=TCFG)
     assert prefill_app.deployment.name == "llm-prefill"
     assert decode_app.kwargs["role"] == "decode"
+    assert prefill_app.deployment.ray_actor_options == {"num_gpus": 0.5}
 
 
 def test_device_defaults_to_cuda(params):
