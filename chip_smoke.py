@@ -304,9 +304,33 @@ Phases, any failure exits non-zero with no result line:
    token (``[disagg-chaos]``); then phase 6's 2-layer fp32 model as a
    pair over HTTP: phase 6's greedy tokens, after a ``kill_transfer``
    too (``[disagg-parity]``). No ``/dev/shm/rtch-*`` segment may be
-   left that was not there at the start. Every replica process has
-   exited and its memory is back before phase 10 (``[mem]`` lines at
-   each start and end).
+   left that was not there at the start. The ingress's ``GET /metrics``
+   around the 12 streams must show the pair's
+   ``ray_tpu_serve_kv_transfer_bytes_total`` (export in the prefill
+   replica, import in the decode replica) grow by exactly the bytes
+   handed off, and each ``kill_transfer`` firing's ``event_id`` must
+   root a ``causal_chain`` of the serving process's flight ring that
+   reaches the ``serve.resume`` it caused;
+33. observability over the runtime (``[observe]``): phase 30's app (one
+   replica of Llama-3-8B on its own card, ``CountingLlm``) under
+   ``RAY_TPU_TRACING=1``, phase 5's 12 prompts as 12 HTTP streams of 32
+   tokens with an ``x-request-id`` each: the tokens equal phase 5's (a
+   divergence passes only at a top-2 margin below TOP2_MARGIN, the
+   replica's weights); each request one connected trace in the serving
+   process rooted at ``serve.ingress``, with ``serve.route``,
+   ``engine.queue``, ``engine.prefill`` and >= 1 ``engine.decode_window``
+   (the engine's spans from the replica process), its queue, arena-wait
+   and prefill spans summing to its time to first token within 10% or 5
+   ms (JAX's tolerance); ``GET /metrics`` around the 12 streams shows,
+   under the replica's label, 12 more ``SERVE_REQ_TTFT`` observations,
+   ``CB_DECODE_TOKENS`` grown by the tokens streamed less the 12 first
+   tokens (the prefill's), ``CB_PREFILL_TOKENS`` by the prompts' tokens;
+   num_layers B4 launches a tick. Then four bursts of the same 12
+   prompts (prefix-cached now) with tracing off, on, on, off, toggled in
+   both processes: the tick ms and TTFT p50 of each mode (metrics stay
+   on; ``[observe-cost]``), and the spans and samples the serving
+   process pulled per request. Every replica process has exited and its memory is back
+   before phase 10 (``[mem]`` lines at each start and end).
 
 Phases 23-24 run before phases 25-28 (27 compares with 24), phases
 11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
@@ -319,8 +343,9 @@ entries also carry ``spec_launches``, their launches in phase 19's
 self-draft and external-drafter runs, the paged entry
 ``split_launches``, the decode engine's launches in phase 21's bf16 run,
 the paged entry ``deployment_launches``, ``replica_launches`` and
-``disagg_launches``, its launches in phases 29, 30 and 32's (the decode
-replica's) 12 streams, the flash forward entry
+``disagg_launches`` and ``observe_launches``, its launches in phases 29,
+30, 32's (the decode replica's) and 33's traced 12 streams, the flash
+forward entry
 ``deployment_scoring_launches``, its launches in phase 29's two scoring
 calls, and the flash entries ``mixtral_launches``, their launches in
 phase 24's run, ``mixtral_mesh_launches``, their launches in phase 27's run,
@@ -372,6 +397,11 @@ decode steps' wall and CPU ms, the gaps between steps and, under the
 profiler, device busy ms (``[ticks]`` lines, no result line).
 ``python3 chip_smoke.py --channel-mbs`` times only the split's shm
 channel (:func:`channel_mbs`; one ``[channel]`` line, no result line).
+``python3 chip_smoke.py --runtime-ttft`` serves phase 30's burst alone
+with the ``ray_tpu_torch`` beside the script, three times, the prefix
+cache off so every burst prefills alike (:func:`runtime_ttft`; one
+``[ttft]`` line, no result line): copy this script into another
+checkout to time that checkout's package on the same card.
 """
 
 import dataclasses
@@ -3396,6 +3426,12 @@ class CountingLlm(ContinuousLlamaDeployment._cls_or_fn):
             return top2_margin(torch, self.batcher.params, self.config,
                                list(seq))
 
+    def set_tracing(self, on):
+        """Request tracing on or off in this replica process (phase 33
+        times both in one replica)."""
+        os.environ["RAY_TPU_TRACING"] = "1" if on else "0"
+        return bool(on)
+
 
 def breakdown(records, n):
     """Medians over the engine's last ``n`` request records: its time to
@@ -3446,14 +3482,15 @@ def stream_all(start, n):
     return outs, [None if f is None else f - t0 for f in first], wall
 
 
-def http_tokens(port, payload, timeout=600, name=SERVE_NAME):
+def http_tokens(port, payload, timeout=600, name=SERVE_NAME, headers=None):
     """The token ids of one NDJSON stream from the HTTP ingress, as they
     arrive."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
         conn.request("POST", f"/{name}/stream/generate",
                      body=json.dumps(payload),
-                     headers={"Content-Type": "application/json"})
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
         resp = conn.getresponse()
         if resp.status != 200:
             raise RuntimeError(f"HTTP {resp.status}: {resp.read()[:300]}")
@@ -3770,8 +3807,10 @@ def role_counters(group, reset=False):
 def chaos_stream(payload, spec, seed):
     """One stream to the role group through the ingress's router under a
     chaos plan: (tokens, journal, seconds from the firing to the first
-    token after it)."""
-    from ray_tpu_torch._private import chaos
+    token after it, the event types of the causal chain the firing's
+    ``event_id`` roots). Fails unless that chain reaches the
+    ``serve.resume`` the firing caused."""
+    from ray_tpu_torch._private import chaos, events
     from ray_tpu_torch.serve import api as serve_api
 
     chaos.configure(spec, seed=seed)
@@ -3788,8 +3827,15 @@ def chaos_stream(payload, spec, seed):
         chaos.configure(None)
     if len(fired) != 1:
         fail(f"phase 32 {spec}: {len(fired)} firings (want 1)")
+    eid = fired[0]["event_id"]
+    chain = events.causal_chain(events.local_events(limit=1 << 20), [eid])
+    if not any(r["type"] == "serve.resume" and r["cause"] == eid
+               for r in chain):
+        fail(f"phase 32 {spec}: the firing's event {eid!r} roots no chain "
+             f"to a serve.resume ({[r['type'] for r in chain]})")
     after = [t for t in times if t > fired[0]["ts"]]
-    return toks, s.journal, (after[0] - fired[0]["ts"]) if after else None
+    return (toks, s.journal, (after[0] - fired[0]["ts"]) if after else None,
+            [r["type"] for r in chain])
 
 
 def check_journal(j, what, resumes, midstream, attempts, outcomes):
@@ -3825,11 +3871,13 @@ def disagg_phase(torch, card, served, parity, runtime):
     name = DISAGG["name"]
     list(http_tokens(port, {"prompt_token_ids": prompts[0][:16],
                             "max_tokens": 2}, name=name))     # warm-up
+    m0 = metrics_scrape(port)
     c0 = role_counters(group, reset=True)
     outs, ttft, wall = stream_all(lambda i: http_tokens(
         port, {"prompt_token_ids": prompts[i], "max_tokens": 32},
         name=name), len(prompts))
     c1 = role_counters(group)
+    m1 = metrics_scrape(port)
     check_outputs(outs, 32, cfg.vocab_size, "phase 32")
     dec0, dec1, pre1 = c0["decode"], c1["decode"], c1["prefill"]
     ticks = dec1["ticks"] - dec0["ticks"]
@@ -3857,6 +3905,17 @@ def disagg_phase(torch, card, served, parity, runtime):
             seq).result(timeout_s=300)
 
     moved = sum(r["mib"] for r in per_request)
+    # The transfer series, as the ingress's /metrics shows them: each
+    # side's bytes grew by exactly the bytes handed off.
+    xfer = {}
+    for role, direction in (("prefill", "export"), ("decode", "import")):
+        lab = dict(replica=reps[role].replica_id, direction=direction)
+        xfer[direction] = (
+            series_sum(m1, "ray_tpu_serve_kv_transfer_bytes_total", **lab)
+            - series_sum(m0, "ray_tpu_serve_kv_transfer_bytes_total", **lab))
+    if any(abs(v - moved * 2**20) > 0.5 for v in xfer.values()):
+        fail(f"phase 32: /metrics transfer bytes {xfer}, handed off "
+             f"{moved * 2**20:.0f}")
     st = dict(
         requests=len(prompts), ticks=ticks, launches=launches,
         launches_per_tick=launches["paged"] / max(ticks, 1),
@@ -3865,7 +3924,9 @@ def disagg_phase(torch, card, served, parity, runtime):
         tick_ms=(dec1["tick_s"] - dec0["tick_s"]) / max(ticks, 1) * 1e3,
         decode_tok_s=(dec1["decoded"] - dec0["decoded"]) / max(
             dec1["tick_s"] - dec0["tick_s"], 1e-9),
-        handoff_mib=moved, handoff_mb_s=moved * 2**20 / 1e6 / sum(
+        handoff_mib=moved, metrics_transfer_mib={
+            k: v / 2**20 for k, v in xfer.items()},
+        handoff_mb_s=moved * 2**20 / 1e6 / sum(
             r["export_s"] + r["channel_s"] + r["import_s"]
             for r in per_request),
         per_request=per_request, cold_start_s=cold_s,
@@ -3888,14 +3949,15 @@ def disagg_phase(torch, card, served, parity, runtime):
             ("export", 7, (1, False, [1], {"prefill_died": 1, "ok": 1})),
             ("import", 11, (1, True, [0, 1],
                             {"ok": 2, "decode_died": 1}))):
-        toks, j, after_s = chaos_stream(
+        toks, j, after_s, chain = chaos_stream(
             payload, f"kill_transfer:stage={stage}", seed)
         check_journal(j, f"kill at {stage}", *want_j)
         if toks != clean:
             fail(f"phase 32 kill at {stage}: tokens differ from the clean "
                  f"run's")
         chaos_st[stage] = dict(first_token_after_kill_s=after_s,
-                               resumes=j.resumes, handoffs=len(j.handoffs))
+                               resumes=j.resumes, handoffs=len(j.handoffs),
+                               chain=chain)
         for role in ("prefill", "decode"):
             wait_routed(name=group[role])
     print(f"[disagg-chaos] {json.dumps(dict(chaos_st, tokens_equal=True, prompt_tokens=len(payload['prompt_token_ids']), card=card))}")
@@ -3920,7 +3982,7 @@ def disagg_phase(torch, card, served, parity, runtime):
     check_agree(torch, None, pcfg, pprompts, got, want,
                 "a split pair over HTTP and phase 6's in-process engine",
                 margin=pmargin)
-    killed, j, _ = chaos_stream(
+    killed, j, _, _ = chaos_stream(
         {"prompt_token_ids": pprompts[-1], "max_tokens": new},
         f"kill_transfer:stage={DISAGG['parity_kill']}", 13)
     if j.resumes != 1:
@@ -3939,22 +4001,224 @@ def disagg_phase(torch, card, served, parity, runtime):
     return st
 
 
+def metrics_scrape(port):
+    """The ingress's ``GET /metrics`` text."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        body = resp.read().decode()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        fail(f"GET /metrics answered {resp.status}: {body[:300]}")
+    return body
+
+
+def series_sum(text, name, **labels):
+    """Sum of ``name``'s sample values in a Prometheus text whose labels
+    include ``labels``."""
+    total = 0.0
+    for line in text.splitlines():
+        m = re.match(r"^(\w+)\{(.*)\} (\S+)$", line)
+        if not m or m.group(1) != name:
+            continue
+        got = dict(re.findall(r'(\w+)="([^"]*)"', m.group(2)))
+        if all(got.get(k) == v for k, v in labels.items()):
+            total += float(m.group(3))
+    return total
+
+
+# -------------------------------------- phase 33: observability, served
+# The warm bursts' tracing modes, alternated so the host clock's drift
+# falls on both; the TTFT split's tolerance (JAX's,
+# tests/test_serve_request_tracing.py:47-60).
+OBSERVE = dict(modes=(False, True, True, False), ttft_rel=0.10,
+               ttft_abs_s=5e-3)
+OBSERVE_SPANS = ("serve.ingress", "serve.route", "engine.queue",
+                 "engine.prefill", "engine.decode_window")
+
+
+def set_tracing(handle, on):
+    """Request tracing on or off in this process and the replica's."""
+    os.environ["RAY_TPU_TRACING"] = "1" if on else "0"
+    handle.set_tracing.remote(on).result(timeout_s=120)
+
+
+def request_trace(tracing, request_id, what, timeout_s=30.0):
+    """The serving process's spans of one request once its trace holds
+    ``OBSERVE_SPANS`` (the replica's arrive over its pipe); fails unless
+    it is one connected trace rooted at ``serve.ingress``, its engine
+    spans parented to its route span."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        spans = tracing.local_spans(request_id=request_id)
+        if set(OBSERVE_SPANS) <= {s["name"] for s in spans} or \
+                time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    names = sorted({s["name"] for s in spans})
+    if not set(OBSERVE_SPANS) <= set(names) or not tracing.connected(spans):
+        fail(f"{what}: request {request_id}: not one connected trace "
+             f"holding {OBSERVE_SPANS}: {names}")
+    by_id = {s["span_id"]: s for s in spans}
+    bad = [s["name"] for s in spans if s["name"].startswith("engine.")
+           and by_id[s["parent_span_id"]]["name"] != "serve.route"]
+    if bad:
+        fail(f"{what}: request {request_id}: engine spans {bad} are not "
+             f"under serve.route")
+    return spans
+
+
+def ttft_split(spans, what):
+    """(TTFT, queue + arena wait + prefill) of one request from its
+    engine spans; fails outside JAX's tolerance."""
+    def one(name):
+        return next(s for s in spans if s["name"] == name)
+
+    q, p = one("engine.queue"), one("engine.prefill")
+    wait = sum(s["dur"] for s in spans if s["name"] == "engine.arena_wait")
+    ttft = p["ts"] + p["dur"] - q["ts"]
+    comp = q["dur"] + wait + p["dur"]
+    if abs(comp - ttft) > max(OBSERVE["ttft_rel"] * ttft,
+                              OBSERVE["ttft_abs_s"]):
+        fail(f"{what}: queue + arena wait + prefill {comp:.4f} s against "
+             f"TTFT {ttft:.4f} s")
+    return ttft, comp
+
+
+def observe_phase(torch, card, served, runtime):
+    """Phase 33: observability over the runtime (module docstring)."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import build_continuous_llama_app
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.util import tracing
+
+    mem(torch, "phase 33 start")
+    prompts, phase5 = served
+    cfg = llama.LlamaConfig.llama3_8b()
+    n = len(prompts)
+    os.environ["RAY_TPU_TRACING"] = "1"       # the replica inherits it
+    built = build_continuous_llama_app(cfg, num_slots=8, max_len=2048)
+    handle = serve.run(serve.deployment(
+        CountingLlm, name=SERVE_NAME,
+        ray_actor_options=built.deployment.ray_actor_options).bind(
+        *built.args, **built.kwargs))
+    replica = wait_routed()
+    label = dict(replica=replica.replica_id)
+    port = serve.start_http(port=0)
+    list(http_tokens(port, {"prompt_token_ids": prompts[0][:16],
+                            "max_tokens": 2}))           # warm-up
+    tracing.clear_spans()
+    m0 = metrics_scrape(port)
+    c0 = handle.counters.remote(True).result(timeout_s=120)
+    ids = [f"observe-{i:02d}" for i in range(n)]
+    outs, ttft, wall = stream_all(lambda i: http_tokens(
+        port, {"prompt_token_ids": prompts[i], "max_tokens": 32},
+        headers={"x-request-id": ids[i]}), n)
+    c1 = handle.counters.remote().result(timeout_s=120)
+    t0 = time.perf_counter()
+    m1 = metrics_scrape(port)
+    scrape_ms = (time.perf_counter() - t0) * 1e3
+    st = served_stats(outs, ttft, wall, c1["ticks"] - c0["ticks"],
+                      {"paged": c1["paged"], "dense": c1["dense"]},
+                      c1["prefill_s"] - c0["prefill_s"],
+                      c1["decoded"] - c0["decoded"], cfg.num_layers,
+                      cfg.vocab_size, "phase 33")
+
+    def margin(seq):
+        return handle.margin.remote(seq).result(timeout_s=300)
+
+    for i, (a, b) in enumerate(zip(outs, phase5)):
+        if a != b:
+            j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+            top2, _ = margin(prompts[i] + b[:j])
+            print(f"[parity] phase 33 request {i} parts from phase 5 at "
+                  f"token {j}: top-2 margin {top2:.4e}")
+            if top2 >= TOP2_MARGIN:
+                fail(f"phase 33: request {i}'s tokens differ from phase "
+                     f"5's at token {j} (top-2 margin {top2})")
+    traces = [request_trace(tracing, r, "phase 33") for r in ids]
+    split = [ttft_split(spans, f"phase 33 request {i}")
+             for i, spans in enumerate(traces)]
+    streamed = sum(map(len, outs))
+    deltas = {key: series_sum(m1, name, **label)
+              - series_sum(m0, name, **label) for key, name in (
+                  ("ttft_count", "ray_tpu_serve_request_ttft_seconds_count"),
+                  ("decode_tokens", "ray_tpu_cb_decode_tokens_total"),
+                  ("prefill_tokens", "ray_tpu_cb_prefill_tokens_total"))}
+    want = dict(ttft_count=n, decode_tokens=streamed - n,
+                prefill_tokens=sum(map(len, prompts)))
+    if deltas != want:
+        fail(f"phase 33: /metrics grew by {deltas} under the replica's "
+             f"label, want {want}")
+    replica_lines = sum(f'replica="{replica.replica_id}"' in line
+                        for line in m1.splitlines())
+    st.update(
+        agree_with_phase5=sum(a == b for a, b in zip(outs, phase5)),
+        traces_connected=len(traces), metrics_deltas=deltas,
+        launches_per_tick=st["launches"]["paged"] / max(st["ticks"], 1),
+        ttft_split_max_gap_ms=max(t - c for t, c in split) * 1e3,
+        engine_ttft_p50_ms=float(np.median([t for t, _ in split])) * 1e3,
+        spans_per_request=float(np.mean([len(t) for t in traces])),
+        replica_spans_per_request=float(np.mean([sum(
+            s["worker_id"] == replica.replica_id for s in t)
+            for t in traces])),
+        replica_samples_per_scrape=replica_lines,
+        scrape_ms=scrape_ms, metrics_bytes=len(m1),
+        phase30={k: runtime[k] for k in ("ttft_p50_ms", "tick_ms",
+                                         "client_tok_s")}, card=card)
+    print(f"[observe] {json.dumps(st)}")
+
+    # Tracing off and on in one replica, on the now prefix-cached prompts.
+    modes = []
+    for on in OBSERVE["modes"]:
+        set_tracing(handle, on)
+        b0 = handle.counters.remote(True).result(timeout_s=120)
+        bo, bt, bw = stream_all(lambda i: http_tokens(
+            port, {"prompt_token_ids": prompts[i], "max_tokens": 32}), n)
+        b1 = handle.counters.remote().result(timeout_s=120)
+        check_outputs(bo, 32, cfg.vocab_size, f"phase 33 tracing={on}")
+        ticks = b1["ticks"] - b0["ticks"]
+        if b1["paged"] != cfg.num_layers * ticks:
+            fail(f"phase 33 tracing={on}: {b1['paged']} paged launches "
+                 f"for {ticks} ticks")
+        modes.append(dict(
+            tracing=on, ticks=ticks,
+            tick_ms=(b1["tick_s"] - b0["tick_s"]) / max(ticks, 1) * 1e3,
+            ttft_p50_ms=float(np.median(bt)) * 1e3,
+            client_tok_s=sum(map(len, bo)) / bw))
+    summary = {mode: {k: float(np.median([m[k] for m in modes
+                                          if m["tracing"] == on]))
+                      for k in ("tick_ms", "ttft_p50_ms", "client_tok_s")}
+               for mode, on in (("off", False), ("on", True))}
+    print(f"[observe-cost] {json.dumps(dict(summary, bursts=modes, card=card))}")
+    serve.shutdown()
+    os.environ.pop("RAY_TPU_TRACING", None)
+    tracing.clear_spans()
+    mem(torch, "phase 33 end")
+    st.update(cost=summary)
+    return st
+
+
 def serve_phases(torch, card, served, parity):
-    """Phases 29-32; every replica process has exited and its device
+    """Phases 29-33; every replica process has exited and its device
     memory is back at the end."""
-    free0 = mem(torch, "phases 29-32 start")
+    free0 = mem(torch, "phases 29-33 start")
     out = {"deploy": timed("phase 29", deploy_phase, torch, card, served)}
     out["runtime"] = timed("phase 30", runtime_phase, torch, card, served,
                            out["deploy"])
     out["parity"] = timed("phase 31", runtime_parity, torch, card, parity)
     out["disagg"] = timed("phase 32", disagg_phase, torch, card, served,
                           parity, out["runtime"])
+    out["observe"] = timed("phase 33", observe_phase, torch, card, served,
+                           out["runtime"])
     deadline = time.monotonic() + 30
     while torch.cuda.mem_get_info()[0] < free0 - 2**30 and \
             time.monotonic() < deadline:
         time.sleep(0.5)
-    if mem(torch, "phases 29-32 end") < free0 - 2**30:
-        fail("phases 29-32: the replicas' device memory did not come back")
+    if mem(torch, "phases 29-33 end") < free0 - 2**30:
+        fail("phases 29-33: the replicas' device memory did not come back")
     return out
 
 
@@ -4206,6 +4470,53 @@ def serve_ticks(torch, card, cfg=None, engine=None, rounds=2):
         serve.shutdown()
 
 
+def runtime_ttft(torch, card, rounds=3):
+    """``--runtime-ttft``: phase 30's app (Llama-3-8B, one replica
+    process on its own card, ``CountingLlm``) with the prefix cache off,
+    ``rounds`` bursts of phase 5's 12 prompts as 12 HTTP streams of 32
+    tokens: per burst the TTFT p50 at the client, inside the replica
+    (entry into user code to the first token) and in the engine (submit
+    to first token), and the tick ms."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import build_continuous_llama_app
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    prompts = phase5_prompts(cfg)
+    built = build_continuous_llama_app(cfg, num_slots=8, max_len=2048,
+                                       prefix_cache=False)
+    handle = serve.run(serve.deployment(
+        CountingLlm, name=SERVE_NAME,
+        ray_actor_options=built.deployment.ray_actor_options).bind(
+        *built.args, **built.kwargs))
+    wait_routed()
+    port = serve.start_http(port=0)
+    list(http_tokens(port, {"prompt_token_ids": prompts[0][:16],
+                            "max_tokens": 2}))           # warm-up
+    bursts = []
+    try:
+        for _ in range(rounds):
+            c0 = handle.counters.remote(True).result(timeout_s=120)
+            outs, ttft, wall = stream_all(lambda i: http_tokens(
+                port, {"prompt_token_ids": prompts[i], "max_tokens": 32}),
+                len(prompts))
+            c1 = handle.counters.remote().result(timeout_s=120)
+            check_outputs(outs, 32, cfg.vocab_size, "--runtime-ttft")
+            marks = np.array(c1["marks"])
+            bursts.append(dict(
+                ttft_p50_ms=float(np.median(ttft)) * 1e3,
+                replica_ttft_p50_ms=float(np.median(
+                    marks[:, 1] - marks[:, 0])) * 1e3,
+                engine_ttft_p50_ms=float(np.median(
+                    [r["ttft_s"] for r in c1["records"]])) * 1e3,
+                tick_ms=(c1["tick_s"] - c0["tick_s"]) / max(
+                    c1["ticks"] - c0["ticks"], 1) * 1e3, wall_s=wall))
+    finally:
+        serve.shutdown()
+    print("[ttft] " + json.dumps(dict(bursts=bursts, card=card)),
+          flush=True)
+
+
 # --channel-mbs: staging-sized arrays through the shm channel, phase 32's
 # smallest and largest handoffs.
 CHANNEL_MIB = (8, 88)
@@ -4342,6 +4653,14 @@ def main():
         print(card_line())
         channel_mbs()
         return
+    if sys.argv[1:2] == ["--runtime-ttft"]:
+        from ray_tpu_torch.ops import _build
+
+        card = card_line()
+        print(card)
+        _build.build_all()
+        runtime_ttft(torch, card)
+        return
     if sys.argv[1:2] == ["--serve-ticks"]:
         from ray_tpu_torch.ops import _build
 
@@ -4379,7 +4698,7 @@ def main():
     runs, served = timed("phases 5, 13, 15, 17, 18, 19, 21", end_to_end,
                          torch, card)
     parity = timed("phases 6, 14, 16, 20, 22", engine_parity, torch)
-    serving = timed("phases 29-32", serve_phases, torch, card, served,
+    serving = timed("phases 29-33", serve_phases, torch, card, served,
                     parity)
     flash = timed("phases 7-8", flash_phases, torch)
     timed("phase 9", model_parity, torch)
@@ -4400,6 +4719,7 @@ def main():
         deployment_launches=serving["deploy"]["launches"]["paged"],
         replica_launches=serving["runtime"]["launches"]["paged"],
         disagg_launches=serving["disagg"]["launches"]["paged"],
+        observe_launches=serving["observe"]["launches"]["paged"],
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], kernel_ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],

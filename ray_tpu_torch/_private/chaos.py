@@ -17,8 +17,11 @@ matched by exact coordinates (``stage=export``) fire wherever the
 coordinates match; probabilistic rules (``p=0.25``) flip a coin that is
 a pure function of ``(seed, rule id, site, coordinates)``, so the same
 seed replays the same fault sequence. Every firing is appended to the
-injection log (:func:`injection_log`) that tests assert on. ``times``
-caps firings (default 1; ``-1`` is unlimited).
+injection log (:func:`injection_log`) that tests assert on, and is a
+``chaos.inject`` flight event (:mod:`ray_tpu_torch._private.events`)
+whose id rides the log entry, the returned directives and a kill's
+:class:`SimulatedProcessDeath`, so the recovery it causes can cite it as
+its ``cause``. ``times`` caps firings (default 1; ``-1`` is unlimited).
 
 Activation: programmatic (``chaos.configure("kill_transfer:stage=export",
 seed=7)``) or by environment: ``RAY_TPU_CHAOS`` holds the spec and
@@ -37,9 +40,12 @@ process and its replicas:
   ``times=1`` rule;
 * a replica asks the serving process before it acts on a capped rule
   (:func:`set_arbiter`; the serving process decides in
-  :func:`arbitrate`, counts the firing and logs it), so ``times`` holds
-  across replicas and the firing is in the serving process's log before
-  a kill can stop the replica. Unlimited rules are reported, not asked.
+  :func:`arbitrate`, counts the firing, emits its ``chaos.inject``
+  event there and logs it under that event's id), so ``times`` holds
+  across replicas and the firing is in the serving process's log and
+  flight ring before a kill can stop the replica. Unlimited rules are
+  reported, not asked: the replica emits their event (its flight sink
+  carries it to the serving process) and reports it under that id.
   A kill in a replica is ``os._exit`` (``RAY_TPU_CHAOS_HARD_EXIT=1``,
   which replica processes set).
 
@@ -58,9 +64,10 @@ import os
 import random
 import threading
 import time
-import uuid
 import zlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from ray_tpu_torch._private import events as _events
 
 logger = logging.getLogger(__name__)
 
@@ -319,23 +326,29 @@ def set_arbiter(fn: Optional[Callable[[int, ChaosRule, Dict[str, Any]],
 
 
 def arbitrate(generation: int, rule_id: str,
-              entry: Dict[str, Any]) -> bool:
-    """Decide a replica's firing in the serving process: True when the
-    plan it was asked under is still installed and the rule has firings
-    left. A granted firing is counted and logged here."""
+              entry: Dict[str, Any]) -> str:
+    """Decide a replica's firing in the serving process: its event id
+    when the plan it was asked under is still installed and the rule has
+    firings left, else "". A granted firing is counted and logged here,
+    under the ``chaos.inject`` event this process emits for it (or, for
+    a reported unlimited firing, the event the replica emitted)."""
     with _lock:
         plan = _plan
         rule = None if plan is None or generation != _generation else next(
             (r for r in plan.rules if r.id == rule_id), None)
         if rule is None or (rule.times >= 0
                             and _fired.get(rule_id, 0) >= rule.times):
-            return False
+            return ""
         _fired[rule_id] = _fired.get(rule_id, 0) + 1
+        logged = {**entry, "seq": len(_log)}
         if len(_log) < _MAX_LOG:
-            _log.append({**entry, "seq": len(_log)})
+            _log.append(logged)
+    logged["event_id"] = entry.get("event_id") or _emit_injection(
+        entry.get("action", rule.action), entry.get("site", rule.site),
+        rule_id, entry.get("coords") or {})
     if rule.times >= 0:
         _notify()
-    return True
+    return logged["event_id"]
 
 
 # ------------------------------------------------------------- injection
@@ -383,17 +396,29 @@ def inject(site: str, **coords: Any) -> Optional[Dict[str, Any]]:
                 "rule": rule.id, "ts": time.time(),
                 "coords": {k: v for k, v in coords.items()
                            if isinstance(v, (int, float, str))},
-                "event_id": uuid.uuid4().hex[:16], "pid": os.getpid()}
+                "pid": os.getpid()}
             generation = _generation
             if arbiter is None:
                 _fired[rule.id] = _fired.get(rule.id, 0) + 1
                 if len(_log) < _MAX_LOG:
                     _log.append(entry)
-        if arbiter is not None:
-            # Asked (a capped rule) or reported (an unlimited one) before
+        if arbiter is None:
+            entry["event_id"] = _emit_injection(rule.action, site, rule.id,
+                                                coords)
+        else:
+            # Asked (a capped rule: the serving process emits the event)
+            # or reported (an unlimited one: emitted here first) before
             # anything acts: a kill below ends this process.
-            if not arbiter(generation, rule, entry):
+            if rule.times < 0:
+                entry["event_id"] = _emit_injection(rule.action, site,
+                                                    rule.id, coords)
+            granted = arbiter(generation, rule, entry)
+            if not granted:
                 continue
+            if not entry.get("event_id"):
+                entry["event_id"] = (
+                    granted if isinstance(granted, str)
+                    else _emit_injection(rule.action, site, rule.id, coords))
             with _lock:
                 _fired[rule.id] = _fired.get(rule.id, 0) + 1
                 if len(_log) < _MAX_LOG:
@@ -401,6 +426,21 @@ def inject(site: str, **coords: Any) -> Optional[Dict[str, Any]]:
         _apply(plan, rule, site, coords, directives, entry["event_id"])
         directives["event_id"] = entry["event_id"]
     return directives or None
+
+
+def _emit_injection(action: str, site: str, rule_id: str,
+                    coords: Dict[str, Any]) -> str:
+    """The firing's ``chaos.inject`` flight event (a chain root); its
+    subject is the coordinates that name what was hit."""
+    subject: Dict[str, Any] = {}
+    for ck, sk in (("lease", "lease_id"), ("replica", "replica"),
+                   ("node", "node"), ("run", "run"),
+                   ("deployment", "deployment")):
+        v = coords.get(ck)
+        if isinstance(v, (int, str)):
+            subject[sk] = v
+    return _events.emit("chaos.inject", subject=subject,
+                        action=action, site=site, rule=rule_id)
 
 
 def _apply(plan: ChaosPlan, rule: ChaosRule, site: str,

@@ -41,10 +41,14 @@ A ``TrainState``'s leaves go in the JAX ``TrainState``'s order
 (:func:`train_state_paths`), so both packages' files line up leaf for
 leaf.
 
-Not here yet: the preemption plane (``preempt.py``, which rides the
-runtime's pubsub), the ``CKPT_*`` gauges and goodput (the records keep
-the numbers) and the chaos sites (tests monkeypatch
-``_write_shard_files``).
+A save records JAX's ``CKPT_BLOCK_MS``, ``CKPT_SAVE_SECONDS``,
+``CKPT_BYTES`` and ``CKPT_SAVES`` and a restore ``CKPT_RESTORE_SECONDS``
+and ``CKPT_BYTES``, tagged with the run; the records
+(``SaveHandle.blocked_ms``, the persist record, ``last_restore``) keep
+the numbers too. Not here yet: goodput's attribution of the blocked and
+restore time (``train/goodput.py``) and the preemption plane
+(``preempt.py``), both with the trainer controller, and the chaos sites
+(tests monkeypatch ``_write_shard_files``).
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard
 
+from ray_tpu_torch._private import metrics_defs as mdefs
 from ray_tpu_torch.exceptions import CheckpointCorruptError
 from ray_tpu_torch.models.paged_kv import _STAGING_DTYPES
 
@@ -387,6 +392,7 @@ class CheckpointPlane:
         # they agree on the scope.
         self._kv_run = (f"{run}@"
                         f"{zlib.crc32(self.run_dir.encode()):08x}")
+        self._mtags = {"run": run}
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="ckpt-writer")
         self._pending: Optional[SaveHandle] = None
@@ -434,6 +440,7 @@ class CheckpointPlane:
             spec_leaves.append({"shape": shape, "dtype": dtype})
             shard_sets.append(shards)
         blocked_ms = (time.perf_counter() - t0) * 1000.0
+        mdefs.CKPT_BLOCK_MS.observe(blocked_ms, tags=self._mtags)
         tree = {"kind": kind, "paths": [list(p) for p, _ in flat]}
         future = self._executor.submit(
             self._persist, int(step), tree, spec_leaves, shard_sets, t0)
@@ -483,6 +490,22 @@ class CheckpointPlane:
 
     def _persist(self, step: int, tree, spec_leaves, shard_sets,
                  t_start: float) -> Dict[str, Any]:
+        try:
+            out = self._persist_step(step, tree, spec_leaves, shard_sets,
+                                     t_start)
+        except BaseException:
+            mdefs.CKPT_SAVES.inc(tags={**self._mtags, "outcome": "failed"})
+            raise
+        mdefs.CKPT_SAVE_SECONDS.observe(out["save_s"], tags=self._mtags)
+        mdefs.CKPT_BYTES.inc(out["bytes"], tags={**self._mtags,
+                                                 "direction": "save"})
+        mdefs.CKPT_SAVES.inc(tags={**self._mtags, "outcome":
+                                   "committed" if out["committed"]
+                                   else "registered"})
+        return out
+
+    def _persist_step(self, step: int, tree, spec_leaves, shard_sets,
+                      t_start: float) -> Dict[str, Any]:
         d = self.step_dir(step)
         os.makedirs(d, exist_ok=True)
         # Every process writes the tree (identical bytes; atomic replace
@@ -670,9 +693,12 @@ class CheckpointPlane:
         if target is not None:
             leaves = [target(tuple(p), t) for p, t in zip(leaf_paths,
                                                            leaves)]
+        seconds = time.perf_counter() - t0
         self.last_restore = {"step": step, "bytes": nbytes,
-                             "seconds": time.perf_counter() - t0,
-                             "crc_s": crc_s}
+                             "seconds": seconds, "crc_s": crc_s}
+        mdefs.CKPT_RESTORE_SECONDS.observe(seconds, tags=self._mtags)
+        mdefs.CKPT_BYTES.inc(nbytes, tags={**self._mtags,
+                                           "direction": "restore"})
         return unflatten_state(kind, leaf_paths, leaves)
 
     # ---------------------------------------------------------------- gc

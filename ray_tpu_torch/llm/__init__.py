@@ -28,8 +28,9 @@ decode replica streams every token from
 :meth:`ContinuousLlamaDeployment.decode_from`. The replica lifecycle's
 chaos sites (``serve_replica``, ``phase=prefill|decode``) are JAX's.
 
-Not ported yet: the weight-sync subscriber (item 10), and the flight
-event and metrics of a weight swap (item 9).
+A weight swap emits JAX's ``rl.weight_swap`` flight event and counts
+``RL_SWAPS`` and ``RL_VERSION``. Not ported yet: the weight-sync
+subscriber (item 10).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 import uuid
 from typing import Any, Dict, List, Optional
 
@@ -45,6 +47,8 @@ import torch
 
 from ray_tpu_torch import serve
 from ray_tpu_torch._private import chaos
+from ray_tpu_torch._private import events as _events
+from ray_tpu_torch._private import metrics_defs as mdefs
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.inference import LlamaGenerator
 
@@ -303,13 +307,25 @@ class ContinuousLlamaDeployment:
         """Swap the live params at a tick boundary: taking the engine lock
         is the guarantee, so in-flight requests keep their KV and go on
         under the new weights. ``weights`` may be host tensors (a caller
-        across the process hop); they move to the engine's device. The
-        JAX package's ``rl.weight_swap`` flight event and swap metrics
-        (``cause``, ``manifest``, ``run``) wait for ROADMAP item 9.
-        Returns the version now live."""
+        across the process hop); they move to the engine's device. Emits
+        the ``rl.weight_swap`` flight event (caused by the trainer's
+        publish event when a ``manifest`` carries its ``event_id``) and
+        counts the swap by ``cause``. Returns the version now live."""
+        manifest = manifest or {}
+        run = run or manifest.get("run") or "rl"
         weights = _to_device(weights, self.batcher.device)
         with self._lock:
-            return self.batcher.swap_params(weights, version=version)
+            v = self.batcher.swap_params(weights, version=version)
+        attrs = {"version": v, "swap_cause": cause}
+        if manifest.get("ts"):
+            # Trainer publish to generator live, end to end.
+            attrs["e2e_seconds"] = round(
+                max(time.time() - float(manifest["ts"]), 0.0), 6)
+        _events.emit("rl.weight_swap", cause=manifest.get("event_id", ""),
+                     subject={"run": run}, **attrs)
+        mdefs.RL_SWAPS.inc(tags={"run": run, "cause": cause})
+        mdefs.RL_VERSION.set(v, tags={"run": run, "role": "generator"})
+        return v
 
     def enable_weight_sync(self, spec, run: str = "rl",
                            poll_s: float = 0.05,
@@ -454,7 +470,9 @@ class ContinuousLlamaDeployment:
             if rid not in self.batcher.handoff_ready():
                 return {"done": tokens}
             try:
-                return kv_transfer.send_handoff(self.batcher, rid)
+                return kv_transfer.send_handoff(
+                    self.batcher, rid,
+                    deployment=(trace or {}).get("deployment", ""))
             except Exception:
                 # The parked blocks go back to the arena: nothing will
                 # collect them.
@@ -508,7 +526,8 @@ class ContinuousLlamaDeployment:
         # before the queue is registered under the fresh id: the
         # manifest's first token is delivered here instead.
         rid, q = self._open(lambda: kv_transfer.receive_handoff(
-            self.batcher, manifest, reservation=res_id, trace=trace),
+            self.batcher, manifest, reservation=res_id, trace=trace,
+            deployment=(trace or {}).get("deployment", "")),
             ready=lambda: self.batcher.free_slots > 0)
         yield from self._tokens(rid, q, emitted=0,
                                 first=int(manifest["first_token"]))

@@ -50,6 +50,20 @@ prefill's first token. Both are called through
 :mod:`ray_tpu_torch.serve.kv_transfer`. Each request leaves a host record
 of its latency split (``request_breakdowns``); ``pressure_snapshot`` is
 the router's and autoscaler's view of the engine.
+
+Telemetry, as JAX's engine records it. Always on (host bookkeeping, a
+few dictionary operations a tick): the ``SERVE_REQ_*`` latency split of
+each request (TTFT = queue + arena wait + prefill, TPOT, outcomes,
+tagged with the request's deployment and tenant, the engine and its
+role), the ``CB_*`` counters (prefill, decode, prefix and spec tokens)
+and gauges (slots, waiting requests, arena blocks, the spec rate and k,
+set on the stepping thread at each step) and ``CB_TICK_MS``. Under
+``RAY_TPU_TRACING=1``, a request submitted with a ``trace`` context gets
+the spans ``engine.queue``, ``engine.arena_wait``, ``engine.prefill``,
+``engine.decode_window`` (one a host sync window, at most 64, the rest
+merged into ``engine.decode_tail``) and ``engine.<outcome>``, parented to
+the context's span. Wall-clock stamps (``time.time()``), so spans line up
+with the serving process's across the process hop.
 """
 
 from __future__ import annotations
@@ -65,6 +79,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._private import chaos
+from ray_tpu_torch._private import metrics_defs as mdefs
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.inference import (KVCache, SelfDrafter,
                                             _attend_cached,
@@ -78,6 +93,7 @@ from ray_tpu_torch.models.sampling import (SPEC_DRAFT_SALT, SamplingParams,
                                            filtered_probs, sample_tokens,
                                            spec_commit, step_key)
 from ray_tpu_torch.ops.decode_attention import decode_attention, env_flag
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.paged_decode_attention import paged_decode_attention
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
@@ -593,7 +609,8 @@ def _named_leaves(tree, prefix=""):
 class ContinuousBatcher:
     """Iteration-level scheduler over a fixed pool of KV-cache slots."""
 
-    # Names co-resident engines apart at the chaos site (JAX's engine tag).
+    # Names co-resident engines apart on their series and at the chaos
+    # site (JAX's engine tag).
     _engine_ids = itertools.count()
 
     def __init__(self, config: llama.LlamaConfig, params=None,
@@ -686,7 +703,8 @@ class ContinuousBatcher:
         self.config = config
         self.device = llama.default_device(device)
         self.num_slots = num_slots
-        self._engine_tag = f"slots{num_slots}-{next(self._engine_ids)}"
+        # The engine's tag on its series, built once (JAX's _mtags).
+        self._mtags = {"engine": f"slots{num_slots}-{next(self._engine_ids)}"}
         self.max_len = max_len
         self.eos_token = eos_token
         self.sync_every = max(1, int(sync_every))
@@ -810,7 +828,7 @@ class ContinuousBatcher:
         self._applied_steps = 0
         self._prefill_count = 0   # per-dispatch prefill sampling stream
         self._buf: List[torch.Tensor] = []   # buffered tick token rows
-        self._pending: Optional[tuple] = None  # (fetch, membership)
+        self._pending: Optional[tuple] = None  # (fetch, membership, w0)
         self._dirty = True
         self._waiting: deque = deque()
         self._rid = itertools.count()
@@ -824,11 +842,16 @@ class ContinuousBatcher:
         self._reservation_ids = itertools.count()
         self.handoff_exports = 0
         self.handoff_imports = 0
-        # One record a live request (perf_counter stamps of submit,
-        # arena wait, admission and first token, and the caller's trace);
-        # each ends as an entry of request_breakdowns.
+        # One record a live request (wall-clock stamps of submit, arena
+        # wait, admission and first token, and the caller's trace); each
+        # ends as an entry of request_breakdowns. Decode-window spans are
+        # kept only for traced requests, so with tracing off the decode
+        # loop pays one integer check a fetch.
         self._req_meta: Dict[int, Dict[str, Any]] = {}
+        self._traced_live = 0            # live requests carrying a trace
+        self._window_t0: Optional[float] = None  # buffered window start
         self.request_breakdowns: deque = deque(maxlen=4096)
+        self._MAX_WINDOWS = 64           # a request's window spans (cap)
 
     def _new_cache(self):
         if self.paged:
@@ -935,10 +958,14 @@ class ContinuousBatcher:
                 f"({need} > {self.num_blocks - 1}); raise num_blocks or "
                 f"shorten the request")
         rid = next(self._rid)
+        traced = trace is not None and tracing.enabled()
         self._req_meta[rid] = {
-            "submit": time.perf_counter(),
+            "rid": rid, "submit": time.time(),
             "prompt_len": len(prompt_tokens),
-            "weight_version": self._weight_version, "trace": trace}
+            "weight_version": self._weight_version,
+            "trace": trace, "traced": traced, "windows": []}
+        if traced:
+            self._traced_live += 1
         self._waiting.append({"rid": rid, "prompt": list(prompt_tokens),
                               "max_new": max_new_tokens})
         return rid
@@ -989,6 +1016,8 @@ class ContinuousBatcher:
         for rid in dropped:
             self._finish_request(rid, "aborted", tokens=tokens.get(rid, 0))
         self._req_meta.clear()
+        self._traced_live = 0
+        self._window_t0 = None
         self._slots.clear()
         self._waiting.clear()
         self._free = list(range(self.num_slots))
@@ -1090,30 +1119,73 @@ class ContinuousBatcher:
         }
 
     # --------------------------------------------------- request records
+    def _req_tags(self, rec: Dict[str, Any]) -> Dict[str, str]:
+        t = rec.get("trace") or {}
+        return {"deployment": str(t.get("deployment", "")),
+                "tenant": str(t.get("tenant", "")),
+                "engine": self._mtags["engine"],
+                "role": self.role}
+
+    def _span_common(self, rec: Dict[str, Any]) -> Dict[str, Any]:
+        t = rec.get("trace") or {}
+        return {"trace_id": t.get("trace_id", ""),
+                "parent_span_id": t.get("parent_span_id", ""),
+                "kind": "engine",
+                "request_id": t.get("request_id", ""),
+                "rid": rec["rid"]}
+
     def _note_first_token(self, rec: Dict[str, Any], prefill_t0: float,
                           first_ts: float) -> None:
         """The request's first token landed: split its time to first
-        token into queue, arena wait and prefill."""
+        token into queue, arena wait and prefill, and emit the component
+        histograms (and, traced, their spans). The queue holds the wait
+        for a slot and, after admission, the wait behind the admission
+        round's earlier prefill groups, so the three components sum to
+        the TTFT (JAX's split leaves that second wait out)."""
         blocked = rec.get("arena_blocked", rec.get("admit", rec["submit"]))
         admit = rec.get("admit", blocked)
         rec["first_token"] = first_ts
-        rec["queue_s"] = max(blocked - rec["submit"], 0.0)
+        rec["queue_s"] = (max(blocked - rec["submit"], 0.0)
+                          + max(prefill_t0 - admit, 0.0))
         rec["arena_wait_s"] = max(admit - blocked, 0.0)
         rec["prefill_s"] = max(first_ts - prefill_t0, 0.0)
         rec["ttft_s"] = max(first_ts - rec["submit"], 0.0)
+        tags = self._req_tags(rec)
+        mdefs.SERVE_REQ_TTFT.observe(rec["ttft_s"], tags=tags)
+        mdefs.SERVE_REQ_QUEUE.observe(rec["queue_s"], tags=tags)
+        mdefs.SERVE_REQ_ARENA_WAIT.observe(rec["arena_wait_s"], tags=tags)
+        mdefs.SERVE_REQ_PREFILL.observe(rec["prefill_s"], tags=tags)
+        if rec["traced"]:
+            common = self._span_common(rec)
+            tracing.emit_span("engine.queue", ts=rec["submit"],
+                              dur=rec["queue_s"], **common)
+            if rec["arena_wait_s"] > 0:
+                tracing.emit_span("engine.arena_wait", ts=blocked,
+                                  dur=rec["arena_wait_s"],
+                                  blocks=rec.get("blocks", 0), **common)
+            tracing.emit_span("engine.prefill", ts=prefill_t0,
+                              dur=rec["prefill_s"],
+                              prompt_tokens=rec["prompt_len"], **common)
 
     def _finish_request(self, rid: int, outcome: str,
                         tokens: int = 0) -> None:
         """The request's last edge (finished, prefilled, evicted or
-        aborted): its record goes to ``request_breakdowns`` with the time
-        a token (over committed tokens, so a spec tick's several count)."""
+        aborted): TPOT (over committed tokens, so a spec tick's several
+        count) and the outcome, the record into ``request_breakdowns``,
+        and, traced, the request's decode-window spans."""
         rec = self._req_meta.pop(rid, None)
         if rec is None:
             return
+        now = time.time()
+        if rec["traced"]:
+            self._traced_live -= 1
+        tags = self._req_tags(rec)
+        mdefs.SERVE_REQ_OUTCOMES.inc(tags={**tags, "outcome": outcome})
         first = rec.get("first_token")
         tpot = None
         if first is not None and tokens > 1:
-            tpot = max(time.perf_counter() - first, 0.0) / (tokens - 1)
+            tpot = max(now - first, 0.0) / (tokens - 1)
+            mdefs.SERVE_REQ_TPOT.observe(tpot, tags=tags)
         trace = rec.get("trace") or {}
         self.request_breakdowns.append({
             "rid": rid, "outcome": outcome, "tokens": tokens,
@@ -1128,6 +1200,75 @@ class ContinuousBatcher:
             "request_id": trace.get("request_id"),
             # An import's handoff split: export_s, channel_s, import_s.
             "handoff": rec.get("handoff")})
+        if not rec["traced"]:
+            return
+        common = self._span_common(rec)
+        if first is None:
+            # Ended before its first token: the queue span (closed at the
+            # first token otherwise) shows where the request died.
+            tracing.emit_span("engine.queue", ts=rec["submit"],
+                              dur=max(now - rec["submit"], 0.0),
+                              outcome=outcome, **common)
+        for i, (w0, w1, n) in enumerate(rec.get("windows", ())):
+            tracing.emit_span("engine.decode_window", ts=w0,
+                              dur=max(w1 - w0, 0.0), tokens=n,
+                              window=i, **common)
+        tail = rec.get("window_tail")
+        if tail is not None:
+            tracing.emit_span("engine.decode_tail", ts=tail[0],
+                              dur=max(tail[1] - tail[0], 0.0),
+                              tokens=tail[2], windows=tail[3], **common)
+        tracing.emit_span(f"engine.{outcome}", ts=now, dur=0.0,
+                          tokens=tokens, **common)
+
+    def _record_window_token(self, rid: int, entries: Dict[int, list],
+                             w0: float, w1: float) -> None:
+        """Book one applied token into the sync window [w0, w1] of a
+        traced request (its spans go out at its finish). Past
+        ``_MAX_WINDOWS`` windows the rest merge into one tail, so a long
+        generation cannot flood the span ring."""
+        ent = entries.get(rid)
+        if ent is not None:
+            ent[2] += 1
+            return
+        rec = self._req_meta.get(rid)
+        if rec is None or not rec["traced"]:
+            return
+        wins = rec["windows"]
+        if len(wins) < self._MAX_WINDOWS:
+            ent = [w0, w1, 1]
+            wins.append(ent)
+        else:
+            ent = rec.get("window_tail")
+            if ent is None:
+                ent = rec["window_tail"] = [w0, w1, 0, 0]
+            ent[1] = w1
+            ent[3] += 1
+            ent[2] += 1
+        entries[rid] = ent
+
+    def _emit_gauges(self) -> None:
+        """The engine's gauges, set on the stepping thread (they read its
+        slots, queue and arena)."""
+        active = len(self._slots)
+        mdefs.CB_ACTIVE_SLOTS.set(active, tags=self._mtags)
+        mdefs.CB_WAITING_REQUESTS.set(len(self._waiting), tags=self._mtags)
+        mdefs.CB_SLOT_OCCUPANCY.set(active / max(self.num_slots, 1),
+                                    tags=self._mtags)
+        if self.paged:
+            kv = self.kv_block_stats()
+            mdefs.CB_KV_BLOCKS_USED.set(kv["used"], tags=self._mtags)
+            mdefs.CB_KV_BLOCKS_TOTAL.set(kv["total"], tags=self._mtags)
+            mdefs.CB_KV_FRAG_RATIO.set(kv["frag_ratio"], tags=self._mtags)
+            if self._prefix is not None:
+                mdefs.CB_KV_BLOCKS_CACHED.set(kv["cached"],
+                                              tags=self._mtags)
+                mdefs.CB_KV_BLOCKS_SHARED.set(kv["shared"],
+                                              tags=self._mtags)
+        if self.spec_k:
+            mdefs.CB_SPEC_ACCEPT_RATE.set(self.spec_accept_rate,
+                                          tags=self._mtags)
+            mdefs.CB_SPEC_K.set(self._spec_cur_k, tags=self._mtags)
 
     # --------------------------------------------- disaggregated handoff
     def _park_for_handoff(self, slot: int, req: Dict[str, Any]) -> None:
@@ -1293,7 +1434,7 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"KV handoff geometry mismatch on {field}: payload "
                     f"{payload[field]!r} vs engine {mine!r}")
-        t0 = time.perf_counter()
+        t0 = time.time()
         prompt = list(payload["prompt"])
         plen = len(prompt)
         max_new = int(payload["max_new"])
@@ -1328,13 +1469,17 @@ class ContinuousBatcher:
         self.cache.scatter_blocks(blocks[:nb], payload["staging"],
                                   payload["layout"])
         rid = next(self._rid)
-        meta = {"submit": t0, "prompt_len": plen,
+        traced = trace is not None and tracing.enabled()
+        meta = {"rid": rid, "submit": t0, "prompt_len": plen,
                 "weight_version": self._weight_version, "trace": trace,
+                "traced": traced, "windows": [],
                 "admit": t0, "blocks": len(blocks),
                 "prefix_tokens": plen}    # the whole prompt came prefilled
         if breakdown:
             meta["handoff"] = dict(breakdown)
         self._req_meta[rid] = meta
+        if traced:
+            self._traced_live += 1
         slot = self._free.pop()
         self._slot_blocks[slot] = blocks
         if self._prefix is not None and payload["chunks"]:
@@ -1343,7 +1488,7 @@ class ContinuousBatcher:
             if created:
                 self._slot_nodes[slot] = created
         first = int(payload["first_token"])
-        now = time.perf_counter()
+        now = time.time()
         self._note_first_token(meta, t0, now)
         if "handoff" in meta:
             meta["handoff"]["import_s"] = now - t0
@@ -1488,7 +1633,7 @@ class ContinuousBatcher:
                     # from here its wait is arena wait, not queue wait.
                     meta = self._req_meta.get(req["rid"])
                     if meta is not None:
-                        meta.setdefault("arena_blocked", time.perf_counter())
+                        meta.setdefault("arena_blocked", time.time())
                     break
                 blocks = [nd.block for nd in matched] + got
                 suffix = req["prompt"][m * bs:]
@@ -1497,13 +1642,18 @@ class ContinuousBatcher:
                 if self._prefix is not None:
                     self.prefix_hit_tokens += m * bs
                     self.prefix_miss_tokens += len(suffix)
-                    self.prefix_hit_requests += bool(m)
+                    if m:
+                        self.prefix_hit_requests += 1
+                        mdefs.CB_PREFIX_HIT_TOKENS.inc(m * bs,
+                                                       tags=self._mtags)
+                    mdefs.CB_PREFIX_MISS_TOKENS.inc(len(suffix),
+                                                    tags=self._mtags)
             else:
                 padded_len = min(_bucket(len(suffix)), padded_cap)
             self._waiting.popleft()
             meta = self._req_meta.get(req["rid"])
             if meta is not None:
-                meta.update(admit=time.perf_counter(), blocks=len(blocks),
+                meta.update(admit=time.time(), blocks=len(blocks),
                             prefix_tokens=m * bs)
             slot = self._free.pop()
             if self.paged:
@@ -1533,23 +1683,27 @@ class ContinuousBatcher:
                 k = min(len(blocks) - m, npb)
                 tables_w[i, :k] = blocks[m:m + k]
                 ptables[i] = blocks[:m]
+            pt0 = time.time()    # the prefill span's wall-clock anchor
             t0 = time.perf_counter()
             if self.paged:
                 first = self._prefill(tokens, ptables, tables_w, last_idx)
             else:
                 first = self._prefill_dense(tokens, slots, last_idx)
             first = first.cpu().numpy()          # N ints: the device sync
-            first_ts = time.perf_counter()
-            self.prefill_seconds += first_ts - t0
+            self.prefill_seconds += time.perf_counter() - t0
+            first_ts = time.time()
+            true_tokens = int(last_idx[:n].sum()) + n
             self.prefill_batches += 1
             self.prefill_requests += n
-            self.prefill_tokens += int(last_idx[:n].sum()) + n
+            self.prefill_tokens += true_tokens
+            mdefs.CB_PREFILL_REQUESTS.inc(n, tags=self._mtags)
+            mdefs.CB_PREFILL_TOKENS.inc(true_tokens, tags=self._mtags)
             for (req, slot, blocks, matched, _, chunks), tok in zip(group,
                                                                     first):
                 tok = int(tok)
                 meta = self._req_meta.get(req["rid"])
                 if meta is not None:
-                    self._note_first_token(meta, t0, first_ts)
+                    self._note_first_token(meta, pt0, first_ts)
                 if self._prefix is not None and chunks:
                     # Index this prompt's full blocks now that their
                     # writes are queued ahead of any later reader. A
@@ -1755,12 +1909,20 @@ class ContinuousBatcher:
     def _membership(self):
         return [(s, st["rid"]) for s, st in self._slots.items()]
 
-    def _apply_tokens(self, nxt_rows, membership) -> bool:
+    def _apply_tokens(self, nxt_rows, membership, window=None) -> bool:
         """Book fetched tick rows: [B] token vectors, or (committed
         [B, k+1], counts [B]) pairs of spec ticks, each slot taking its
-        first ``counts[slot]`` tokens. True when a request finished."""
+        first ``counts[slot]`` tokens. True when a request finished.
+        ``window`` is the (wall start, wall end) of the host sync window
+        the rows cover, booked per traced request for its decode-window
+        spans (before ``_maybe_finish`` pops the request's record)."""
         finished_any = False
         applied = drafted = accepted = 0
+        track = window is not None and self._traced_live > 0
+        if track:
+            w1 = window[1]
+            w0 = window[0] if window[0] is not None else w1
+            entries: Dict[int, list] = {}
         # A tick is one sampling step whatever it committed, so the
         # rewind counter advances a row, not a token.
         self._applied_steps += len(nxt_rows)
@@ -1785,6 +1947,8 @@ class ContinuousBatcher:
                     st["last"] = tok
                     st["pos"] += 1
                     applied += 1
+                    if track:
+                        self._record_window_token(rid, entries, w0, w1)
                     self._maybe_finish(slot)
                     if slot not in self._slots:
                         # EOS or max_new inside the window: the rest of
@@ -1792,10 +1956,14 @@ class ContinuousBatcher:
                         finished_any = True
                         break
         self.decoded_tokens += applied
+        if applied:
+            mdefs.CB_DECODE_TOKENS.inc(applied, tags=self._mtags)
         if drafted:
             self.spec_draft_tokens += drafted
             self.spec_accepted_tokens += accepted
             self._spec_window.append((drafted, accepted))
+            mdefs.CB_SPEC_DRAFT_TOKENS.inc(drafted, tags=self._mtags)
+            mdefs.CB_SPEC_ACCEPTED_TOKENS.inc(accepted, tags=self._mtags)
         return finished_any
 
     # Accept-rate controller: shrink k below LOW, grow it above HIGH,
@@ -1851,9 +2019,12 @@ class ContinuousBatcher:
         ``sync_every > 1``, finish detection lags up to 2K ticks).
         Prefill and tick run under :func:`llama.fp32_reduction` (bf16
         GEMMs reduce in fp32). The chaos site ``serve_tick``
-        (``delay_tick``) stutters the tick with every request alive."""
+        (``delay_tick``) stutters the tick with every request alive.
+        ``CB_TICK_MS`` is the tick's dispatch, compute and fetch at
+        ``sync_every=1``, its dispatch alone when buffered."""
         if chaos.enabled():
-            chaos.inject("serve_tick", engine=self._engine_tag)
+            chaos.inject("serve_tick", engine=self._mtags["engine"])
+        self._emit_gauges()
         with llama.fp32_reduction(self.device, self.config.dtype):
             if self.sync_every > 1:
                 self._step_buffered()
@@ -1863,10 +2034,17 @@ class ContinuousBatcher:
                 if self._slots:
                     if self._dirty:
                         self._upload_state()
+                    w0 = time.time() if self._traced_live else None
+                    t0 = time.perf_counter()
                     row = self._run_tick()      # .cpu() below: the sync
                     nxt = (tuple(t.cpu().numpy() for t in row)
                            if isinstance(row, tuple) else row.cpu().numpy())
-                    if self._apply_tokens([nxt], self._membership()):
+                    mdefs.CB_TICK_MS.observe(
+                        (time.perf_counter() - t0) * 1e3, tags=self._mtags)
+                    if self._apply_tokens(
+                            [nxt], self._membership(),
+                            window=(w0, time.time())
+                            if w0 is not None else None):
                         self._dirty = True
         out, self._finished = self._finished, {}
         return out
@@ -1882,7 +2060,15 @@ class ContinuousBatcher:
         if self._slots:
             if self._dirty and clean:
                 self._upload_state()
+            if not self._buf and self._traced_live:
+                # A fresh buffer starts: its ticks form one sync window
+                # for the decode-window spans (the host sees their tokens
+                # only at the fetch).
+                self._window_t0 = time.time()
+            t0 = time.perf_counter()
             self._buf.append(self._run_tick())
+            mdefs.CB_TICK_MS.observe((time.perf_counter() - t0) * 1e3,
+                                     tags=self._mtags)
         want_admit = self._can_admit_head()
         if len(self._buf) >= self.sync_every or want_admit or (
                 not self._slots and (self._buf or self._pending is not None)):
@@ -1932,10 +2118,10 @@ class ContinuousBatcher:
         # stale speculation over freed slots: discard it and rewind
         # (re-upload host state next step).
         if self._pending is not None:
-            fetch, membership = self._pending
+            fetch, membership, win0 = self._pending
             self._pending = None
             if self._apply_tokens(self._rows_from_stacked(fetch),
-                                  membership):
+                                  membership, window=(win0, time.time())):
                 self._buf = []
                 self._dirty = True
                 return
@@ -1945,14 +2131,17 @@ class ContinuousBatcher:
             rows = self._rows_from_stacked(self._stack_buffer(self._buf))
             membership = self._membership()
             self._buf = []
-            self._apply_tokens(rows, membership)
+            win0, self._window_t0 = self._window_t0, None
+            self._apply_tokens(rows, membership, window=(win0, time.time()))
             self._dirty = True
             return
         if not self._buf:
             return
         # 2. One copy for the whole buffer, landing while the next K
         # ticks run.
-        self._pending = (self._stack_buffer(self._buf), self._membership())
+        self._pending = (self._stack_buffer(self._buf), self._membership(),
+                         self._window_t0)
+        self._window_t0 = None
         self._buf = []
 
     def run_to_completion(self) -> Dict[int, List[int]]:

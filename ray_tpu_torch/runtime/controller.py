@@ -28,6 +28,14 @@ The controller also carries the chaos plan (:mod:`ray_tpu_torch._private.chaos`)
 to its replica processes: it pushes the plan and the firings spent so far
 to every replica when either changes, and to every replica it spawns.
 
+It records the serve failure plane as JAX's does: a drain's
+``serve.drain_begin`` and ``serve.drain_end`` flight events,
+``SERVE_REPLICA_DRAINS`` and ``SERVE_DRAIN_SECONDS``, and each death it
+observes in ``SERVE_REPLICA_DEATHS`` (``cause="died"``, or ``"drain"``
+for a replica that died draining). :meth:`ServeController.metrics_text`
+is the ``GET /metrics`` body: this process's registry with each live
+replica's samples, labelled ``replica="<replica_id>"``.
+
 The controller's KV (``kv``: None for a dict of its own, a dict, or a
 ``torch.distributed`` store such as ``TCPStore``/``FileStore``, as the
 checkpoint plane's :class:`~ray_tpu_torch.checkpoint.plane.StoreKV`)
@@ -52,8 +60,11 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch._private import chaos
+from ray_tpu_torch._private import events as _events
+from ray_tpu_torch._private import metrics_defs as mdefs
 from ray_tpu_torch.checkpoint.plane import StoreKV, as_kv
 from ray_tpu_torch.runtime.replica import ReplicaProcess
+from ray_tpu_torch.util import metrics as _metrics
 
 logger = logging.getLogger(__name__)
 
@@ -363,6 +374,49 @@ class ServeController:
             lambda i: {"replica": i, "unreachable": True},
             lambda i, snap: {"replica": i, **(snap or {})})
 
+    # ------------------------------------------------------------ metrics
+    def metrics_text(self, timeout_s: float = 2.0) -> str:
+        """The ``GET /metrics`` body: this process's registry rendered
+        as ``prometheus_text`` renders it, each metric family followed
+        by every live replica's samples of it (``collect_samples``:
+        counters and gauges, a histogram's ``_count`` and ``_sum``),
+        each labelled ``replica="<replica_id>"``; families only replicas
+        have come last, untyped. Replicas that do not answer within
+        ``timeout_s`` are left out.
+
+        The rule for a respawn: only live replicas are asked, and a
+        replica id names one process, never reused. A dead replica's
+        samples leave the text with it and its replacement's series
+        start at zero under a new label, so nothing is counted twice
+        and no series seems to reset."""
+        with self._lock:
+            replicas = [r for name in set(self.deployments) | set(
+                self._draining) for r in self._replicas_of(name)
+                if r.alive and r.ready]
+        futs = [(r, r.control("samples")) for r in replicas]
+        wait_futures([f for _, f in futs], timeout=timeout_s)
+        extra: Dict[str, List[str]] = {}
+        for r, f in futs:
+            if not f.done() or f.exception() is not None:
+                continue
+            label = (("replica", r.replica_id),)
+            for sname, key, value in f.result():
+                labels = ",".join(f'{k}="{v}"'
+                                  for k, v in tuple(key) + label)
+                extra.setdefault(sname, []).append(
+                    f"{sname}{{{labels}}} {value}")
+        lines: List[str] = []
+        for m in _metrics.all_metrics():
+            lines.extend(m.render())
+            names = ([m.name + "_count", m.name + "_sum"]
+                     if isinstance(m, _metrics.Histogram) else [m.name])
+            for n in names:
+                lines.extend(extra.pop(n, ()))
+        for sname, rows in extra.items():
+            lines.append(f"# TYPE {sname} untyped")
+            lines.extend(rows)
+        return "\n".join(lines) + "\n"
+
     # -------------------------------------------------------------- drain
     def drain_replicas(self, name: str, count: int = 1,
                        cause: str = "operator") -> int:
@@ -381,7 +435,14 @@ class ServeController:
                 self._draining.setdefault(name, []).append({
                     "replica": victim, "cause": cause, "t0": now,
                     "deadline": now + deadline_s,
-                    "future": victim.control("drain", deadline_s)})
+                    "future": victim.control("drain", deadline_s),
+                    "event_id": _events.emit(
+                        "serve.drain_begin", subject={
+                            "deployment": name,
+                            "replica": victim.replica_id},
+                        drain_cause=cause, deadline_s=deadline_s)})
+                mdefs.SERVE_REPLICA_DRAINS.inc(
+                    tags={"deployment": name, "cause": cause})
                 started += 1
             if started:
                 self.replicas[name] = current
@@ -408,9 +469,26 @@ class ServeController:
             fut = e["future"]
             res = (fut.result() if fut.done() and fut.exception() is None
                    else None)
+            if res is not None:
+                outcome = "drained" if res.get("drained") else "deadline"
+            elif fut.done() or not e["replica"].alive:
+                outcome = "died"
+            else:
+                outcome = "deadline"
+            mdefs.SERVE_DRAIN_SECONDS.observe(
+                now - e["t0"], tags={"deployment": name,
+                                     "outcome": outcome})
+            _events.emit("serve.drain_end", cause=e["event_id"],
+                         subject={"deployment": name,
+                                  "replica": e["replica"].replica_id},
+                         outcome=outcome, drain_cause=e["cause"],
+                         waited_s=now - e["t0"])
+            if outcome == "died":
+                mdefs.SERVE_REPLICA_DEATHS.inc(
+                    tags={"deployment": name, "cause": "drain"})
             logger.info("serve: drain of a %s replica (%s) ended after "
                         "%.2f s: %s", name, e["cause"], now - e["t0"],
-                        res or "died or timed out")
+                        outcome)
             self._retire(e["replica"])
 
     # ---------------------------------------------------------- reconcile
@@ -448,6 +526,8 @@ class ServeController:
             for r in lost:          # their cards free for the replacements
                 logger.warning("serve: a replica of %s (pid %s) died or "
                                "hung; replacing it", name, r.pid)
+                mdefs.SERVE_REPLICA_DEATHS.inc(
+                    tags={"deployment": name, "cause": "died"})
                 self._retire(r, kill=True)
             starting = self._starting.get(name, [])
             ready = [r for r in starting if r.ready]

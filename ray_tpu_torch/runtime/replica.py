@@ -11,8 +11,10 @@ serves it over one duplex connection to the serving process.
   does: ``handle_request`` and ``handle_request_streaming`` (sync and
   async targets and generators, sync code on a thread pool, the
   multiplexed model id and the request context set around each call),
-  ``metrics``, ``pressure``, ``health`` and ``drain``. Admission while
-  draining raises :class:`~ray_tpu_torch.exceptions.ReplicaDrainingError`.
+  ``metrics``, ``pressure``, ``samples`` (its metric registry's
+  :func:`~ray_tpu_torch.util.metrics.collect_samples`), ``health`` and
+  ``drain``. Admission while draining raises
+  :class:`~ray_tpu_torch.exceptions.ReplicaDrainingError`.
 * :class:`ReplicaProcess` is the serving process's end: it spawns the
   replica and multiplexes many concurrent requests over the connection,
   each with its own id. A streamed item crosses as soon as the replica yields it.
@@ -24,8 +26,19 @@ serves it over one duplex connection to the serving process.
 A chaos plan (:mod:`ray_tpu_torch._private.chaos`) reaches the replica
 as a ``chaos_state`` message, which it installs before reading the next
 one; a firing of a capped rule in the replica asks the serving process
-(``chaos`` out, ``chaos_reply`` back), which counts and logs it before
-the replica acts, and a kill ends the process (``os._exit``).
+(``chaos`` out, ``chaos_reply`` back with the firing's event id), which
+counts, records and logs it before the replica acts, and a kill ends the
+process (``os._exit``).
+
+Observability crosses the same pipe. Each flight event
+(:mod:`ray_tpu_torch._private.events`) and span record
+(:mod:`ray_tpu_torch.util.tracing`) the replica emits goes to the
+serving process as it is emitted (``events`` and ``spans`` messages),
+which appends it to its own ring, where the JAX package publishes them
+to the GCS. Metric samples stay in the replica's registry until the
+serving process asks for them (the ``samples`` control op, on each
+``GET /metrics``). Records and spans name the process by its
+``replica_id``.
 
 A deployment's class or function crosses by reference: the replica
 imports it by module and qualified name (a ``@serve.deployment`` name
@@ -57,12 +70,14 @@ import torch
 import torch.multiprocessing as mp
 
 from ray_tpu_torch import exceptions
-from ray_tpu_torch._private import chaos
+from ray_tpu_torch._private import chaos, events
+from ray_tpu_torch.util import tracing
+from ray_tpu_torch.util.metrics import collect_samples
 
 logger = logging.getLogger(__name__)
 
 #: What the serving process may ask of a replica besides requests.
-CONTROL_OPS = ("metrics", "pressure", "health", "drain")
+CONTROL_OPS = ("metrics", "pressure", "samples", "health", "drain")
 
 
 class Replica:
@@ -221,6 +236,11 @@ class Replica:
                     logger.exception("pressure probe failed")  # fail requests
         return out
 
+    def samples(self):
+        """This process's metric samples (the serving process labels
+        them with the replica's id in its ``GET /metrics``)."""
+        return collect_samples()
+
     def health(self):
         return True
 
@@ -337,11 +357,11 @@ class _ReplicaServer:
             if msg[0] == "chaos_reply":
                 waiter = self._chaos_waits.pop(msg[1], None)
                 if waiter is not None:
-                    waiter.set_result(bool(msg[2]))
+                    waiter.set_result(msg[2])
                 continue
             self.loop.call_soon_threadsafe(self._dispatch, msg)
         for waiter in list(self._chaos_waits.values()):
-            waiter.set_result(False)
+            waiter.set_result("")
         self.loop.call_soon_threadsafe(self.loop.stop)
 
     def _send(self, kind: str, rid: int, value: Any = None) -> None:
@@ -353,11 +373,23 @@ class _ReplicaServer:
         with self._send_lock:
             self.conn.send_bytes(data)
 
-    def chaos_arbiter(self, generation: int, rule, entry) -> bool:
+    def forward(self, kind: str):
+        """A sink for this process's flight events (``kind="events"``)
+        or span records (``"spans"``): each batch goes to the serving
+        process at once, so it is there before a kill can end this
+        process."""
+        def sink(batch):
+            try:
+                self._send(kind, 0, batch)
+            except (OSError, ValueError):
+                pass                  # the serving process is gone
+        return sink
+
+    def chaos_arbiter(self, generation: int, rule, entry):
         """:func:`chaos.set_arbiter`'s function in a replica: a capped
-        rule's firing asks the serving process (which counts and logs
-        it) and waits for its answer; an unlimited rule's is reported
-        and fires."""
+        rule's firing asks the serving process (which counts, records
+        and logs it) and waits for its answer, the firing's event id or
+        "" (refused); an unlimited rule's is reported and fires."""
         ask = rule.times >= 0
         seq = next(self._chaos_ids)
         waiter: Future = Future()
@@ -367,14 +399,14 @@ class _ReplicaServer:
             self._send("chaos", seq, (generation, rule.id, entry, ask))
         except (OSError, ValueError):
             self._chaos_waits.pop(seq, None)
-            return False
+            return ""
         if not ask:
             return True
         try:
             return waiter.result(timeout=self.CHAOS_ASK_S)
         except TimeoutError:
             self._chaos_waits.pop(seq, None)
-            return False
+            return ""
 
     def _dispatch(self, msg) -> None:
         kind, rid = msg[0], msg[1]
@@ -430,29 +462,36 @@ class _ReplicaServer:
 
 
 def _child_main(conn, spec: bytes, env: Dict[str, str],
-                num_threads: int) -> None:
+                num_threads: int, replica_id: str = "replica") -> None:
     """The replica process: set the environment (``CUDA_VISIBLE_DEVICES``
     before anything touches CUDA), build the user's class, report ready
     (or the constructor's error) and serve until the serving process
-    goes."""
+    goes. Its flight events and spans go to the serving process from the
+    start, the constructor's included."""
     os.environ.update(env)
+    tracing.set_process_ids(replica_id)
     # A chaos kill ends this process for real (the serving process's
     # journal sees a replica death).
     os.environ["RAY_TPU_CHAOS_HARD_EXIT"] = "1"
     torch.set_num_threads(max(1, num_threads))
+    server = _ReplicaServer(conn, None)
+    events.set_local_sink(server.forward("events"))
+    tracing.set_local_sink(server.forward("spans"))
     t0 = time.perf_counter()
     try:
         ref, args, kwargs, is_function, sync_workers = pickle.loads(spec)
         replica = Replica(resolve(ref), args, kwargs, is_function,
                           sync_workers)
     except Exception as e:  # noqa: BLE001 — reported, then exit
-        conn.send_bytes(pickle.dumps(("init_error", 0, _portable(e))))
+        server._send("init_error", 0, _portable(e))
         conn.close()
         return
-    conn.send_bytes(pickle.dumps(("ready", 0, {
+    # Through the server's lock: the constructor may have started threads
+    # that already emit over the connection.
+    server._send("ready", 0, {
         "pid": os.getpid(), "init_s": time.perf_counter() - t0,
-        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")})))
-    server = _ReplicaServer(conn, replica)
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")})
+    server.replica = replica
     chaos.set_arbiter(server.chaos_arbiter)
     server.serve()
     # Handoff channels whose reader never came go with the replica.
@@ -516,12 +555,17 @@ class ReplicaProcess:
     :meth:`wait_ready` returns when the user's class is built (or raises
     its constructor's error). ``env`` is set in the process before
     anything touches CUDA (``CUDA_VISIBLE_DEVICES`` of a replica that
-    asked for GPUs); ``num_threads`` is its torch intra-op threads."""
+    asked for GPUs); ``num_threads`` is its torch intra-op threads.
+    ``replica_id`` (``<name>-<n>``, unique in this process) names it on
+    its flight events, spans and metric samples."""
+
+    _seq = itertools.count()
 
     def __init__(self, name: str, cls_or_fn, init_args, init_kwargs,
                  is_function: bool, sync_workers: int = 8,
                  env: Optional[Dict[str, str]] = None, num_threads: int = 1):
         self.name = name
+        self.replica_id = f"{name}-{next(self._seq)}"
         self.env = dict(env or {})
         self.info: Dict[str, Any] = {}
         self.dead = False
@@ -530,7 +574,8 @@ class ReplicaProcess:
         ctx = mp.get_context("spawn")
         self._conn, child = ctx.Pipe(duplex=True)
         self._proc = ctx.Process(
-            target=_child_main, args=(child, spec, self.env, num_threads),
+            target=_child_main,
+            args=(child, spec, self.env, num_threads, self.replica_id),
             daemon=True, name=f"serve-replica-{name}")
         self._ids = itertools.count(1)
         self._pending: Dict[int, Any] = {}   # id -> Future | ReplicaStream
@@ -647,6 +692,12 @@ class ReplicaProcess:
             if kind == "chaos":
                 self._chaos_fired(rid, *value)
                 continue
+            if kind == "events":
+                events._ingest(value)
+                continue
+            if kind == "spans":
+                tracing._ingest(value)
+                continue
             with self._lock:
                 waiter = (self._pending.get(rid) if kind == "item"
                           else self._pending.pop(rid, None))
@@ -670,8 +721,9 @@ class ReplicaProcess:
 
     def _chaos_fired(self, seq: int, generation: int, rule_id: str,
                      entry: Dict[str, Any], ask: bool) -> None:
-        """A firing in the replica: decided (and logged) by this
-        process's plan; a capped rule's answer goes back."""
+        """A firing in the replica: decided (recorded and logged) by this
+        process's plan; a capped rule's answer, the firing's event id or
+        "", goes back."""
         ok = chaos.arbitrate(generation, rule_id, entry)
         if ask:
             try:

@@ -23,10 +23,16 @@
   name and splits it across the pair
   (:class:`~ray_tpu_torch.serve.recovery.DisaggRecoverableStream`).
 
+The router records JAX's serve series (``SERVE_REQUESTS``,
+``SERVE_LATENCY``, ``SERVE_QUEUE_DEPTH``, ``SERVE_ROUTER_AFFINITY``), and
+under ``RAY_TPU_TRACING=1`` a ``serve.route`` span a dispatch whose id
+rides the request context to the replica, where the engine's spans
+parent to it; a unary retry emits ``serve.resume``.
+
 Not ported: the autoscaler, deployment graphs (a bound ``Application``
 as an init argument), config-file deploys and the gRPC ingress (ROADMAP.md
-queue A, after item 13); request tracing, route events over a pubsub and
-the serve metrics (item 9).
+queue A, after item 13). Route changes reach handles by a callback, not
+a pubsub.
 """
 
 from __future__ import annotations
@@ -42,7 +48,11 @@ from typing import Any, Dict, List, Optional
 
 from ray_tpu_torch import exceptions
 from ray_tpu_torch._private import chaos
+from ray_tpu_torch._private import events as _events
+from ray_tpu_torch._private import metrics_defs as mdefs
 from ray_tpu_torch.models.llama import not_ported
+from ray_tpu_torch.util import tracing
+from ray_tpu_torch.util.metrics import prometheus_text
 
 #: Seconds a call waits for a deployment with no routed replica to get
 #: one (JAX waits 10 s for an actor; a replica process cold-starts a
@@ -113,6 +123,30 @@ class DeploymentResponse:
         self._handle = handle
         self._call = call
         self._replica = replica
+        # Minted at the first retry, so a retried call's resume events
+        # chain under one request id (the clean path mints nothing).
+        self._request_id = ""
+
+    def _note_flight_resume(self, mode: str, replica=None) -> None:
+        """``serve.resume`` for a retry; its cause is inferred from the
+        ring: the rejecting replica's own drain, else the deployment's
+        newest drain, else the newest drain or chaos firing anywhere."""
+        name = self._handle._name
+        if not self._request_id:
+            self._request_id = tracing.gen_id()
+        cause = ""
+        if replica is not None:
+            cause = _events.latest_event_id(
+                ["serve.drain_begin"],
+                subject={"deployment": name,
+                         "replica": replica.replica_id})
+        cause = cause or _events.latest_event_id(
+            ["serve.drain_begin"], subject={"deployment": name}) or \
+            _events.latest_event_id(["serve.drain_begin", "chaos.inject"])
+        _events.emit("serve.resume", cause=cause,
+                     subject={"deployment": name,
+                              "request_id": self._request_id},
+                     mode=mode)
 
     def result(self, timeout_s: Optional[float] = 60.0):
         """The call's value. A drain reject re-routes for free (bounded by
@@ -139,6 +173,7 @@ class DeploymentResponse:
                 drain_rejects += 1
                 recovery.note_unary_retry(self._handle._name,
                                           "drain_reject")
+                self._note_flight_resume("drain_reject", replica)
             except exceptions.ActorDiedError as e:
                 # Zero response bytes were delivered, so a resubmission
                 # cannot double-deliver; it is still budgeted.
@@ -151,6 +186,7 @@ class DeploymentResponse:
                         self._handle._name, resumes) from e
                 resumes += 1
                 recovery.note_unary_retry(self._handle._name, "resubmit")
+                self._note_flight_resume("resubmit", replica)
             self._handle._evict(replica)
             args, kwargs = self._call
             retry = self._handle.remote(*args, **kwargs)
@@ -181,6 +217,19 @@ class DeploymentResponseGenerator:
 
 
 # ---------------------------------------------------------------- routing
+# In-flight requests this process's routers hold against each deployment
+# (the SERVE_QUEUE_DEPTH gauge).
+_QUEUE_DEPTH: Dict[str, int] = {}
+_QUEUE_DEPTH_LOCK = threading.Lock()
+
+
+def _queue_depth_delta(deployment: str, delta: int) -> int:
+    with _QUEUE_DEPTH_LOCK:
+        depth = max(_QUEUE_DEPTH.get(deployment, 0) + delta, 0)
+        _QUEUE_DEPTH[deployment] = depth
+    return depth
+
+
 class _RouterState:
     """Routing table + subscription shared by a handle and its clones."""
 
@@ -392,7 +441,10 @@ class DeploymentHandle:
             elif n == 1:
                 idx = 0
             elif prefix_key:
-                idx, _ = _affinity_pick(prefix_key, n, pressure, st.inflight)
+                idx, decision = _affinity_pick(prefix_key, n, pressure,
+                                               st.inflight)
+                mdefs.SERVE_ROUTER_AFFINITY.inc(
+                    tags={"deployment": self._name, "decision": decision})
             else:
                 loads = shared if len(shared) == n else None
                 a, b = random.sample(range(n), 2)
@@ -442,21 +494,57 @@ class DeploymentHandle:
             st.shared_pressure = snaps
         return snaps
 
+    def _observe_done(self, start: float) -> None:
+        mdefs.SERVE_LATENCY.observe(time.monotonic() - start,
+                                    tags={"deployment": self._name})
+        mdefs.SERVE_QUEUE_DEPTH.set(_queue_depth_delta(self._name, -1),
+                                    tags={"deployment": self._name})
+
     def remote(self, *args, **kwargs):
+        if not tracing.enabled():
+            # Tracing off: one env check, no context work.
+            return self._remote_impl(args, kwargs, self._request_ctx)
+        rctx = self._request_ctx
+        if rctx is None:
+            # A direct handle call (no ingress): the request's identity
+            # is minted here, continuing the caller's trace if any.
+            cur = tracing.current()
+            rctx = {"request_id": tracing.gen_id(),
+                    "trace_id": cur[0] if cur else tracing.gen_id(),
+                    "parent_span_id": cur[1] if cur else "",
+                    "deployment": self._name, "tenant": self._model_id}
+        parent = rctx.get("parent_span_id", "")
+        # The route span's id is chosen first: the replica's engine spans
+        # (recorded long after this returns) parent to it.
+        route_span = tracing.gen_id()
+        rctx = {**rctx, "parent_span_id": route_span}
+        with tracing.explicit_span(
+                "serve.route", trace_id=rctx.get("trace_id", ""),
+                span_id=route_span, parent_span_id=parent, kind="route",
+                request_id=rctx.get("request_id", ""),
+                deployment=self._name):
+            return self._remote_impl(args, kwargs, rctx)
+
+    def _remote_impl(self, args, kwargs, request_ctx):
         idx, replica = self._choose(self._model_id, self._prefix_key)
         st = self._router
+        mdefs.SERVE_REQUESTS.inc(tags={"deployment": self._name})
+        mdefs.SERVE_QUEUE_DEPTH.set(_queue_depth_delta(self._name, +1),
+                                    tags={"deployment": self._name})
+        start = time.monotonic()
 
         def _done(_=None):
             with st.lock:
                 st.inflight[idx] = max(st.inflight.get(idx, 1) - 1, 0)
+            self._observe_done(start)
 
         if self._stream:
             stream = replica.stream(self._method, args, kwargs,
-                                    self._model_id, self._request_ctx,
+                                    self._model_id, request_ctx,
                                     on_done=_done)
             return DeploymentResponseGenerator(stream, replica=replica)
         fut = replica.call(self._method, args, kwargs, self._model_id,
-                           self._request_ctx)
+                           request_ctx)
         fut.add_done_callback(_done)
         return DeploymentResponse(fut, handle=self, call=(args, kwargs),
                                   replica=replica)
@@ -615,6 +703,17 @@ def drain(name: str, count: int = 1) -> int:
     ``RAY_TPU_SERVE_DRAIN_S`` and is replaced by a fresh replica. Returns
     how many drains started."""
     return _get_controller().drain_replicas(name, count, "operator")
+
+
+def metrics_text() -> str:
+    """The Prometheus text of this process's metrics and, with serve
+    running, every live replica's samples labelled by replica
+    (:meth:`~ray_tpu_torch.runtime.controller.ServeController.metrics_text`;
+    the ingress answers ``GET /metrics`` with it)."""
+    controller = _controller
+    if controller is None:
+        return prometheus_text()
+    return controller.metrics_text()
 
 
 def delete(name: str) -> None:

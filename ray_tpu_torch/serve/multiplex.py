@@ -43,9 +43,10 @@ def _reset_model_id(token) -> None:
 def get_request_tenant() -> str:
     """The in-flight request's TENANT for telemetry attribution: the
     multiplexed model id ('' for single-tenant deployments), which the
-    engine keeps in each request's trace (the JAX package's
-    ``ray_tpu_serve_request_*`` histograms tag it; in the port they wait
-    for ROADMAP item 9). Delegates to
+    engine keeps in each request's trace and the
+    ``ray_tpu_serve_request_*`` series carry as their ``tenant`` tag, so
+    one noisy tenant's TTFT/TPOT is separable from the deployment
+    aggregate. Delegates to
     :func:`get_multiplexed_model_id` — one source of truth if a
     default-tenant rule ever lands."""
     return get_multiplexed_model_id()

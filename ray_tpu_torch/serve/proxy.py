@@ -8,9 +8,17 @@
   in-flight requests;
 * the admission gate: per-tenant token buckets and pressure-thresholded
   shedding, answered with 429 and ``Retry-After``;
-* ``GET /-/healthz`` and ``GET /-/routes``. ``PUT /-/deploy`` answers 501:
+* ``GET /-/healthz``, ``GET /-/routes`` and ``GET /metrics`` (the
+  Prometheus text of this process and its replicas,
+  :func:`~ray_tpu_torch.serve.api.metrics_text`: the port's counterpart
+  of the node agent's ``/metrics``). ``PUT /-/deploy`` answers 501:
   config-file deploys (``serve/config.py``) are queued after item 13, as
-  is the gRPC ingress; request tracing waits for item 9;
+  is the gRPC ingress;
+* request tracing: under ``RAY_TPU_TRACING=1`` the ingress mints each
+  request's context (:func:`ingress_request_context`, honouring
+  ``x-request-id``), which rides every hop to the engine, and closes the
+  root ``serve.ingress`` span when the response is written; a shed
+  request is counted in ``SERVE_REQ_OUTCOMES`` (``engine="ingress"``);
 * role groups: a stream to a group's name is classified
   (:meth:`_Router._classify_disagg`) and split across its prefill and
   decode deployments, or run whole on the decode group; a unary call
@@ -30,10 +38,14 @@ import json
 import logging
 import os
 import threading
+import time
 import zlib
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
+
+from ray_tpu_torch._private import metrics_defs as mdefs
+from ray_tpu_torch.util import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -105,16 +117,23 @@ class AdmissionGate:
     def check(self, deployment: str,
               tenant: str = "") -> Optional[Tuple[float, str]]:
         """None = admit; else ``(retry_after_s, reason)`` with reason in
-        {"tenant_rate_limit", "pressure"}."""
+        {"tenant_rate_limit", "pressure"}, the rejection counted in
+        ``ray_tpu_serve_request_outcomes_total``."""
         from ray_tpu_torch.serve import multiplex
 
         # Pressure first: a pressure shed is the fabric's fault, so it
         # must not consume the tenant's bucket.
         shed = self._pressure_shed(deployment)
         if shed is not None:
+            mdefs.SERVE_REQ_OUTCOMES.inc(tags={
+                "deployment": deployment, "tenant": tenant,
+                "engine": "ingress", "outcome": "shed_pressure"})
             return shed, "pressure"
         wait = multiplex.tenant_rate_limiter().try_acquire(tenant)
         if wait is not None:
+            mdefs.SERVE_REQ_OUTCOMES.inc(tags={
+                "deployment": deployment, "tenant": tenant,
+                "engine": "ingress", "outcome": "shed_tenant"})
             return max(wait, 0.05), "tenant_rate_limit"
         return None
 
@@ -286,6 +305,36 @@ class _Router:
                                  per_item_timeout_s=60.0)
 
 
+def ingress_request_context(deployment: str, tenant: str = "",
+                            request_id: str = "") -> Optional[Dict[str, Any]]:
+    """Mint the serve request context at the ingress: a fresh trace id
+    plus a pre-allocated ingress span id the ingress closes when the
+    response completes. None when tracing is disabled (the data plane
+    then pays one env check per request). An ``x-request-id`` supplied
+    by the client is honoured so external systems can correlate."""
+    if not tracing.enabled():
+        return None
+    return {"request_id": request_id or tracing.gen_id(),
+            "trace_id": tracing.gen_id(),
+            "parent_span_id": tracing.gen_id(),  # = the ingress span id
+            "deployment": deployment, "tenant": tenant}
+
+
+def _close_ingress_span(rctx: Optional[Dict[str, Any]], t0: float,
+                        status: Any, path: str) -> None:
+    """Emit the root ``serve.ingress`` span retrospectively (it covers
+    parse -> route -> full response write, so its id must exist before
+    its duration does)."""
+    if rctx is None:
+        return
+    tracing.emit_span("serve.ingress", trace_id=rctx["trace_id"],
+                      span_id=rctx["parent_span_id"], ts=t0,
+                      dur=time.time() - t0, kind="ingress",
+                      request_id=rctx["request_id"],
+                      deployment=rctx.get("deployment", ""),
+                      http_path=path, status=str(status))
+
+
 def _list_routes() -> Dict[str, str]:
     from ray_tpu_torch.serve import api
 
@@ -453,6 +502,15 @@ class AsyncHttpProxy:
         if method == "GET" and path == "/-/routes":
             routes = await loop.run_in_executor(self._pool, _list_routes)
             return await self._reply(writer, 200, routes, keep_alive)
+        if method == "GET" and path == "/metrics":
+            from ray_tpu_torch.serve.api import metrics_text
+
+            text = await loop.run_in_executor(self._pool, metrics_text)
+            writer.write(self._response(
+                200, text.encode(), keep_alive=keep_alive,
+                content_type="text/plain; version=0.0.4"))
+            await writer.drain()
+            return True
         if method in ("PUT", "POST") and path == "/-/deploy":
             return await self._reply(
                 writer, 501,
@@ -485,15 +543,30 @@ class AsyncHttpProxy:
                 extra_headers={"Retry-After":
                                f"{max(retry_after, 0.05):.3f}"})
 
+        # Request tracing starts here: one trace a request, which every
+        # hop (route, replica dispatch, engine admission, prefill, decode
+        # windows) parents into.
+        rctx = ingress_request_context(
+            name, tenant=model_id,
+            request_id=headers.get("x-request-id", ""))
+        ing_t0 = time.time()
+
         if not stream:
-            result = await loop.run_in_executor(
-                self._pool, self.router.call, name, call_method, payload,
-                model_id, 60.0)
-            return await self._reply(writer, 200, result, keep_alive)
+            try:
+                result = await loop.run_in_executor(
+                    self._pool, self.router.call, name, call_method,
+                    payload, model_id, 60.0, rctx)
+            except BaseException:
+                _close_ingress_span(rctx, ing_t0, "error", path)
+                raise
+            done = await self._reply(writer, 200, result, keep_alive)
+            _close_ingress_span(rctx, ing_t0, 200, path)
+            return done
 
         # Streaming: pull the first item BEFORE committing to 200 so
         # pre-stream failures surface as errors, not empty streams.
-        items = self.router.stream(name, call_method, payload, model_id)
+        items = self.router.stream(name, call_method, payload, model_id,
+                                   rctx)
 
         def pull():
             try:
@@ -505,6 +578,7 @@ class AsyncHttpProxy:
             first = await loop.run_in_executor(self._pool, pull)
         except BaseException:
             items.close()
+            _close_ingress_span(rctx, ing_t0, "error", path)
             raise
         journal = items.journal
         from ray_tpu_torch.serve.recovery import RESUMED_MARKER
@@ -532,12 +606,14 @@ class AsyncHttpProxy:
                 writer.write(_chunk({RESUMED_MARKER: journal.resumes}))
             writer.write(b"0\r\n\r\n")
             await writer.drain()
+            _close_ingress_span(rctx, ing_t0, 200, path)
             return True
         except Exception:  # noqa: BLE001 — mid-stream failure: abort the
             # connection so the client sees truncation, not completion.
             logger.exception("streaming response for %s failed mid-stream",
                              name)
             items.close()
+            _close_ingress_span(rctx, ing_t0, "aborted", path)
             return False
 
     def stop(self):
@@ -554,4 +630,5 @@ class AsyncHttpProxy:
         self._pool.shutdown(wait=False)
 
 
-__all__ = ["AdmissionGate", "AsyncHttpProxy", "prefix_fingerprint"]
+__all__ = ["AdmissionGate", "AsyncHttpProxy", "ingress_request_context",
+           "prefix_fingerprint"]

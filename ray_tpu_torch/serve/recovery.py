@@ -26,28 +26,58 @@ the journal decides the recovery:
 
 Budget: ``RAY_TPU_SERVE_MAX_RESUMES`` (default 2) death recoveries per
 request; exhaustion raises the typed
-:class:`~ray_tpu_torch.exceptions.ResumeExhaustedError`.
+:class:`~ray_tpu_torch.exceptions.ResumeExhaustedError` and tags the
+request ``resume_exhausted`` in ``ray_tpu_serve_request_outcomes_total``.
+A stream that completes after >= 1 recovery is tagged ``resumed``.
 
 :class:`DisaggRecoverableStream` is the same journal over a (prefill,
 decode) role group: the KV handoff between them is journaled exactly
 once per attempt, a prefill death resubmits and a decode death after
 the handoff resumes as a fresh prefill.
 
-The JAX package also records each recovery as a flight event and in the
-serve metrics; in the port they wait for ROADMAP item 9: recoveries are
-logged, and the split's outcomes are counted on the journal
-(``RequestJournal.handoff_outcomes``).
+Each recovery is a ``serve.resume`` flight event whose cause is the
+drain or chaos firing that forced it (inferred from the flight ring, as
+in JAX), counted in ``SERVE_REPLICA_RESUMES`` by cause; under tracing a
+zero-length ``serve.resume`` span marks the point in the request's
+trace. The split's outcomes go to ``SERVE_HANDOFFS`` and, as before, to
+the journal's own ``handoff_outcomes``.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Any, Dict, List, Optional
 
 from ray_tpu_torch import exceptions
+from ray_tpu_torch._private import events as _events
+from ray_tpu_torch._private import metrics_defs as mdefs
+from ray_tpu_torch.util import tracing
 
 logger = logging.getLogger(__name__)
+
+
+def _flight_resume(j: "RequestJournal", mode: str) -> str:
+    """The flight record of one stream re-route or resume. The request id
+    comes from the trace context when present; otherwise one is minted at
+    the first recovery and kept on the journal, so every recovery of the
+    request chains under one subject. The cause is inferred from the
+    ring: the deployment's newest drain, else the newest drain or chaos
+    firing anywhere (a replica's firings reach this process's ring over
+    its pipe)."""
+    rid = (j.request_ctx or {}).get("request_id", "")
+    if not rid:
+        rid = getattr(j, "flight_request_id", "")
+        if not rid:
+            rid = j.flight_request_id = tracing.gen_id()
+    cause = _events.latest_event_id(
+        ["serve.drain_begin"], subject={"deployment": j.deployment}) or \
+        _events.latest_event_id(["serve.drain_begin", "chaos.inject"])
+    return _events.emit(
+        "serve.resume", cause=cause,
+        subject={"deployment": j.deployment, "request_id": rid},
+        mode=mode, emitted=len(j.emitted), attempt=j.resumes)
 
 #: Stream/header marker a client sees when a SAMPLED request was resumed
 #: mid-decode (its continuation re-seeded — not the draw the dead
@@ -136,9 +166,8 @@ class RequestJournal:
         # behalf (crc32, bytes, attempt): the prefill/decode split's
         # exactly-once billing (``kv_transfer.transfer_inproc`` notes it).
         self.handoffs: List[Dict[str, Any]] = []
-        # The split's outcomes (ok, prefill_died, decode_died), counted
-        # here until the serve metrics (JAX's SERVE_HANDOFFS) come with
-        # ROADMAP item 9.
+        # The split's outcomes (ok, prefill_died, decode_died) for this
+        # request; SERVE_HANDOFFS counts them over requests.
         self.handoff_outcomes: Dict[str, int] = {}
 
     @property
@@ -174,6 +203,12 @@ class RequestJournal:
     def count_handoff(self, outcome: str) -> None:
         self.handoff_outcomes[outcome] = \
             self.handoff_outcomes.get(outcome, 0) + 1
+        mdefs.SERVE_HANDOFFS.inc(tags={"deployment": self.deployment,
+                                       "outcome": outcome})
+
+    def tags(self, engine: str = "router") -> Dict[str, str]:
+        return {"deployment": self.deployment, "tenant": self.model_id,
+                "engine": engine}
 
     def resume_payload(self) -> Any:
         """The next attempt's submission, derived from the journal:
@@ -222,6 +257,7 @@ class RecoverableStream:
         self._timeout = per_item_timeout_s
         self._inner = None
         self._replica = None
+        self._completion_reported = False
 
     def __iter__(self) -> "RecoverableStream":
         return self
@@ -264,6 +300,9 @@ class RecoverableStream:
                 f"every replica of {j.deployment!r} rejected the request "
                 f"as draining ({j.drain_rejects} rejects)")
         self._evict()
+        mdefs.SERVE_REPLICA_RESUMES.inc(tags={
+            "deployment": j.deployment, "cause": "drain_reject"})
+        _flight_resume(j, "drain_reject")
         self._dispatch(j.resume_payload() if j.emitted else j.payload)
 
     def _resume_after_death(self, err: BaseException) -> None:
@@ -281,11 +320,27 @@ class RecoverableStream:
             self._inner = iter(())
             return
         if j.resumes >= max_resumes():
+            mdefs.SERVE_REQ_OUTCOMES.inc(tags={
+                **j.tags(), "outcome": "resume_exhausted"})
             raise exhausted_error(j.deployment, j.resumes) from err
         cause = self._death_cause()
         j.resumes += 1
         if j.emitted:
             j.resumed_midstream = True
+        mdefs.SERVE_REPLICA_RESUMES.inc(tags={
+            "deployment": j.deployment, "cause": cause})
+        _flight_resume(j, cause)
+        rctx = j.request_ctx or {}
+        if rctx and tracing.enabled():
+            # A zero-length marker in the request's trace: the recovery
+            # point between the two replicas' engine spans.
+            tracing.emit_span(
+                "serve.resume", trace_id=rctx.get("trace_id", ""),
+                parent_span_id=rctx.get("parent_span_id", ""),
+                ts=time.time(), dur=0.0, kind="route",
+                request_id=rctx.get("request_id", ""),
+                deployment=j.deployment, cause=cause,
+                emitted=len(j.emitted), attempt=j.resumes)
         logger.warning(
             "serve: %s request to %r after replica death "
             "(%d item(s) already streamed, attempt %d/%d)",
@@ -299,6 +354,12 @@ class RecoverableStream:
         while True:
             try:
                 item = next(self._inner)
+            except StopIteration:
+                if j.resumes and not self._completion_reported:
+                    self._completion_reported = True
+                    mdefs.SERVE_REQ_OUTCOMES.inc(tags={
+                        **j.tags(), "outcome": "resumed"})
+                raise
             except exceptions.ReplicaDrainingError:
                 self._reroute_drained()
                 continue
@@ -424,6 +485,9 @@ class DisaggRecoverableStream(RecoverableStream):
                     f"every prefill replica of {j.deployment!r} rejected "
                     f"the request as draining ({j.drain_rejects} rejects)")
             self._prefill_handle._evict(resp._replica)
+            mdefs.SERVE_REPLICA_RESUMES.inc(tags={
+                "deployment": j.deployment, "cause": "drain_reject"})
+            _flight_resume(j, "drain_reject")
             return None
         except exceptions.ActorDiedError as e:
             # Nothing reached the caller and nothing was journaled: the
@@ -431,8 +495,13 @@ class DisaggRecoverableStream(RecoverableStream):
             self._prefill_handle._evict(resp._replica)
             j.count_handoff("prefill_died")
             if j.resumes >= max_resumes():
+                mdefs.SERVE_REQ_OUTCOMES.inc(tags={
+                    **j.tags(), "outcome": "resume_exhausted"})
                 raise exhausted_error(j.deployment, j.resumes) from e
             j.resumes += 1
+            mdefs.SERVE_REPLICA_RESUMES.inc(tags={
+                "deployment": j.deployment, "cause": "resubmit"})
+            _flight_resume(j, "resubmit")
             logger.warning(
                 "serve: resubmitting prefill for %r after replica death "
                 "(attempt %d/%d)", j.deployment, j.resumes, max_resumes())
@@ -499,18 +568,22 @@ class DisaggRecoverableStream(RecoverableStream):
 
 
 def note_unary_resumed(deployment: str, tenant: str) -> None:
-    """A unary call completed after >= 1 death retry (the metrics wait
-    for item 9; logged)."""
-    logger.info("serve: unary call to %r (tenant %r) completed after a "
-                "replica death", deployment, tenant)
+    """Metrics for a unary call that completed after >= 1 death retry
+    (the ``serve/api.py`` unary journal path)."""
+    mdefs.SERVE_REQ_OUTCOMES.inc(tags={
+        "deployment": deployment, "tenant": tenant, "engine": "router",
+        "outcome": "resumed"})
 
 
 def note_unary_exhausted(deployment: str, tenant: str) -> None:
-    logger.warning("serve: unary call to %r (tenant %r) spent its resume "
-                   "budget", deployment, tenant)
+    mdefs.SERVE_REQ_OUTCOMES.inc(tags={
+        "deployment": deployment, "tenant": tenant, "engine": "router",
+        "outcome": "resume_exhausted"})
 
 
 def note_unary_retry(deployment: str, cause: str) -> None:
+    mdefs.SERVE_REPLICA_RESUMES.inc(tags={
+        "deployment": deployment, "cause": cause})
     logger.warning("serve: unary call to %r retried (%s)", deployment,
                    cause)
 
