@@ -330,7 +330,31 @@ Phases, any failure exits non-zero with no result line:
    both processes: the tick ms and TTFT p50 of each mode (metrics stay
    on; ``[observe-cost]``), and the spans and samples the serving
    process pulled per request. Every replica process has exited and its memory is back
-   before phase 10 (``[mem]`` lines at each start and end).
+   before phase 10 (``[mem]`` lines at each start and end);
+34. the trainer controller (``[train-controller]``): phase 28's model
+   and phase 10's batch through ``TorchTrainer.fit(ScalingConfig(
+   num_workers=1, use_gpu=True))``, one worker process that owns the
+   card (``CUDA_VISIBLE_DEVICES``) and runs ``controller_loop``: the
+   batch through ``DevicePrefetcher`` (pinned memory, a side stream),
+   ``AsyncStepLoop(sync_every=4)``, a checkpoint-plane save at step 8
+   of its 20 (``train.get_checkpoint_plane()``), a report a step; a
+   chaos ``kill_worker`` at step 12's report ends the process; the
+   controller classifies it ``worker_lost``, tears the group down and
+   spawns a new worker, which restores the newest committed manifest
+   (step 8) and trains to the end. Gates: every loss from the restored
+   step on equals, bit for bit, the same loop run in this process
+   without the controller; every loss finite and the run's falling; the
+   restored step the newest committed before the kill;
+   ``TRAIN_RESTARTS{cause="worker_lost"}`` up by 1; the recovery
+   trace's children tiling ``TRAIN_RECOVERY_SECONDS``' value; the
+   goodput fractions summing to 1; 2 L / L / L flash launches a step,
+   counted in the worker. Prints the step ms (the median of the
+   windows after each attempt's first that hold no save: three in the
+   worker, four in this process) beside the in-process loop's, the
+   recovery seconds and their phases (teardown, backoff,
+   reacquire, restore, first step), the blocked ms of each save and the
+   goodput fractions. ``--train-controller`` runs this phase alone
+   (after the build).
 
 Phases 23-24 run before phases 25-28 (27 compares with 24), phases
 11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
@@ -349,9 +373,15 @@ forward entry
 ``deployment_scoring_launches``, its launches in phase 29's two scoring
 calls, and the flash entries ``mixtral_launches``, their launches in
 phase 24's run, ``mixtral_mesh_launches``, their launches in phase 27's run,
-``sharded_launches``, their launches in phase 25's 12 steps, and
-``ulysses_launches``, their launches in phase 26b);
-the last line is ``{"ok": true, "device": {...}}``.
+``sharded_launches``, their launches in phase 25's 12 steps,
+``ulysses_launches``, their launches in phase 26b, and
+``controller_launches``, their launches in phase 34's worker, reported
+steps);
+the last line is ``{"ok": true, "device": {...}}``. Before the record,
+the script stops every process the port's runtime started (the replica
+and worker processes, their fork server and resource tracker:
+``runtime.replica.stop_all``) and fails if a child of its own is still
+running (:func:`stop_processes`).
 
 ``python3 chip_smoke.py --mesh-check`` instead needs four cards: it
 spawns four ranks of one NCCL group (``tcp://localhost``, a free port)
@@ -378,9 +408,14 @@ expert=2 x fsdp=2, phase 10's 2 x 2048 batch, 5 steps: step ms, tokens/s
 a card, MFU over the active params and peak (``[mesh-mixtral]``); phase
 28's model after one step saved at fsdp=4 (a shard a rank, a TCPStore
 KV), restored at fsdp=2 x tensor=2 and on rank 0 alone, bit for bit
-(``[mesh-ckpt]``). ``--mesh-check SECTION ...`` runs only the named
-sections of ``MESH_SECTIONS`` (trainer, moe, mixtral, ckpt). It prints
-no result line.
+(``[mesh-ckpt]``); then ``TorchTrainer`` with four NCCL workers (a card
+each) on phase 25's fp32 model at fsdp=4, a chaos ``kill_worker`` whose
+node is lost (``resize=2``) restarting them on fsdp=2 from the newest
+committed manifest, ``request_resize(4)`` growing them back, every loss
+within ``MESH_CONTROLLER["tol"]`` of the uninterrupted fsdp=4 run
+(``[mesh-train-controller]``). ``--mesh-check SECTION ...`` runs only
+the named sections of ``MESH_SECTIONS`` (trainer, moe, mixtral, ckpt,
+train-controller). It prints no result line.
 
 ``python3 chip_smoke.py --paged-host-us ROOT`` instead measures only the
 host microseconds a paged call takes (``host_us``, the phase-3 cases at
@@ -506,7 +541,7 @@ MESH_MOE = dict(
     train=dict(layers=16, sizes=dict(expert=2, fsdp=2), steps=5,
                peak_gib=75.0),
     ckpt=dict(save=dict(fsdp=4), restore=dict(fsdp=2, tensor=2)))
-MESH_SECTIONS = ("trainer", "moe", "mixtral", "ckpt")
+MESH_SECTIONS = ("trainer", "moe", "mixtral", "ckpt", "train-controller")
 # Device kernels of the MoE routing by name (after flash and GEMMs): the
 # stable sort of top-k, the cumsum of the slots, the index copies and
 # gathers and the one-hot scatters. The embedding lookup and its
@@ -577,6 +612,28 @@ SPEC_SAMPLING = dict(temperature=0.8, top_p=0.9, seed=11)
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def stop_processes():
+    """Stop what the port's runtime started and fail if a child of this
+    process still runs: nothing the script starts outlives it."""
+    from ray_tpu_torch.runtime import replica
+
+    replica.stop_all()
+    me, left = str(os.getpid()), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode()[:160]
+        except OSError:
+            continue               # it ended while we read it
+        if ppid == me and state != "Z":
+            left.append(f"{pid} {cmd}")
+    if left:
+        fail(f"processes still running: {left}")
+    print("[processes] every child stopped")
 
 
 def card_line():
@@ -2410,12 +2467,18 @@ def mesh_check(torch, sections=MESH_SECTIONS):
         fail(f"--mesh-check needs {world} cards, found "
              f"{torch.cuda.device_count()}")
     _build.build_all()
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    mp.start_processes(mesh_rank, args=(world, f"tcp://localhost:{port}",
-                                        "nccl", sections),
-                       nprocs=world, start_method="spawn", join=True)
+    ranked = tuple(s for s in sections if s != "train-controller")
+    if ranked:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        mp.start_processes(mesh_rank, args=(world,
+                                            f"tcp://localhost:{port}",
+                                            "nccl", ranked),
+                           nprocs=world, start_method="spawn", join=True)
+    if "train-controller" in sections:
+        # TorchTrainer spawns and places its own four workers.
+        mesh_train_controller(torch, card_line())
 
 
 def mesh_rank(rank, world, init_method, backend, sections=MESH_SECTIONS):
@@ -3301,6 +3364,375 @@ def mesh_ckpt(torch, rank, device):
         dist.barrier()
         if rank == 0:
             shutil.rmtree(root[0], ignore_errors=True)
+
+
+# ------------------------------------- phase 34: the trainer controller
+# TorchTrainer.fit over one worker process that owns the card: phase 28's
+# model (Llama-3-8B widths at CKPT["layers"] layers, bf16, phase 10's
+# optimizer) on phase 10's batch (2 x 2048), fed by DevicePrefetcher and
+# driven by AsyncStepLoop(sync_every); one checkpoint-plane save, at
+# save_step, joined before the next window's reports; a chaos kill at
+# kill_step's report, in the window after the save's, so the save's
+# window is reported whole. The steps after the restore give the
+# worker's step time three windows without a save.
+CONTROLLER = dict(steps=20, sync_every=4, save_step=8, kill_step=12)
+
+
+def controller_steps(torch, trainer, state, start, plane=None,
+                     on_window=None):
+    """Phase 34's loop, in the worker and (with no ``plane``) in this
+    process: steps ``start`` to CONTROLLER["steps"] on phase 10's batch
+    through DevicePrefetcher and AsyncStepLoop. ``on_window(records)``
+    gets each synced window's records, one a step: loss, grad norm, the
+    window's ms a step, its flash launches a step, and whether a save
+    blocked in it. A save's persist is joined before the next window's
+    records go out (its wait is the goodput ledger's ckpt_block), so a
+    report cites a committed step."""
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.train import (AsyncStepLoop, DevicePrefetcher,
+                                     goodput)
+    from ray_tpu_torch.train.ingest import synthetic_host_batches
+
+    c, t = CONTROLLER, TRAIN
+    host = next(synthetic_host_batches(t["batch"], t["seq"],
+                                       trainer.config.vocab_size, steps=1))
+
+    def batches():
+        for _ in range(start, c["steps"]):
+            yield {k: v.copy() for k, v in host.items()}
+
+    loop = AsyncStepLoop(trainer, state, sync_every=c["sync_every"],
+                         name="phase34")
+    win = dict(start=start, counts=dict(flash_attention.launches),
+               wall=0.0, saves=[], first=True)
+    pending = None
+
+    def window():
+        nonlocal pending
+        n = len(loop.history) - (win["start"] - start)
+        if n <= 0:
+            return
+        if pending is not None:
+            t0 = time.perf_counter()
+            pending.result()
+            goodput.note_ambient("ckpt_block", time.perf_counter() - t0)
+            pending = None
+        now = dict(flash_attention.launches)
+        per = {k: (now[k] - win["counts"][k]) / n for k in now}
+        wall = loop.stats()["window_wall_s"]
+        ms = (wall - win["wall"]) / n * 1e3
+        # The window's saves ride its first record.
+        recs = [dict(step=win["start"] + i, loss=h["loss"],
+                     grad_norm=h["grad_norm"], step_ms=ms, launches=per,
+                     first_window=win["first"], saved=bool(win["saves"]),
+                     blocked_ms=win["saves"] if i == 0 else [])
+                for i, h in enumerate(loop.history[win["start"] - start:])]
+        win.update(start=win["start"] + n, counts=now, wall=wall, saves=[],
+                   first=False)
+        if on_window is not None:
+            on_window(recs)
+
+    with DevicePrefetcher(batches(), trainer, depth=2, name="phase34") as pf:
+        step = start
+        for batch in pf:
+            synced = len(loop.history)
+            loop.step(batch)
+            step += 1
+            if len(loop.history) > synced:
+                window()
+            if plane is not None and step == c["save_step"]:
+                pending = trainer.save_state(plane, loop.state)
+                win["saves"].append(pending.blocked_ms)
+    loop.finish()
+    window()
+    return loop.state
+
+
+def controller_loop(config):
+    """Phase 34's train loop, in the worker process TorchTrainer spawned
+    (it sees its card as cuda:0): restore the newest committed manifest
+    or start from phase 28's init, then report every step; the first
+    report of an attempt that restored carries the restore."""
+    import torch
+
+    from ray_tpu_torch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trainer = _ckpt_trainer()
+    plane = train.get_checkpoint_plane()
+    restored = None
+    if plane.latest_step() is not None:
+        state = trainer.restore_state(plane)
+        torch.cuda.synchronize()
+        restored = dict(step=state.step,
+                        restore_s=plane.last_restore["seconds"],
+                        bytes=plane.last_restore["bytes"])
+    else:
+        state = trainer.init_state(0)
+
+    def report(recs):
+        nonlocal restored
+        for r in recs:
+            train.report(dict(r, restored=restored))
+            restored = None
+
+    controller_steps(torch, trainer, state, state.step, plane, report)
+
+
+def _restarts(mdefs, cause):
+    return sum(v for _n, k, v in mdefs.TRAIN_RESTARTS.samples()
+               if ("cause", cause) in k and ("trainer", "TorchTrainer") in k)
+
+
+def _recovery_sum(mdefs):
+    return sum(v for n, k, v in mdefs.TRAIN_RECOVERY_SECONDS.samples()
+               if n.endswith("_sum") and ("trainer", "TorchTrainer") in k)
+
+
+def _median_ms(recs):
+    """Median ms a step over the windows after each attempt's first,
+    leaving out windows a save blocked in."""
+    ok = [r["step_ms"] for r in recs
+          if not r["first_window"] and not r["saved"]]
+    return float(np.median(ok)) if ok else None
+
+
+def controller_phase(torch, card):
+    """Phase 34: TorchTrainer.fit(ScalingConfig(num_workers=1,
+    use_gpu=True)) with one worker on the card, a chaos kill_worker at
+    CONTROLLER["kill_step"] and the recovery; held against the same
+    loop run in this process."""
+    import shutil
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private import chaos
+    from ray_tpu_torch._private import metrics_defs as mdefs
+    from ray_tpu_torch.checkpoint import CheckpointPlane
+    from ray_tpu_torch.util import tracing
+
+    c = CONTROLLER
+    # The uninterrupted loop in this process, no controller.
+    trainer = _ckpt_trainer()
+    state = trainer.init_state(0)
+    nbytes = _state_bytes(state)
+    want = []
+    controller_steps(torch, trainer, state, 0, None, want.extend)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = CKPT["layers"]
+    per_step = {"fwd": 2 * L, "dq": L, "dkv": L}
+    tmp, free = _scratch_dir(int(CKPT["disk_margin"] * 2 * nbytes),
+                             "train-controller")
+    restarts0, rec0 = _restarts(mdefs, "worker_lost"), _recovery_sum(mdefs)
+    os.environ["RAY_TPU_TRACING"] = "1"
+    chaos.configure(f"kill_worker:rank=0,step={c['kill_step']}")
+    try:
+        ctl = train.TorchTrainer(
+            controller_loop, train_loop_config={},
+            scaling_config=train.ScalingConfig(num_workers=1,
+                                               use_gpu=True),
+            run_config=train.RunConfig(name="phase34", storage_path=tmp))
+        t0 = time.perf_counter()
+        result = ctl.fit()
+        fit_s = time.perf_counter() - t0
+        fired = [e["action"] for e in chaos.injection_log()]
+        committed = CheckpointPlane(os.path.join(result.path, "ckpt_plane"),
+                                    run="train").steps()
+    finally:
+        chaos.reset()
+        os.environ.pop("RAY_TPU_TRACING", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if result.error is not None:
+        fail(f"train-controller: fit failed: {result.error!r}")
+    causes = [r["cause"] for r in ctl.recovery_log]
+    if causes != ["worker_lost"] or fired != ["kill_worker"]:
+        fail(f"train-controller: recoveries {causes}, chaos {fired}; want "
+             f"one worker_lost from the kill")
+    recs = [h["metrics"] for h in result.metrics_history]
+    marks = [i for i, r in enumerate(recs) if r.get("restored")]
+    if len(marks) != 1:
+        fail(f"train-controller: {len(marks)} restores reported, want 1")
+    restored = recs[marks[0]]["restored"]
+    after = recs[marks[0]:]
+    newest = max((s for s in committed if s <= c["kill_step"]), default=None)
+    if restored["step"] != newest or newest != c["save_step"]:
+        fail(f"train-controller: restored step {restored['step']}, newest "
+             f"committed before the kill {newest} (committed {committed})")
+    got = [r["loss"] for r in after]
+    ref = [w["loss"] for w in want[restored["step"]:]]
+    if got != ref or [r["step"] for r in after] != list(
+            range(restored["step"], c["steps"])):
+        fail(f"train-controller: losses from the restored step {got} != "
+             f"the uninterrupted loop's {ref}")
+    losses = [r["loss"] for r in recs]
+    if not all(np.isfinite(losses)) or not ref[-1] < want[0]["loss"] or \
+            not losses[-1] < losses[0]:
+        fail(f"train-controller: losses {losses} (want finite, falling)")
+    if any(r["launches"] != per_step for r in recs + want):
+        fail(f"train-controller: flash launches a step "
+             f"{[r['launches'] for r in recs]}, want {per_step}")
+    if _restarts(mdefs, "worker_lost") != restarts0 + 1:
+        fail("train-controller: TRAIN_RESTARTS{cause=worker_lost} did not "
+             "rise by 1")
+    recovery_s = ctl.recovery_log[0]["recovery_s"]
+    spans = tracing.local_spans(trace_id=ctl._trace_id)
+    (rec,) = [s for s in spans if s["name"] == "train.recovery"]
+    kids = {s["name"].rsplit(".", 1)[1]: s["dur"] for s in spans
+            if s.get("parent_span_id") == rec["span_id"]}
+    if rec["dur"] != recovery_s or abs(sum(kids.values()) - recovery_s) > \
+            1e-6 or abs(_recovery_sum(mdefs) - rec0 - recovery_s) > 1e-6 \
+            or not tracing.connected(
+                [s for s in spans if s["name"].startswith("train.")],
+                root="train.run"):
+        fail(f"train-controller: recovery trace {kids} (span "
+             f"{rec['dur']}) does not tile TRAIN_RECOVERY_SECONDS' "
+             f"{recovery_s}")
+    summary = ctl.goodput_summary()
+    if abs(sum(summary["fractions"].values()) - 1.0) > 1e-6 or any(
+            abs(sum(e["components"].values()) - e["wall_s"]) >
+            0.01 * e["wall_s"] for e in ctl.goodput_log):
+        fail(f"train-controller: goodput fractions {summary['fractions']} "
+             f"do not sum to 1")
+    blocked = [ms for r in recs for ms in r["blocked_ms"]]
+    launches = {k: sum(r["launches"][k] for r in recs) for k in per_step}
+    stats = dict(
+        layers=L, steps=c["steps"], state_bytes=nbytes, free_bytes=free,
+        step_ms=_median_ms(recs), inprocess_step_ms=_median_ms(want),
+        fit_s=fit_s, recovery_s=recovery_s,
+        recovery_phases=dict(
+            kids, restore=restored["restore_s"],
+            first_step=kids["restore_first_step"] - restored["restore_s"]),
+        restored_step=restored["step"], restore_bytes=restored["bytes"],
+        committed=committed, blocked_ms_per_save=blocked,
+        goodput_fractions=summary["fractions"],
+        goodput_attempts=[dict(world=e["world"], wall_s=e["wall_s"],
+                               components=e["components"])
+                          for e in ctl.goodput_log],
+        losses=losses, inprocess_losses=[w["loss"] for w in want],
+        launches_per_step=per_step, launches=launches, card=card)
+    print(f"[train-controller] {json.dumps(stats)}", flush=True)
+    return stats
+
+
+# --mesh-check's train-controller section: TorchTrainer with four NCCL
+# workers (a card each) training phase 25's fp32 parity model on fsdp=4,
+# a chaos kill_worker whose node is lost (world_target 2) at kill_step,
+# the restart on fsdp=2, request_resize(4) at grow_step to grow back;
+# against the uninterrupted fsdp=4 run, losses within tol relative (fp32
+# sums reduced over 2 and 4 ranks in other orders, carried through the
+# optimizer's steps: 1.4e-5 at step 9 in a gloo rehearsal on the CPU).
+MESH_CONTROLLER = dict(steps=10, kill_step=3, grow_step=6, stall_s=2.0,
+                       tol=1e-4)
+
+
+def mesh_controller_loop(config):
+    """The train-controller section's loop, in each worker: restore the
+    newest committed manifest onto fsdp=<world> (or init), then a step,
+    a save, a barrier and a report each step; rank 0 asks the grow-back
+    resize at grow_step (world 2) and holds that step unsaved."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (ShardedTrainer,
+                                               default_optimizer,
+                                               synthetic_batch)
+    from ray_tpu_torch.parallel import DEFAULT_RULES, MeshConfig, make_mesh
+
+    m = MESH_CONTROLLER
+    ctx = train.get_context()
+    world, rank = ctx.get_world_size(), ctx.get_world_rank()
+    device = torch.device(config["device"])
+    p = dict(SHARDED_PARITY)
+    p.pop("batch")
+    seq = p.pop("seq")
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32, **p)
+    mesh = make_mesh(MeshConfig(fsdp=world), device_type=device.type)
+    trainer = ShardedTrainer(cfg, mesh, rules=DEFAULT_RULES,
+                             optimizer=default_optimizer(
+                                 warmup_steps=2, total_steps=50,
+                                 learning_rate=1e-2))
+    plane = train.get_checkpoint_plane()
+    restored = None
+    if plane.latest_step() is not None:
+        state = trainer.restore_state(plane)
+        restored = [world, state.step]
+    else:
+        state = trainer.init_state(0)
+    batch = synthetic_batch(MESH_CHECK["batch"], seq, cfg.vocab_size,
+                            seed=1, device=device)
+    for step in range(state.step, m["steps"]):
+        if rank == 0 and config.get("chaos") and world == 2 and \
+                step == m["grow_step"]:
+            train.request_resize(4)
+            time.sleep(m["stall_s"])
+        state, met = trainer.train_step(state, batch)
+        trainer.save_state(plane, state).result()
+        dist.barrier()
+        train.report({"step": step, "loss": float(met["loss"]),
+                      "world": world, "restored": restored})
+        restored = None
+
+
+def mesh_train_controller(torch, card, device="cuda"):
+    """The train-controller section (``device`` "cpu": gloo workers)."""
+    import tempfile
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private import chaos
+
+    m = MESH_CONTROLLER
+    world = MESH_CHECK["world"]
+    os.environ.setdefault("RAY_TPU_RESTART_BACKOFF_S", "0.5")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="mesh_controller_") as tmp:
+        for name in ("uninterrupted", "chaos"):
+            if name == "chaos":
+                chaos.configure(f"kill_worker:rank=1,step={m['kill_step']},"
+                                f"resize=2")
+            try:
+                ctl = train.TorchTrainer(
+                    mesh_controller_loop,
+                    train_loop_config={"device": device,
+                                       "chaos": name == "chaos"},
+                    scaling_config=train.ScalingConfig(
+                        num_workers=world, min_workers=1,
+                        use_gpu=device == "cuda"),
+                    run_config=train.RunConfig(name=name,
+                                               storage_path=tmp))
+                result = ctl.fit()
+            finally:
+                chaos.reset()
+            if result.error is not None:
+                fail(f"mesh train-controller {name}: {result.error!r}")
+            runs[name] = (ctl, [h["metrics"] for h in
+                                result.metrics_history])
+    ctl, recs = runs["chaos"]
+    causes = [r["cause"] for r in ctl.recovery_log]
+    restores = [r["restored"] for r in recs if r.get("restored")]
+    if causes != ["worker_lost", "resize"] or restores != [
+            [2, m["kill_step"] + 1], [4, m["grow_step"]]]:
+        fail(f"mesh train-controller: recoveries {causes}, restores "
+             f"{restores}; want worker_lost then resize, restored at "
+             f"(2, {m['kill_step'] + 1}) and (4, {m['grow_step']})")
+    want = {r["step"]: r["loss"] for r in runs["uninterrupted"][1]}
+    worst = max(abs(r["loss"] - want[r["step"]]) / abs(want[r["step"]])
+                for r in recs)
+    if worst > m["tol"] or recs[-1]["world"] != world or \
+            recs[-1]["step"] != m["steps"] - 1:
+        fail(f"mesh train-controller: loss gap {worst:.3e} against the "
+             f"uninterrupted run (tol {m['tol']}), last {recs[-1]}")
+    res = dict(recoveries=ctl.recovery_log, restores=restores,
+               worlds=sorted({(r["step"], r["world"]) for r in recs}),
+               worst_loss_rel=worst,
+               recovery_s=[r.get("recovery_s") for r in ctl.recovery_log],
+               goodput=ctl.goodput_summary()["fractions"], card=card)
+    print(f"[mesh-train-controller] {json.dumps(res, default=str)}",
+          flush=True)
+    return res
 
 
 def build_report(log):
@@ -4645,6 +5077,14 @@ def main():
                  f"{MESH_SECTIONS}")
         mesh_check(torch, sections)
         return
+    if sys.argv[1:2] == ["--train-controller"]:
+        from ray_tpu_torch.ops import _build
+
+        card = card_line()
+        print(card)
+        _build.build_all()
+        timed("phase 34", controller_phase, torch, card)
+        return
     if sys.argv[1:2] == ["--dense-ms"]:
         print(card_line())
         dense_ms(torch, sys.argv[2])
@@ -4707,6 +5147,7 @@ def main():
     mix = timed("phase 24", mixtral_train, torch, card)
     sharded, seq, mix_mesh, _ = timed("phases 25-28", sharded_train, torch,
                                       card, train, mix)
+    controller = timed("phase 34", controller_phase, torch, card)
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(
@@ -4735,6 +5176,7 @@ def main():
             mixtral_launches=mix["launches"][n],
             mixtral_mesh_launches=mix_mesh["launches"][n],
             sharded_launches=sharded["launches"][n],
+            controller_launches=controller["launches"][n],
             ulysses_launches=seq["ulysses"]["launches"][n],
             **({"deployment_scoring_launches":
                 serving["deploy"]["scoring_launches"]} if n == "fwd"
@@ -4758,6 +5200,7 @@ def main():
         plain_ms=main_dense["plain_ms"], bound_ms=main_dense["bound_ms"],
         bound_by=main_dense["bound_by"],
         library_ms=main_dense["library_ms"], card=card, variants=dense))
+    stop_processes()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

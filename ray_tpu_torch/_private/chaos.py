@@ -7,10 +7,16 @@ fires there. The port puts sites on the serve plane: the replica
 lifecycle (``serve_replica``: ``phase=prefill|decode|drain``), the drain
 wait (``serve_drain``), the router's pressure fetch (``serve_pressure``),
 the engine's tick (``serve_tick``) and both sides of the KV handoff
-(``kv_transfer``: ``stage=export|import``). The train, checkpoint, pool
-and learner sites of the JAX package come with ROADMAP items 8b, 10 and
-12; their actions are parsed here already (the action-to-site table is
-JAX's, entry for entry).
+(``kv_transfer``: ``stage=export|import``), and on the train plane: the
+step boundary (``train_step`` in ``train.report``: ``kill_worker``,
+``slow_step``, ``resize``), a worker's heartbeat (``train_heartbeat``:
+``drop_heartbeat``, ``delay_heartbeat``) and the checkpoint plane's shard
+write (``ckpt_shard_write``: ``fail_shard_write``; ``ckpt_shard_file``:
+``corrupt_shard``). ``preempt_node`` publishes a real preemption notice
+(``target=<node>``, default every subscriber) wherever its site fires.
+The pool and learner sites of the JAX package come with ROADMAP items 10
+and 12; their actions are parsed here already (the action-to-site table
+is JAX's, entry for entry).
 
 Determinism contract: a plan is a seed plus an ordered rule list. Rules
 matched by exact coordinates (``stage=export``) fire wherever the
@@ -29,9 +35,10 @@ seed=7)``) or by environment: ``RAY_TPU_CHAOS`` holds the spec and
 :func:`inject`. With no plan installed, :func:`inject` is one attribute
 check.
 
-Across processes. The port's serve replicas are spawned processes (the
-JAX package hosts them in-process), so one plan spans the serving
-process and its replicas:
+Across processes. The port's serve replicas and train workers are
+spawned processes (the JAX package hosts them in-process), so one plan
+spans the serving (or trainer controller) process and its replicas (or
+workers):
 
 * the serving process's controller pushes the plan and the firings
   spent so far (:func:`state`) to every running replica whenever either
@@ -126,7 +133,6 @@ _INT_PARAMS = ("rank", "step", "proc", "times", "resize", "world", "token",
                "tick")
 _FLOAT_PARAMS = ("secs", "p", "jitter", "eps")
 _KILLS = ("kill_worker", "kill_replica", "kill_arbiter", "kill_transfer")
-_PREEMPT_ITEM = "item 8b (the trainer controller and its preemption plane)"
 
 
 class ChaosRule:
@@ -488,10 +494,19 @@ def _apply(plan: ChaosPlan, rule: ChaosRule, site: str,
         time.sleep(delay)
         directives["slept_s"] = delay
     elif action == "preempt_node":
-        from ray_tpu_torch.models.llama import not_ported
+        # A node dies: publish the REAL preemption notice (``target=``
+        # names the node; default every subscriber) — running trainers
+        # JIT-save; the directive lets the site log what hit it.
+        target = str(rule.params.get("target", "*"))
+        try:
+            from ray_tpu_torch.checkpoint.preempt import publish_preempt
 
-        raise not_ported("the preempt_node chaos action (preemption "
-                         "notices)", _PREEMPT_ITEM)
+            notice = publish_preempt(reason="chaos-preempt-node",
+                                     node=target, cause=event_id)
+            directives["notice_id"] = notice.get("notice_id", "")
+        except Exception:  # noqa: BLE001 — chaos must not mask the fault
+            logger.exception("chaos: preempt_node publish failed")
+        directives["preempted_node"] = target
     elif action == "fail_create_node":
         raise RuntimeError(f"chaos fail_create_node at {coords}")
     elif action == "perturb_learner":
@@ -500,10 +515,12 @@ def _apply(plan: ChaosPlan, rule: ChaosRule, site: str,
 
 
 def _publish_resize(world_target: int, reason: str) -> None:
-    from ray_tpu_torch.models.llama import not_ported
+    try:
+        from ray_tpu_torch.checkpoint.preempt import publish_preempt
 
-    raise not_ported(f"resize hints ({reason}, world {world_target})",
-                     _PREEMPT_ITEM)
+        publish_preempt(reason=reason, world_target=world_target)
+    except Exception:  # noqa: BLE001 — chaos must not mask the fault
+        logger.exception("chaos: resize publish failed")
 
 
 def _corrupt_file(path: str) -> None:

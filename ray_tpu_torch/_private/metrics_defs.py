@@ -4,8 +4,7 @@
 Each keeps the JAX package's name, kind, description, tag keys and
 histogram boundaries (``tests/test_torch_metrics.py`` holds them to
 JAX's), so a dashboard or a query written against one package reads the
-other. The series of modules not ported yet stay out: ``TRAIN_*`` and
-``CKPT_PREEMPT_NOTICES`` (the trainer controller), ``XLA_*``,
+other. The series of modules not ported yet stay out: ``XLA_*``,
 ``DEVICE_MEM_*`` and ``PROFILE_CAPTURES`` (the profiling plane),
 ``SERVE_AUTOSCALE_DECISIONS`` and ``POOL_*`` (the autoscaler), and the
 GCS, RPC, node, store and agent series (the actor core).
@@ -284,6 +283,94 @@ CKPT_SAVES = Counter(
     "Checkpoint persists by outcome: committed (this participant flipped "
     "the manifest), registered (a peer commits), failed",
     ("run", "outcome"))
+
+CKPT_PREEMPT_NOTICES = Counter(
+    "ray_tpu_ckpt_preempt_notices_total",
+    "Preemption notices delivered to this process, by source "
+    "(local/publish/pubsub)",
+    ("source",))
+
+# ---------------------------------------------------------------- train (L6)
+# The trainer controller (``train/trainer.py``), its ingest prefetcher
+# (``train/ingest.py``) and step loop (``train/loop.py``).
+TRAIN_REPORTS = Counter(
+    "ray_tpu_train_reports_total",
+    "train.report() rounds merged by the trainer",
+    ("trainer",))
+TRAIN_STEP_SECONDS = Histogram(
+    "ray_tpu_train_step_seconds",
+    "Wall time between consecutive merged report rounds",
+    tag_keys=("trainer",))
+TRAIN_TOKENS_PER_S = Gauge(
+    "ray_tpu_train_tokens_per_s",
+    "Training throughput as last reported by rank 0 (tokens_per_s key)",
+    ("trainer",))
+TRAIN_RESTARTS = Counter(
+    "ray_tpu_train_restarts_total",
+    "Elastic trainer restarts by failure cause (worker_lost/hang/"
+    "preemption/resize/user) — fatal errors end the run and are not "
+    "counted",
+    ("trainer", "cause"))
+TRAIN_WORLD_SIZE = Gauge(
+    "ray_tpu_train_world_size",
+    "Worker count the current training attempt was scheduled with "
+    "(moves on elastic shrink/grow restarts)",
+    ("trainer",))
+TRAIN_RECOVERY_SECONDS = Histogram(
+    "ray_tpu_train_recovery_seconds",
+    "Failure detection to the restarted attempt's first report: group "
+    "teardown + backoff + re-acquisition + mesh re-formation + manifest "
+    "restore + first step",
+    boundaries=(0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 180.0, 600.0,
+                1800.0),
+    tag_keys=("trainer",))
+TRAIN_GOODPUT_SECONDS = Counter(
+    "ray_tpu_train_goodput_seconds_total",
+    "Attempt wall clock attributed by the goodput ledger, by component: "
+    "step (productive: dispatching / free-running ahead of the device), "
+    "input_stall (empty prefetch buffer), sync (windowed metric fetch), "
+    "ckpt_block (checkpoint device->host snapshot), recovery (elastic "
+    "recovery dead time + restore) — rank-0 ledger deltas plus the "
+    "controller's inter-session recovery time",
+    ("trainer", "component"))
+TRAIN_GOODPUT_FRACTION = Gauge(
+    "ray_tpu_train_goodput_fraction",
+    "Fraction of the current attempt's wall clock per goodput-ledger "
+    "component (components sum to 1; the dashboard stacks them)",
+    ("trainer", "component"))
+TRAIN_RANK_STEP_SECONDS = Histogram(
+    "ray_tpu_train_rank_step_seconds",
+    "Per-rank step wall time (dispatch->report gap recorded by each "
+    "worker's session) — the controller's window merge of these feeds "
+    "rank-skew scoring and straggler detection",
+    boundaries=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0,
+                120.0),
+    tag_keys=("trainer", "rank"))
+TRAIN_STRAGGLER = Gauge(
+    "ray_tpu_train_straggler",
+    "1 while a rank is flagged as a straggler (mean step time over "
+    "RAY_TPU_STRAGGLER_FACTOR x the window median for "
+    "RAY_TPU_STRAGGLER_WINDOWS consecutive windows), 0 once cleared",
+    ("trainer", "rank"))
+TRAIN_INPUT_STALL = Histogram(
+    "ray_tpu_train_input_stall_seconds",
+    "Per-batch time the train loop sat blocked on an empty device-"
+    "prefetch buffer (the input pipeline couldn't keep up) — the "
+    "histogram _sum over wall time is the run's input-stall fraction",
+    boundaries=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5,
+                1.0, 5.0),
+    tag_keys=("iterator",))
+TRAIN_PREFETCH_OCCUPANCY = Gauge(
+    "ray_tpu_train_prefetch_buffer_occupancy",
+    "Device-prefetch buffer fill fraction (0 = consumer starved, "
+    "1 = producer a full depth ahead) sampled at each put/get",
+    ("iterator",))
+TRAIN_INGEST_BYTES = Counter(
+    "ray_tpu_train_ingest_bytes_total",
+    "Host bytes staged onto the device mesh by the ingest prefetcher "
+    "(decode output, pre-device_put) — its rate is the training "
+    "data-plane bytes/s",
+    ("iterator",))
 
 # ----------------------------------------------- RL weight swaps (llm/)
 RL_VERSION = Gauge(

@@ -45,10 +45,14 @@ A save records JAX's ``CKPT_BLOCK_MS``, ``CKPT_SAVE_SECONDS``,
 ``CKPT_BYTES`` and ``CKPT_SAVES`` and a restore ``CKPT_RESTORE_SECONDS``
 and ``CKPT_BYTES``, tagged with the run; the records
 (``SaveHandle.blocked_ms``, the persist record, ``last_restore``) keep
-the numbers too. Not here yet: goodput's attribution of the blocked and
-restore time (``train/goodput.py``) and the preemption plane
-(``preempt.py``), both with the trainer controller, and the chaos sites
-(tests monkeypatch ``_write_shard_files``).
+the numbers too. Inside a training session the blocked time is the
+goodput ledger's ``ckpt_block`` and the restore time its ``recovery``
+(:func:`ray_tpu_torch.train.goodput.note_ambient`, a no-op outside one).
+``fence`` (the session's stop flag) makes a save raise
+``WorkerStoppedError`` once the controller tears the worker group down.
+The chaos sites are JAX's: ``ckpt_shard_write`` (``fail_shard_write``
+raises ``OSError`` before the shard lands) and ``ckpt_shard_file``
+(``corrupt_shard`` flips a byte of the durable shard).
 """
 
 from __future__ import annotations
@@ -374,7 +378,8 @@ class CheckpointPlane:
     def __init__(self, root: str, run: str = "train", *,
                  process_index: Optional[int] = None,
                  process_count: Optional[int] = None,
-                 keep: Optional[int] = None, kv=None):
+                 keep: Optional[int] = None, kv=None,
+                 fence: Optional[Callable[[], bool]] = None):
         if "/" in run:
             raise ValueError(f"run name must not contain '/': {run!r}")
         self.root = os.path.abspath(root)
@@ -392,6 +397,11 @@ class CheckpointPlane:
         # they agree on the scope.
         self._kv_run = (f"{run}@"
                         f"{zlib.crc32(self.run_dir.encode()):08x}")
+        # Save-time fence (the train session's stop flag): a loop that
+        # outlives its group's teardown must not write into the next
+        # attempt's stream — at an unchanged world size its shard paths
+        # and 2PC keys would be identical to the new generation's.
+        self._fence = fence
         self._mtags = {"run": run}
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="ckpt-writer")
@@ -431,6 +441,12 @@ class CheckpointPlane:
         shard file is durable and the commit attempt ran."""
         if self._closed:
             raise RuntimeError("CheckpointPlane is closed")
+        if self._fence is not None and self._fence():
+            from ray_tpu_torch.exceptions import WorkerStoppedError
+
+            raise WorkerStoppedError(
+                "checkpoint plane fenced: this session is being torn "
+                "down (elastic restart/resize)")
         self.flush()  # one persist in flight, in submission order
         t0 = time.perf_counter()
         kind, flat = flatten_state(state)
@@ -441,6 +457,12 @@ class CheckpointPlane:
             shard_sets.append(shards)
         blocked_ms = (time.perf_counter() - t0) * 1000.0
         mdefs.CKPT_BLOCK_MS.observe(blocked_ms, tags=self._mtags)
+        # Goodput attribution: the device→host snapshot is the only leg
+        # that blocks the step loop — inside a training session it lands
+        # in the attempt ledger's ckpt_block component (no-op elsewhere).
+        from ray_tpu_torch.train import goodput
+
+        goodput.note_ambient("ckpt_block", blocked_ms / 1e3)
         tree = {"kind": kind, "paths": [list(p) for p, _ in flat]}
         future = self._executor.submit(
             self._persist, int(step), tree, spec_leaves, shard_sets, t0)
@@ -467,7 +489,14 @@ class CheckpointPlane:
     # background leg without touching the snapshot path.
     def _write_shard_files(self, d: str, spec: Dict[str, Any],
                            entries: Dict[str, np.ndarray]) -> None:
+        from ray_tpu_torch._private import chaos
+
         stem = self._shard_stem()
+        # Chaos site: a ``fail_shard_write`` rule raises OSError here —
+        # the shard never lands, the step never commits, readers keep
+        # seeing the previous manifest.
+        chaos.inject("ckpt_shard_write", proc=self.process_index,
+                     step=int(spec["step"]), run=self.run)
         tmp_npz = os.path.join(d, f".{stem}.npz.tmp")
         # Serialize to memory first: the crc covers the exact bytes
         # renamed into place (verified before any deserialization)
@@ -487,6 +516,10 @@ class CheckpointPlane:
         with open(tmp_spec, "w") as f:
             json.dump(spec, f)
         os.replace(tmp_spec, os.path.join(d, f"{stem}.json"))
+        # Chaos site: ``corrupt_shard`` flips a byte of the durable file
+        # (the save still commits) — models silent media corruption.
+        chaos.inject("ckpt_shard_file", proc=self.process_index,
+                     step=int(spec["step"]), run=self.run, path=npz_path)
 
     def _persist(self, step: int, tree, spec_leaves, shard_sets,
                  t_start: float) -> Dict[str, Any]:
@@ -699,6 +732,13 @@ class CheckpointPlane:
         mdefs.CKPT_RESTORE_SECONDS.observe(seconds, tags=self._mtags)
         mdefs.CKPT_BYTES.inc(nbytes, tags={**self._mtags,
                                            "direction": "restore"})
+        # The worker-side restore leg of an elastic recovery spends this
+        # attempt's wall clock: the ledger's recovery component (the
+        # controller's recovery metric and trace cover detection through
+        # the first step).
+        from ray_tpu_torch.train import goodput
+
+        goodput.note_ambient("recovery", seconds)
         return unflatten_state(kind, leaf_paths, leaves)
 
     # ---------------------------------------------------------------- gc

@@ -1,11 +1,12 @@
-"""Serve replicas as spawned processes: the port's counterpart of
+"""Serve replicas as processes of their own: the port's counterpart of
 ``Replica`` (``ray_tpu/serve/api.py:161-364``).
 
 The JAX package hosts each replica in an actor of its own runtime. The
 port has no actor core (ROADMAP.md, the re-anchor's runtime choice): a
-replica is a ``torch.multiprocessing`` process started with ``spawn``
-(CUDA does not survive a fork), which builds the user's class once and
-serves it over one duplex connection to the serving process.
+replica is a ``torch.multiprocessing`` process forked from a
+``forkserver`` that imported torch and never touched CUDA (CUDA does not
+survive a fork), which builds the user's class once and serves it over
+one duplex connection to the serving process.
 
 * :class:`Replica` hosts the callable inside that process, as JAX's
   does: ``handle_request`` and ``handle_request_streaming`` (sync and
@@ -15,7 +16,7 @@ serves it over one duplex connection to the serving process.
   :func:`~ray_tpu_torch.util.metrics.collect_samples`), ``health`` and
   ``drain``. Admission while draining raises
   :class:`~ray_tpu_torch.exceptions.ReplicaDrainingError`.
-* :class:`ReplicaProcess` is the serving process's end: it spawns the
+* :class:`ReplicaProcess` is the serving process's end: it starts the
   replica and multiplexes many concurrent requests over the connection,
   each with its own id. A streamed item crosses as soon as the replica yields it.
   When the process dies, every request still waiting on it fails with
@@ -50,6 +51,7 @@ crosses as pickles this program wrote.
 from __future__ import annotations
 
 import asyncio
+import atexit
 import contextvars
 import importlib
 import inspect
@@ -58,16 +60,19 @@ import logging
 import os
 import pickle
 import queue
+import signal
 import sys
 import threading
 import time
 import traceback
+import weakref
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, Optional
 
 import torch
 import torch.multiprocessing as mp
+from multiprocessing import forkserver, resource_tracker
 
 from ray_tpu_torch import exceptions
 from ray_tpu_torch._private import chaos, events
@@ -463,11 +468,13 @@ class _ReplicaServer:
 
 def _child_main(conn, spec: bytes, env: Dict[str, str],
                 num_threads: int, replica_id: str = "replica") -> None:
-    """The replica process: set the environment (``CUDA_VISIBLE_DEVICES``
-    before anything touches CUDA), build the user's class, report ready
-    (or the constructor's error) and serve until the serving process
-    goes. Its flight events and spans go to the serving process from the
-    start, the constructor's included."""
+    """The replica process: take the serving process's environment
+    ``env`` in place of the one the fork server had at its start
+    (``CUDA_VISIBLE_DEVICES`` before anything touches CUDA), build the
+    user's class, report ready (or the constructor's error) and serve
+    until the serving process goes. Its flight events and spans go to
+    the serving process from the start, the constructor's included."""
+    os.environ.clear()
     os.environ.update(env)
     tracing.set_process_ids(replica_id)
     # A chaos kill ends this process for real (the serving process's
@@ -550,6 +557,42 @@ class ReplicaStream:
             self._owner._orphans.append(self._rid)
 
 
+# What the fork server imports once: this module (torch with it), the
+# module every train worker's class lives in (a restart would pay its
+# imports again), and a script's main module, so a class or train loop
+# defined in the script that starts the replica resolves in the replica.
+PRELOAD = ("__main__", "ray_tpu_torch.runtime.replica",
+           "ray_tpu_torch.train.backend_executor")
+
+
+# Every ReplicaProcess this process started, for stop_all.
+_started: "weakref.WeakSet[ReplicaProcess]" = weakref.WeakSet()
+
+
+def stop_all() -> None:
+    """Kill every replica process this process started, then the fork
+    server and the resource tracker multiprocessing started for them,
+    and wait for each, so that nothing of the runtime outlives its
+    caller. Runs at exit, where it is registered when the first replica
+    process starts; safe to call more than once.
+
+    The fork server is killed rather than asked to exit: asked, it
+    finalizes the torch it preloaded and outlives this process by about a
+    second."""
+    for proc in list(_started):
+        proc.kill()
+    server = forkserver._forkserver
+    if server._forkserver_pid is not None:
+        try:
+            os.kill(server._forkserver_pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        server._stop()
+    if not mp.active_children():
+        # Another live child of this process would hold the tracker open.
+        resource_tracker._resource_tracker._stop()
+
+
 class ReplicaProcess:
     """The serving process's end of one replica process. Spawns it at once;
     :meth:`wait_ready` returns when the user's class is built (or raises
@@ -557,7 +600,13 @@ class ReplicaProcess:
     anything touches CUDA (``CUDA_VISIBLE_DEVICES`` of a replica that
     asked for GPUs); ``num_threads`` is its torch intra-op threads.
     ``replica_id`` (``<name>-<n>``, unique in this process) names it on
-    its flight events, spans and metric samples."""
+    its flight events, spans and metric samples.
+
+    Every replica process, a serve replica or a trainer's worker, is
+    forked from one ``forkserver`` process that imported :data:`PRELOAD`
+    once, so it starts without a torch import of its own. The server
+    never touches CUDA, and the child gets this process's whole
+    environment as it is when the replica starts."""
 
     _seq = itertools.count()
 
@@ -571,11 +620,13 @@ class ReplicaProcess:
         self.dead = False
         spec = pickle.dumps((reference(cls_or_fn), init_args, init_kwargs,
                              is_function, sync_workers))
-        ctx = mp.get_context("spawn")
+        ctx = mp.get_context("forkserver")
+        ctx.set_forkserver_preload(list(PRELOAD))
         self._conn, child = ctx.Pipe(duplex=True)
         self._proc = ctx.Process(
             target=_child_main,
-            args=(child, spec, self.env, num_threads, self.replica_id),
+            args=(child, spec, {**os.environ, **self.env}, num_threads,
+                  self.replica_id),
             daemon=True, name=f"serve-replica-{name}")
         self._ids = itertools.count(1)
         self._pending: Dict[int, Any] = {}   # id -> Future | ReplicaStream
@@ -583,7 +634,10 @@ class ReplicaProcess:
         self._send_lock = threading.Lock()   # the connection's writes
         self._orphans: deque = deque()       # streams dropped unfinished
         self._ready: Future = Future()
+        if not _started:
+            atexit.register(stop_all)
         self._proc.start()
+        _started.add(self)
         child.close()
         threading.Thread(target=self._read, daemon=True,
                          name=f"serve-replica-{name}-reader").start()

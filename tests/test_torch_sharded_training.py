@@ -4,7 +4,8 @@ against the JAX package's ``ShardedTrainer`` on the same mesh shape of
 CPU devices.
 
 One module-scoped spawn per world size runs every case of that size in
-its processes (``init_method="file://"`` under a temp dir, one torch
+its processes (this module's world-2 cases;
+``tests/test_torch_sharded_training_world4.py`` runs world 4's) (``init_method="file://"`` under a temp dir, one torch
 thread each, spawn and join under a timeout); the JAX references run in
 the pytest process meanwhile. Both sides start from the same weights (a
 JAX init carried across through numpy) and the same seeded numpy
@@ -201,12 +202,23 @@ def _case_inputs(case):
     return jc, tc, jp, tokens, mask
 
 
+# The world sizes this module's cases run at (world 4's cases are in
+# tests/test_torch_sharded_training_world4.py, so the test runner can
+# spread the two process groups over its workers).
+WORLDS = (2,)
+
+
+def _cases(worlds):
+    return [c for c, spec in CASES.items() if spec[0] in worlds]
+
+
 @pytest.fixture(scope="module")
-def spawned(tmp_path_factory):
-    """World size -> its running workers, the inputs of every case
-    written before the spawn."""
+def spawned(tmp_path_factory, request):
+    """World size -> its running workers, the inputs of every case of the
+    requesting module's ``WORLDS`` written before the spawn."""
+    worlds = request.module.WORLDS
     out, inputs = {}, {}
-    for case in CASES:
+    for case in _cases(worlds):
         jc, tc, jp, tokens, mask = inputs[case] = _case_inputs(case)
         root = str(tmp_path_factory.getbasetemp() / f"world{CASES[case][0]}")
         os.makedirs(root, exist_ok=True)
@@ -215,7 +227,7 @@ def spawned(tmp_path_factory):
                         mask=torch.from_numpy(mask)),
                    os.path.join(root, f"{case}.in.pt"))
     try:
-        for world in sorted({spec[0] for spec in CASES.values()}):
+        for world in worlds:
             root = str(tmp_path_factory.getbasetemp() / f"world{world}")
             out[world] = _Spawned(world, root)
         yield out, inputs
@@ -294,8 +306,12 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", _cases(WORLDS))
 def test_sharded_steps_match_one_process_and_jax(spawned, case):
+    _check_steps(spawned, case)
+
+
+def _check_steps(spawned, case):
     workers, inputs = spawned
     jc, tc, jp, tokens, mask = inputs[case]
     jax_metrics, jax_params = _jax_run(case, jc, jp, tokens, mask)
@@ -308,8 +324,16 @@ def test_sharded_steps_match_one_process_and_jax(spawned, case):
     assert got["placed"], "grads reach the optimizer in their placements"
 
 
-@pytest.mark.parametrize("case", ["fsdp2", "fsdp4", "fsdp_tp", "dp"])
+SHARDED_CASES = ["fsdp2", "fsdp4", "fsdp_tp", "dp"]
+
+
+@pytest.mark.parametrize("case", [c for c in SHARDED_CASES
+                                  if CASES[c][0] in WORLDS])
 def test_params_and_moments_actually_sharded(spawned, case):
+    _check_sharded(spawned, case)
+
+
+def _check_sharded(spawned, case):
     # w_gate [L, E, M] is embed-sharded on fsdp and mlp-sharded on
     # tensor: each rank holds 1/(fsdp*tensor) of it and of its moments.
     workers, _ = spawned
