@@ -355,6 +355,43 @@ Phases, any failure exits non-zero with no result line:
    reacquire, restore, first step), the blocked ms of each save and the
    goodput fractions. ``--train-controller`` runs this phase alone
    (after the build).
+35. the RL loop (``[rl]``): Llama-3-8B widths at RL["layers"] of 32
+   layers (bf16, random weights from seed 0 in every
+   process: the same cold start), ``build_continuous_llama_app``'s app
+   with two ``CountingLlm`` replicas at half a card each (8 slots,
+   max_len 1024) behind ``start_http``, a ``WeightPublisher`` for two
+   subscribers (its channel sized to the tree; ``/dev/shm``'s free bytes
+   printed and checked first) with a ``CheckpointPlane`` under a temp
+   dir, each replica's ``enable_weight_sync``, and a ``LearnerGroup``
+   of one ``TokenPPOLearner`` on the card (``CountingLearner``: its
+   update metrics carry the learner process's launches, peak memory and
+   programs). The replica capture's trace goes under the phase's
+   scratch dir (``RAY_TPU_SESSION_DIR``) and is removed with it. Three
+   rounds: phase 5's first 8 prompts cut to 512 tokens as 8 HTTP
+   streams of 32 tokens; behavior logprobs from a replica's
+   ``score_logprobs`` with the version that scored them; one PPO update
+   through ``RolloutScheduler.learner_phase``; the learner's weights
+   published; every replica brought to the version by its weight sync
+   or, respawned or shed, by ``restore_weights`` (the slow path). Round
+   1 arms ``kill_replica:phase=decode,token=2``. Gates: versions reach
+   [3, 3], every loss finite, round 0 all by the fast path with no
+   shed and each replica's params equal, bit for bit, to version 1's
+   checkpoint (``equals_checkpoint``), the kill fired and a resume was
+   counted, an ``rl.weight_swap`` chains to its publish through
+   ``causal_chain``, B4 launched in the replicas, B1 in their scoring
+   and B1-B3 in the learner, and after the last round a greedy request
+   of two fresh prompts to each replica equals an in-process
+   ``ContinuousBatcher`` holding the learner's weights. Prints per round
+   (``[rl-round]``) rollout s, score s, learner step ms, get-weights s,
+   publish s (host copy, save, channel write) and each replica's read,
+   crc and swap s (or restore s), converge s and staleness; the kill to
+   the version current; then ``[monitor]``: every program's compiles and
+   retraces in this process, the replicas and the learner, the PPO
+   step's counted FLOPs beside ``rl_grad_flops``, the learner's and the
+   replicas' gauges beside the host clock's MFU, memory (the sampler
+   beside ``max_memory_allocated``, each process's peak) and a
+   ``request_capture`` of one replica while it decodes, which must name
+   RL["b4_kernels"]. ``--rl`` runs this phase alone (after the build).
 
 Phases 23-24 run before phases 25-28 (27 compares with 24), phases
 11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
@@ -374,9 +411,12 @@ forward entry
 calls, and the flash entries ``mixtral_launches``, their launches in
 phase 24's run, ``mixtral_mesh_launches``, their launches in phase 27's run,
 ``sharded_launches``, their launches in phase 25's 12 steps,
-``ulysses_launches``, their launches in phase 26b, and
+``ulysses_launches``, their launches in phase 26b,
 ``controller_launches``, their launches in phase 34's worker, reported
-steps);
+steps, and ``rl_launches``, their launches in phase 35's learner; the
+paged entry's ``rl_launches`` are phase 35's replicas' over the rounds'
+rollouts and the flash forward's ``rl_scoring_launches`` their
+``score_logprobs`` calls);
 the last line is ``{"ok": true, "device": {...}}``. Before the record,
 the script stops every process the port's runtime started (the replica
 and worker processes, their fork server and resource tracker:
@@ -413,9 +453,13 @@ each) on phase 25's fp32 model at fsdp=4, a chaos ``kill_worker`` whose
 node is lost (``resize=2``) restarting them on fsdp=2 from the newest
 committed manifest, ``request_resize(4)`` growing them back, every loss
 within ``MESH_CONTROLLER["tol"]`` of the uninterrupted fsdp=4 run
-(``[mesh-train-controller]``). ``--mesh-check SECTION ...`` runs only
-the named sections of ``MESH_SECTIONS`` (trainer, moe, mixtral, ckpt,
-train-controller). It prints no result line.
+(``[mesh-train-controller]``); then the host collective
+(``mesh_collective``): named NCCL and gloo groups beside the default
+group, every op against numpy, and an allreduce of each size of
+``COLLECTIVE["sizes_mib"]`` timed
+(``[mesh-collective]``). ``--mesh-check SECTION ...`` runs only the
+named sections of ``MESH_SECTIONS`` (trainer, moe, mixtral, ckpt,
+train-controller, collective). It prints no result line.
 
 ``python3 chip_smoke.py --paged-host-us ROOT`` instead measures only the
 host microseconds a paged call takes (``host_us``, the phase-3 cases at
@@ -454,6 +498,7 @@ import time
 import numpy as np
 
 from ray_tpu_torch.llm import ContinuousLlamaDeployment
+from ray_tpu_torch.rl import TokenPPOLearner
 
 PEAK_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
@@ -541,7 +586,8 @@ MESH_MOE = dict(
     train=dict(layers=16, sizes=dict(expert=2, fsdp=2), steps=5,
                peak_gib=75.0),
     ckpt=dict(save=dict(fsdp=4), restore=dict(fsdp=2, tensor=2)))
-MESH_SECTIONS = ("trainer", "moe", "mixtral", "ckpt", "train-controller")
+MESH_SECTIONS = ("trainer", "moe", "mixtral", "ckpt", "train-controller",
+                 "collective")
 # Device kernels of the MoE routing by name (after flash and GEMMs): the
 # stable sort of top-k, the cumsum of the slots, the index copies and
 # gathers and the one-hot scatters. The embedding lookup and its
@@ -610,8 +656,18 @@ SPEC_SAMPLING = dict(temperature=0.8, top_p=0.9, seed=11)
 
 
 def fail(msg):
-    print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
-    sys.exit(1)
+    """Print ``msg`` and end the process with code 1 at once: the exit
+    handlers (the runtime's ``stop_all`` among them) get 60 s, and no
+    thread still waiting on a replica (an HTTP stream's worker) holds
+    the interpreter's shutdown."""
+    import atexit
+
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    handlers = threading.Thread(target=atexit._run_exitfuncs, daemon=True)
+    handlers.start()
+    handlers.join(60)
+    sys.stdout.flush()
+    os._exit(1)
 
 
 def stop_processes():
@@ -2517,8 +2573,132 @@ def mesh_rank(rank, world, init_method, backend, sections=MESH_SECTIONS):
             if rank == 0:
                 res["card"] = card
                 print(f"[mesh-ckpt] {json.dumps(res)}", flush=True)
+        if "collective" in sections:
+            # A collective that hangs ends the rank (and the check) in
+            # 300 s instead of holding the cards to the call's limit.
+            import faulthandler
+
+            faulthandler.dump_traceback_later(300, exit=True)
+            res = mesh_collective(torch, rank, world, backend)
+            faulthandler.cancel_dump_traceback_later()
+            if rank == 0:
+                res["card"] = card
+                print(f"[mesh-collective] {json.dumps(res)}", flush=True)
     finally:
         dist.destroy_process_group()
+
+
+COLLECTIVE = dict(shape=(6, 5), sizes_mib=(1, 64), timed_iters=5)
+
+
+def mesh_collective(torch, rank, world, backend):
+    """``[mesh-collective]``: the host collective
+    (``ray_tpu_torch.util.collective``) through named groups beside the
+    default group, on NCCL (arrays staged through each rank's card) and
+    on gloo; every op against numpy on every rank's inputs (drawn from
+    each rank's seed, so every rank knows them all): exactly on
+    integer-valued inputs and for min and max, within 1e-6 of the terms'
+    magnitude on fp32 sums and products; then an fp32 allreduce of
+    COLLECTIVE["sizes_mib"] MiB timed a backend (median of
+    ``timed_iters``)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.util import collective
+
+    port = [None]
+    if rank == 0:
+        store = dist.TCPStore("localhost", 0, world, True,
+                              wait_for_workers=False)
+        port = [store.port]
+    dist.broadcast_object_list(port, src=0)
+    if rank:
+        store = dist.TCPStore("localhost", port[0], world, False)
+    backends = ("nccl", "gloo") if backend == "nccl" else ("gloo",)
+
+    def inputs(r, kind):
+        rng = np.random.default_rng(100 + r)
+        if kind == "int":
+            return rng.integers(-8, 9, size=COLLECTIVE["shape"]).astype(
+                np.float32)
+        return rng.standard_normal(COLLECTIVE["shape"]).astype(np.float32)
+
+    out = {}
+    for be in backends:
+        name = f"mesh-{be}"
+        g = collective.init_collective_group(world, rank, name,
+                                             backend=be, store=store)
+        errs = {}
+        for kind in ("int", "fp32"):
+            xs = [inputs(r, kind) for r in range(world)]
+            for op, ref in (("sum", np.sum), ("max", np.max),
+                            ("min", np.min), ("product", np.prod)):
+                got = g.allreduce(xs[rank], op)
+                want = ref(np.stack(xs), axis=0)
+                err = float(np.abs(got - want).max())
+                # fp32: rtol 1e-6 of the terms' magnitude (a sum of terms
+                # of both signs may cancel to near zero).
+                scale = (np.sum(np.abs(np.stack(xs)), axis=0)
+                         if op == "sum" else np.abs(want))
+                ok = (err == 0 if kind == "int" or op in ("min", "max")
+                      else bool((np.abs(got - want) <= 1e-6 * scale).all()))
+                if not ok:
+                    fail(f"[mesh-collective] {be} allreduce {op} {kind}: "
+                         f"max err {err}")
+                errs[f"allreduce-{op}-{kind}"] = err
+        xs = [inputs(r, "int") for r in range(world)]
+        parts = g.allgather(xs[rank])
+        if not all(np.array_equal(a, b) for a, b in zip(parts, xs)):
+            fail(f"[mesh-collective] {be} allgather")
+        red = g.reduce(xs[rank], dst_rank=1)
+        want = np.sum(np.stack(xs), axis=0)
+        if rank == 1 and not np.array_equal(red, want):
+            fail(f"[mesh-collective] {be} reduce")
+        bc = g.broadcast(xs[rank] if rank == 2 else None, src_rank=2)
+        if not np.array_equal(bc, xs[2]):
+            fail(f"[mesh-collective] {be} broadcast")
+        rs = g.reducescatter(np.arange(30, dtype=np.float32) * (rank + 1))
+        want = np.array_split(np.arange(30, dtype=np.float32)
+                              * sum(range(1, world + 1)), world)[rank]
+        if not np.array_equal(rs, want):
+            fail(f"[mesh-collective] {be} reducescatter")
+        g.barrier()
+        timing = {}
+        for mib in COLLECTIVE["sizes_mib"]:
+            big = np.ones(mib << 18, np.float32)
+            g.allreduce(big)
+            times = []
+            for _ in range(COLLECTIVE["timed_iters"]):
+                g.barrier()
+                t0 = time.perf_counter()
+                g.allreduce(big)
+                times.append(time.perf_counter() - t0)
+            med = float(np.median(times))
+            timing[f"{mib}MiB"] = dict(ms=med * 1e3,
+                                       gb_s=big.nbytes / med / 1e9)
+        if rank == 0:
+            print(f"[mesh-collective] {be}: {json.dumps(timing)}",
+                  flush=True)
+        # A ring of point-to-point hops. NCCL completes a send only when
+        # its peer receives (and forms each pair's communicator at their
+        # first exchange), so even ranks send first and odd ranks receive
+        # first; gloo takes either order.
+        nxt, prv = (rank + 1) % world, (rank - 1) % world
+        if rank % 2 == 0:
+            g.send(xs[rank], nxt, tag="ring")
+            got = g.recv(prv, tag="ring")
+        else:
+            got = g.recv(prv, tag="ring")
+            g.send(xs[rank], nxt, tag="ring")
+        if not np.array_equal(got, xs[prv]):
+            fail(f"[mesh-collective] {be} send/recv")
+        collective.destroy_collective_group(name)
+        out[be] = dict(max_err=errs, allreduce=timing)
+    # The default group still answers beside the named ones.
+    t = torch.ones(1, device="cuda" if backend == "nccl" else "cpu")
+    dist.all_reduce(t)
+    if int(t.item()) != world:
+        fail("[mesh-collective] the default group broke")
+    return out
 
 
 def mesh_trainer(torch, rank, device, card):
@@ -3735,6 +3915,473 @@ def mesh_train_controller(torch, card, device="cuda"):
     return res
 
 
+# ------------------------------------------------ phase 35: the RL loop
+# Llama-3-8B's widths at RL["layers"] of its 32 layers (bf16, random
+# weights from seed 0 on the card, the replicas' and the learner's one
+# cold start); prompts are phase 5's first RL["prompts"], cut to
+# RL["prompt_cap"] tokens.
+RL = dict(layers=2, replicas=2, num_slots=8, max_len=1024, rounds=3,
+          prompts=8, prompt_cap=512, max_new=32, lr=1e-5, rho_clip=2.0,
+          publish_timeout_s=5.0, converge_s=60.0, kill_round=1,
+          kill="kill_replica:phase=decode,token=2", greedy_prompts=(8, 9),
+          capture_s=2.0, b4_kernels=("paged_split_kernel",
+                                     "split_combine_kernel"))
+RL_NAME = "rl-llm"
+RL_RUN = "chip-rl"
+
+
+def rl_config():
+    from ray_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                               num_layers=RL["layers"])
+
+
+class CountingLearner(TokenPPOLearner):
+    """Phase 35's learner: the port's ``TokenPPOLearner`` on the card, its
+    params drawn from seed 0 as the replicas' engines draw theirs, whose
+    update metrics carry this learner process's counts under ``"smoke"``:
+    the flash kernels' launches since it was built, its peak device
+    memory since then (every earlier update's optimizer step included),
+    its instrumented programs and its profiling-plane gauges. User code:
+    the learner process finds it here by name."""
+
+    def __init__(self):
+        import torch
+
+        from ray_tpu_torch.ops.attention import flash_attention
+
+        super().__init__(rl_config(), lr=RL["lr"], rho_clip=RL["rho_clip"])
+        for k in flash_attention.launches:
+            flash_attention.launches[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+
+    def compute_gradients(self, batch):
+        import torch
+
+        from ray_tpu_torch._private import cuda_monitor
+        from ray_tpu_torch.ops.attention import flash_attention
+        from ray_tpu_torch.util.metrics import collect_samples
+
+        grads, metrics = super().compute_gradients(batch)
+        metrics["smoke"] = dict(
+            flash_launches=dict(flash_attention.launches),
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            programs=cuda_monitor.all_program_stats(),
+            gauges=[s for s in collect_samples()
+                    if s[0].startswith("ray_tpu_xla_")])
+        return grads, metrics
+
+
+def rl_reward(prompt, tokens):
+    """A learnable scalar: the share of tokens in the vocabulary's lower
+    half."""
+    return float(sum(t < 64128 for t in tokens)) / max(len(tokens), 1)
+
+
+def rl_grad_flops(cfg, n, s, t):
+    """What one PPO gradient step runs, by hand: the layers' matmuls
+    forward and backward (2 + 4 FLOPs a param a token; remat "full"
+    keeps the products), causal attention's (query, key) pairs at 4 D
+    forward, 4 D again in the backward's replay, 6 D for dq and 8 D for
+    dk/dv, and the LM head on the T scored rows (2 + 4 FLOPs a weight a
+    row)."""
+    E, M, L, V = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, \
+        cfg.vocab_size
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    per_token = E * H * D + 2 * E * KV * D + H * D * E + 3 * E * M
+    pairs = n * H * (s * (s + 1) // 2)
+    return (6 * per_token * n * s * L + 22 * D * pairs * L
+            + 6 * n * t * E * V)
+
+
+def rl_routed(n, timeout_s=600):
+    """The ``n`` routed replicas of RL_NAME once each answers a health
+    probe."""
+    from ray_tpu_torch.serve import api as serve_api
+
+    controller = serve_api._get_controller()
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        reps = controller.get_replicas(RL_NAME)
+        if len(reps) == n and not controller.draining_count(RL_NAME):
+            try:
+                if all(r.control("health").result(timeout=30)
+                       for r in reps):
+                    return reps
+            except Exception:  # noqa: BLE001 - starting: keep waiting
+                pass
+        time.sleep(0.1)
+    fail(f"phase 35: {n} replicas of {RL_NAME} never came up")
+
+
+def rl_call(r, method, *args, timeout=600, **kwargs):
+    return r.call(method, args, kwargs).result(timeout=timeout)
+
+
+def rl_phase(torch, card):
+    """Phase 35: the RL loop on the card (module docstring)."""
+    import atexit
+    import shutil
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import chaos, cuda_monitor
+    from ray_tpu_torch._private import events as flight
+    from ray_tpu_torch._private import metrics_defs as mdefs
+    from ray_tpu_torch.checkpoint import CheckpointPlane
+    from ray_tpu_torch.llm import HALF_CARD, build_continuous_llama_app
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+    from ray_tpu_torch.rl import RolloutScheduler, WeightPublisher
+    from ray_tpu_torch.rllib import LearnerGroup
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem(torch, "phase 35 start")
+    cfg = rl_config()
+    param_bytes = llama.num_params(cfg) * 2
+    capacity = param_bytes + (64 << 20)     # one pickled tree and room
+    shm_free = shutil.disk_usage("/dev/shm").free
+    print(f"[rl] /dev/shm: {shm_free} bytes free; the weight channel's "
+          f"segment needs {capacity}")
+    if shm_free < capacity:
+        fail(f"phase 35: /dev/shm has {shm_free} bytes free, the weight "
+             f"channel needs {capacity}")
+    root, disk_free = _scratch_dir(int(RL["rounds"] * param_bytes * 1.2),
+                                   "phase 35")
+    # Removed at exit too: fail() runs the exit handlers.
+    atexit.register(shutil.rmtree, root, True)
+    # The replica capture's trace goes under the phase's scratch root and
+    # is removed with it.
+    session_before = os.environ.get("RAY_TPU_SESSION_DIR")
+    os.environ["RAY_TPU_SESSION_DIR"] = root
+    all_prompts = [p[:RL["prompt_cap"]] for p in phase5_prompts(cfg)]
+    prompts = all_prompts[:RL["prompts"]]
+    n = len(prompts)
+    built = build_continuous_llama_app(
+        cfg, num_replicas=RL["replicas"], num_slots=RL["num_slots"],
+        max_len=RL["max_len"])
+    # The builder's app, served by the counting subclass, half a card a
+    # replica so the two pack onto the one card (C3).
+    app = serve.deployment(
+        CountingLlm, name=RL_NAME, num_replicas=RL["replicas"],
+        ray_actor_options=HALF_CARD).bind(*built.args, **built.kwargs)
+    t0 = time.perf_counter()
+    handle = serve.run(app)
+    reps = rl_routed(RL["replicas"])
+    cold_s = time.perf_counter() - t0
+    port = serve.start_http(port=0)
+    plane = CheckpointPlane(root, run=RL_RUN, process_index=0,
+                            process_count=1)
+    pub = WeightPublisher(run=RL_RUN, n_subscribers=RL["replicas"],
+                          capacity=capacity,
+                          publish_timeout_s=RL["publish_timeout_s"],
+                          ckpt_plane=plane)
+    atexit.register(pub.destroy)           # its /dev/shm segment
+    t0 = time.perf_counter()
+    learner = LearnerGroup(CountingLearner, num_learners=1)  # on the card
+    learner_init_s = time.perf_counter() - t0
+    synced = {}
+    for i, r in enumerate(reps):
+        rl_call(r, "enable_weight_sync", pub.subscriber_spec(i), run=RL_RUN,
+                poll_s=0.02)
+        synced[r.replica_id] = i
+    mem(torch, "phase 35 up")
+
+    def rollout():
+        outs, _, wall = stream_all(lambda i: http_tokens(
+            port, {"prompt_token_ids": prompts[i],
+                   "max_tokens": RL["max_new"]}, name=RL_NAME), n)
+        check_outputs(outs, RL["max_new"], cfg.vocab_size, "phase 35")
+        return outs, wall
+
+    generated, score_s = {}, []
+
+    def generate(prompt, max_new):
+        tokens = generated[tuple(prompt)]
+        lp, version, s = handle.score_versioned.remote(
+            prompt, tokens).result(timeout_s=600)
+        score_s.append(s)
+        return tokens, np.asarray(lp, np.float32), version
+
+    def converge(manifest):
+        """Every replica at the manifest's version: by the fast path
+        (its weight sync read the publish), or by the slow path
+        (``restore_weights``: the publish's checkpoint) for a replica
+        that has no sync (respawned) or when the publish was shed or
+        the fast path missed RL["converge_s"]."""
+        version = int(manifest["version"])
+        shed = "shed" in manifest
+        t0 = time.perf_counter()
+        pending = {r.replica_id: r for r in rl_routed(RL["replicas"])}
+        paths, timing = {}, {}
+        while pending:
+            for rid, r in list(pending.items()):
+                if rl_call(r, "weight_version") >= version:
+                    paths[rid] = "fast"
+                    timing[rid] = rl_call(r, "sync_timing")
+                    del pending[rid]
+            late = time.perf_counter() - t0 > RL["converge_s"]
+            for rid, r in list(pending.items()):
+                if shed or rid not in synced or late:
+                    t1 = time.perf_counter()
+                    rl_call(r, "restore_weights", manifest)
+                    paths[rid] = "fallback"
+                    timing[rid] = dict(rl_call(r, "sync_timing"),
+                                       restore_s=time.perf_counter() - t1)
+                    del pending[rid]
+            if pending:
+                time.sleep(0.05)
+        return paths, timing, time.perf_counter() - t0
+
+    sched = RolloutScheduler(generate, lambda: pub.version, run=RL_RUN)
+    resumes0 = sum(v for _, k, v in mdefs.SERVE_REPLICA_RESUMES.samples()
+                   if dict(k).get("deployment") == RL_NAME)
+    for r in reps:
+        rl_call(r, "counters", True)
+    rounds, losses, b4, b1_scoring, kills, recovery = [], [], 0, 0, [], {}
+    for rnd in range(RL["rounds"]):
+        if rnd == RL["kill_round"]:
+            chaos.configure(RL["kill"], seed=11)
+        t0 = time.perf_counter()
+        outs, wall = rollout()
+        rollout_s = time.perf_counter() - t0
+        fired = [e for e in chaos.injection_log()
+                 if e["action"] == "kill_replica"]
+        chaos.configure(None)
+        kills += fired
+        generated.clear()
+        generated.update({tuple(p): o for p, o in zip(prompts, outs)})
+        score_s.clear()
+        t0 = time.perf_counter()
+        admitted = sched.collect(prompts, RL["max_new"], rl_reward,
+                                 cause=f"round-{rnd}")
+        collect_s = time.perf_counter() - t0
+        if admitted != n:
+            fail(f"phase 35 round {rnd}: {admitted} of {n} sequences "
+                 f"admitted")
+        staleness = list(sched.buffer.staleness())
+        for r in rl_routed(RL["replicas"]):
+            c = rl_call(r, "counters", True)
+            b4 += c["paged"]
+            b1_scoring += c["flash_fwd"]
+        batch = sched.drain_batch()
+        t0 = time.perf_counter()
+        metrics = sched.learner_phase(lambda b=batch: learner.update(b),
+                                      cause=f"round-{rnd}")
+        step_s = time.perf_counter() - t0
+        if not np.isfinite(metrics["total_loss"]):
+            fail(f"phase 35 round {rnd}: loss {metrics['total_loss']}")
+        losses.append(metrics["total_loss"])
+        t0 = time.perf_counter()
+        weights = learner.get_weights()
+        get_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        manifest = pub.publish(weights, step=rnd, cause=f"round-{rnd}")
+        publish_s = time.perf_counter() - t0
+        paths, sync, converge_s = converge(manifest)
+        if rnd == 0:
+            if "shed" in manifest or set(paths.values()) != {"fast"}:
+                fail(f"phase 35 round 0: paths {paths}, shed "
+                     f"{manifest.get('shed')}: the fast path must carry "
+                     f"version 1 to every replica")
+            for r in rl_routed(RL["replicas"]):
+                if not rl_call(r, "equals_checkpoint", root, RL_RUN, 1):
+                    fail(f"phase 35: {r.replica_id}'s fast-path params "
+                         f"differ from version 1's checkpoint")
+        if fired and not recovery:
+            kill_ts = fired[-1]["ts"]
+            recovery = dict(kill_to_version_current_s=time.time() - kill_ts,
+                            respawned=[rid for rid in paths
+                                       if rid not in synced])
+        rec = dict(round=rnd, rollout_s=rollout_s, streams_wall_s=wall,
+                   score_s=float(np.sum(score_s)),
+                   score_ms_median=float(np.median(score_s)) * 1e3,
+                   collect_s=collect_s, learner_step_ms=step_s * 1e3,
+                   get_weights_s=get_s, publish_s=publish_s,
+                   publish_host_s=pub.last_timing["host_s"],
+                   publish_save_s=pub.last_timing["save_s"],
+                   publish_write_s=pub.last_timing["write_s"],
+                   shed=manifest.get("shed"), paths=paths, sync=sync,
+                   converge_s=converge_s, staleness=staleness,
+                   loss=metrics["total_loss"],
+                   mean_ratio=metrics["mean_ratio"], kills=len(fired))
+        rounds.append(rec)
+        print(f"[rl-round] {json.dumps(rec)}")
+
+    final = rl_routed(RL["replicas"])
+    versions = [rl_call(r, "weight_version") for r in final]
+    if versions != [RL["rounds"]] * RL["replicas"]:
+        fail(f"phase 35: replica versions {versions}")
+    if not kills:
+        fail("phase 35: the chaos kill never fired")
+    resumes = sum(v for _, k, v in mdefs.SERVE_REPLICA_RESUMES.samples()
+                  if dict(k).get("deployment") == RL_NAME) - resumes0
+    if resumes < 1:
+        fail("phase 35: the kill's streams were not resumed")
+    swaps = [e for e in flight.local_events(types=["rl.weight_swap"])
+             if e["subject"].get("run") == RL_RUN]
+    pub_ids = {e["event_id"] for e in flight.local_events(
+        types=["rl.manifest_publish"]) if e["subject"].get("run") == RL_RUN}
+    chained = [e for e in swaps if e["cause"] in pub_ids]
+    if not chained:
+        fail("phase 35: no rl.weight_swap chained to its publish")
+    chain = {r["event_id"] for r in flight.causal_chain(
+        flight.local_events(limit=100000), [chained[0]["cause"]])}
+    if chained[0]["event_id"] not in chain:
+        fail("phase 35: causal_chain of a publish misses its swap")
+    fallbacks = sum(p == "fallback" for r in rounds
+                    for p in r["paths"].values())
+    replica_swaps = {}
+    for r in final:
+        for name, key, value in r.control("samples").result(timeout=60):
+            if name == "ray_tpu_rl_weight_swaps_total" and \
+                    dict(key).get("run") == RL_RUN:
+                cause = dict(key)["cause"]
+                replica_swaps[cause] = replica_swaps.get(cause, 0) + value
+    stats = metrics["smoke"]      # the learner process's, last round
+    learner_launches = stats["flash_launches"]
+    if b4 == 0 or b1_scoring == 0 or not all(
+            learner_launches[k] > 0 for k in ("fwd", "dq", "dkv")):
+        fail(f"phase 35: launches B4 {b4}, B1 scoring {b1_scoring}, "
+             f"learner {learner_launches}")
+
+    # After the last round: a greedy request to each replica equals an
+    # in-process engine holding the learner's weights.
+    greedy = [all_prompts[i] for i in RL["greedy_prompts"]]
+    local = ContinuousBatcher(
+        cfg, params={k: ({kk: vv.to("cuda") for kk, vv in v.items()}
+                         if isinstance(v, dict) else v.to("cuda"))
+                     for k, v in weights.items()},
+        num_slots=RL["num_slots"], max_len=RL["max_len"])
+    want = []
+    for p in greedy:
+        rid = local.submit(p, max_new_tokens=RL["max_new"])
+        want.append(local.run_to_completion()[rid])
+    for r in final:
+        got = [rl_call(r, "__call__", {"prompt_token_ids": p,
+                                        "max_tokens": RL["max_new"]})[
+                   "token_ids"] for p in greedy]
+        if got != want:
+            fail(f"phase 35: {r.replica_id}'s greedy tokens differ from "
+                 f"the learner's weights in process")
+    serving_peak = torch.cuda.max_memory_allocated()
+    sampled = cuda_monitor.sample_device_memory()
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # [monitor]: the programs, the learner's counted FLOPs against the
+    # hand count, the gauges against host-clock rates, memory, and a
+    # profiler capture of one replica while it decodes.
+    programs = cuda_monitor.list_programs()
+    for prog in stats["programs"]:
+        programs.append(dict(prog, replica="learner"))
+    print(f"[monitor] programs {json.dumps([{k: p.get(k) for k in ('name', 'replica', 'compiles', 'retraces', 'signatures', 'compile_seconds', 'flops', 'bytes_accessed')} for p in programs])}")
+    grad = next(p for p in stats["programs"] if p["name"] == "rl_ppo_grad")
+    s_len = int(batch["tokens_full"].shape[0])
+    t_len = int(batch["actions"].shape[0])
+    analytic = rl_grad_flops(cfg, n, s_len, t_len)
+    gauges = {}
+    for name, key, value in stats["gauges"]:
+        gauges.setdefault(dict(key).get("program"), {})[name] = value
+    step_ms = float(np.median([r["learner_step_ms"] for r in rounds[1:]]))
+    replica_gauges = {}
+    for r in final:
+        for name, key, value in r.control("samples").result(timeout=60):
+            if name.startswith("ray_tpu_xla_") and \
+                    dict(key).get("program") == "cb_tick":
+                replica_gauges.setdefault(r.replica_id, {})[name] = value
+    tick_stats = [rl_call(r, "counters") for r in final]
+    mon = dict(
+        grad_flops_counted=grad.get("flops"), grad_flops_analytic=analytic,
+        counted_over_analytic=(grad.get("flops") or 0) / analytic,
+        grad_bytes_counted=grad.get("bytes_accessed"),
+        batch=dict(n=n, s=s_len, t=t_len),
+        learner_gauges=gauges.get("rl_ppo_grad", {}),
+        learner_step_ms_host=step_ms,
+        host_mfu=analytic / (step_ms / 1e3) / PEAK_OPS_PER_S["bf16"],
+        replica_tick_gauges=replica_gauges, card=card)
+    print(f"[monitor] {json.dumps(mon)}")
+    mems = dict(serving_max_allocated=serving_peak, sampled=sampled,
+                learner_peak=stats["peak_bytes"],
+                replica_peak_gib=[c["peak_gib"] for c in tick_stats])
+    print(f"[monitor] memory {json.dumps(mems)}")
+    def decoding(before, timeout_s=120):
+        """The first replica whose tick count moves past ``before``."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            for r in final:
+                if rl_call(r, "counters")["ticks"] >= \
+                        before[r.replica_id] + 2:
+                    return r.replica_id
+            time.sleep(0.05)
+        fail("phase 35: no replica decoded the capture's burst")
+
+    # A capture of a replica while it decodes a burst; once more if the
+    # trace holds no B4 kernel (the reason printed either way).
+    for attempt in range(2):
+        before = {r.replica_id: rl_call(r, "counters")["ticks"]
+                  for r in final}
+        box = {}
+        burst = threading.Thread(target=lambda: box.update(res=stream_all(
+            lambda i: http_tokens(port, {"prompt_token_ids": prompts[i],
+                                         "max_tokens": 4 * RL["max_new"]},
+                                  name=RL_NAME), n)))
+        burst.start()
+        target = decoding(before)
+        cap_id = cuda_monitor.request_capture(target,
+                                              duration_s=RL["capture_s"])
+        deadline = time.monotonic() + 300
+        capture = None
+        while time.monotonic() < deadline and capture is None:
+            done = [e for e in cuda_monitor.list_captures()
+                    if e.get("capture_id") == cap_id
+                    and e.get("status") in ("done", "failed", "busy")]
+            capture = done[0] if done else None
+            time.sleep(0.2)
+        burst.join(timeout=900)
+        if "res" not in box:
+            fail("phase 35: a stream of the capture's burst failed")
+        if capture is None or capture["status"] != "done":
+            fail(f"phase 35: the replica capture came back as {capture}")
+        b4_named = {k: v for k, v in capture.get("kernels", {}).items()
+                    if any(name in k for name in RL["b4_kernels"])}
+        named = all(any(name in k for k in b4_named)
+                    for name in RL["b4_kernels"])
+        print(f"[monitor] capture {json.dumps(dict(attempt=attempt, replica=target, status=capture['status'], files=capture['files'], trace_dir=capture['trace_dir'], b4=b4_named, kernels=len(capture['kernels']), events=capture.get('events')))}")
+        if named:
+            break
+    else:
+        fail(f"phase 35: the captures of {target} name no B4 kernel "
+             f"({sorted(capture.get('kernels', {}))[:20]})")
+
+    for r in final:
+        rl_call(r, "disable_weight_sync")
+    learner.shutdown()
+    serve.shutdown()
+    pub.destroy()
+    plane.close()
+    shutil.rmtree(root, ignore_errors=True)
+    if session_before is None:
+        os.environ.pop("RAY_TPU_SESSION_DIR", None)
+    else:
+        os.environ["RAY_TPU_SESSION_DIR"] = session_before
+    out = dict(
+        cold_start_s=cold_s, learner_init_s=learner_init_s,
+        versions=versions, losses=losses, kills=len(kills),
+        resumes=resumes, recovery=recovery, fallback_swaps=fallbacks,
+        replica_swaps=replica_swaps, shed_rounds=[
+            r["round"] for r in rounds if r["shed"]],
+        payload_bytes=param_bytes, disk_free=disk_free,
+        shm_free=shm_free, b4_launches=b4,
+        b1_scoring_launches=b1_scoring,
+        learner_launches=learner_launches, card=card)
+    print(f"[rl] {json.dumps(out)}")
+    mem(torch, "phase 35 end")
+    return dict(out, rounds=rounds, monitor=mon)
+
+
 def build_report(log):
     """``nvcc -Xptxas -v`` output by kernel family (the kernel's name
     without its template arguments): (registers, spill store bytes) of
@@ -3827,6 +4474,7 @@ class CountingLlm(ContinuousLlamaDeployment._cls_or_fn):
         imports' sizes and this process's peak device memory."""
         import torch
 
+        from ray_tpu_torch.ops.attention import flash_attention
         from ray_tpu_torch.ops.decode_attention import decode_attention
         from ray_tpu_torch.ops.paged_decode_attention import \
             paged_decode_attention
@@ -3834,6 +4482,7 @@ class CountingLlm(ContinuousLlamaDeployment._cls_or_fn):
         with self._lock:
             out = dict(paged=paged_decode_attention.launches,
                        dense=decode_attention.launches,
+                       flash_fwd=flash_attention.launches["fwd"],
                        ticks=self.batcher.base_tick_count,
                        tick_s=self.tick_s,
                        prefill_s=self.batcher.prefill_seconds,
@@ -3845,6 +4494,7 @@ class CountingLlm(ContinuousLlamaDeployment._cls_or_fn):
             if reset:
                 paged_decode_attention.launches = 0
                 decode_attention.launches = 0
+                flash_attention.launches["fwd"] = 0
                 self.marks = []
                 self.handoffs = []
                 torch.cuda.reset_peak_memory_stats()
@@ -3863,6 +4513,38 @@ class CountingLlm(ContinuousLlamaDeployment._cls_or_fn):
         times both in one replica)."""
         os.environ["RAY_TPU_TRACING"] = "1" if on else "0"
         return bool(on)
+
+    def score_versioned(self, prompt, tokens):
+        """Phase 35's behavior logprobs and the version that scored them,
+        under one hold of the engine lock (a swap cannot land between
+        them), and the seconds the scoring took."""
+        with self._lock:
+            t0 = time.perf_counter()
+            lp = self.batcher.score_logprobs(list(prompt), list(tokens))
+            return ([float(x) for x in lp], self.batcher.weight_version,
+                    time.perf_counter() - t0)
+
+    def equals_checkpoint(self, root, run, version):
+        """Whether the live params equal, bit for bit, ``version``'s
+        checkpoint under ``root``/``run`` (restored here, compared on the
+        card as raw bytes)."""
+        import torch
+
+        from ray_tpu_torch.checkpoint import load_latest
+        from ray_tpu_torch.rl.weight_sync import _flat
+
+        cold = dict(_flat(load_latest(root, run=run, step=int(version))))
+        with self._lock:
+            live = dict(_flat(self.batcher.params))
+            if live.keys() != cold.keys():
+                return False
+            for path, t in live.items():
+                c = cold[path].to(t.device)
+                if c.dtype != t.dtype or c.shape != t.shape or not bool(
+                        torch.equal(c.view(torch.uint8),
+                                    t.view(torch.uint8))):
+                    return False
+        return True
 
 
 def breakdown(records, n):
@@ -5085,6 +5767,15 @@ def main():
         _build.build_all()
         timed("phase 34", controller_phase, torch, card)
         return
+    if sys.argv[1:2] == ["--rl"]:
+        from ray_tpu_torch.ops import _build
+
+        card = card_line()
+        print(card)
+        _build.build_all()
+        timed("phase 35", rl_phase, torch, card)
+        stop_processes()
+        return
     if sys.argv[1:2] == ["--dense-ms"]:
         print(card_line())
         dense_ms(torch, sys.argv[2])
@@ -5148,6 +5839,7 @@ def main():
     sharded, seq, mix_mesh, _ = timed("phases 25-28", sharded_train, torch,
                                       card, train, mix)
     controller = timed("phase 34", controller_phase, torch, card)
+    rl = timed("phase 35", rl_phase, torch, card)
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(
@@ -5161,6 +5853,7 @@ def main():
         replica_launches=serving["runtime"]["launches"]["paged"],
         disagg_launches=serving["disagg"]["launches"]["paged"],
         observe_launches=serving["observe"]["launches"]["paged"],
+        rl_launches=rl["b4_launches"],
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], kernel_ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
@@ -5178,9 +5871,11 @@ def main():
             sharded_launches=sharded["launches"][n],
             controller_launches=controller["launches"][n],
             ulysses_launches=seq["ulysses"]["launches"][n],
+            rl_launches=rl["learner_launches"][n],
             **({"deployment_scoring_launches":
-                serving["deploy"]["scoring_launches"]} if n == "fwd"
-               else {}),
+                serving["deploy"]["scoring_launches"],
+                "rl_scoring_launches": rl["b1_scoring_launches"]}
+               if n == "fwd" else {}),
             max_abs_err=main_flash["max_abs_err"][n],
             ms=main_flash["ms"][n], plain_ms=main_flash["plain_ms"][n],
             bound_ms=main_flash["bound"][n][0],

@@ -4,8 +4,11 @@
 Each keeps the JAX package's name, kind, description, tag keys and
 histogram boundaries (``tests/test_torch_metrics.py`` holds them to
 JAX's), so a dashboard or a query written against one package reads the
-other. The series of modules not ported yet stay out: ``XLA_*``,
-``DEVICE_MEM_*`` and ``PROFILE_CAPTURES`` (the profiling plane),
+other. The profiling plane's ``XLA_*``, ``DEVICE_MEM_*`` and
+``PROFILE_CAPTURES`` keep JAX's names and descriptions although the port
+compiles no XLA program (:mod:`ray_tpu_torch._private.cuda_monitor`
+counts a program's first call at each argument signature as its
+compile). The series of modules not ported yet stay out:
 ``SERVE_AUTOSCALE_DECISIONS`` and ``POOL_*`` (the autoscaler), and the
 GCS, RPC, node, store and agent series (the actor core).
 
@@ -254,6 +257,70 @@ CB_SPEC_K = Gauge(
     "spec_k knob)",
     ("engine",))
 
+# ------------------------------------------ profiling plane (_private/
+# cuda_monitor.py): compiles/retraces per instrumented program, counted
+# cost, and achieved throughput against it.
+XLA_COMPILES = Counter(
+    "ray_tpu_xla_compiles_total",
+    "XLA compilations of instrumented programs (one per new signature)",
+    ("program",))
+XLA_COMPILE_SECONDS = Histogram(
+    "ray_tpu_xla_compile_seconds",
+    "Wall time of one XLA compilation (lower + compile)",
+    boundaries=(0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0),
+    tag_keys=("program",))
+XLA_RETRACES = Counter(
+    "ray_tpu_xla_retraces_total",
+    "Recompiles of an instrumented program for an UNEXPECTED new "
+    "shape/dtype signature (bucketed growth is exempt); the offending "
+    "signature diff is logged",
+    ("program",))
+XLA_PROGRAM_FLOPS = Gauge(
+    "ray_tpu_xla_program_flops",
+    "Compiler cost-analysis FLOPs per invocation of the latest "
+    "compiled signature",
+    ("program",))
+XLA_PROGRAM_BYTES = Gauge(
+    "ray_tpu_xla_program_bytes_accessed",
+    "Compiler cost-analysis bytes accessed (HBM traffic) per invocation "
+    "of the latest compiled signature",
+    ("program",))
+XLA_ACHIEVED_FLOPS = Gauge(
+    "ray_tpu_xla_achieved_flops_per_s",
+    "Achieved FLOP/s: cost-analysis FLOPs over measured step/tick wall "
+    "time (no estimation)",
+    ("program",))
+XLA_ACHIEVED_BW = Gauge(
+    "ray_tpu_xla_achieved_bandwidth_bytes_per_s",
+    "Achieved memory bandwidth: cost-analysis bytes accessed over "
+    "measured step/tick wall time",
+    ("program",))
+XLA_MFU = Gauge(
+    "ray_tpu_xla_model_flops_utilization",
+    "Achieved FLOP/s over the chip's peak (emitted only on known "
+    "device kinds)",
+    ("program",))
+
+# --------------------------------------------- device memory vitals
+DEVICE_MEM_USED = Gauge(
+    "ray_tpu_device_mem_used_bytes",
+    "Accelerator bytes_in_use from device memory_stats() (absent on "
+    "backends without memory stats, e.g. CPU)",
+    ("node_id", "device"))
+DEVICE_MEM_PEAK = Gauge(
+    "ray_tpu_device_mem_peak_bytes",
+    "Accelerator peak_bytes_in_use from device memory_stats()",
+    ("node_id", "device"))
+DEVICE_MEM_LIMIT = Gauge(
+    "ray_tpu_device_mem_limit_bytes",
+    "Accelerator bytes_limit from device memory_stats()",
+    ("node_id", "device"))
+
+PROFILE_CAPTURES = Counter(
+    "ray_tpu_profile_captures_total",
+    "jax.profiler trace captures executed by this process, by outcome",
+    ("status",))
+
 # --------------------------------------- checkpoint plane (checkpoint/)
 CKPT_BLOCK_MS = Histogram(
     "ray_tpu_ckpt_block_ms",
@@ -372,15 +439,39 @@ TRAIN_INGEST_BYTES = Counter(
     "data-plane bytes/s",
     ("iterator",))
 
-# ----------------------------------------------- RL weight swaps (llm/)
+# --------------------------------------------- RL weight-sync plane (rl/)
+RL_SYNC_SECONDS = Histogram(
+    "ray_tpu_rl_weight_sync_seconds",
+    "Wall time of one weight-sync hop, by path (publish: trainer manifest "
+    "build + checkpoint persist + channel write; subscribe: channel read + "
+    "crc verify + reshard; fallback: checkpoint-plane restore when the "
+    "fast path is unavailable)",
+    boundaries=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0),
+    tag_keys=("run", "path"))
+RL_SYNC_BYTES = Counter(
+    "ray_tpu_rl_weight_sync_bytes_total",
+    "Weight bytes moved by the sync plane, by path "
+    "(publish/subscribe/fallback)",
+    ("run", "path"))
 RL_VERSION = Gauge(
     "ray_tpu_rl_weight_sync_version",
     "Latest weight version seen, by role (trainer: last published; "
     "generator: version live in the serving engine) — the trainer/"
     "generator gap is the sync lag in versions",
     ("run", "role"))
+RL_ROLLOUT_STALENESS = Gauge(
+    "ray_tpu_rl_rollout_staleness",
+    "Worst sequence staleness (trainer version minus producing weight "
+    "version) in the most recent generation phase",
+    ("run",))
 RL_SWAPS = Counter(
     "ray_tpu_rl_weight_swaps_total",
     "Generator weight swaps applied at a tick boundary, by cause "
     "(publish/fallback/restore)",
     ("run", "cause"))
+RL_SYNC_SHED = Counter(
+    "ray_tpu_rl_weight_sync_shed_total",
+    "Published versions a lagging subscriber never acked before the "
+    "writer overwrote them (shed-with-attribution: the subscriber tag "
+    "names the laggard; it re-converges via the checkpoint fallback)",
+    ("run", "subscriber"))

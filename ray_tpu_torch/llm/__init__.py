@@ -29,8 +29,12 @@ decode replica streams every token from
 chaos sites (``serve_replica``, ``phase=prefill|decode``) are JAX's.
 
 A weight swap emits JAX's ``rl.weight_swap`` flight event and counts
-``RL_SWAPS`` and ``RL_VERSION``. Not ported yet: the weight-sync
-subscriber (item 10).
+``RL_SWAPS`` and ``RL_VERSION``. :meth:`ContinuousLlamaDeployment.
+enable_weight_sync` keeps a replica current with a trainer's
+:class:`~ray_tpu_torch.rl.weight_sync.WeightPublisher` (the channel's
+fast path, the checkpoint's slow path), and
+:meth:`~ContinuousLlamaDeployment.restore_weights` brings a replica
+current from a publish's checkpoint on command.
 """
 
 from __future__ import annotations
@@ -313,9 +317,11 @@ class ContinuousLlamaDeployment:
         counts the swap by ``cause``. Returns the version now live."""
         manifest = manifest or {}
         run = run or manifest.get("run") or "rl"
+        t0 = time.perf_counter()
         weights = _to_device(weights, self.batcher.device)
         with self._lock:
             v = self.batcher.swap_params(weights, version=version)
+        self._last_swap_s = time.perf_counter() - t0
         attrs = {"version": v, "swap_cause": cause}
         if manifest.get("ts"):
             # Trainer publish to generator live, end to end.
@@ -329,10 +335,85 @@ class ContinuousLlamaDeployment:
 
     def enable_weight_sync(self, spec, run: str = "rl",
                            poll_s: float = 0.05,
-                           target_shardings=None) -> None:
-        """The trainer's weight channel and its checkpoint fallback."""
-        raise llama.not_ported("enable_weight_sync (the RL weight-sync "
-                               "plane)", "item 10 (ray_tpu_torch/rl)")
+                           target_shardings=None, kv=None) -> None:
+        """Start the subscriber's poll thread: the fast path reads the
+        trainer's weight channel (``spec``: a reader attach-spec from
+        ``WeightPublisher.subscriber_spec``, or a ``WeightSubscriber``),
+        and when it breaks (writer gone, a payload failing its crc) the
+        ladder restores the newest manifest's checkpoint (found in
+        ``kv``'s ``__rl__`` mirror); both land through
+        :meth:`swap_weights`, never mid-tick."""
+        from ray_tpu_torch.rl.weight_sync import WeightSubscriber
+
+        if spec is None and kv is None:
+            raise ValueError("enable_weight_sync needs a channel spec (or "
+                             "a kv whose __rl__ mirror names checkpoints)")
+        self.disable_weight_sync()
+        sub = (spec if isinstance(spec, WeightSubscriber)
+               else WeightSubscriber(spec, run=run,
+                                     target_shardings=target_shardings,
+                                     kv=kv))
+        self._subscriber = sub
+        stop = self._sync_stop = threading.Event()
+
+        def _loop():
+            while not stop.is_set():
+                try:
+                    got = sub.poll(timeout=poll_s)
+                except Exception:  # noqa: BLE001 - fast path down
+                    try:
+                        manifest, params = sub.restore_fallback()
+                        if int(manifest["version"]) > \
+                                self.batcher.weight_version:
+                            self.swap_weights(
+                                params, version=int(manifest["version"]),
+                                cause="fallback", manifest=manifest,
+                                run=run)
+                    except Exception:  # noqa: BLE001
+                        logger.exception("rl: weight-sync fallback failed")
+                    stop.wait(max(poll_s, 0.05))
+                    continue
+                if got is None:
+                    continue
+                manifest, params = got
+                self.swap_weights(params, version=int(manifest["version"]),
+                                  cause="publish", manifest=manifest,
+                                  run=run)
+
+        self._sync_thread = threading.Thread(target=_loop, daemon=True,
+                                             name="rl-weight-sync")
+        self._sync_thread.start()
+
+    def disable_weight_sync(self) -> None:
+        stop = getattr(self, "_sync_stop", None)
+        if stop is not None:
+            stop.set()
+
+    def sync_timing(self) -> Dict[str, float]:
+        """The newest swap's split: the subscriber's read and crc seconds
+        and the swap's (device copy and the engine lock), as
+        ``{"read_s", "crc_s", "swap_s"}``."""
+        sub = getattr(self, "_subscriber", None)
+        out = dict(sub.last_timing) if sub is not None else {}
+        out["swap_s"] = getattr(self, "_last_swap_s", 0.0)
+        return out
+
+    def restore_weights(self, manifest: Dict[str, Any]) -> int:
+        """The slow path on command: restore ``manifest``'s version from
+        its checkpoint in this process (``WeightSubscriber.
+        restore_fallback``) and swap it in with cause ``fallback``. JAX's
+        caller loads the checkpoint itself and sends the params through
+        ``swap_weights``; here the params never cross the process hop.
+        Returns the version now live."""
+        from ray_tpu_torch.rl.weight_sync import WeightSubscriber
+
+        run = manifest.get("run") or "rl"
+        sub = getattr(self, "_subscriber", None) or WeightSubscriber(
+            None, run=run)
+        manifest, params = sub.restore_fallback(manifest)
+        return self.swap_weights(params, version=int(manifest["version"]),
+                                 cause="fallback", manifest=manifest,
+                                 run=run)
 
     def score_logprobs(self, prompt_token_ids,
                        token_ids) -> List[float]:

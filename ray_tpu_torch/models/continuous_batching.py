@@ -71,6 +71,7 @@ from __future__ import annotations
 import itertools
 import os
 import time
+import weakref
 import zlib
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
@@ -78,7 +79,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ray_tpu_torch._private import chaos
+from ray_tpu_torch._private import chaos, cuda_monitor
 from ray_tpu_torch._private import metrics_defs as mdefs
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.inference import (KVCache, SelfDrafter,
@@ -853,6 +854,199 @@ class ContinuousBatcher:
         self.request_breakdowns: deque = deque(maxlen=4096)
         self._MAX_WINDOWS = 64           # a request's window spans (cap)
 
+        self.param_bytes = sum(t.numel() * t.element_size()
+                               for _, t in _named_leaves(self.params))
+        # A self-draft pass streams the layer fraction plus the embed,
+        # norm and head: tick_bytes_estimate prices drafts from these.
+        self._head_param_bytes = sum(
+            self.params[k].numel() * self.params[k].element_size()
+            for k in ("embed", "final_norm", "lm_head"))
+        self._layer_param_bytes = self.param_bytes - self._head_param_bytes
+        self._draft_param_bytes = (
+            sum(t.numel() * t.element_size()
+                for _, t in _named_leaves(self.drafter.params))
+            if self.spec_k and self.drafter.external else 0)
+        # Buffered-mode achieved-bandwidth window: wall time and tick
+        # count between consecutive fetch syncs.
+        self._bw_window_t0: Optional[float] = None
+        self._bw_window_ticks = 0
+        self._build_programs()
+
+    def _build_programs(self) -> None:
+        """The engine's programs through the profiling plane
+        (:mod:`ray_tpu_torch._private.cuda_monitor`), named as JAX's:
+        ``cb_prefill`` (bucketed), ``cb_tick`` (one signature),
+        ``cb_draft_prefill``, and per rung ``cb_spec_tick`` and
+        ``cb_score`` built when first used. Prefill's signatures are pow-2
+        bucketed in N and L by design, with the non-pow2 caps (max_len,
+        num_slots, the suffix buckets clamped to the table left after a
+        matched prefix) allowed, so only a stray odd shape reads as a
+        retrace."""
+        prefill_dims = (self.max_len, self.num_slots)
+        if self.paged:
+            ms = {0}
+            m = 1
+            while m <= self.max_blocks:
+                ms.add(m)
+                m *= 2
+            prefill_dims += (0,)
+            prefill_dims += tuple(self.block_size * (self.max_blocks - v)
+                                  for v in sorted(ms))
+        # The programs hold the engine weakly (no cycle keeps a dropped
+        # engine's device memory) and look its methods up at each call.
+        ref = weakref.ref(self)
+
+        def prefill(*args):
+            eng = ref()
+            return (eng._prefill if eng.paged else eng._prefill_dense)(*args)
+
+        def draft_prefill(*args):
+            return ref()._draft_prefill_group(*args)
+
+        # Costs by formula: these programs serve requests, and a count
+        # would run a new bucket's first call through Python op by op.
+        self._prefill_prog = cuda_monitor.instrument(
+            prefill, name="cb_prefill", shape_policy="bucketed",
+            allowed_dims=prefill_dims, device=self.device,
+            cost=lambda *a: ref()._prefill_cost(*a))
+        self._tick_prog = cuda_monitor.instrument(
+            _decode_tick_paged if self.paged else _decode_tick,
+            name="cb_tick", cost=lambda *a, **k: ref()._tick_cost())
+        self._draft_prefill_prog = (
+            cuda_monitor.instrument(draft_prefill,
+                                    name="cb_draft_prefill",
+                                    shape_policy="bucketed",
+                                    allowed_dims=prefill_dims,
+                                    device=self.device,
+                                    cost=lambda *a: ref()._draft_prefill_cost(
+                                        *a))
+            if self.spec_k and self.drafter.external else None)
+        self._spec_progs: Dict[int, Any] = {}
+        self._score_prog = None
+
+    def _spec_prog(self, k: int):
+        """The spec-tick program of ladder rung ``k`` (one a rung, all
+        named ``cb_spec_tick``; each rung's window k+1 is an allowed
+        dim, so a ladder move never reads as a retrace)."""
+        prog = self._spec_progs.get(k)
+        if prog is None:
+            dims = (self.max_len, self.num_slots, self.max_blocks) + tuple(
+                kk + 1 for kk in self._spec_ladder_ks)
+            ref = weakref.ref(self)
+            prog = self._spec_progs[k] = cuda_monitor.instrument(
+                _spec_tick_paged, name="cb_spec_tick",
+                shape_policy="bucketed", allowed_dims=dims,
+                cost=lambda *a, **kw: ref()._tick_cost(k))
+        return prog
+
+    # -- the programs' costs by formula (llama.forward_flops) -----------
+    def _kv_token_bytes(self) -> int:
+        """Cache bytes one token holds across the layers."""
+        if self.paged:
+            return self.cache.token_bytes()
+        c = self.config
+        return (2 * c.num_layers * c.num_kv_heads * c.head_dim
+                * self.cache.k.element_size())
+
+    def _prefill_cost(self, tokens, tables, *_) -> Dict[str, float]:
+        """``cb_prefill``: N rows of S tokens and the LM head on each
+        row's last. Paged: causal pairs over the m-block prefix and the
+        suffix; bytes the params once, the prefix's K/V read and the
+        suffix's written. Dense: every (query, cache key) pair of the
+        plain cached attention; bytes the params once and the N cache
+        stripes gathered and written back."""
+        n, s = tokens.shape
+        kv = self._kv_token_bytes()
+        if self.paged:
+            prefix = tables.shape[1] * self.block_size
+            pairs = n * (s * prefix + s * (s + 1) // 2)
+            nbytes = self.param_bytes + n * (prefix + s) * kv
+        else:
+            pairs = n * s * self.max_len
+            nbytes = self.param_bytes + 2 * n * self.max_len * kv
+        return {"flops": float(llama.forward_flops(self.config, n * s,
+                                                   pairs, n)),
+                "bytes_accessed": float(nbytes)}
+
+    def _tick_cost(self, spec_k: int = 0) -> Dict[str, float]:
+        """``cb_tick`` (``spec_k`` 0) and ``cb_spec_tick``: each slot's
+        window of k+1 tokens through every layer, attending each key its
+        table (paged) or stripe (dense) spans, the LM head on every
+        window row; and k draft passes of one token a slot through the
+        self-drafter's first layers and the head, or through the external
+        drafter over its stripes. Bytes: :meth:`tick_bytes_estimate`."""
+        c, b, w = self.config, self.num_slots, spec_k + 1
+        keys = (self.max_blocks * self.block_size if self.paged
+                else self.max_len)
+        flops = llama.forward_flops(c, b * w, b * w * keys, b * w)
+        if spec_k and self._draft_cache is not None:
+            flops += spec_k * llama.forward_flops(
+                self.drafter.config, b, b * self.max_len, b)
+        elif spec_k:
+            flops += spec_k * llama.forward_flops(
+                c, b, b * keys, b, layers=self.spec_draft_layers)
+        return {"flops": float(flops), "bytes_accessed": float(
+            self.tick_bytes_estimate(spec_k=spec_k))}
+
+    def _draft_prefill_cost(self, toks, slots) -> Dict[str, float]:
+        """``cb_draft_prefill``: N prompts of L tokens through the
+        external drafter, every (query, cache key) pair of its plain
+        cached attention, the head on N rows; bytes its params once and
+        the N stripes gathered and written back."""
+        n, s = toks.shape
+        dcfg = self.drafter.config
+        kv = (2 * dcfg.num_layers * dcfg.num_kv_heads * dcfg.head_dim
+              * self._draft_cache.k.element_size())
+        return {"flops": float(llama.forward_flops(
+                    dcfg, n * s, n * s * self.max_len, n)),
+                "bytes_accessed": float(self._draft_param_bytes
+                                        + 2 * n * self.max_len * kv)}
+
+    def prefill_cache_misses(self) -> int:
+        """Prefill signatures compiled (one per (N, bucket) shape): the
+        admission-burst check reads this."""
+        return self._prefill_prog._cache_size()
+
+    def tick_bytes_estimate(self, spec_k: Optional[int] = None) -> int:
+        """Device bytes one decode tick streams: the whole parameter set
+        plus the LIVE tokens' arena traffic (paged, each slot's prefix
+        rounded up to whole blocks, as the kernel fetches them) or every
+        slot's stripe (dense). The achieved-bandwidth gauges read it: a
+        tick's counted cost prices what its first call read.
+
+        ``spec_k`` prices a SPECULATIVE tick (default: the k the engine
+        dispatches now): each of the k draft passes streams the truncated
+        layer slice (or the external drafter's params and cache) plus its
+        share of the live arena, and the verify streams the params once
+        plus k+1 positions' arena passes."""
+        if spec_k is None:
+            spec_k = self._spec_cur_k if self.spec_k else 0
+        if self.paged:
+            bs = self.block_size
+            live = sum(-(-(st["pos"] + 1) // bs) * bs
+                       for st in self._slots.values())
+            live_bytes = live * self.cache.token_bytes()
+            total = self.param_bytes + live_bytes
+            if spec_k:
+                if self._draft_cache is not None:
+                    dcfg = self.drafter.config
+                    dstripes = (2 * dcfg.num_layers * self.num_slots
+                                * self.max_len * dcfg.num_kv_heads
+                                * dcfg.head_dim
+                                * self._draft_cache.k.element_size())
+                    draft_pass = self._draft_param_bytes + dstripes
+                else:
+                    frac = self.spec_draft_layers / self.config.num_layers
+                    draft_pass = (self._layer_param_bytes * frac
+                                  + self._head_param_bytes
+                                  + live_bytes * frac)
+                total += spec_k * (draft_pass + live_bytes)
+            return int(total)
+        c = self.config
+        per_slot = (2 * c.num_layers * self.max_len * c.num_kv_heads
+                    * c.head_dim * self.cache.k.element_size())
+        return self.param_bytes + self.num_slots * per_slot
+
     def _new_cache(self):
         if self.paged:
             return PagedKVCache.create(self.config, self.num_blocks,
@@ -924,9 +1118,28 @@ class ContinuousBatcher:
         pad = min(_bucket(len(full)), self.max_len)
         tokens = torch.zeros((1, pad), dtype=torch.long, device=self.device)
         tokens[0, :len(full)] = torch.tensor(full, device=self.device)
-        with llama.fp32_reduction(self.device, self.config.dtype):
-            logits = llama.forward(self.params, tokens, self.config)
-        logp = torch.log_softmax(logits[0].float(), dim=-1)
+        if self._score_prog is None:
+            cfg, dev = self.config, self.device
+
+            def score(params, tokens):
+                with llama.fp32_reduction(dev, cfg.dtype):
+                    logits = llama.forward(params, tokens, cfg)
+                return torch.log_softmax(logits.float(), dim=-1)
+
+            pbytes = self.param_bytes
+
+            def score_cost(params, tokens):
+                # Causal pairs, the head and a log-softmax on every row.
+                n = tokens.shape[1]
+                return {"flops": float(llama.forward_flops(
+                            cfg, n, n * (n + 1) // 2, n)),
+                        "bytes_accessed": float(
+                            pbytes + 8 * n * cfg.vocab_size)}
+
+            self._score_prog = cuda_monitor.instrument(
+                score, name="cb_score", shape_policy="bucketed",
+                allowed_dims=(1, self.max_len), cost=score_cost)
+        logp = self._score_prog(self.params, tokens)[0]
         start = len(prompt_tokens)
         rows = torch.arange(start - 1, start - 1 + len(out_tokens),
                             device=self.device)
@@ -1043,6 +1256,8 @@ class ContinuousBatcher:
                 self._prefix.clear()
         self._applied_steps = 0
         self._d_step = 0
+        self._bw_window_t0 = None
+        self._bw_window_ticks = 0
         self._dirty = True
         return dropped
 
@@ -1686,11 +1901,16 @@ class ContinuousBatcher:
             pt0 = time.time()    # the prefill span's wall-clock anchor
             t0 = time.perf_counter()
             if self.paged:
-                first = self._prefill(tokens, ptables, tables_w, last_idx)
+                first = self._prefill_prog(tokens, ptables, tables_w,
+                                           last_idx)
             else:
-                first = self._prefill_dense(tokens, slots, last_idx)
+                first = self._prefill_prog(tokens, slots, last_idx)
             first = first.cpu().numpy()          # N ints: the device sync
-            self.prefill_seconds += time.perf_counter() - t0
+            # The fetch synced the dispatch: the prefill's real cost, fed
+            # to the achieved gauges against this bucket's counted cost.
+            prefill_wall = time.perf_counter() - t0
+            self.prefill_seconds += prefill_wall
+            self._prefill_prog.note_execution(prefill_wall)
             first_ts = time.time()
             true_tokens = int(last_idx[:n].sum()) + n
             self.prefill_batches += 1
@@ -1820,18 +2040,24 @@ class ContinuousBatcher:
                 slot, prompt = grp[min(i, n - 1)]
                 toks[i, :len(prompt)] = prompt
                 slots[i] = slot
-            idx = torch.from_numpy(slots).to(dev)
-            dc = self._draft_cache
-            stripes = KVCache(k=dc.k[:, idx], v=dc.v[:, idx])
-            # Only the K/V are wanted: one logits row a prompt, not
-            # [N, S, V].
-            _forward_cached(self.drafter.params,
-                            torch.from_numpy(toks).to(dev),
-                            torch.arange(blen, device=dev), stripes, dcfg,
-                            last_idx=torch.zeros(n_pad, dtype=torch.long,
-                                                 device=dev))
-            dc.k[:, idx] = stripes.k
-            dc.v[:, idx] = stripes.v
+            self._draft_prefill_prog(toks, slots)
+
+    def _draft_prefill_group(self, toks, slots) -> None:
+        """One bucket of the external drafter's prefill (``cb_draft_
+        prefill``): ``toks`` [N, L] into the stripes of ``slots`` [N]."""
+        dev = self.device
+        idx = torch.from_numpy(slots).to(dev)
+        dc = self._draft_cache
+        stripes = KVCache(k=dc.k[:, idx], v=dc.v[:, idx])
+        # Only the K/V are wanted: one logits row a prompt, not
+        # [N, S, V].
+        _forward_cached(self.drafter.params, torch.from_numpy(toks).to(dev),
+                        torch.arange(toks.shape[1], device=dev), stripes,
+                        self.drafter.config,
+                        last_idx=torch.zeros(toks.shape[0], dtype=torch.long,
+                                             device=dev))
+        dc.k[:, idx] = stripes.k
+        dc.v[:, idx] = stripes.v
 
     def _maybe_finish(self, slot: int) -> None:
         st = self._slots.get(slot)
@@ -1879,7 +2105,7 @@ class ContinuousBatcher:
         if k > 0:
             external = self._draft_cache is not None
             (committed, counts, self._d_tokens, self._d_positions,
-             self.cache, self._draft_cache, self._d_step) = _spec_tick_paged(
+             self.cache, self._draft_cache, self._d_step) = self._spec_prog(k)(
                 self.params, self._d_tokens, self._d_positions,
                 self._d_tables, self._d_limits, self.cache, self._d_step,
                 self.config, k, self.spec_draft_layers,
@@ -1893,13 +2119,13 @@ class ContinuousBatcher:
             return committed, counts
         if self.paged:
             (self._d_tokens, self._d_positions, self.cache,
-             self._d_step) = _decode_tick_paged(
+             self._d_step) = self._tick_prog(
                 self.params, self._d_tokens, self._d_positions,
                 self._d_tables, self._d_limits, self.cache, self._d_step,
                 self.config, **kw)
         else:
             (self._d_tokens, self._d_positions, self.cache,
-             self._d_step) = _decode_tick(
+             self._d_step) = self._tick_prog(
                 self.params, self._d_tokens, self._d_positions, self.cache,
                 self._d_step, self.config, **kw)
         self.base_tick_count += 1
@@ -2039,8 +2265,12 @@ class ContinuousBatcher:
                     row = self._run_tick()      # .cpu() below: the sync
                     nxt = (tuple(t.cpu().numpy() for t in row)
                            if isinstance(row, tuple) else row.cpu().numpy())
-                    mdefs.CB_TICK_MS.observe(
-                        (time.perf_counter() - t0) * 1e3, tags=self._mtags)
+                    tick_wall = time.perf_counter() - t0
+                    mdefs.CB_TICK_MS.observe(tick_wall * 1e3,
+                                             tags=self._mtags)
+                    # The fetch is the sync: the tick's real latency,
+                    # priced off the LIVE tokens' bytes on a paged engine.
+                    self._note_tick(tick_wall)
                     if self._apply_tokens(
                             [nxt], self._membership(),
                             window=(w0, time.time())
@@ -2048,6 +2278,15 @@ class ContinuousBatcher:
                         self._dirty = True
         out, self._finished = self._finished, {}
         return out
+
+    def _note_tick(self, seconds: float) -> None:
+        """A tick's measured wall time to its program's achieved gauges
+        (a spec tick's to its rung's), with the live-byte hint on paged
+        engines."""
+        k = self._last_tick_k
+        prog = self._spec_progs[k] if k else self._tick_prog
+        prog.note_execution(seconds, bytes_hint=(
+            self.tick_bytes_estimate(spec_k=k) if self.paged else None))
 
     def _step_buffered(self) -> None:
         # Admission, upload and a change of k only at a clean boundary
@@ -2057,6 +2296,10 @@ class ContinuousBatcher:
         if clean:
             self._adapt_spec_k()
             self._admit()
+            # A clean boundary restarts the bandwidth window, so idle
+            # gaps and admission prefills stay out of its per-tick time.
+            self._bw_window_t0 = None
+            self._bw_window_ticks = 0
         if self._slots:
             if self._dirty and clean:
                 self._upload_state()
@@ -2065,10 +2308,13 @@ class ContinuousBatcher:
                 # for the decode-window spans (the host sees their tokens
                 # only at the fetch).
                 self._window_t0 = time.time()
+            if self._bw_window_t0 is None:
+                self._bw_window_t0 = time.perf_counter()
             t0 = time.perf_counter()
             self._buf.append(self._run_tick())
             mdefs.CB_TICK_MS.observe((time.perf_counter() - t0) * 1e3,
                                      tags=self._mtags)
+            self._bw_window_ticks += 1
         want_admit = self._can_admit_head()
         if len(self._buf) >= self.sync_every or want_admit or (
                 not self._slots and (self._buf or self._pending is not None)):
@@ -2120,8 +2366,18 @@ class ContinuousBatcher:
         if self._pending is not None:
             fetch, membership, win0 = self._pending
             self._pending = None
-            if self._apply_tokens(self._rows_from_stacked(fetch),
-                                  membership, window=(win0, time.time())):
+            rows = self._rows_from_stacked(fetch)
+            # The fetch landing is a device sync: the wall time since the
+            # last one covers the ticks dispatched in between, so window
+            # over ticks is the steady per-tick cost.
+            now = time.perf_counter()
+            if self._bw_window_t0 is not None and self._bw_window_ticks:
+                self._note_tick((now - self._bw_window_t0)
+                                / self._bw_window_ticks)
+            self._bw_window_t0 = now
+            self._bw_window_ticks = 0
+            if self._apply_tokens(rows, membership,
+                                  window=(win0, time.time())):
                 self._buf = []
                 self._dirty = True
                 return

@@ -19,6 +19,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch._private import cuda_monitor
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
@@ -191,6 +192,42 @@ class LlamaGenerator:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = llama.init_params(config, gen, device=self.device)
         self.params = params
+        cfg, dev = config, self.device
+
+        # The whole-prompt prefill runs once per distinct prompt length
+        # (the batch API pads nothing): compile-tracked, no retrace rule.
+        # The engine is the bucketed serving path.
+        def prefill(params, tokens, cache):
+            return _forward_cached(params, tokens,
+                                   torch.arange(tokens.shape[1], device=dev),
+                                   cache, cfg)
+
+        def decode(params, token, cache, pos):
+            logits, cache = _forward_cached(
+                params, token[:, None], torch.tensor([pos], device=dev),
+                cache, cfg)
+            return logits[:, -1], cache
+
+        # Costs by formula (no count on the serving path): the layers and
+        # the head on every row, every (query, cache key) pair of the
+        # plain cached attention; bytes the params and the cache once.
+        pbytes = sum(t.numel() * t.element_size() for t in (
+            list(params["layers"].values())
+            + [v for k, v in params.items() if k != "layers"]))
+
+        def cost(params, tokens, cache, *_):
+            b, s = tokens.shape[0], (tokens.shape[1] if tokens.dim() > 1
+                                     else 1)
+            keys = cache.k.shape[2]
+            return {"flops": float(llama.forward_flops(
+                        cfg, b * s, b * s * keys, b * s)),
+                    "bytes_accessed": float(
+                        pbytes + 2 * cache.k.numel() * cache.k.element_size())}
+
+        self._prefill = cuda_monitor.instrument(prefill, name="llama_prefill",
+                                                shape_policy="free", cost=cost)
+        self._decode = cuda_monitor.instrument(decode, name="llama_decode",
+                                               cost=cost)
 
     @torch.no_grad()
     def generate(self, prompt_tokens, max_new_tokens: int = 32,
@@ -206,9 +243,7 @@ class LlamaGenerator:
                              f"({max_new_tokens}) exceeds "
                              f"max_len={self.max_len}")
         cache = KVCache.create(self.config, b, self.max_len, self.device)
-        logits, cache = _forward_cached(
-            self.params, tokens, torch.arange(p, device=self.device), cache,
-            self.config)
+        logits, cache = self._prefill(self.params, tokens, cache)
         last = logits[:, p - 1]
         gen = torch.Generator(device=self.device).manual_seed(seed)
         out = []
@@ -221,8 +256,5 @@ class LlamaGenerator:
             out.append(nxt.to(torch.int32))
             if len(out) == max_new_tokens:
                 break                  # the last token needs no logits
-            logits, cache = _forward_cached(
-                self.params, nxt[:, None],
-                torch.tensor([pos], device=self.device), cache, self.config)
-            last = logits[:, -1]
+            last, cache = self._decode(self.params, nxt, cache, pos)
         return torch.stack(out, dim=1)

@@ -259,6 +259,22 @@ def num_params(config: LlamaConfig) -> int:
     )
 
 
+def forward_flops(config: LlamaConfig, tokens: int, pairs: int,
+                  head_rows: int, layers: Optional[int] = None) -> int:
+    """FLOPs of a forward pass of ``tokens`` tokens through ``layers``
+    (default all) layers: 2 a weight a token in the layers' matmuls, 4 D
+    a query head for each (query, key) pair attention computes (``pairs``,
+    summed over the sequences, for one head), and 2 a weight a row of the
+    LM head on ``head_rows`` rows."""
+    c = config
+    n_layers = c.num_layers if layers is None else layers
+    e, h, kv, d = c.hidden_size, c.num_heads, c.num_kv_heads, c.head_dim
+    per_token = e * h * d + 2 * e * kv * d + h * d * e \
+        + 3 * e * c.intermediate_size
+    return (2 * tokens * per_token * n_layers + 4 * d * h * pairs * n_layers
+            + 2 * head_rows * e * c.vocab_size)
+
+
 def mesh_shape(mesh) -> Dict[str, int]:
     """Axis sizes of ``mesh``: a :class:`DeviceMesh` (all six axes), None
     (one device) or a mapping of axis name to size."""

@@ -32,6 +32,7 @@ import torch
 import torch.distributed
 from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
+from ray_tpu_torch._private import cuda_monitor
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.parallel import sharding as shd
 
@@ -337,6 +338,15 @@ class ShardedTrainer:
             self.param_placements = shd.tree_map(
                 lambda spec: shd.spec_placements(spec, mesh),
                 self.param_specs)
+        # The profiling plane's programs (JAX's names): the first step at
+        # a batch shape is its compile, counted for FLOPs and bytes; a
+        # loop that syncs per step feeds the achieved gauges by call
+        # cadence, AsyncStepLoop by its measured window.
+        self._init = cuda_monitor.instrument(
+            self._init_state, name="train_init", shape_policy="free",
+            device=self.device)
+        self._step = cuda_monitor.instrument(
+            self._train_step, name="train_step", device=self.device)
 
     # -- state -------------------------------------------------------------
     def state_from_params(self, params) -> TrainState:
@@ -352,6 +362,9 @@ class ShardedTrainer:
         """Params drawn from a generator seeded with ``seed``. On a mesh
         every rank draws the full params and keeps its shards (a sharded
         init is later work)."""
+        return self._init(seed)
+
+    def _init_state(self, seed: int) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return self._fresh_state(self._place(
             llama.init_params(self.config, gen, device=self.device),
@@ -441,6 +454,9 @@ class ShardedTrainer:
         moments are updated in place and returned in a new TrainState.
         The step runs under :func:`llama.fp32_reduction` (bf16 GEMMs
         reduce in fp32)."""
+        return self._step(state, batch)
+
+    def _train_step(self, state: TrainState, batch):
         g = batch["tokens"].shape[0]
         if g % self.microbatches:
             raise ValueError(

@@ -38,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from ray_tpu_torch._private import cuda_monitor
 from ray_tpu_torch.ops import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -211,6 +212,9 @@ def _launch(which, q, ptrs, sizes, scale, causal):
         raise RuntimeError(f"flash_attention kernel {name} launch failed: "
                            f"{_build.error_string(lib, err)} ({err})")
     flash_attention.launches[which] += 1
+    if cuda_monitor.cost_active():
+        cuda_monitor.add_kernel_cost(*cuda_monitor.flash_cost(
+            which, *sizes, bool(causal), q.element_size()))
 
 
 def _sizes(q, k):

@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from ray_tpu_torch._private import cuda_monitor
 from ray_tpu_torch.ops import _build, _split
 
 # Masked scores are -1e30, not -inf: fully masked garbage rows in freed
@@ -183,6 +184,10 @@ def _decode_cuda(q, cache_k, cache_v, positions, scale):
         raise RuntimeError("decode_attention kernel launch failed: "
                            f"{_build.error_string(lib, err)} ({err})")
     decode_attention.launches += 1
+    if cuda_monitor.cost_active():
+        live = sum(min(int(p) + 1, s_max) for p in positions.tolist())
+        cuda_monitor.add_kernel_cost(*cuda_monitor.decode_cost(
+            live, b, hq, hkv, d, cache_k.element_size(), q.element_size()))
     return out
 
 

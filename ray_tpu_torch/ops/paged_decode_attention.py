@@ -40,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from ray_tpu_torch._private import cuda_monitor
 from ray_tpu_torch.ops import _build, _split
 from ray_tpu_torch.ops._split import (  # noqa: F401 (this module's API)
     BLOCKS_PER_SM, MAX_SPLITS, SPLIT_TILE, group_tile)
@@ -214,6 +215,11 @@ def _paged_cuda(q, arena_k, arena_v, tables, positions, scale, k_scale,
         raise RuntimeError("paged_decode_attention kernel launch failed: "
                            f"{_build.error_string(lib, err)} ({err})")
     paged_decode_attention.launches += 1
+    if cuda_monitor.cost_active():
+        live = [min(int(p) + 1, nb * bs) for p in positions.tolist()]
+        cuda_monitor.add_kernel_cost(*cuda_monitor.decode_cost(
+            sum(live), b, hq, hkv, d, arena_k.element_size(),
+            q.element_size(), sum(-(-n // bs) for n in live), quantized))
     return out
 
 

@@ -31,7 +31,9 @@ one; a firing of a capped rule in the replica asks the serving process
 counts, records and logs it before the replica acts, and a kill ends the
 process (``os._exit``).
 
-Observability crosses the same pipe. Each flight event
+Observability crosses the same pipe. The profiling plane's
+capture command and program registry are control ops (``capture``,
+``programs``; :mod:`ray_tpu_torch._private.cuda_monitor`). Each flight event
 (:mod:`ray_tpu_torch._private.events`) and span record
 (:mod:`ray_tpu_torch.util.tracing`) the replica emits goes to the
 serving process as it is emitted (``events`` and ``spans`` messages),
@@ -82,7 +84,8 @@ from ray_tpu_torch.util.metrics import collect_samples
 logger = logging.getLogger(__name__)
 
 #: What the serving process may ask of a replica besides requests.
-CONTROL_OPS = ("metrics", "pressure", "samples", "health", "drain")
+CONTROL_OPS = ("metrics", "pressure", "samples", "health", "drain",
+               "capture", "programs")
 
 
 class Replica:
@@ -248,6 +251,20 @@ class Replica:
 
     def health(self):
         return True
+
+    def capture(self, cmd):
+        """A profiler capture of this process on command (the profiling
+        plane's capture, sent over the control pipe); returns its
+        record."""
+        from ray_tpu_torch._private import cuda_monitor
+
+        return cuda_monitor.capture(cmd)
+
+    def programs(self):
+        """This process's instrumented-program registry."""
+        from ray_tpu_torch._private import cuda_monitor
+
+        return cuda_monitor.all_program_stats()
 
     async def drain(self, deadline_s: Optional[float] = None):
         """Controller-initiated graceful drain: stop admitting (new
@@ -559,10 +576,14 @@ class ReplicaStream:
 
 # What the fork server imports once: this module (torch with it), the
 # module every train worker's class lives in (a restart would pay its
-# imports again), and a script's main module, so a class or train loop
-# defined in the script that starts the replica resolves in the replica.
+# imports again), the profiling plane's FLOP formulas (their import
+# would otherwise land in a replica's first counted call: a request's
+# TTFT),
+# and a script's main module, so a class or train loop defined in the
+# script that starts the replica resolves in the replica.
 PRELOAD = ("__main__", "ray_tpu_torch.runtime.replica",
-           "ray_tpu_torch.train.backend_executor")
+           "ray_tpu_torch.train.backend_executor",
+           "torch.utils.flop_counter")
 
 
 # Every ReplicaProcess this process started, for stop_all.

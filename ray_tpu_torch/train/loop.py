@@ -9,9 +9,11 @@ stacked), so the card runs back-to-back steps while the host stays out
 of the hot path (the training-side analog of the buffered serve engine's
 ``sync_every``).
 
-The JAX package also feeds the measured window time to its compiled
-step's MFU gauges (``InstrumentedJit.note_execution``); the port's step
-is not a compiled program and has no such gauges.
+Each window's measured wall time, over its steps, goes to the trainer's
+``train_step`` program (:meth:`~ray_tpu_torch._private.cuda_monitor.
+InstrumentedProgram.note_execution`): the achieved FLOP/s and MFU gauges
+against the step's counted cost, as the JAX package feeds its compiled
+step's.
 """
 
 from __future__ import annotations
@@ -93,6 +95,12 @@ class AsyncStepLoop:
         self._window_wall_s += wall
         self._synced_steps += n
         per_step = wall / n
+        step_prog = getattr(self.trainer, "_step", None)
+        if hasattr(step_prog, "note_execution"):
+            # Dispatch of the window's first step to the fetch, split over
+            # its steps: an input stall inside the window inflates it, so
+            # MFU errs low, never high.
+            step_prog.note_execution(per_step)
         tags = {"trainer": self.name}
         values = flat.tolist()
         for i in range(n):

@@ -203,12 +203,13 @@ def test_reserve_kv_nonce_rules_match_jax(params):
 
 
 def test_unported_entry_points_raise_naming_their_item(pair, params):
-    """enable_weight_sync still raises naming item 10; decode_from refuses
-    an unjournaled manifest, and past that gate a prefill replica's
-    handoff lands through the shm channel with JAX's tokens;
-    deploy_disagg_llama asks half a card a replica (none here)."""
+    """enable_weight_sync (item 10, ported) refuses to start with nothing
+    to sync from; decode_from refuses an unjournaled manifest, and past
+    that gate a prefill replica's handoff lands through the shm channel
+    with JAX's tokens; deploy_disagg_llama asks half a card a replica
+    (none here)."""
     jdep, tdep = pair
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="channel spec"):
         tdep.enable_weight_sync(None)
     with pytest.raises(RuntimeError, match="journal"):
         list(tdep.decode_from({"manifest": {"first_token": 1}}))
