@@ -392,6 +392,32 @@ Phases, any failure exits non-zero with no result line:
    beside ``max_memory_allocated``, each process's peak) and a
    ``request_capture`` of one replica while it decodes, which must name
    RL["b4_kernels"]. ``--rl`` runs this phase alone (after the build).
+36. the RL library (``[rllib]``): no kernel; the learners' matmuls,
+   losses and Adam steps run on the card, the env runners in CPU
+   processes of the runtime (no card, one torch thread). Each learner's
+   step on the card against the same step on the CPU from the same
+   params and batch at the main path's batch shapes (PPO's 256-row
+   minibatch, IMPALA's and APPO's 64 x 4 trajectory, DQN's and SAC's
+   128 transitions, SAC with fixed noise, DQN through a target copy):
+   loss, grads, and params after the CPU's grads applied on both, within
+   ``RLLIB["parity"]`` (``[rllib-parity]``). Then with JAX's test
+   settings and bars (``RLLIB``) on this script's numpy ``CartPole``,
+   ``Pendulum`` and ``MatchGame`` (the port does not depend on gymnasium):
+   PPO (4 runners x 4 envs x 64, in-process learner on the card) to a
+   mean return of 120 within 25 iterations, a runner SIGKILLed before
+   iteration 2 and replaced; IMPALA and APPO (one card learner) to 120
+   within 30, IMPALA's runner 0 killed before iteration 2 and
+   respawned; DQN to 60 within 40 (the first of ``RLLIB["dqn"]["seeds"]``
+   to reach it; every attempt printed); SAC 250 above its first mean
+   within 30; multi-agent PPO (a card learner a policy) to 13 within 25
+   with both policies' metrics. Gates: every learner's params on the
+   card with TF32 off, every runner process with an empty
+   ``CUDA_VISIBLE_DEVICES``, no ``/dev/shm/rtch-*`` segment left. Per
+   algorithm: iterations, wall s, env steps/s, the median learner update
+   ms (a ``LearnerGroup.update`` / ``update_many`` call through the pipe,
+   or the in-process ``update_from_batch``), get-weights and broadcast
+   ms, the learner's peak device memory, beside the card line.
+   ``--rllib`` runs this phase alone (after the build).
 
 Phases 23-24 run before phases 25-28 (27 compares with 24), phases
 11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
@@ -457,9 +483,13 @@ within ``MESH_CONTROLLER["tol"]`` of the uninterrupted fsdp=4 run
 (``mesh_collective``): named NCCL and gloo groups beside the default
 group, every op against numpy, and an allreduce of each size of
 ``COLLECTIVE["sizes_mib"]`` timed
-(``[mesh-collective]``). ``--mesh-check SECTION ...`` runs only the
+(``[mesh-collective]``); then ``mesh_rllib``: ``ImpalaLearner`` on two
+card learners over NCCL (a card each), bit for bit the same over
+``MESH_RLLIB["updates"]`` updates, and two ``SGDImpalaLearner``s' step
+equal to one card learner's on the whole batch within rtol 1e-5 / atol
+1e-6 (``[mesh-rllib]``). ``--mesh-check SECTION ...`` runs only the
 named sections of ``MESH_SECTIONS`` (trainer, moe, mixtral, ckpt,
-train-controller, collective). It prints no result line.
+train-controller, collective, rllib). It prints no result line.
 
 ``python3 chip_smoke.py --paged-host-us ROOT`` instead measures only the
 host microseconds a paged call takes (``host_us``, the phase-3 cases at
@@ -499,6 +529,7 @@ import numpy as np
 
 from ray_tpu_torch.llm import ContinuousLlamaDeployment
 from ray_tpu_torch.rl import TokenPPOLearner
+from ray_tpu_torch.rllib.core import DQNLearner, ImpalaLearner, SACLearner
 
 PEAK_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
@@ -587,7 +618,7 @@ MESH_MOE = dict(
                peak_gib=75.0),
     ckpt=dict(save=dict(fsdp=4), restore=dict(fsdp=2, tensor=2)))
 MESH_SECTIONS = ("trainer", "moe", "mixtral", "ckpt", "train-controller",
-                 "collective")
+                 "collective", "rllib")
 # Device kernels of the MoE routing by name (after flash and GEMMs): the
 # stable sort of top-k, the cumsum of the slots, the index copies and
 # gathers and the one-hot scatters. The embedding lookup and its
@@ -2523,7 +2554,8 @@ def mesh_check(torch, sections=MESH_SECTIONS):
         fail(f"--mesh-check needs {world} cards, found "
              f"{torch.cuda.device_count()}")
     _build.build_all()
-    ranked = tuple(s for s in sections if s != "train-controller")
+    ranked = tuple(s for s in sections
+                   if s not in ("train-controller", "rllib"))
     if ranked:
         with socket.socket() as s:
             s.bind(("localhost", 0))
@@ -2535,6 +2567,9 @@ def mesh_check(torch, sections=MESH_SECTIONS):
     if "train-controller" in sections:
         # TorchTrainer spawns and places its own four workers.
         mesh_train_controller(torch, card_line())
+    if "rllib" in sections:
+        # LearnerGroup places its own learners, a card each.
+        mesh_rllib(torch, card_line())
 
 
 def mesh_rank(rank, world, init_method, backend, sections=MESH_SECTIONS):
@@ -3915,6 +3950,94 @@ def mesh_train_controller(torch, card, device="cuda"):
     return res
 
 
+
+# --mesh-check rllib: updates of IMPALA's learner on two card learners
+# (NCCL, a card each) over trajectories of traj = (T, N) from numpy seed
+# 37; the two-against-one comparison steps ``SGDImpalaLearner``.
+MESH_RLLIB = dict(updates=4, traj=(64, 4), lr=3e-3, rtol=1e-5, atol=1e-6)
+
+
+class SGDImpalaLearner(ImpalaLearner):
+    """``ImpalaLearner`` with a plain gradient step, ``p - lr g``: Adam's
+    first step turns a grad near its eps into a visible difference, so
+    two learners against one are held on the grads' own step."""
+
+    def apply_gradients(self, grads):
+        import torch
+
+        from ray_tpu_torch.rl.weight_sync import _flat
+
+        lr = self.optimizer.learning_rate
+        with torch.no_grad():
+            for p, (_, g) in zip(self._leaves(), _flat(grads)):
+                p.sub_(lr * g)
+
+
+def mesh_rllib(torch, card, use_gpu=True):
+    """The rllib section: two learners of ``ImpalaLearner`` (Adam) stay
+    bit for bit the same over ``MESH_RLLIB["updates"]`` updates, and two
+    ``SGDImpalaLearner``s' updates equal one's on the whole batch within
+    the CPU tests' tolerance (``use_gpu`` False: gloo CPU learners)."""
+    from ray_tpu_torch.rl.weight_sync import _flat
+    from ray_tpu_torch.rllib import LearnerGroup, PPOModule
+
+    m = MESH_RLLIB
+    T, N = m["traj"]
+    rng = np.random.default_rng(37)
+    batches = [dict(
+        obs=rng.normal(size=(T, N, 4)).astype(np.float32),
+        actions=rng.integers(0, 2, size=(T, N)),
+        behavior_logp=np.log(rng.uniform(0.2, 0.8, (T, N))).astype(
+            np.float32),
+        rewards=np.ones((T, N), np.float32),
+        dones=(rng.random((T, N)) < 0.05).astype(np.float32),
+        bootstrap_obs=rng.normal(size=(N, 4)).astype(np.float32))
+        for _ in range(m["updates"])]
+
+    def group(cls, n):
+        return LearnerGroup(cls, n, use_gpu=use_gpu,
+                            builder_args=(PPOModule(4, 2),),
+                            builder_kwargs=dict(
+                                lr=m["lr"], seed=0,
+                                device="cuda" if use_gpu else "cpu"))
+
+    def same(a, b):
+        return all(x.tobytes() == y.tobytes() and x.shape == y.shape
+                   for (_, x), (_, y) in zip(_flat(a), _flat(b)))
+
+    two = group(ImpalaLearner, 2)
+    update_ms = []
+    try:
+        cards = [w.info.get("cuda_visible_devices") for w in two.learners]
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            two.update(b)
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+            if not same(*two.get_all_weights()):
+                fail(f"mesh rllib: the two learners differ after update "
+                     f"{i}")
+    finally:
+        two.shutdown()
+    two, one = group(SGDImpalaLearner, 2), group(SGDImpalaLearner, 1)
+    try:
+        worst = 0.0
+        for b in batches:
+            two.update(b)
+            one.update(b)
+            for (_, x), (_, y) in zip(_flat(two.get_weights()),
+                                      _flat(one.get_weights())):
+                worst = max(worst, float(np.abs(x - y).max()))
+                if not np.allclose(x, y, rtol=m["rtol"], atol=m["atol"]):
+                    fail(f"mesh rllib: two learners' step differs from "
+                         f"one's by {np.abs(x - y).max():.3e}")
+    finally:
+        two.shutdown()
+        one.shutdown()
+    res = dict(cards=cards, updates=m["updates"], bit_identical=True,
+               two_vs_one_max_abs=worst, update_ms=update_ms, card=card)
+    print(f"[mesh-rllib] {json.dumps(res)}", flush=True)
+    return res
+
 # ------------------------------------------------ phase 35: the RL loop
 # Llama-3-8B's widths at RL["layers"] of its 32 layers (bf16, random
 # weights from seed 0 on the card, the replicas' and the learner's one
@@ -4380,6 +4503,549 @@ def rl_phase(torch, card):
     print(f"[rl] {json.dumps(out)}")
     mem(torch, "phase 35 end")
     return dict(out, rounds=rounds, monitor=mon)
+
+
+
+# --------------------------------------------- phase 36: the RL library
+# The port does not depend on gymnasium: numpy copies of CartPole-v1 and
+# Pendulum-v1 (gymnasium 1.x's dynamics, rewards, ``default_rng`` seeding
+# and time limits) and of the JAX tests' two-agent match game. The runner
+# processes import this script as their ``__main__`` and find them there
+# by name.
+class Discrete:
+    """A space of ``n`` actions."""
+
+    def __init__(self, n):
+        self.n, self.shape, self.dtype = n, (), np.dtype(np.int64)
+
+
+class Box:
+    """A float32 box ``[low, high]``."""
+
+    def __init__(self, low, high):
+        self.low = np.asarray(low, np.float32)
+        self.high = np.asarray(high, np.float32)
+        self.shape, self.dtype = self.low.shape, np.dtype(np.float32)
+
+
+class _TimeLimited:
+    """Seeding as gymnasium's ``Env.reset`` (a new ``default_rng(seed)``
+    when a seed is given) and its ``TimeLimit`` (truncated at the
+    ``max_episode_steps``-th step of an episode)."""
+
+    max_episode_steps = 0
+    _rng = None
+
+    def _seed(self, seed):
+        if seed is not None or self._rng is None:
+            self._rng = np.random.default_rng(seed)
+        self._steps = 0
+
+    def _tick(self):
+        self._steps += 1
+        return self._steps >= self.max_episode_steps
+
+    def close(self):
+        pass
+
+
+class CartPole(_TimeLimited):
+    """gymnasium's ``CartPole-v1``: Euler steps of cart and pole, reward
+    1 a step, terminated past 2.4 m or 12 degrees, truncated at 500."""
+
+    max_episode_steps = 500
+    gravity, masscart, masspole, length = 9.8, 1.0, 0.1, 0.5
+    force_mag, tau, x_threshold = 10.0, 0.02, 2.4
+    theta_threshold_radians = 12 * 2 * np.pi / 360
+
+    def __init__(self):
+        self.total_mass = self.masspole + self.masscart
+        self.polemass_length = self.masspole * self.length
+        high = np.array([self.x_threshold * 2, np.inf,
+                         self.theta_threshold_radians * 2, np.inf],
+                        dtype=np.float32)
+        self.observation_space = Box(-high, high)
+        self.action_space = Discrete(2)
+
+    def reset(self, *, seed=None, options=None):
+        self._seed(seed)
+        self.state = self._rng.uniform(low=-0.05, high=0.05, size=(4,))
+        return np.array(self.state, dtype=np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self.state
+        force = self.force_mag if action == 1 else -self.force_mag
+        costheta = np.cos(theta)
+        sintheta = np.sin(theta)
+        temp = (force + self.polemass_length * np.square(theta_dot)
+                * sintheta) / self.total_mass
+        thetaacc = (self.gravity * sintheta - costheta * temp) / (
+            self.length * (4.0 / 3.0 - self.masspole * np.square(costheta)
+                           / self.total_mass))
+        xacc = temp - self.polemass_length * thetaacc * costheta \
+            / self.total_mass
+        x = x + self.tau * x_dot
+        x_dot = x_dot + self.tau * xacc
+        theta = theta + self.tau * theta_dot
+        theta_dot = theta_dot + self.tau * thetaacc
+        self.state = np.array((x, x_dot, theta, theta_dot), dtype=np.float64)
+        terminated = bool(x < -self.x_threshold or x > self.x_threshold
+                          or theta < -self.theta_threshold_radians
+                          or theta > self.theta_threshold_radians)
+        return (np.array(self.state, dtype=np.float32), 1.0, terminated,
+                self._tick(), {})
+
+
+class Pendulum(_TimeLimited):
+    """gymnasium's ``Pendulum-v1``: torque clipped to 2, speed to 8,
+    reward minus the angle, speed and torque costs, truncated at 200."""
+
+    max_episode_steps = 200
+    max_speed, max_torque, dt, g, m, l = 8, 2.0, 0.05, 10.0, 1.0, 1.0
+
+    def __init__(self):
+        high = np.array([1.0, 1.0, self.max_speed], dtype=np.float32)
+        self.observation_space = Box(-high, high)
+        self.action_space = Box([-self.max_torque], [self.max_torque])
+
+    def reset(self, *, seed=None, options=None):
+        self._seed(seed)
+        high = np.array([np.pi, 1.0])
+        self.state = self._rng.uniform(low=-high, high=high)
+        return self._obs(), {}
+
+    def _obs(self):
+        theta, thetadot = self.state
+        return np.array([np.cos(theta), np.sin(theta), thetadot],
+                        dtype=np.float32)
+
+    def step(self, u):
+        th, thdot = self.state
+        g, m, l, dt = self.g, self.m, self.l, self.dt
+        u = np.clip(u, -self.max_torque, self.max_torque)[0]
+        costs = (((th + np.pi) % (2 * np.pi)) - np.pi) ** 2 \
+            + 0.1 * thdot ** 2 + 0.001 * (u ** 2)
+        newthdot = thdot + (3 * g / (2 * l) * np.sin(th)
+                            + 3.0 / (m * l ** 2) * u) * dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        newth = th + newthdot * dt
+        self.state = np.array([newth, newthdot])
+        return self._obs(), -costs, False, self._tick(), {}
+
+
+class MatchGame:
+    """The JAX tests' two-agent context-matching game: each agent sees a
+    one-hot context and earns 1.0 for picking its index (perfect play 16
+    an episode, random play ~1/3 of it)."""
+
+    N_CTX = 3
+    EP_LEN = 8
+    possible_agents = ["a0", "a1"]
+
+    def __init__(self, seed=0):
+        self._rng = np.random.default_rng(seed)
+        self._t = 0
+
+    def _obs(self):
+        out = {}
+        self._ctx = {}
+        for aid in self.possible_agents:
+            c = int(self._rng.integers(self.N_CTX))
+            self._ctx[aid] = c
+            vec = np.zeros(self.N_CTX, dtype=np.float32)
+            vec[c] = 1.0
+            out[aid] = vec
+        return out
+
+    def reset(self, *, seed=None):
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, action_dict):
+        self._t += 1
+        rewards = {aid: 1.0 if action_dict[aid] == self._ctx[aid] else 0.0
+                   for aid in action_dict}
+        done = self._t >= self.EP_LEN
+        terms = {aid: done for aid in action_dict}
+        terms["__all__"] = done
+        return self._obs(), rewards, terms, {"__all__": False}, {}
+
+    def close(self):
+        pass
+
+
+def match_policy(agent_id):
+    """MatchGame's policy mapping: agent ``aN`` to policy ``pN``."""
+    return "p" + agent_id[-1]
+
+
+class _OnCard:
+    """Mixed into phase 36's learners, which the learner processes find
+    here by name: each update's metrics carry whether every param leaf
+    lives on the card, whether TF32 matmuls are on, and the learner
+    process's peak device memory."""
+
+    def compute_gradients(self, batch):
+        import torch
+
+        grads, metrics = super().compute_gradients(batch)
+        metrics["params_on_cuda"] = float(all(
+            t.is_cuda for t in self._leaves()))
+        metrics["tf32"] = float(torch.backends.cuda.matmul.allow_tf32)
+        metrics["peak_bytes"] = float(torch.cuda.max_memory_allocated())
+        return grads, metrics
+
+
+class CardImpalaLearner(_OnCard, ImpalaLearner):
+    pass
+
+
+class CardDQNLearner(_OnCard, DQNLearner):
+    pass
+
+
+class CardSACLearner(_OnCard, SACLearner):
+    pass
+
+
+# Phase 36: JAX's test settings and bars (tests/test_rllib.py,
+# tests/test_pbt_dqn.py). DQN's bar sits at the edge of what its 40
+# iterations give in either package (the JAX package reaches 60.29 at its
+# 38th iteration at seed 0 and 52.39 at seed 1): the first of
+# ``dqn_seeds`` to reach it passes, and every attempt is printed. The
+# parity cases run each learner's step on the card and on the CPU from
+# the same params and batch at the main path's batch shapes.
+RLLIB = dict(
+    ppo=dict(iters=25, bar=120.0, kill_iter=2, runners=4, envs=4, frag=64,
+             training=dict(lr=3e-3, num_epochs=6, minibatch_size=256,
+                           entropy_coeff=0.01)),
+    impala=dict(iters=30, bar=120.0, kill_iter=2, runners=2, envs=4,
+                frag=64, training=dict(lr=3e-3, entropy_coeff=0.01,
+                                       updates_per_iteration=8)),
+    appo=dict(iters=30, bar=120.0, runners=2, envs=4, frag=64,
+              training=dict(lr=3e-3, entropy_coeff=0.01,
+                            updates_per_iteration=8, clip_param=0.3)),
+    dqn=dict(iters=40, bar=60.0, seeds=(0, 1, 2), runners=2, envs=2,
+             frag=64, training=dict(lr=1e-3, train_batch_size=128,
+                                    num_updates_per_iteration=32,
+                                    learning_starts=256,
+                                    epsilon_decay_iterations=10,
+                                    target_update_freq=50)),
+    sac=dict(iters=30, gain=250.0, runners=1, envs=4, frag=64,
+             training=dict(lr=1e-3, train_batch_size=128,
+                           num_updates_per_iteration=256,
+                           learning_starts=256)),
+    ma=dict(iters=25, bar=13.0, runners=2, frag=128, hidden=(32,),
+            training=dict(rollout_fragment_length=128, lr=5e-3,
+                          minibatch_size=64, num_epochs=4)),
+    parity=dict(rtol=1e-5, atol=1e-6, seed=36, ppo_rows=256, traj=(64, 4),
+                dqn_rows=128, sac_rows=128))
+
+
+def _timing(obj, name, sink, only=None):
+    """Replace ``obj.name`` with a wrapper appending each call's seconds
+    to ``sink`` (only of calls whose first argument is ``only``, when
+    given)."""
+    inner = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        if only is None or args[0] == only:
+            sink.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _median_call_ms(seconds):
+    """The median of calls' seconds, in ms."""
+    return float(np.median(seconds)) * 1e3 if seconds else None
+
+
+def rllib_parity(torch):
+    """Each learner's step on the card against the same step on the CPU:
+    the same params (both drawn from one CPU generator), the same batch;
+    loss and every grad leaf within ``RLLIB["parity"]``'s tolerance, then
+    the CPU's grads applied on both (Adam's step, SAC's Polyak targets,
+    DQN's target copy) and the params held to the same tolerance."""
+    from ray_tpu_torch.rllib import core as rc
+    from ray_tpu_torch.rl.weight_sync import _flat, _nest
+
+    p = RLLIB["parity"]
+    rng = np.random.default_rng(p["seed"])
+    f32 = np.float32
+    T, N = p["traj"]
+    n, m = p["ppo_rows"], p["dqn_rows"]
+    traj = dict(obs=rng.normal(size=(T, N, 4)).astype(f32),
+                actions=rng.integers(0, 2, size=(T, N)),
+                behavior_logp=np.log(rng.uniform(0.2, 0.8, (T, N))).astype(
+                    f32),
+                rewards=np.ones((T, N), f32),
+                dones=(rng.random((T, N)) < 0.05).astype(f32),
+                bootstrap_obs=rng.normal(size=(N, 4)).astype(f32))
+
+    def transitions(rows, obs_dim, actions):
+        return rc.Transition(
+            rng.normal(size=(rows, obs_dim)).astype(f32), actions,
+            rng.normal(size=rows).astype(f32),
+            rng.normal(size=(rows, obs_dim)).astype(f32),
+            (rng.random(rows) < 0.1).astype(f32))
+
+    ppo_mb = dict(obs=rng.normal(size=(n, 4)).astype(f32),
+                  actions=rng.integers(0, 2, n),
+                  logprobs=np.log(rng.uniform(0.2, 0.8, n)).astype(f32),
+                  advantages=rng.normal(size=n).astype(f32),
+                  returns=rng.normal(size=n).astype(f32))
+    dqn_t = transitions(m, 4, rng.integers(0, 2, m))
+    sac_t = transitions(p["sac_rows"], 3, rng.uniform(
+        -1, 1, (p["sac_rows"], 1)).astype(f32))
+    sac_noise = [rng.normal(size=(p["sac_rows"], 1)).astype(f32)
+                 for _ in range(2)]
+    pmod, dmod = rc.PPOModule(4, 2), rc.DQNModule(4, 2)
+    smod = rc.SACModule(3, 1)
+    cases = {
+        "ppo": (lambda d: rc.PPOLearner(pmod, lr=3e-3, device=d), ppo_mb),
+        "impala": (lambda d: rc.ImpalaLearner(pmod, lr=3e-3, device=d),
+                   traj),
+        "appo": (lambda d: rc.ImpalaLearner(pmod, lr=3e-3, clip_param=0.3,
+                                            device=d), traj),
+        "dqn": (lambda d: rc.DQNLearner(dmod, lr=1e-3, target_update_freq=1,
+                                        device=d), dqn_t),
+        "sac": (lambda d: rc.SACLearner(smod, lr=1e-3, device=d), sac_t),
+    }
+
+    def step(learner, batch):
+        if isinstance(learner, rc.PPOLearner):
+            loss, _, grads = learner._value_and_grad(
+                learner._loss, learner._tensors(batch))
+            return float(loss), grads
+        if isinstance(learner, rc.SACLearner):
+            learner._noise = lambda rows, d=learner.device: tuple(
+                torch.from_numpy(e).to(d) for e in sac_noise)
+        grads, metrics = learner.compute_gradients(batch)
+        return metrics.get("total_loss", metrics.get("loss")), grads
+
+    def state(learner):
+        trees = [learner.params] + [getattr(learner, "target_params", {})]
+        return [t.detach().cpu() for tree in trees for _, t in _flat(tree)]
+
+    out = {}
+    for name, (make, batch) in cases.items():
+        got, want = make("cuda"), make("cpu")
+        loss_g, grads_g = step(got, batch)
+        loss_w, grads_w = step(want, batch)
+        gerr = max(float((a.cpu() - b).abs().max()) for (_, a), (_, b) in
+                   zip(_flat(grads_g), _flat(grads_w)))
+        ok = all(torch.allclose(a.cpu(), b, rtol=p["rtol"], atol=p["atol"])
+                 for (_, a), (_, b) in zip(_flat(grads_g), _flat(grads_w)))
+        if not ok or abs(loss_g - loss_w) > p["atol"] + p["rtol"] * abs(
+                loss_w):
+            fail(f"phase 36 parity {name}: loss {loss_g} on the card, "
+                 f"{loss_w} on the CPU; grads' max abs error {gerr:.3e}")
+        got.apply_gradients(_nest([(path, g.to("cuda")) for path, g in
+                                   _flat(grads_w)]))
+        want.apply_gradients(grads_w)
+        perr = max(float((a - b).abs().max()) for a, b in
+                   zip(state(got), state(want)))
+        if not all(torch.allclose(a, b, rtol=p["rtol"], atol=p["atol"])
+                   for a, b in zip(state(got), state(want))):
+            fail(f"phase 36 parity {name}: params after the step differ "
+                 f"by {perr:.3e} between the card and the CPU")
+        if not all(t.is_cuda for t in got._leaves()):
+            fail(f"phase 36 parity {name}: a param leaf is off the card")
+        out[name] = dict(loss_err=abs(loss_g - loss_w), grad_err=gerr,
+                         param_err=perr)
+    print(f"[rllib-parity] {json.dumps(out)}")
+    return out
+
+
+def rllib_learn(torch, card, name, build, iters, reached, kill_iter=None,
+                steps_per_iter=None, must_reach=True, updates_per_call=1):
+    """Build ``build()``'s algorithm, train until ``reached(first, best,
+    result)`` or ``iters`` iterations, and return its record: iterations
+    to the bar, wall s, env steps/s, the median learner update ms and
+    get-weights / broadcast ms, the learner's peak device memory and
+    where learners and runners live. ``kill_iter``: SIGKILL runner 0
+    before that iteration, which must be replaced. Missing the bar fails
+    the phase unless ``must_reach`` is off (the record says)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    algo = build()
+    build_s = time.perf_counter() - t0
+    timers = {"update": [], "get_weights": [], "broadcast": []}
+    group = getattr(algo, "learner_group", None)
+    learners = ([algo.learner] if hasattr(algo, "learner") else
+                list(getattr(algo, "learners", {}).values())
+                if isinstance(getattr(algo, "learners", None), dict) else [])
+    sampled = []
+    if group is not None:
+        _timing(group, "get_weights", timers["get_weights"])
+        _timing(group, "update_many" if name in ("dqn", "sac") else
+                "update", timers["update"])
+        if steps_per_iter is None:
+            # IMPALA's: one update a trajectory of T x N env steps.
+            update = group.update
+            group.update = lambda traj: (sampled.append(
+                traj["actions"].size), update(traj))[1]
+    for ln in learners:
+        _timing(ln, "get_weights", timers["get_weights"])
+        _timing(ln, "update_from_batch", timers["update"])
+    if hasattr(algo, "runner_group"):
+        _timing(algo.runner_group, "sync_weights", timers["broadcast"])
+        runners = lambda: algo.runner_group.runners  # noqa: E731
+    elif hasattr(algo.runners, "actors"):
+        _timing(algo.runners, "foreach", timers["broadcast"],
+                only="set_weights")
+        runners = lambda: algo.runners.actors  # noqa: E731
+    else:
+        runners = lambda: algo.runners  # noqa: E731
+    first, best, result, steps, killed = None, -np.inf, {}, 0, None
+    got = False
+    t1 = time.perf_counter()
+    try:
+        for i in range(iters):
+            if kill_iter is not None and i == kill_iter:
+                killed = runners()[0].pid
+                runners()[0].kill()
+            result = algo.train()
+            steps += (result.get("num_env_steps_sampled")
+                      or steps_per_iter or 0)
+            r = result["episode_return_mean"]
+            if np.isfinite(r):
+                first = r if first is None else first
+                best = max(best, r)
+            if reached(first, best, result):
+                got = True
+                break
+        if must_reach and not got:
+            fail(f"phase 36 {name}: no bar within {iters} iterations "
+                 f"(first {first}, best {best})")
+        wall = time.perf_counter() - t1
+        steps += sum(sampled)
+        procs = runners()
+        if any(r.info.get("cuda_visible_devices") != "" for r in procs):
+            fail(f"phase 36 {name}: a runner sees a card: "
+                 f"{[r.info for r in procs]}")
+        if killed is not None and (killed in [r.pid for r in procs]
+                                   or len(procs) != len(set(
+                                       r.pid for r in procs))):
+            fail(f"phase 36 {name}: runner {killed} was not replaced")
+        if group is not None:
+            on_card = (result.get("params_on_cuda") == 1.0
+                       and result.get("tf32") == 0.0
+                       and all(w.info.get("cuda_visible_devices")
+                               for w in group.learners))
+            peak = result.get("peak_bytes")
+        else:
+            on_card = all(ln.device.type == "cuda" and all(
+                t.is_cuda for t in ln._leaves()) for ln in learners)
+            peak = float(torch.cuda.max_memory_allocated())
+        if not on_card:
+            fail(f"phase 36 {name}: the learners' params are not all on "
+                 f"the card with TF32 off ({result})")
+    finally:
+        algo.stop()
+    rec = dict(reached=got, iterations=i + 1, first=first, best=best,
+               build_s=build_s,
+               wall_s=wall, env_steps=steps, env_steps_per_s=steps / wall,
+               update_ms=_median_call_ms(timers["update"]),
+               updates=len(timers["update"]),
+               updates_per_call=updates_per_call,
+               get_weights_ms=_median_call_ms(timers["get_weights"]),
+               get_weights_calls=len(timers["get_weights"]),
+               broadcast_ms=_median_call_ms(timers["broadcast"]),
+               learner_peak_mib=(peak or 0.0) / 2**20,
+               replacements=result.get("num_runner_replacements"),
+               killed_runner=killed, card=card)
+    print(f"[rllib] {name}: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def rllib_phase(torch, card):
+    """Phase 36: the RL library on the card (learners) and CPU processes
+    (runners): each learner's card step against its CPU step, then PPO,
+    IMPALA, APPO, DQN, SAC and multi-agent PPO to JAX's bars."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib import dqn, impala, sac
+
+    segments = set(shm_segments())
+    parity = rllib_parity(torch)
+    c = RLLIB
+    saved = (impala.ImpalaLearner, dqn.DQNLearner, sac.SACLearner)
+    impala.ImpalaLearner, dqn.DQNLearner, sac.SACLearner = (
+        CardImpalaLearner, CardDQNLearner, CardSACLearner)
+    out = dict(parity=parity)
+    try:
+        def bar(v):
+            return lambda first, best, r: best >= v
+
+        def discrete(cfg, k):
+            return (cfg.environment(env_creator=CartPole)
+                    .env_runners(num_env_runners=c[k]["runners"],
+                                 num_envs_per_env_runner=c[k]["envs"],
+                                 rollout_fragment_length=c[k]["frag"])
+                    .training(**c[k]["training"]))
+
+        out["ppo"] = rllib_learn(
+            torch, card, "ppo",
+            lambda: discrete(rllib.PPOConfig(), "ppo").build(),
+            c["ppo"]["iters"], bar(c["ppo"]["bar"]), c["ppo"]["kill_iter"])
+        for k, cfg in (("impala", rllib.IMPALAConfig),
+                       ("appo", rllib.APPOConfig)):
+            out[k] = rllib_learn(
+                torch, card, k, lambda cfg=cfg, k=k: discrete(
+                    cfg(), k).build(),
+                c[k]["iters"], bar(c[k]["bar"]), c[k].get("kill_iter"))
+        d, attempts = c["dqn"], []
+        for seed in d["seeds"]:
+            rec = rllib_learn(
+                torch, card, "dqn", lambda seed=seed: discrete(
+                    rllib.DQNConfig(), "dqn").training(seed=seed).build(),
+                d["iters"], bar(d["bar"]),
+                steps_per_iter=d["runners"] * d["envs"] * d["frag"],
+                must_reach=False, updates_per_call=d["training"][
+                    "num_updates_per_iteration"])
+            attempts.append(dict(seed=seed, **rec))
+            if rec["reached"]:
+                break
+        else:
+            fail(f"phase 36 dqn: no seed of {d['seeds']} reached "
+                 f"{d['bar']} within {d['iters']} iterations")
+        out["dqn"] = attempts
+        s = c["sac"]
+        out["sac"] = rllib_learn(
+            torch, card, "sac",
+            lambda: rllib.SACConfig().environment(env_creator=Pendulum)
+            .env_runners(num_env_runners=s["runners"],
+                         num_envs_per_env_runner=s["envs"],
+                         rollout_fragment_length=s["frag"])
+            .training(**s["training"]).build(),
+            s["iters"], lambda first, best, r: first is not None
+            and best >= first + s["gain"],
+            steps_per_iter=s["runners"] * s["envs"] * s["frag"],
+            updates_per_call=s["training"]["num_updates_per_iteration"])
+        ma = c["ma"]
+        spec = {"obs_dim": MatchGame.N_CTX, "num_actions": MatchGame.N_CTX,
+                "hidden": ma["hidden"]}
+        out["ma"] = rllib_learn(
+            torch, card, "ma",
+            lambda: rllib.MultiAgentPPOConfig()
+            .environment(env_creator=MatchGame)
+            .multi_agent(policies={"p0": spec, "p1": spec},
+                         policy_mapping_fn=match_policy)
+            .env_runners(ma["runners"]).training(**ma["training"]).build(),
+            ma["iters"], lambda first, best, r: (
+                r["episode_return_mean"] >= ma["bar"]
+                and any(k.startswith("learner/p0/") for k in r)
+                and any(k.startswith("learner/p1/") for k in r)))
+    finally:
+        impala.ImpalaLearner, dqn.DQNLearner, sac.SACLearner = saved
+    left = sorted(set(shm_segments()) - segments)
+    if left:
+        fail(f"phase 36: shm segments left behind: {left}")
+    print(f"[rllib-done] no shm segment left; {card}")
+    return out
 
 
 def build_report(log):
@@ -5776,6 +6442,17 @@ def main():
         timed("phase 35", rl_phase, torch, card)
         stop_processes()
         return
+    if sys.argv[1:2] == ["--rllib"]:
+        from ray_tpu_torch.ops import _build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card = card_line()
+        print(card)
+        _build.build_all()
+        timed("phase 36", rllib_phase, torch, card)
+        stop_processes()
+        return
     if sys.argv[1:2] == ["--dense-ms"]:
         print(card_line())
         dense_ms(torch, sys.argv[2])
@@ -5840,6 +6517,7 @@ def main():
                                       card, train, mix)
     controller = timed("phase 34", controller_phase, torch, card)
     rl = timed("phase 35", rl_phase, torch, card)
+    timed("phase 36", rllib_phase, torch, card)
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(

@@ -1,8 +1,9 @@
 """Carry weights between the JAX package and the port.
 
-The JAX param tree (nested dicts of arrays in the einsum layouts) comes
-across as nested dicts of numpy arrays (``jax.device_get``), and the
-port keeps the same layouts, so conversion is per leaf. bf16 arrives as
+The JAX param tree (nested dicts of arrays in the einsum layouts; RLlib's
+MLPs are dicts of lists of layers) comes across as the same nest of
+numpy arrays (``jax.device_get``), and the port keeps the same layouts,
+so conversion is per leaf. bf16 arrives as
 an ``ml_dtypes`` numpy array, which ``torch.from_numpy`` rejects; it is
 recognised by its dtype name and carried through a uint16 view, which
 keeps the bits exact.
@@ -25,11 +26,13 @@ def _leaf_to_tensor(a, device, dtype):
 
 
 def params_from_numpy(tree, device, dtype=None):
-    """Nested dicts of numpy arrays -> the same nesting of tensors on
-    ``device``; floating leaves cast to ``dtype`` when given."""
+    """Nested dicts and lists of numpy arrays -> the same nesting of
+    tensors on ``device``; floating leaves cast to ``dtype`` when given."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device, dtype) for v in tree]
     return _leaf_to_tensor(tree, device, dtype)
 
 
@@ -39,6 +42,8 @@ def params_to_numpy(params, bf16_dtype=None):
     example ``jnp.bfloat16``'s numpy dtype)."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v, bf16_dtype) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v, bf16_dtype) for v in params]
     t = params.detach().cpu()
     if t.dtype == torch.bfloat16:
         bits = t.view(torch.uint16).numpy()

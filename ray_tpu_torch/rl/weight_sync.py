@@ -15,8 +15,8 @@ until every subscriber consumed the previous version, and past
 ``publish_timeout_s`` the publish SHEDS, naming the lagging reader
 indices read from the channel header, rather than stalling the optimizer.
 
-The tree is a nest of dicts, flattened in sorted key order (JAX's dict
-order), so a manifest of converted params equals JAX's crc for crc: the
+The tree is a nest of dicts and lists, flattened in ``jax.tree.leaves``
+order (dict keys sorted, lists by index), so a manifest of converted params equals JAX's crc for crc: the
 host leaves carry the same bytes (bf16 as its 16 bits; the port keeps no
 ``ml_dtypes``) and name the dtype as numpy does (``bfloat16``). On the
 channel a leaf travels as a numpy array (bf16 as its uint16 view, so a
@@ -56,26 +56,42 @@ class WeightSyncError(RuntimeError):
 
 
 # ------------------------------------------------------------ the tree
-def _flat(tree, prefix: Tuple[str, ...] = ()):
-    """(key path, leaf) pairs of a dict nest, in sorted key order."""
+def _flat(tree, prefix: Tuple[Any, ...] = ()):
+    """(key path, leaf) pairs of a nest of dicts and lists, in
+    ``jax.tree.leaves`` order: dict keys sorted, list items by index (a
+    list item's path element is its int index)."""
     if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out.extend(_flat(tree[k], prefix + (k,)))
-        return out
-    return [(prefix, tree)]
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out.extend(_flat(v, prefix + (k,)))
+    return out
 
 
 def _nest(pairs) -> Any:
+    """The nest :func:`_flat` flattened: an int path element makes a list
+    (dict keys are strings)."""
     if len(pairs) == 1 and pairs[0][0] == ():
         return pairs[0][1]
-    out: Dict[str, Any] = {}
+    out: Dict[Any, Any] = {}
     for path, leaf in pairs:
         d = out
         for k in path[:-1]:
             d = d.setdefault(k, {})
         d[path[-1]] = leaf
-    return out
+    return _lists(out)
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    if node and all(isinstance(k, int) for k in node):
+        return [_lists(node[i]) for i in sorted(node)]
+    return {k: _lists(v) for k, v in node.items()}
 
 
 def _host_tensor(leaf) -> torch.Tensor:
@@ -88,13 +104,13 @@ def _host_tensor(leaf) -> torch.Tensor:
 
 
 def _host_tree(params: Any) -> Any:
-    """The params as a dict nest of host tensors."""
+    """The params as a nest of host tensors."""
     return _nest([(p, _host_tensor(x)) for p, x in _flat(params)])
 
 
 def _host_leaves(params: Any) -> List[torch.Tensor]:
-    """Host leaves in sorted key order (the manifest indexes leaves by
-    this order on both sides)."""
+    """Host leaves in :func:`_flat`'s order (the manifest indexes leaves
+    by this order on both sides)."""
     return [_host_tensor(x) for _, x in _flat(params)]
 
 
@@ -364,7 +380,7 @@ class WeightSubscriber:
 
             raise not_ported("WeightSubscriber(target_shardings=...) (a "
                              "generator's params placed on a mesh)",
-                             "item 12")
+                             "item 10b")
         self.run = run
         self._chan = spec
         self._kv = _as_kv(kv)

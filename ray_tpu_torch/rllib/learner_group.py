@@ -14,7 +14,9 @@ allreduce runs on a named collective group
 (:mod:`ray_tpu_torch.util.collective`) whose rendezvous is a ``TCPStore``
 this process hosts: NCCL over the learners' cards, the fp32 gradient
 bucket reduced where the grads lie, or gloo for CPU learners. The learner builder crosses by
-``(module, qualname)``, so it must be defined at module level. Weights
+``(module, qualname)``, so it must be defined at module level; JAX's
+closures become a module-level builder (a learner class) and its
+``builder_args`` / ``builder_kwargs``, which cross by pickle. Weights
 come back through a shared-memory channel sized to the tree, not the
 pipe: a pickle of GBs through the pipe held the serving process's GIL
 long enough for its health probes to give up on live replicas.
@@ -105,11 +107,13 @@ class _LearnerActor:
 
     def __init__(self, builder_ref, rank: int, world_size: int,
                  group_name: str, store_address: str,
-                 backend: str = "gloo"):
+                 backend: str = "gloo", builder_args=(),
+                 builder_kwargs=None):
         from ray_tpu_torch.runtime.replica import resolve
 
         # Same seed inside the builder -> identical initial replicas.
-        self.learner = resolve(builder_ref)()
+        self.learner = resolve(builder_ref)(*builder_args,
+                                            **(builder_kwargs or {}))
         self.rank = rank
         self.world_size = world_size
         self.group = None
@@ -213,14 +217,17 @@ class LearnerGroup:
 
     ``learner_builder``: a module-level callable (a class or function)
     returning a learner with ``compute_gradients`` / ``apply_gradients``
-    / ``get_weights`` / ``set_weights``. ``use_gpu`` (default on) gives
+    / ``get_weights`` / ``set_weights``, called in each learner process
+    as ``learner_builder(*builder_args, **builder_kwargs)`` (both
+    pickled). ``use_gpu`` (default on) gives
     each learner a card of its own, their allreduce over NCCL, and
     raises on a host without one;
     ``use_gpu=False`` runs CPU learners (their builder asks for the
     CPU)."""
 
     def __init__(self, learner_builder, num_learners: int = 1, *,
-                 use_gpu: bool = True):
+                 use_gpu: bool = True, builder_args=(),
+                 builder_kwargs=None):
         import torch.distributed as dist
 
         from ray_tpu_torch.runtime.controller import _place
@@ -264,7 +271,8 @@ class LearnerGroup:
                 self.learners.append(ReplicaProcess(
                     "learner", _LearnerActor,
                     (ref, rank, n, group_name, address,
-                     "nccl" if use_gpu else "gloo"), {}, False,
+                     "nccl" if use_gpu else "gloo", tuple(builder_args),
+                     dict(builder_kwargs or {})), {}, False,
                     sync_workers=2, env=envs[rank]))
             for w in self.learners:
                 w.wait_ready(LEARNER_START_S)

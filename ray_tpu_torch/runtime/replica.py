@@ -107,9 +107,15 @@ class Replica:
         self._total = 0
         self._draining = False
         self._m_lock = threading.Lock()
+        # OpenMP keeps a thread count per thread: the pool's threads get
+        # this process's (``torch.set_num_threads`` in the constructing
+        # thread), or each would run the host's count of spinning OpenMP
+        # threads and two processes' small ops fight over the cores.
         self._sync_pool = ThreadPoolExecutor(
             max_workers=max(1, int(sync_workers)),
-            thread_name_prefix="replica-sync")
+            thread_name_prefix="replica-sync",
+            initializer=torch.set_num_threads,
+            initargs=(torch.get_num_threads(),))
 
     def _admit(self) -> None:
         """Count one request in — or reject it if this replica is

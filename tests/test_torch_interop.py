@@ -140,3 +140,41 @@ def test_source_scan_finds_no_jax_or_ray_tpu_import():
         with open(path) as f:
             hits = pattern.findall(f.read())
         assert not hits, (path, hits)
+
+
+def test_gymnasium_is_imported_only_inside_the_string_env_resolver():
+    """The port does not depend on gymnasium: no module of it and not
+    chip_smoke.py imports it but inside the one function that resolves a
+    string env name (``rllib.env_runner.make_gym_env``), and importing
+    the whole RL library loads neither it nor JAX nor ``ray_tpu``."""
+    import ast
+
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "ray_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    found = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        owner = {}
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                for node in ast.walk(fn):
+                    owner.setdefault(node, fn.name)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            if any(n.split(".")[0] == "gymnasium" for n in names):
+                found.append((os.path.relpath(path, REPO), owner.get(node)))
+    assert found == [("ray_tpu_torch/rllib/env_runner.py", "make_gym_env")]
+    code = ("import sys\n"
+            "import ray_tpu_torch.rllib\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'ray_tpu', 'gymnasium'))\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -520,3 +520,10 @@ def test_entry_points_default_to_the_card():
         LearnerGroup(h.build_tiny_learner)
     with pytest.raises(ValueError, match="module level"):
         LearnerGroup(lambda: None, use_gpu=False)
+
+
+def test_mesh_placed_subscriber_raise_names_its_roadmap_entry():
+    """A generator's params placed on a mesh are not RLlib: the stand-in
+    names ROADMAP.md's entry of its own (item 10b)."""
+    with pytest.raises(NotImplementedError, match=r"queue A, item 10b$"):
+        WeightSubscriber(None, target_shardings={"w": None})
