@@ -418,6 +418,33 @@ Phases, any failure exits non-zero with no result line:
    or the in-process ``update_from_batch``), get-weights and broadcast
    ms, the learner's peak device memory, beside the card line.
    ``--rllib`` runs this phase alone (after the build).
+37. the core API on the card (``[core]``, ``[core-actor]``, ``[core-dag]``,
+   ``[core-hop]``, ``[core-teardown]``): ``ray_tpu_torch.init()`` with no
+   arguments (its ``"GPU"`` must equal the cards torch sees); phase 29's
+   ``ContinuousLlamaDeployment`` (Llama-3-8B, seed 0 on the card, built
+   inside the actor) as a ``num_gpus=1, max_concurrency=16`` actor
+   (``CoreLlm``), phase 5's 12 prompts sent at once through
+   ``generate.options(num_returns="streaming")`` and each
+   ``ObjectRefGenerator`` consumed: ``served_stats``' gates (32 in-vocab
+   tokens a stream, 32 paged launches a tick, no dense launch), the
+   tokens against phase 29's (``partings``), TTFT p50, tick ms and
+   tokens/s at the client beside phase 29's, and the TTFT's medians
+   split into the runtime's dispatch, the wait for the engine lock, the
+   engine and the store hop back (``actor_ttft_parts``). Then a compiled DAG
+   ``InputNode -> CoreRequests.make`` (a CPU actor) ``-> CoreLlm.score``
+   in channel mode scores each request's phase-29 tokens: equal bit for
+   bit to the same actor's ``.remote`` score, 32 flash forward launches
+   each, ms a score both ways. Then two trivial CPU stages compiled
+   against the same chain through ``.remote`` and ``get``: the median µs
+   of ``CORE["hop_iters"]`` executions each (printed, not gated). Then
+   teardown: both DAGs torn down with none of their ``/dev/shm/rtch-*``
+   segments left, ``close`` through the actor and ``kill`` (a later call
+   raises ``ActorDiedError``), ``shutdown()``; no thread of the runtime
+   (or any new thread) left and the card's allocated memory within
+   ``CORE["mem_slack_gib"]`` of the phase's start. ``--core`` runs this
+   phase alone after the build, first building phase 29's burst in
+   process for its yardstick (``[core-yardstick]``), and ends with the
+   device line.
 
 Phases 23-24 run before phases 25-28 (27 compares with 24), phases
 11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
@@ -442,7 +469,9 @@ phase 24's run, ``mixtral_mesh_launches``, their launches in phase 27's run,
 steps, and ``rl_launches``, their launches in phase 35's learner; the
 paged entry's ``rl_launches`` are phase 35's replicas' over the rounds'
 rollouts and the flash forward's ``rl_scoring_launches`` their
-``score_logprobs`` calls);
+``score_logprobs`` calls; the paged entry's ``core_launches`` are phase
+37's actor's over its 12 streams and the flash forward's
+``core_scoring_launches`` its 12 scores through the compiled DAG);
 the last line is ``{"ok": true, "device": {...}}``. Before the record,
 the script stops every process the port's runtime started (the replica
 and worker processes, their fork server and resource tracker:
@@ -5317,14 +5346,34 @@ def served_stats(outs, ttft, wall, ticks, launches, prefill_s, decoded,
                 decode_tok_s=decoded / decode_s, prefill_s=prefill_s)
 
 
+def served_burst(cfg, prompts, generate, counters, what):
+    """Phase 29's burst: a warm-up request (as ``serve()`` does), then
+    ``prompts`` as concurrent 32-token streams of ``generate(prompt, n)``
+    (an iterable of tokens), the launch counts set to 0 just before.
+    ``counters()`` reads the engine's (ticks, prefill seconds, decoded
+    tokens). Returns the tokens and :func:`served_stats`."""
+    from ray_tpu_torch.ops.decode_attention import decode_attention
+    from ray_tpu_torch.ops.paged_decode_attention import \
+        paged_decode_attention
+
+    list(generate(prompts[0][:16], 2))
+    ticks0, pre0, dec0 = counters()
+    reset_launch_counts()
+    outs, ttft, wall = stream_all(lambda i: generate(prompts[i], 32),
+                                  len(prompts))
+    launches = {"paged": paged_decode_attention.launches,
+                "dense": decode_attention.launches}
+    ticks1, pre1, dec1 = counters()
+    return outs, served_stats(outs, ttft, wall, ticks1 - ticks0, launches,
+                              pre1 - pre0, dec1 - dec0, cfg.num_layers,
+                              cfg.vocab_size, what)
+
+
 def deploy_phase(torch, card, served):
     """Phase 29: the deployments in process (module docstring)."""
     from ray_tpu_torch.llm import LlamaDeployment
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops.attention import flash_attention
-    from ray_tpu_torch.ops.decode_attention import decode_attention
-    from ray_tpu_torch.ops.paged_decode_attention import \
-        paged_decode_attention
 
     mem(torch, "phase 29 start")
     prompts, phase5 = served
@@ -5334,19 +5383,11 @@ def deploy_phase(torch, card, served):
                                                max_len=2048)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    list(dep.generate(prompts[0][:16], 2))       # warm-up, as serve() does
     eng = dep.batcher
-    ticks0, pre0, dec0 = (eng.base_tick_count, eng.prefill_seconds,
-                          eng.decoded_tokens)
-    reset_launch_counts()
-    outs, ttft, wall = stream_all(lambda i: dep.generate(prompts[i], 32),
-                                  len(prompts))
-    st = served_stats(
-        outs, ttft, wall, eng.base_tick_count - ticks0,
-        {"paged": paged_decode_attention.launches,
-         "dense": decode_attention.launches},
-        eng.prefill_seconds - pre0, eng.decoded_tokens - dec0,
-        cfg.num_layers, cfg.vocab_size, "phase 29")
+    outs, st = served_burst(
+        cfg, prompts, dep.generate,
+        lambda: (eng.base_tick_count, eng.prefill_seconds,
+                 eng.decoded_tokens), "phase 29")
     st.update(init_s=init_s, agree_with_phase5=sum(
         a == b for a, b in zip(outs, phase5)), partings=partings(
         torch, eng.params, cfg, prompts, outs, phase5, "phase 29",
@@ -6002,6 +6043,279 @@ def serve_phases(torch, card, served, parity):
     return out
 
 
+# ------------------------------------ phase 37: the core API on the card
+# The card actor's engine (phase 29's), its threads, and the hop study's
+# executions a mode.
+CORE = dict(num_slots=8, max_len=2048, max_concurrency=16, new=32,
+            hop_iters=1000, mem_slack_gib=1.0)
+
+
+class CoreLlm(ContinuousLlamaDeployment._cls_or_fn):
+    """Phase 37's actor: the port's deployment at Llama-3-8B's widths,
+    its weights drawn from seed 0 on the card inside the actor (phase
+    29's), with a one-argument ``score`` for a DAG stage and the engine's
+    counters."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.stamps, self._opening = {}, threading.local()
+
+    def _open(self, submit, ready=None):
+        t0 = time.perf_counter()
+        out = super()._open(submit, ready)
+        self._opening.span = (t0, time.perf_counter())
+        return out
+
+    def generate(self, prompt_token_ids, max_tokens=16):
+        """The deployment's stream, stamped by prompt: when the actor's
+        thread starts it, when the engine lock was asked for and when it
+        took the submit (``_open`` runs on the same thread), and when the
+        first token left the engine's queue."""
+        start = time.perf_counter()
+        for k, token in enumerate(super().generate(prompt_token_ids,
+                                                   max_tokens)):
+            if k == 0:
+                self.stamps[tuple(prompt_token_ids)] = (
+                    start, *self._opening.span, time.perf_counter())
+            yield token
+
+    def score(self, request):
+        prompt, tokens = request
+        return self.score_logprobs(prompt, tokens)
+
+    def counters(self):
+        with self._lock:
+            eng = self.batcher
+            return (eng.base_tick_count, eng.prefill_seconds,
+                    eng.decoded_tokens)
+
+    def params(self):
+        """The engine's params: the in-process store hands back the same
+        tensors on the card, not a copy."""
+        return self.batcher.params
+
+    def records(self):
+        """The engine's request records (``breakdown`` reads them)."""
+        with self._lock:
+            return list(self.batcher.request_breakdowns)
+
+    def first_token_stamps(self):
+        return dict(self.stamps)
+
+
+class CoreRequests:
+    """Phase 37's first DAG stage (a CPU actor): request ``i``'s prompt
+    and its phase-29 tokens."""
+
+    def __init__(self, requests):
+        self.requests = requests
+
+    def make(self, i):
+        return self.requests[i]
+
+
+class CoreHop:
+    """The hop study's trivial stage."""
+
+    def f(self, x):
+        return x
+
+
+def core_yardstick(torch, card, prompts):
+    """``--core`` alone: phase 29's in-process burst (the same engine,
+    weights and prompts), whose tokens and numbers phase 37 is held to."""
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    dep = ContinuousLlamaDeployment._cls_or_fn(
+        config=cfg, num_slots=CORE["num_slots"], max_len=CORE["max_len"])
+    eng = dep.batcher
+    outs, st = served_burst(
+        cfg, prompts, dep.generate,
+        lambda: (eng.base_tick_count, eng.prefill_seconds,
+                 eng.decoded_tokens), "phase 37's yardstick")
+    st.update(breakdown(eng.request_breakdowns, len(prompts)))
+    print(f"[core-yardstick] {json.dumps(st)}; {card}")
+    st["outputs"] = outs
+    dep.close()
+    del dep, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return st
+
+
+def call_seconds(fn, n):
+    """Seconds of each of ``fn(0)`` .. ``fn(n - 1)``."""
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def actor_ttft_parts(client, stamps, prompts):
+    """Medians, in ms, of the four parts of each stream's time to first
+    token through the actor: the runtime's dispatch (``.remote`` until
+    the actor's thread starts the generator), the wait for the engine
+    lock to take the submit, the engine (submit to the first token out of
+    its queue), and the hop back (that token through the store to the
+    client)."""
+    parts = {"dispatch": [], "lock": [], "engine": [], "hop": []}
+    for p in map(tuple, prompts):
+        (call, first), (start, ask, took, out) = client[p], stamps[p]
+        for key, dt in (("dispatch", start - call), ("lock", took - ask),
+                        ("engine", out - took), ("hop", first - out)):
+            parts[key].append(dt)
+    return {k: _median_call_ms(v) for k, v in parts.items()}
+
+
+def core_phase(torch, card, prompts, phase29):
+    """Phase 37: the core API on the card (module docstring)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    threads0 = set(threading.enumerate())
+    mem0 = torch.cuda.memory_allocated()
+    segs0 = set(shm_segments())
+    rt.init()
+    res = rt.cluster_resources()
+    print(f"[core] resources {json.dumps(res)}; {card}")
+    if res.get("GPU") != torch.cuda.device_count():
+        fail(f"phase 37: init() counted {res.get('GPU')} cards, torch "
+             f"sees {torch.cuda.device_count()}")
+    cfg = llama.LlamaConfig.llama3_8b()
+
+    # 2. the deployment as a num_gpus=1 actor, 12 streams through it.
+    t0 = time.perf_counter()
+    actor = rt.remote(num_gpus=1, max_concurrency=CORE["max_concurrency"])(
+        CoreLlm).remote(config=cfg, num_slots=CORE["num_slots"],
+                        max_len=CORE["max_len"])
+    rt.get(actor.counters.remote(), timeout=900)
+    init_s = time.perf_counter() - t0
+
+    client = {}     # prompt -> (the .remote call, its first token)
+
+    def generate(prompt, n):
+        called = time.perf_counter()
+        stream = actor.generate.options(num_returns="streaming").remote(
+            prompt, n)
+
+        def tokens():
+            for k, ref in enumerate(stream):
+                token = rt.get(ref, timeout=600)
+                if k == 0:
+                    client[tuple(prompt)] = (called, time.perf_counter())
+                yield token
+        return tokens()
+
+    outs, st = served_burst(
+        cfg, prompts, generate,
+        lambda: rt.get(actor.counters.remote(), timeout=600), "phase 37")
+    want = phase29["outputs"]
+    params = rt.get(actor.params.remote(), timeout=600)
+    st.update(init_s=init_s, agree_with_phase29=sum(
+        a == b for a, b in zip(outs, want)), partings=partings(
+        torch, params, cfg, prompts, outs, want, "phase 37",
+        against="phase-29"), phase29={k: phase29[k] for k in (
+            "ttft_p50_ms", "tick_ms", "client_tok_s", "engine_ttft_p50_ms",
+            "engine_queue_p50_ms")}, card=card)
+    st.update(breakdown(rt.get(actor.records.remote(), timeout=600),
+                        len(prompts)))
+    st["ttft_parts_p50_ms"] = actor_ttft_parts(
+        client, rt.get(actor.first_token_stamps.remote(), timeout=600),
+        prompts)
+    del params
+    print(f"[core-actor] {json.dumps(st)}")
+
+    # 3. InputNode -> CoreRequests.make (CPU) -> the card actor's score.
+    source = rt.remote(num_gpus=0)(CoreRequests).remote(
+        [(p, w) for p, w in zip(prompts, want)])
+    with InputNode() as i:
+        dag = actor.score.bind(source.make.bind(i))
+    compiled = dag.experimental_compile()
+    if not compiled._channel_mode:
+        fail("phase 37: the scoring DAG did not compile to channels")
+    segs = {c.name.lstrip("/") for c in compiled._channels}
+    dag_s, remote_s, b1 = [], [], []
+    for i, req in enumerate(zip(prompts, want)):
+        before = flash_attention.launches["fwd"]
+        t0 = time.perf_counter()
+        via_dag = rt.get(compiled.execute(i), timeout=600)
+        dag_s.append(time.perf_counter() - t0)
+        b1.append(flash_attention.launches["fwd"] - before)
+        t0 = time.perf_counter()
+        via_remote = rt.get(actor.score.remote(req), timeout=600)
+        remote_s.append(time.perf_counter() - t0)
+        lp = np.asarray(via_dag)
+        if via_dag != via_remote or b1[-1] != cfg.num_layers or \
+                lp.shape != (CORE["new"],) or not (
+                    np.all(np.isfinite(lp)) and np.all(lp <= 0)):
+            fail(f"phase 37 score {i}: {b1[-1]} flash forward launches, "
+                 f"DAG == .remote: {via_dag == via_remote}, logprobs "
+                 f"{lp[:4]}...")
+    dag_st = dict(requests=len(b1), b1_launches=sum(b1),
+                  dag_ms_p50=_median_call_ms(dag_s),
+                  remote_ms_p50=_median_call_ms(remote_s),
+                  bitwise_equal=True, card=card)
+    print(f"[core-dag] {json.dumps(dag_st)}")
+
+    # 4. the hop's own cost: two trivial CPU stages.
+    hop_cls = rt.remote(num_gpus=0, max_concurrency=2)(CoreHop)
+    a, b = hop_cls.remote(), hop_cls.remote()
+    with InputNode() as i:
+        hop = b.f.bind(a.f.bind(i))
+    hops = hop.experimental_compile()
+    segs |= {c.name.lstrip("/") for c in hops._channels}
+    n = CORE["hop_iters"]
+    hop_st = dict(
+        iters=n,
+        dag_us_p50=_median_call_ms(call_seconds(
+            lambda k: rt.get(hops.execute(k), timeout=60), n)) * 1e3,
+        remote_us_p50=_median_call_ms(call_seconds(
+            lambda k: rt.get(b.f.remote(a.f.remote(k)), timeout=60),
+            n)) * 1e3,
+        card=card)
+    print(f"[core-hop] {json.dumps(hop_st)}")
+
+    # 5. teardown: no segment, no runtime thread, the card's memory back.
+    compiled.teardown()
+    hops.teardown()
+    left = segs & set(shm_segments())
+    rt.get(actor.close.remote(), timeout=600)
+    rt.kill(actor)
+    try:
+        rt.get(actor.counters.remote(), timeout=60)
+        fail("phase 37: a call to the killed actor returned")
+    except rt.exceptions.ActorDiedError:
+        pass
+    core = rt._private.worker.global_worker().core
+    del actor, source, hop_cls, a, b, dag, hop, compiled, hops
+    rt.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem1 = torch.cuda.memory_allocated()
+    runtime_left = [t.name for t in core.runtime_threads()]
+    threads_left = sorted(t.name for t in set(threading.enumerate())
+                          - threads0 if t.is_alive())
+    down = dict(segments_left=sorted(left), new_segments=sorted(
+        set(shm_segments()) - segs0), runtime_threads=runtime_left,
+        threads=threads_left, mem_start_gib=mem0 / 2**30,
+        mem_end_gib=mem1 / 2**30, card=card)
+    print(f"[core-teardown] {json.dumps(down)}")
+    if left or runtime_left or threads_left or \
+            mem1 - mem0 > CORE["mem_slack_gib"] * 2**30:
+        fail(f"phase 37 teardown left {down}")
+    stop_processes()
+    return dict(b4_launches=st["launches"]["paged"],
+                b1_scoring_launches=dag_st["b1_launches"],
+                actor=st, dag=dag_st, hop=hop_st, teardown=down)
+
+
 # ------------------------------------------ --serve-ticks: the tick study
 def step_records(eng):
     """Record every later ``eng.step()``: (start, wall s, the stepping
@@ -6453,6 +6767,21 @@ def main():
         timed("phase 36", rllib_phase, torch, card)
         stop_processes()
         return
+    if sys.argv[1:2] == ["--core"]:
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.ops import _build
+
+        card = card_line()
+        print(card)
+        _build.build_all()
+        prompts = phase5_prompts(llama.LlamaConfig.llama3_8b())
+        phase29 = timed("phase 37's yardstick", core_yardstick, torch, card,
+                        prompts)
+        timed("phase 37", core_phase, torch, card, prompts, phase29)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:2] == ["--dense-ms"]:
         print(card_line())
         dense_ms(torch, sys.argv[2])
@@ -6518,6 +6847,8 @@ def main():
     controller = timed("phase 34", controller_phase, torch, card)
     rl = timed("phase 35", rl_phase, torch, card)
     timed("phase 36", rllib_phase, torch, card)
+    core = timed("phase 37", core_phase, torch, card, served[0],
+                 serving["deploy"])
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(
@@ -6532,6 +6863,7 @@ def main():
         disagg_launches=serving["disagg"]["launches"]["paged"],
         observe_launches=serving["observe"]["launches"]["paged"],
         rl_launches=rl["b4_launches"],
+        core_launches=core["b4_launches"],
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], kernel_ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
@@ -6552,7 +6884,8 @@ def main():
             rl_launches=rl["learner_launches"][n],
             **({"deployment_scoring_launches":
                 serving["deploy"]["scoring_launches"],
-                "rl_scoring_launches": rl["b1_scoring_launches"]}
+                "rl_scoring_launches": rl["b1_scoring_launches"],
+                "core_scoring_launches": core["b1_scoring_launches"]}
                if n == "fwd" else {}),
             max_abs_err=main_flash["max_abs_err"][n],
             ms=main_flash["ms"][n], plain_ms=main_flash["plain_ms"][n],

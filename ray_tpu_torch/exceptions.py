@@ -1,5 +1,6 @@
-"""The port's exception types (copies of ``ray_tpu/exceptions.py``'s, for
-the paths the port has).
+"""The port's exception types (copies of ``ray_tpu/exceptions.py``'s:
+the core API's, raised at ``get`` by the in-process runtime, and those of
+the serve, train and RL planes).
 
 They cross process boundaries (a train worker's or a serve replica's
 error reaches the controller over a pipe), so each pickles with its
@@ -17,6 +18,13 @@ def _rebuild(cls, args, state):
     return err
 
 
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error a not-yet-ported feature raises, naming its ROADMAP.md
+    queue A item."""
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP.md queue A, {item}")
+
+
 class RayTpuError(Exception):
     """Base class for all framework errors."""
 
@@ -25,26 +33,59 @@ class RayTpuError(Exception):
 
 
 class RayTaskError(RayTpuError):
-    """A train loop raised inside its worker process (the JAX package's
-    name for an exception raised inside a remote task). The worker wraps
-    every error of the user's code that is not a framework error, so the
-    controller charges it to ``FailureConfig.max_failures``; the remote
-    traceback rides along. ``cause`` is the original exception when it
-    pickles, else None."""
+    """Wraps an exception raised inside a remote task, an actor method or
+    a train loop's worker process. The in-process runtime stores it as
+    the task's return object and re-raises it at ``get`` as an instance
+    of the cause's class (:meth:`as_instanceof_cause`); a train worker
+    wraps every error of the user's code that is not a framework error,
+    so the controller charges it to ``FailureConfig.max_failures``. The
+    remote traceback rides along. ``cause`` is the original exception
+    (dropped when it is pickled and the cause does not pickle)."""
 
     def __init__(self, function_name: str = "", traceback_str: str = "",
-                 cause: Optional[BaseException] = None):
+                 cause: Optional[BaseException] = None, task_id=None):
         self.function_name = function_name
         self.traceback_str = traceback_str
         self.cause = cause
+        self.task_id = task_id
         super().__init__(function_name, traceback_str)
 
     @classmethod
-    def from_exception(cls, exc: BaseException,
-                       function_name: str) -> "RayTaskError":
+    def from_exception(cls, exc: BaseException, function_name: str,
+                       task_id=None) -> "RayTaskError":
         tb = "".join(traceback.format_exception(type(exc), exc,
                                                 exc.__traceback__))
-        return cls(function_name=function_name, traceback_str=tb, cause=exc)
+        return cls(function_name=function_name, traceback_str=tb, cause=exc,
+                   task_id=task_id)
+
+    def as_instanceof_cause(self) -> BaseException:
+        """An exception that is an instance of the cause's class too, so
+        ``except ValueError`` at the caller catches a remote ValueError."""
+        cause = self.cause
+        if cause is None:
+            return self
+        if isinstance(cause, RayTaskError):
+            return cause.as_instanceof_cause()
+        cause_cls = type(cause)
+        if issubclass(cause_cls, RayTpuError):
+            return cause
+        try:
+
+            class _cls(RayTaskError, cause_cls):  # type: ignore[misc]
+                def __init__(self, inner: RayTaskError):
+                    self._inner = inner
+
+                def __getattr__(self, name):
+                    return getattr(self._inner, name)
+
+                def __str__(self):
+                    return str(self._inner)
+
+            _cls.__name__ = f"RayTaskError({cause_cls.__name__})"
+            _cls.__qualname__ = _cls.__name__
+            return _cls(self)
+        except TypeError:
+            return self
 
     def __reduce__(self):
         import pickle
@@ -61,21 +102,89 @@ class RayTaskError(RayTpuError):
                 f"failed\n{self.traceback_str}")
 
 
+class TaskCancelledError(RayTpuError):
+    """The task was cancelled before or during execution."""
+
+    def __init__(self, task_id=None):
+        self.task_id = task_id
+        super().__init__(task_id)
+
+
+class GetTimeoutError(RayTpuError, TimeoutError):
+    """``get`` did not complete within the requested timeout."""
+
+
+class ActorDiedError(RayTaskError):
+    """The actor died before or while executing the task: an in-process
+    actor killed, exited or failed in ``__init__``, or a serve replica's
+    or train worker's process that died (JAX's class, and its signature:
+    pass ``error_msg`` by keyword)."""
+
+    def __init__(self, actor_id=None,
+                 error_msg: str = "The actor died unexpectedly."):
+        self.actor_id = actor_id
+        self.error_msg = error_msg
+        self.function_name = ""
+        self.traceback_str = error_msg
+        self.cause = None
+        self.task_id = None
+        RayTpuError.__init__(self, error_msg)
+
+    def __str__(self):
+        return self.error_msg
+
+
+# The reference's public name.
+RayActorError = ActorDiedError
+
+
+class ObjectLostError(RayTpuError):
+    """The object's value was lost and could not be reconstructed."""
+
+    def __init__(self, object_ref=None, message: str = ""):
+        self.object_ref = object_ref
+        super().__init__(message or f"Object {object_ref} was lost.")
+
+
+class ObjectReconstructionFailedError(ObjectLostError):
+    """Lineage reconstruction for a lost object failed."""
+
+
+class OwnerDiedError(ObjectLostError):
+    """The worker that owned this object died, taking its metadata with
+    it."""
+
+
+class ObjectStoreFullError(RayTpuError):
+    """The object store is out of memory."""
+
+
+class OutOfMemoryError(RayTpuError):
+    """A worker was killed by the memory monitor to avoid host OOM."""
+
+
+class RuntimeEnvSetupError(RayTpuError):
+    """Creating the runtime environment for a task or actor failed."""
+
+
+class RaySystemError(RayTpuError):
+    """Internal framework failure (deserialization, protocol, ...)."""
+
+
+class PendingCallsLimitExceeded(RayTpuError):
+    """An actor's pending call queue exceeded ``max_pending_calls``."""
+
+
+class AsyncioActorExit(RayTpuError):
+    """Internal: ``exit_actor()`` ends the actor after the current
+    call."""
+
+
 class CheckpointCorruptError(RayTpuError):
     """A committed checkpoint's shard data failed integrity verification
     (crc32 mismatch against the spec, unreadable/truncated shard file).
     ``CheckpointPlane.restore``/``load_latest`` fall back to the previous
     committed manifest instead of surfacing this."""
-
-
-class ActorDiedError(RayTpuError):
-    """The replica process died before or while serving the request (the
-    port's replicas are spawned processes, not actors; the JAX package's
-    name is kept so the recovery code reads the same)."""
-
-    def __init__(self, error_msg: str = "The actor died unexpectedly."):
-        self.error_msg = error_msg
-        super().__init__(error_msg)
 
 
 class ReplicaDrainingError(RayTpuError):

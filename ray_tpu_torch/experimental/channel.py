@@ -10,12 +10,15 @@ through one (:mod:`ray_tpu_torch.serve.kv_transfer`).
 The JAX package reaches the same layout through a g++ library when one
 builds, and through an mmap path otherwise; the port keeps only the mmap
 path, byte for byte, so a channel either package created reads in the
-other (``tests/test_torch_channel.py``). It still bumps the header's
-wake word and wakes futex waiters, so a native reader blocked in
-``futex_wait`` sees a write at once. A value is pickled straight into
-the segment and unpickled straight out of it (the same bytes as
-``pickle.dumps``, one copy each way instead of two). The compiled-DAG loop
-(``run_dag_loop``) waits for ROADMAP item 13.
+other (``tests/test_torch_channel.py``). Like the native library, it
+bumps the header's wake word and wakes futex waiters after each write,
+ack and close, and a reader or writer that must wait sleeps in
+``futex_wait`` on that word (50 ms at most a sleep, then it re-reads the
+header), with the GIL released, instead of polling. A value is pickled
+straight into the segment and unpickled straight out of it (the same
+bytes as ``pickle.dumps``, one copy each way instead of two). A compiled DAG
+(:mod:`ray_tpu_torch.dag`) pins each actor on :func:`run_dag_loop`, which
+moves its stage values through one channel per edge.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import time
 import uuid
 from typing import Any, List, Optional
 
-__all__ = ["Channel", "ChannelClosed", "ChannelTimeout", "DEFAULT_CAPACITY"]
+__all__ = ["Channel", "ChannelClosed", "ChannelTimeout", "DEFAULT_CAPACITY",
+           "run_dag_loop", "_StageError"]
 
 DEFAULT_CAPACITY = 1 << 20  # 1 MiB payloads by default
 _MAGIC = 0x52544348
@@ -73,11 +77,39 @@ def _futex_wake(mm: "mmap.mmap") -> None:
     try:
         word = ctypes.c_uint32.from_buffer(mm, _FUTEX_OFF)
         word.value = (word.value + 1) & 0xFFFFFFFF
-        _LIBC.syscall(_SYS_FUTEX, ctypes.addressof(word), 1, 0x7FFFFFFF,
-                      None, None, 0)
+        # The address as a pointer: a bare int would pass as a C int,
+        # cutting a 64-bit address (and waking no one).
+        _LIBC.syscall(_SYS_FUTEX, ctypes.c_void_p(ctypes.addressof(word)),
+                      1, 0x7FFFFFFF, None, None, 0)
         del word      # an exported pointer would block mm.close()
     except Exception:  # noqa: BLE001 — the wake is best-effort
         pass
+
+
+class _Timespec(ctypes.Structure):
+    _fields_ = [("tv_sec", ctypes.c_long), ("tv_nsec", ctypes.c_long)]
+
+
+# Longest single futex sleep: a wake that never comes (a peer that does
+# not bump the word) costs at most this before the state is re-read.
+_WAIT_SLICE_S = 0.05
+
+
+def _futex_wait(addr: int, seen: int, timeout: Optional[float]) -> None:
+    """Sleep until the wake word at ``addr`` moves off ``seen`` (a peer's
+    :func:`_futex_wake`), at most ``timeout`` (capped at
+    ``_WAIT_SLICE_S``); the GIL is released meanwhile. Without a libc
+    handle this sleeps 100 µs, the poll it replaces."""
+    t = _WAIT_SLICE_S if timeout is None else max(0.0, min(
+        timeout, _WAIT_SLICE_S))
+    if _LIBC is None or not addr:
+        time.sleep(min(t, 0.0001))
+        return
+    ts = _Timespec(int(t), int((t - int(t)) * 1e9))
+    # FUTEX_WAIT (shared): returns at once if the word is no longer
+    # ``seen``, on a wake, or at the timeout.
+    _LIBC.syscall(_SYS_FUTEX, ctypes.c_void_p(addr), 0,
+                  ctypes.c_uint32(seen), ctypes.byref(ts), None, 0)
 
 
 class _Sink:
@@ -138,6 +170,7 @@ class Channel:
         self._creator = _create
         self._closed_seen = False
         self._mm = None
+        self._word_addr = 0
         self._last_seen = 0
         self._open(_create)
 
@@ -155,6 +188,7 @@ class Channel:
             struct.pack_into("<IQQQ", self._mm, 4, self.n_readers,
                              self.capacity, 0, 0)
             struct.pack_into("<I", self._mm, 0, _MAGIC)
+            self._word_addr = _word_address(self._mm)
             return
         deadline = time.monotonic() + 10.0
         while True:
@@ -167,6 +201,7 @@ class Channel:
             time.sleep(0.001)
         self._mm = mm
         _, self.n_readers, self.capacity = struct.unpack_from("<IIQ", mm, 0)
+        self._word_addr = _word_address(mm)
 
     @staticmethod
     def _attach_once(path: str):
@@ -197,6 +232,15 @@ class Channel:
     def _closed(self) -> bool:
         return struct.unpack_from("<Q", self._mm, _CLOSED_OFF)[0] != 0
 
+    def _wake_word(self) -> int:
+        return struct.unpack_from("<I", self._mm, _FUTEX_OFF)[0]
+
+    def _wait(self, seen: int, deadline: Optional[float]) -> None:
+        """Sleep until a peer's wake moves the word off ``seen`` (read
+        before the state it guards), or the deadline."""
+        _futex_wait(self._word_addr, seen, None if deadline is None
+                    else deadline - time.monotonic())
+
     # --------------------------------------------------------------- pickle
     def __reduce__(self):
         return (_attach, (self.name, self.capacity, self.n_readers,
@@ -217,6 +261,7 @@ class Channel:
         deadline = None if timeout is None else time.monotonic() + timeout
         v = self._version()
         while True:
+            seen = self._wake_word()
             acks = struct.unpack_from(f"<{self.n_readers}Q", self._mm,
                                       _ACKS_OFF)
             if all(a == v for a in acks):
@@ -225,7 +270,7 @@ class Channel:
                 raise ChannelClosed(self.name)
             if deadline and time.monotonic() > deadline:
                 raise ChannelTimeout(f"write timed out on {self.name}")
-            time.sleep(0.0001)
+            self._wait(seen, deadline)
         # Seqlock: an odd version while the bytes change.
         struct.pack_into("<Q", self._mm, _VER_OFF, v + 1)
         _pickle_into(value, self._mm, _DATA_OFF)
@@ -238,6 +283,7 @@ class Channel:
             raise ChannelClosed(self.name)
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
+            seen = self._wake_word()
             v = self._version()
             if v % 2 == 0 and v != self._last_seen:
                 size = self._size()
@@ -267,7 +313,7 @@ class Channel:
                 raise ChannelClosed(self.name)
             if deadline and time.monotonic() > deadline:
                 raise ChannelTimeout(f"read timed out on {self.name}")
-            time.sleep(0.0001)
+            self._wait(seen, deadline)
 
     # ------------------------------------------------------ observability
     def reader_acks(self) -> tuple:
@@ -309,7 +355,88 @@ class Channel:
             pass
 
 
+def _word_address(mm: "mmap.mmap") -> int:
+    """The wake word's address in ``mm`` (0 without a libc handle). The
+    ctypes view is dropped at once: an exported pointer would block
+    ``mm.close()``."""
+    if _LIBC is None:
+        return 0
+    word = ctypes.c_uint32.from_buffer(mm, _FUTEX_OFF)
+    addr = ctypes.addressof(word)
+    del word
+    return addr
+
+
 def _attach(name: str, capacity: int, n_readers: int, reader_idx: int) \
         -> Channel:
     return Channel(capacity=capacity, n_readers=n_readers, name=name,
                    _create=False, _reader_idx=reader_idx)
+
+
+# --------------------------------------------------------------- DAG loop
+
+def run_dag_loop(instance: Any, ops: List[tuple]) -> int:
+    """Pinned executor loop for one compiled-DAG actor (JAX's
+    ``run_dag_loop``).
+
+    ``ops`` is this actor's executable schedule in topological order
+    (reference: one ExecutableTask list per actor,
+    ``compiled_dag_node.py:161``): each op is ``(method_name, arg_slots,
+    kwarg_slots, out_channel)`` where slots mix Channel readers (DAG edges)
+    with captured constants. Each tick runs every op once: read inputs,
+    invoke, write the result. Exits — closing every output so teardown
+    ripples downstream — when any input channel closes.
+
+    Returns the number of completed ticks.
+    """
+    ticks = 0
+    closed = False
+    try:
+        while not closed:
+            for method_name, arg_slots, kwarg_slots, out in ops:
+                try:
+                    args = [s.read() if isinstance(s, Channel) else s
+                            for s in arg_slots]
+                    kwargs = {k: (s.read() if isinstance(s, Channel) else s)
+                              for k, s in kwarg_slots.items()}
+                except ChannelClosed:
+                    closed = True
+                    break
+                upstream_err = next(
+                    (a for a in args if isinstance(a, _StageError)),
+                    next((v for v in kwargs.values()
+                          if isinstance(v, _StageError)), None))
+                if upstream_err is not None:
+                    result = upstream_err  # propagate, don't invoke
+                else:
+                    try:
+                        result = getattr(instance, method_name)(
+                            *args, **kwargs)
+                    except BaseException as e:  # noqa: BLE001
+                        # Errors ride the channel to the driver (reference:
+                        # compiled DAGs surface stage errors at the ref).
+                        result = _StageError(e)
+                try:
+                    out.write(result)
+                except ChannelClosed:
+                    # Teardown closed our output (possibly mid-blocked
+                    # write): exit the loop instead of wedging the actor.
+                    closed = True
+                    break
+            else:
+                ticks += 1
+    finally:
+        for _, _, _, out in ops:
+            out.close()
+    return ticks
+
+
+class _StageError:
+    """Pickled carrier of a stage exception through channels."""
+
+    def __init__(self, exc: BaseException):
+        try:
+            self.exc = exc
+            pickle.dumps(exc)
+        except Exception:  # noqa: BLE001
+            self.exc = RuntimeError(repr(exc))

@@ -34,6 +34,7 @@ from torch.distributed.tensor.experimental import (local_map,
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ray_tpu_torch.exceptions import not_ported  # noqa: F401 — re-export
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.ring_attention import ring_attention
@@ -288,13 +289,6 @@ def on_mesh(mesh) -> bool:
     activations are DTensors. None and a mapping of sizes are one
     device."""
     return isinstance(mesh, DeviceMesh)
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error a not-yet-ported feature raises, naming its ROADMAP.md
-    queue A item."""
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue A, {item}")
 
 
 def _select_attention(config: LlamaConfig, mesh) -> str:

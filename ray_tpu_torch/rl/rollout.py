@@ -11,7 +11,7 @@ off-policy correction).
 
 JAX runs each learner phase under a short lease from the chip-pool
 arbiter when one co-schedules the pool; the port has no arbiter yet (it
-is queued after ROADMAP item 13), so an ``arbiter`` raises and every
+is ROADMAP.md queue A's item 19), so an ``arbiter`` raises and every
 phase runs as a plain call.
 """
 
@@ -48,7 +48,7 @@ class RolloutScheduler:
 
             raise not_ported("RolloutScheduler(arbiter=...) (the chip-pool "
                              "arbiter's learner-phase lease)",
-                             "the serve items queued after item 13")
+                             "item 19 (the autoscaler and the arbiter)")
         self.generate = generate_fn
         self.trainer_version = trainer_version_fn
         self.run = run

@@ -43,7 +43,7 @@ holds ``deployments``: each deployment's replica count, pids and cards,
 rewritten on every routing change, and ``role_groups`` (the
 disaggregated pairs), so another process can read the serve state. The
 autoscaler, the pool arbiter, preemption notices and compact placement
-groups are not ported (ROADMAP.md queue A, after item 13).
+groups are not ported (ROADMAP.md queue A, items 17 and 19).
 """
 
 from __future__ import annotations

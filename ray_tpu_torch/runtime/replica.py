@@ -814,7 +814,7 @@ class ReplicaProcess:
 
     def _died_error(self) -> exceptions.ActorDiedError:
         return exceptions.ActorDiedError(
-            f"replica process {self.pid} of {self.name!r} died "
+            error_msg=f"replica process {self.pid} of {self.name!r} died "
             f"(exit code {self._proc.exitcode})")
 
     @staticmethod

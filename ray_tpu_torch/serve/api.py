@@ -30,8 +30,8 @@ rides the request context to the replica, where the engine's spans
 parent to it; a unary retry emits ``serve.resume``.
 
 Not ported: the autoscaler, deployment graphs (a bound ``Application``
-as an init argument), config-file deploys and the gRPC ingress (ROADMAP.md
-queue A, after item 13). Route changes reach handles by a callback, not
+as an init argument), config-file deploys, placement groups and the gRPC ingress (ROADMAP.md
+queue A, item 17; the autoscaler, item 19). Route changes reach handles by a callback, not
 a pubsub.
 """
 
@@ -59,7 +59,7 @@ from ray_tpu_torch.util.metrics import prometheus_text
 #: model, CUDA included).
 NO_REPLICA_WAIT_S = 120.0
 
-_LATER_ITEM = "the serve items queued after item 13"
+_LATER_ITEM = "item 17 (the serve leftovers)"
 
 _controller = None
 _controller_lock = threading.Lock()
@@ -681,7 +681,8 @@ def run(app: Application) -> DeploymentHandle:
         raise not_ported("deployment graphs (a bound Application as an "
                          "init argument)", _LATER_ITEM)
     if dep.num_replicas == "auto" or dep.autoscaling_config is not None:
-        raise not_ported("the serve autoscaler", _LATER_ITEM)
+        raise not_ported("the serve autoscaler",
+                         "item 19 (the autoscaler and the arbiter)")
     if dep.placement_strategy is not None:
         raise not_ported("placement groups (placement_strategy)",
                          _LATER_ITEM)

@@ -12,8 +12,8 @@
   Prometheus text of this process and its replicas,
   :func:`~ray_tpu_torch.serve.api.metrics_text`: the port's counterpart
   of the node agent's ``/metrics``). ``PUT /-/deploy`` answers 501:
-  config-file deploys (``serve/config.py``) are queued after item 13, as
-  is the gRPC ingress;
+  config-file deploys (``serve/config.py``) are queued as ROADMAP.md queue
+  A's item 17, as is the gRPC ingress;
 * request tracing: under ``RAY_TPU_TRACING=1`` the ingress mints each
   request's context (:func:`ingress_request_context`, honouring
   ``x-request-id``), which rides every hop to the engine, and closes the
@@ -515,7 +515,8 @@ class AsyncHttpProxy:
             return await self._reply(
                 writer, 501,
                 {"error": "config-file deploys (serve/config.py) are not "
-                          "ported yet: ROADMAP.md queue A, after item 13"},
+                          "ported yet: ROADMAP.md queue A, item 17 (the "
+                          "serve leftovers)"},
                 keep_alive)
         if method != "POST":
             return await self._reply(writer, 404, {"error": "not found"},

@@ -369,7 +369,8 @@ class WorkerGroup:
             for rank, w in enumerate(self.workers):
                 if not w.alive:
                     err = exceptions.ActorDiedError(
-                        f"train worker process {w.pid} (rank {rank}) died")
+                        error_msg=f"train worker process {w.pid} "
+                                  f"(rank {rank}) died")
                     self._annotate(err, rank)
                     return err
             if time.monotonic() >= deadline:

@@ -16,8 +16,10 @@ from typing import Any, Dict, Optional
 
 from ray_tpu_torch.parallel.mesh import MeshConfig
 
-# Placement groups wait with the serve runtime's (``serve/api.py``).
-_PLACEMENT_ITEM = "the serve items queued after item 13"
+# Placement groups for worker groups wait with the serve runtime's
+# (``serve/api.py``): the local-mode groups of ``util/placement_group.py``
+# do not place processes.
+_PLACEMENT_ITEM = "item 17 (the serve leftovers)"
 
 
 @dataclasses.dataclass

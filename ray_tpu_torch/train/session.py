@@ -24,7 +24,7 @@ from typing import Any, Dict, Optional
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.goodput import GoodputLedger
 
-_DATA_ITEM = "ray_tpu/data, which is not queued (ROADMAP.md section A)"
+_DATA_ITEM = "item 14 (ray_tpu/data over numpy blocks)"
 
 
 class TrainContext:

@@ -56,9 +56,9 @@ preemption channel go through it (the JAX package's GCS KV and pubsub).
 Capacity is the host's: visible cards over ``gpus_per_worker`` with
 ``use_gpu``, else CPUs over ``cpus_per_worker``. The train loop crosses
 to the worker processes by reference, so it must be a module-level
-function. Not ported: ``datasets=`` (``ray_tpu/data`` is not queued),
-the chip-pool arbiter's world record (``_publish_world``) and the
-``ray-tpu trace train`` CLI.
+function. Not ported: ``datasets=`` (``ray_tpu/data``, ROADMAP.md queue
+A's item 14), the chip-pool arbiter's world record (``_publish_world``,
+item 19) and the ``ray-tpu trace train`` CLI (item 18).
 """
 
 from __future__ import annotations

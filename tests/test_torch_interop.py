@@ -114,6 +114,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.serve.proxy, ray_tpu_torch.serve.recovery\n"
         "import ray_tpu_torch.runtime.replica\n"
         "import ray_tpu_torch.runtime.controller\n"
+        "import ray_tpu_torch._private.runtime.local, ray_tpu_torch.dag\n"
+        "import ray_tpu_torch.util.placement_group\n"
+        "import ray_tpu_torch._private.accelerators.cuda\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'ray_tpu' or "
         "m.startswith('ray_tpu.') or m == 'ml_dtypes')\n"
@@ -134,7 +137,11 @@ def test_source_scan_finds_no_jax_or_ray_tpu_import():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 14
     for module in ("serve/kv_transfer.py", "serve/proxy.py",
-                   "llm/__init__.py", "runtime/replica.py"):
+                   "llm/__init__.py", "runtime/replica.py",
+                   "_private/runtime/local.py", "_private/worker.py",
+                   "_private/object_ref.py", "dag/__init__.py",
+                   "util/placement_group.py",
+                   "util/scheduling_strategies.py"):
         assert os.path.join(REPO, "ray_tpu_torch", module) in files
     for path in files:
         with open(path) as f:

@@ -319,7 +319,8 @@ def test_builders_ask_one_card_per_replica(app, monkeypatch):
                                   {"num_replicas": "auto"}])
 def test_run_refuses_what_is_not_ported(opts):
     dep = serve.deployment(double, name="refused", **opts)
-    with pytest.raises(NotImplementedError, match="after item 13"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md queue A, item 1[79] \("):
         serve.run(dep.bind())
     with pytest.raises(TypeError):
         dep.options(user_config={})
@@ -514,7 +515,7 @@ def test_http_keep_alive_healthz_routes(app):
     assert f"/{NAME}" in json.loads(conn.getresponse().read())
     conn.request("PUT", "/-/deploy", body="{}")
     resp = conn.getresponse()
-    assert resp.status == 501 and b"item 13" in resp.read()
+    assert resp.status == 501 and b"queue A, item 17" in resp.read()
     conn.close()
 
 
