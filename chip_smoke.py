@@ -445,6 +445,43 @@ Phases, any failure exits non-zero with no result line:
    phase alone after the build, first building phase 29's burst in
    process for its yardstick (``[core-yardstick]``), and ends with the
    device line.
+38. the data plane on the card. (a) ``[data-train]``: phase 34's model
+   (Llama-3-8B widths, CKPT["layers"] layers, bf16) fed from a Dataset:
+   ``from_numpy`` of DATA["steps"] batches of token rows (seed
+   DATA["seed"]) in DATA["blocks"] blocks, a ``map_batches`` that makes
+   the tokens and the loss mask, through ``TorchTrainer(datasets=...,
+   ScalingConfig(num_workers=1, use_gpu=True)).fit()``; the worker's
+   loop reads ``get_dataset_shard("train").iter_device_batches``. Gates:
+   every loss equals, bit for bit, the same batches through the same
+   steps in this process; losses finite; 2 L / L / L flash launches a
+   step; the shard's bytes shipped with the run call. Prints the bytes,
+   ms a step in the worker beside this process's and phase 34's. (b)
+   ``[data-llm]``: ``llm.batch_generate`` over a Dataset of phase 5's 12
+   prompts in DATA["llm_blocks"] blocks, phase 29's engine (Llama-3-8B,
+   32 layers, bf16, seed 0, 8 slots, max_len 2048) built in one pool
+   actor on the card, 32 greedy tokens each. Gates: the tokens equal,
+   12 of 12, the same engine's ``run_to_completion`` on the same blocks
+   in this process, with the same B4 launches; the pool's engine freed
+   once its blocks are made (card memory back within
+   DATA["mem_slack_gib"]). Prints B4 launches, tokens/s and the memory.
+   (c) ``[data-llm-pool]``, where the machine has two cards or more:
+   the same with ``concurrency=2`` at DATA["pool_layers"] layers, the
+   pool pinning an actor to each of cards 0 and 1. Gates: 12 of 12
+   equal the engine's own run on card 0, the same B4 launches, and
+   each card's peak memory holds an engine (DATA["pool_engine_gib"]).
+   On one card it prints that it did not run.
+   ``--data`` runs this phase alone after the build, ``--data-pool``
+   part (c) alone;
+39. Tune on the card (``[tune]``): a ``Tuner`` with ASHA (grace
+   DATA["tune_grace"], reduction 2) over DATA["lrs"], a trial each of
+   [data-train]'s trainer for DATA["tune_steps"] steps on its batches,
+   as many trials at once as DATA["tune_mem_share"] of the free card
+   memory holds (a trial's measured peak, its state bytes included).
+   Gates: each trial's losses equal its config run directly in this
+   process; ASHA's stops equal the schedule the direct losses give in
+   the order the trials reported; flash launches 2 L / L / L a step
+   computed. Prints the trials stopped and the launches a trial.
+   ``--tune`` runs this phase alone after the build.
 
 Phases 23-24 run before phases 25-28 (27 compares with 24), phases
 11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
@@ -466,7 +503,10 @@ phase 24's run, ``mixtral_mesh_launches``, their launches in phase 27's run,
 ``sharded_launches``, their launches in phase 25's 12 steps,
 ``ulysses_launches``, their launches in phase 26b,
 ``controller_launches``, their launches in phase 34's worker, reported
-steps, and ``rl_launches``, their launches in phase 35's learner; the
+steps, ``rl_launches``, their launches in phase 35's learner,
+``data_launches``, their launches in phase 38a's worker, and
+``tune_launches``, theirs over phase 39's trials; the paged entry's
+``batch_launches`` are phase 38b's pool actor's; the
 paged entry's ``rl_launches`` are phase 35's replicas' over the rounds'
 rollouts and the flash forward's ``rl_scoring_launches`` their
 ``score_logprobs`` calls; the paged entry's ``core_launches`` are phase
@@ -548,9 +588,11 @@ import http.client
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -3267,9 +3309,10 @@ def _flip_byte(path, offset=4096):
         f.write(bytes([byte[0] ^ 0xFF]))
 
 
-def _ckpt_trainer(mesh=None, device=None):
+def _ckpt_trainer(mesh=None, device=None, learning_rate=None):
     """Phase 28's trainer: Llama-3-8B widths at CKPT["layers"] layers,
-    phase 10's optimizer, on ``mesh`` or on one device."""
+    phase 10's optimizer (at ``learning_rate`` when given: phase 39's
+    trials), on ``mesh`` or on one device."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.models.training import (ShardedTrainer,
                                                default_optimizer)
@@ -3278,7 +3321,9 @@ def _ckpt_trainer(mesh=None, device=None):
     t = TRAIN
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
                               num_layers=CKPT["layers"])
-    opt = default_optimizer(warmup_steps=t["warmup"], total_steps=t["total"])
+    lr = {} if learning_rate is None else {"learning_rate": learning_rate}
+    opt = default_optimizer(warmup_steps=t["warmup"], total_steps=t["total"],
+                            **lr)
     if mesh is None:
         return ShardedTrainer(cfg, optimizer=opt, device=device)
     return ShardedTrainer(cfg, mesh, optimizer=opt, rules=DEFAULT_RULES)
@@ -6316,6 +6361,423 @@ def core_phase(torch, card, prompts, phase29):
                 actor=st, dag=dag_st, hop=hop_st, teardown=down)
 
 
+# --------------------------------------- phases 38-39: the data plane, Tune
+# Phase 38's [data-train]: phase 34's model (CKPT["layers"] layers at
+# Llama-3-8B widths, TRAIN's batch and seq) fed from a Dataset: `steps`
+# batches of token rows drawn from `seed`, in `blocks` blocks; [data-llm]:
+# phase 5's 12 prompts in `llm_blocks` blocks through batch_generate with
+# phase 29's engine (8 slots, max_len 2048), 32 tokens each. Phase 39:
+# ASHA (grace `tune_grace`, reduction 2, max_t `tune_steps`) over `lrs`, a
+# trial each, `tune_steps` steps of [data-train]'s batches (the warmup's
+# first update has lr 0, so the first two losses are alike in every
+# trial and the rung sits at the third); at most as many trials at
+# once as `tune_mem_share` of the card's free bytes holds trials of the
+# measured per-trial peak (the state bytes phase 34 prints, and the
+# activations on top).
+DATA = dict(steps=8, seed=38, blocks=4, llm_blocks=2, llm_new=32,
+            tune_steps=4, tune_grace=3, lrs=(1e-5, 1e-4, 1e-3, 1e-2),
+            tune_mem_share=0.8,
+            mem_slack_gib=1.0, pool_layers=2, pool_engine_gib=2.0)
+
+
+def data_rows(vocab):
+    """[data-train]'s token rows: DATA["steps"] batches of TRAIN's rows."""
+    rng = np.random.default_rng(DATA["seed"])
+    return rng.integers(0, vocab, (DATA["steps"] * TRAIN["batch"],
+                                   TRAIN["seq"]), dtype=np.int32)
+
+
+def lm_batch(batch):
+    """The Dataset's map_batches stage: a block of token rows becomes the
+    train step's batch (the tokens, whose shifted copy is the targets,
+    and the loss mask)."""
+    tokens = np.ascontiguousarray(batch["data"])
+    return {"tokens": tokens, "mask": np.ones_like(tokens)}
+
+
+def data_train_steps(torch, trainer, state, batches, report):
+    """[data-train]'s loop in the worker and in this process: one
+    synchronous step a batch; ``report`` gets each step's loss, grad
+    norm, ms and flash launches."""
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    for i, batch in enumerate(batches):
+        before = dict(flash_attention.launches)
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        loss = float(metrics["loss"])             # syncs the step
+        report(dict(step=i, loss=loss,
+                    grad_norm=float(metrics["grad_norm"]),
+                    step_ms=(time.perf_counter() - t0) * 1e3,
+                    launches={n: flash_attention.launches[n] - before[n]
+                              for n in before}))
+    return state
+
+
+def data_train_loop(config):
+    """Phase 38's train loop, in the worker process TorchTrainer spawned
+    (its card is cuda:0): phase 28's trainer from init_state(0), the
+    batches from ``get_dataset_shard("train").iter_device_batches``."""
+    import torch
+
+    from ray_tpu_torch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trainer = _ckpt_trainer()
+    state = trainer.init_state(0)
+    it = train.get_dataset_shard("train")
+    with it.iter_device_batches(trainer, batch_size=TRAIN["batch"]) as pf:
+        data_train_steps(torch, trainer, state, pf, train.report)
+
+
+def data_train(torch, card, controller=None):
+    """Phase 38a (``[data-train]``): TorchTrainer.fit with datasets= on
+    the card, against the same batches through the same steps here."""
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch.models import llama
+
+    rows = data_rows(llama.LlamaConfig.llama3_8b().vocab_size)
+    B = TRAIN["batch"]
+    trainer = _ckpt_trainer()
+    state = trainer.init_state(0)
+    want = []
+    data_train_steps(torch, trainer, state, (
+        {"tokens": torch.from_numpy(rows[i:i + B]).cuda(),
+         "mask": torch.ones(B, rows.shape[1], dtype=torch.int32,
+                            device="cuda")}
+        for i in range(0, len(rows), B)), want.append)
+    nbytes = _state_bytes(state)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds = data.from_numpy(rows, parallelism=DATA["blocks"]).map_batches(
+        lm_batch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        ctl = train.TorchTrainer(
+            data_train_loop, train_loop_config={},
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(name="phase38", storage_path=tmp),
+            datasets={"train": ds})
+        t0 = time.perf_counter()
+        result = ctl.fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if result.error is not None:
+        fail(f"data-train: fit failed: {result.error!r}")
+    recs = [h["metrics"] for h in result.metrics_history]
+    L = CKPT["layers"]
+    per_step = {"fwd": 2 * L, "dq": L, "dkv": L}
+    got, ref = [r["loss"] for r in recs], [w["loss"] for w in want]
+    if got != ref or [r["step"] for r in recs] != list(range(len(want))):
+        fail(f"data-train: the worker's losses {got} != this process's "
+             f"{ref} on the same batches")
+    if not all(np.isfinite(got)):
+        fail(f"data-train: losses {got} (want finite)")
+    if any(r["launches"] != per_step for r in recs + want):
+        fail(f"data-train: flash launches a step "
+             f"{[r['launches'] for r in recs]}, want {per_step}")
+    want_bytes = rows.nbytes * 2          # the tokens and the mask
+    if ctl.dataset_bytes != [want_bytes]:
+        fail(f"data-train: {ctl.dataset_bytes} bytes shipped, want "
+             f"[{want_bytes}]")
+    med = (lambda rs: float(np.median([r["step_ms"] for r in rs[1:]])))
+    stats = dict(
+        layers=L, steps=len(recs), batch=B, seq=TRAIN["seq"],
+        blocks=DATA["blocks"], state_bytes=nbytes,
+        shipped_bytes=ctl.dataset_bytes, step_ms=med(recs),
+        inprocess_step_ms=med(want),
+        phase34_step_ms=controller["step_ms"] if controller else None,
+        fit_s=fit_s, losses=got, launches_per_step=per_step,
+        launches={k: sum(r["launches"][k] for r in recs) for k in per_step},
+        card=card)
+    print(f"[data-train] {json.dumps(stats)}", flush=True)
+    return stats
+
+
+def data_llm(torch, card):
+    """Phase 38b (``[data-llm]``): batch_generate over a Dataset of phase
+    5's prompts, one engine actor on the card, against the same engine's
+    run_to_completion on the same blocks in this process."""
+    from ray_tpu_torch import data
+    from ray_tpu_torch.llm import LLMBatchWorker, batch_generate
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.paged_decode_attention import \
+        paged_decode_attention
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    prompts = phase5_prompts(cfg)
+    engine = dict(max_new_tokens=DATA["llm_new"], num_slots=8,
+                  max_len=2048)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    ds = data.from_items([{"prompt_ids": p, "i": i}
+                          for i, p in enumerate(prompts)],
+                         parallelism=DATA["llm_blocks"])
+    if ds.num_blocks() != DATA["llm_blocks"]:
+        fail(f"data-llm: {ds.num_blocks()} blocks")
+    per = len(prompts) // DATA["llm_blocks"]
+    ref_worker = LLMBatchWorker(cfg, device="cuda", **engine)
+    reset_launch_counts()
+    want = []
+    for j in range(0, len(prompts), per):
+        want += [list(map(int, g)) for g in ref_worker(
+            {"prompt_ids": prompts[j:j + per]})["generated_ids"]]
+    ref_launches = paged_decode_attention.launches
+    del ref_worker
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = batch_generate(ds, cfg, device="cuda", **engine)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = out.take_all()
+    wall = time.perf_counter() - t0
+    launches = paged_decode_attention.launches
+    got = [list(map(int, r["generated_ids"])) for r in rows]
+    if [r["i"] for r in rows] != list(range(len(prompts))):
+        fail(f"data-llm: rows came back as {[r['i'] for r in rows]}")
+    check_outputs(got, DATA["llm_new"], cfg.vocab_size, "data-llm")
+    agree = sum(a == b for a, b in zip(got, want))
+    if agree != len(prompts) or launches != ref_launches or not launches:
+        fail(f"data-llm: {agree} of {len(prompts)} requests equal the "
+             f"engine's own run; B4 launches {launches} (the engine's "
+             f"own run: {ref_launches})")
+    # The pool's actor is killed once its blocks are made; its engine
+    # goes with its instance.
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        gc.collect()
+        torch.cuda.empty_cache()
+        if torch.cuda.memory_allocated() - mem0 <= \
+                DATA["mem_slack_gib"] * 2**30:
+            break
+        time.sleep(0.2)
+    mem1 = torch.cuda.memory_allocated()
+    stats = dict(requests=len(prompts), blocks=DATA["llm_blocks"],
+                 agree=agree, launches=launches,
+                 tokens_per_s=len(prompts) * DATA["llm_new"] / wall,
+                 wall_s=wall, mem_start_gib=mem0 / 2**30,
+                 mem_after_teardown_gib=mem1 / 2**30, card=card)
+    print(f"[data-llm] {json.dumps(stats)}", flush=True)
+    if mem1 - mem0 > DATA["mem_slack_gib"] * 2**30:
+        fail(f"data-llm: the pool's engine was not freed: {stats}")
+    return stats
+
+
+def data_llm_pool(torch, card):
+    """Phase 38c (``[data-llm-pool]``, two cards or more):
+    batch_generate with ``concurrency=2`` on ``cuda``, a pool actor
+    pinned to each of cards 0 and 1, at Llama-3-8B widths and
+    DATA["pool_layers"] layers, against the same engine's
+    run_to_completion on card 0 in this process."""
+    from ray_tpu_torch import data
+    from ray_tpu_torch.llm import LLMBatchWorker, batch_generate
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.paged_decode_attention import \
+        paged_decode_attention
+
+    if torch.cuda.device_count() < 2:
+        print("[data-llm-pool] not run: the pool of two needs two cards, "
+              f"this machine has {torch.cuda.device_count()}", flush=True)
+        return None
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_layers=DATA["pool_layers"])
+    prompts = phase5_prompts(cfg)
+    engine = dict(max_new_tokens=DATA["llm_new"], num_slots=8,
+                  max_len=2048)
+    per = len(prompts) // DATA["llm_blocks"]
+    ref_worker = LLMBatchWorker(cfg, device="cuda:0", **engine)
+    reset_launch_counts()
+    want = []
+    for j in range(0, len(prompts), per):
+        want += [list(map(int, g)) for g in ref_worker(
+            {"prompt_ids": prompts[j:j + per]})["generated_ids"]]
+    ref_launches = paged_decode_attention.launches
+    del ref_worker
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = [torch.cuda.memory_allocated(i) for i in range(2)]
+    for i in range(2):
+        torch.cuda.reset_peak_memory_stats(i)
+    ds = data.from_items([{"prompt_ids": p, "i": i}
+                          for i, p in enumerate(prompts)],
+                         parallelism=DATA["llm_blocks"])
+    out = batch_generate(ds, cfg, concurrency=2, device="cuda", **engine)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = out.take_all()
+    wall = time.perf_counter() - t0
+    launches = paged_decode_attention.launches
+    peaks = [torch.cuda.max_memory_allocated(i) - base[i]
+             for i in range(2)]
+    got = [list(map(int, r["generated_ids"])) for r in rows]
+    if [r["i"] for r in rows] != list(range(len(prompts))):
+        fail(f"data-llm-pool: rows came back as {[r['i'] for r in rows]}")
+    check_outputs(got, DATA["llm_new"], cfg.vocab_size, "data-llm-pool")
+    agree = sum(a == b for a, b in zip(got, want))
+    stats = dict(requests=len(prompts), layers=cfg.num_layers,
+                 agree=agree, launches=launches,
+                 peak_gib_by_card=[x / 2**30 for x in peaks],
+                 tokens_per_s=len(prompts) * DATA["llm_new"] / wall,
+                 wall_s=wall, card=card)
+    print(f"[data-llm-pool] {json.dumps(stats)}", flush=True)
+    if agree != len(prompts) or launches != ref_launches:
+        fail(f"data-llm-pool: {agree} of {len(prompts)} requests equal "
+             f"the engine's own run; B4 launches {launches} (the "
+             f"engine's own run: {ref_launches})")
+    if min(peaks) < DATA["pool_engine_gib"] * 2**30:
+        fail(f"data-llm-pool: an engine did not land on each card: "
+             f"peaks {stats['peak_gib_by_card']} GiB")
+    return stats
+
+
+def data_phase(torch, card, controller=None):
+    """Phase 38: the data plane on the card (module docstring)."""
+    import ray_tpu_torch as rt
+
+    if not rt.is_initialized():
+        rt.init()
+    try:
+        train_st = timed("phase 38a", data_train, torch, card, controller)
+        llm_st = timed("phase 38b", data_llm, torch, card)
+        pool_st = timed("phase 38c", data_llm_pool, torch, card)
+    finally:
+        rt.shutdown()
+    stop_processes()
+    return dict(train=train_st, llm=llm_st, pool=pool_st,
+                data_launches=train_st["launches"],
+                batch_launches=llm_st["launches"])
+
+
+def tune_phase(torch, card):
+    """Phase 39 (``[tune]``): a Tuner with ASHA over DATA["lrs"] of
+    [data-train]'s trainer on the card, each trial held to its config
+    run directly in this process, and ASHA's stops to the schedule those
+    direct losses give in the order the trials reported."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    rows = data_rows(llama.LlamaConfig.llama3_8b().vocab_size)
+    B, n = TRAIN["batch"], DATA["tune_steps"]
+    L = CKPT["layers"]
+    per_step = {"fwd": 2 * L, "dq": L, "dkv": L}
+    computed = {}
+
+    def run(lr, report):
+        trainer = _ckpt_trainer(learning_rate=lr)
+        state = trainer.init_state(0)
+        for i in range(n):
+            batch = {"tokens": torch.from_numpy(rows[i * B:(i + 1) * B]
+                                                ).cuda(),
+                     "mask": torch.ones(B, rows.shape[1], dtype=torch.int32,
+                                        device="cuda")}
+            state, metrics = trainer.train_step(state, batch)
+            loss = float(metrics["loss"])
+            computed[lr] = computed.get(lr, 0) + 1
+            report(loss)
+        return trainer, state
+
+    direct, peak, nbytes = {}, 0, 0
+    for lr in DATA["lrs"]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        trainer, state = run(lr, losses.append)
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+        nbytes = _state_bytes(state)
+        direct[lr] = losses
+        del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    concurrent = max(1, min(len(DATA["lrs"]), int(
+        DATA["tune_mem_share"] * free // max(peak, nbytes))))
+
+    def trainable(config):
+        run(config["lr"], lambda loss: tune.report({"loss": loss}))
+
+    asha = dict(metric="loss", mode="min", max_t=n,
+                grace_period=DATA["tune_grace"], reduction_factor=2)
+    calls = []
+
+    class Recording(tune.AsyncHyperBandScheduler):
+        def on_result(self, trial_id, step, value):
+            verdict = super().on_result(trial_id, step, value)
+            calls.append((trial_id, step, value, verdict))
+            return verdict
+
+    computed.clear()
+    rt.init()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        grid = tune.Tuner(
+            trainable,
+            param_space={"lr": tune.grid_search(list(DATA["lrs"]))},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", scheduler=Recording(**asha),
+                max_concurrent_trials=concurrent),
+            run_config=train.RunConfig(name="phase39",
+                                       storage_path=tmp)).fit()
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    fit_s = time.perf_counter() - t0
+    launches = dict(flash_attention.launches)
+    if len(grid) != len(DATA["lrs"]) or grid.errors:
+        fail(f"tune: {len(grid)} trials, errors "
+             f"{[r.error for r in grid.errors]}")
+    trials = {}
+    for r in grid:
+        lr = r.config["lr"]
+        got = [m["loss"] for m in r.metrics_history]
+        if got != direct[lr][:len(got)] or (
+                not r.stopped_early and len(got) != n):
+            fail(f"tune: trial lr={lr} reported {got}, the same config "
+                 f"run here gave {direct[lr]}")
+        trials[r.trial_id] = dict(lr=lr, reported=len(got),
+                                  computed=computed[lr],
+                                  stopped=r.stopped_early)
+    # ASHA again, fed the direct runs' losses in the trials' order.
+    replay = tune.AsyncHyperBandScheduler(**asha)
+    for trial_id, step, value, verdict in calls:
+        lr = trials[trial_id]["lr"]
+        if value != direct[lr][step - 1] or replay.on_result(
+                trial_id, step, direct[lr][step - 1]) != verdict:
+            fail(f"tune: ASHA's verdict {verdict} on {trial_id} at step "
+                 f"{step} is not the schedule the direct losses give")
+    stopped = {t for t, s in trials.items() if s["stopped"]}
+    if stopped != {t for t, _, _, v in calls if v == "STOP"}:
+        fail(f"tune: stopped trials {stopped} differ from ASHA's stops")
+    steps_run = sum(s["computed"] for s in trials.values())
+    want_launches = {k: v * steps_run for k, v in per_step.items()}
+    if launches != want_launches:
+        fail(f"tune: flash launches {launches}, want {want_launches} for "
+             f"{steps_run} steps")
+    stats = dict(
+        trials=len(grid), stopped=len(stopped), max_concurrent=concurrent,
+        state_bytes=nbytes, trial_peak_bytes=peak, free_bytes=free,
+        steps_run=steps_run, fit_s=fit_s, launches=launches,
+        launches_per_trial={s["lr"]: {k: v * s["computed"]
+                                      for k, v in per_step.items()}
+                            for s in trials.values()},
+        losses={str(lr): v for lr, v in direct.items()},
+        schedule=[(trials[t]["lr"], step, v) for t, step, _, v in calls],
+        card=card)
+    print(f"[tune] {json.dumps(stats)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(stats, tune_launches=launches)
+
+
 # ------------------------------------------ --serve-ticks: the tick study
 def step_records(eng):
     """Record every later ``eng.step()``: (start, wall s, the stepping
@@ -6782,6 +7244,31 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:2] in (["--data"], ["--tune"], ["--data-pool"]):
+        from ray_tpu_torch.ops import _build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card = card_line()
+        print(card)
+        _build.build_all()
+        if sys.argv[1] == "--data":
+            timed("phase 38", data_phase, torch, card)
+        elif sys.argv[1] == "--data-pool":
+            import ray_tpu_torch as rt
+
+            rt.init()
+            try:
+                timed("phase 38c", data_llm_pool, torch, card)
+            finally:
+                rt.shutdown()
+        else:
+            timed("phase 39", tune_phase, torch, card)
+        stop_processes()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:2] == ["--dense-ms"]:
         print(card_line())
         dense_ms(torch, sys.argv[2])
@@ -6849,6 +7336,8 @@ def main():
     timed("phase 36", rllib_phase, torch, card)
     core = timed("phase 37", core_phase, torch, card, served[0],
                  serving["deploy"])
+    data = timed("phase 38", data_phase, torch, card, controller)
+    tuned = timed("phase 39", tune_phase, torch, card)
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(
@@ -6864,6 +7353,7 @@ def main():
         observe_launches=serving["observe"]["launches"]["paged"],
         rl_launches=rl["b4_launches"],
         core_launches=core["b4_launches"],
+        batch_launches=data["batch_launches"],
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], kernel_ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
@@ -6882,6 +7372,8 @@ def main():
             controller_launches=controller["launches"][n],
             ulysses_launches=seq["ulysses"]["launches"][n],
             rl_launches=rl["learner_launches"][n],
+            data_launches=data["data_launches"][n],
+            tune_launches=tuned["tune_launches"][n],
             **({"deployment_scoring_launches":
                 serving["deploy"]["scoring_launches"],
                 "rl_scoring_launches": rl["b1_scoring_launches"],

@@ -17,6 +17,9 @@ from ray_tpu_torch._private.ids import ObjectID, TaskID
 # Index space for streamed generator items: distinct from declared returns
 # (0..n-1) and put-scoped ids (2^31 + k).
 STREAM_INDEX_BASE = 1 << 30
+# Seconds a streamed item the count says was produced may stay missing
+# before the consumer raises ObjectLostError.
+STREAM_STALL_S = 10.0
 
 
 def drain_stream(gen, task_id: TaskID, put) -> int:
@@ -199,8 +202,11 @@ class ObjectRefGenerator:
                 # means it was freed or lost; the in-process runtime has
                 # no lineage to rebuild it from.
                 if stall_deadline is None:
-                    stall_deadline = time.monotonic() + 10.0
+                    stall_deadline = time.monotonic() + STREAM_STALL_S
                 elif time.monotonic() > stall_deadline:
+                    # By keyword: the text is the message and
+                    # ``object_ref`` stays None. JAX passes it by position,
+                    # so there it lands in ``object_ref`` (ROADMAP.md §C).
                     raise exceptions.ObjectLostError(
                         message=f"streamed item {self._i} of task "
                                 f"{self._task_id.hex()[:16]} was lost")

@@ -23,6 +23,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -58,24 +59,42 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+# The cuBLAS flag is one for the process, and engines and trainers step
+# in threads of one process (pool actors, Tune trials): the open scopes
+# are counted, and the caller's setting comes back when the last closes.
+_reduction_lock = threading.Lock()
+_reduction_open = 0
+_reduction_before = None
+
+
 @contextlib.contextmanager
 def fp32_reduction(device: torch.device, dtype: torch.dtype):
     """Inside the scope, bf16 GEMMs on a CUDA ``device`` reduce in fp32
     (cuBLAS's reduced-precision reduction off), as the JAX package's
     programs state their precision. The engine's step and the trainer's
-    step run under it; the caller's setting comes back on exit and on an
-    exception, so the caller's own GEMMs keep theirs. Other devices and
-    dtypes leave the setting alone."""
+    step run under it. Scopes may overlap across threads: the setting
+    stays off until the last open scope exits (or raises), and then the
+    value from before the first one comes back, so the caller's own
+    GEMMs keep theirs. Other devices and dtypes leave the setting
+    alone."""
+    global _reduction_open, _reduction_before
     if device.type != "cuda" or dtype != torch.bfloat16:
         yield
         return
     matmul = torch.backends.cuda.matmul
-    before = matmul.allow_bf16_reduced_precision_reduction
-    matmul.allow_bf16_reduced_precision_reduction = False
+    with _reduction_lock:
+        if _reduction_open == 0:
+            _reduction_before = matmul.allow_bf16_reduced_precision_reduction
+        _reduction_open += 1
+        matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        matmul.allow_bf16_reduced_precision_reduction = before
+        with _reduction_lock:
+            _reduction_open -= 1
+            if _reduction_open == 0:
+                matmul.allow_bf16_reduced_precision_reduction = \
+                    _reduction_before
 
 
 @dataclasses.dataclass(frozen=True)

@@ -202,15 +202,18 @@ class TrainWorker:
 
     def run(self, fn: Callable, config: Optional[Dict[str, Any]],
             restore_checkpoint_path: Optional[str],
-            run_dir: Optional[str] = None):
+            run_dir: Optional[str] = None,
+            datasets: Optional[Dict[str, Any]] = None):
         """Run the user train loop to completion (a blocking call). An
         error of the loop that is not a framework error comes back as
         :class:`~ray_tpu_torch.exceptions.RayTaskError` (the controller
-        charges it to ``max_failures``)."""
+        charges it to ``max_failures``). ``datasets`` is this rank's
+        ``{name: DataIterator}``, its blocks carried in it."""
         ckpt = (Checkpoint(restore_checkpoint_path)
                 if restore_checkpoint_path else None)
         s = session_mod._Session(self._ctx, ckpt, run_dir=run_dir,
-                                 group_id=self.group_id, kv=self._ckpt_kv)
+                                 group_id=self.group_id, kv=self._ckpt_kv,
+                                 dataset_shards=datasets)
         with self._lock:
             self._session = s
         session_mod._set_session(s)
@@ -502,10 +505,18 @@ class BackendExecutor:
     def start_training(self, train_fn: Callable,
                        config: Optional[Dict[str, Any]],
                        restore_checkpoint_path: Optional[str],
-                       run_dir: Optional[str] = None) -> List[Future]:
+                       run_dir: Optional[str] = None,
+                       datasets: Optional[List[Dict[str, Any]]] = None
+                       ) -> List[Future]:
+        """``datasets`` is PER-RANK: element ``i`` is rank i's
+        ``{name: DataIterator}`` map of disjoint shards, each holding its
+        blocks (they cross the worker's pipe with the call); every other
+        argument is the same for every rank."""
         assert self.worker_group is not None
-        futs = self.worker_group.execute_async(
-            "run", train_fn, config, restore_checkpoint_path, run_dir)
+        futs = [w.call("run", (train_fn, config, restore_checkpoint_path,
+                               run_dir, datasets[rank] if datasets
+                               else None), {})
+                for rank, w in enumerate(self.worker_group.workers)]
         self._hb_seen.clear()
         self._training_started_at = time.monotonic()
         return futs

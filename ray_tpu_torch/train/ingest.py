@@ -87,8 +87,12 @@ def _batch_nbytes(batch) -> int:
 
 
 def _as_tensor(leaf):
-    return leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(
-        np.asarray(leaf))
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    arr = np.asarray(leaf)
+    if not arr.flags.writeable:
+        arr = arr.copy()  # torch does not alias a read-only buffer
+    return torch.as_tensor(arr)
 
 
 class DevicePrefetcher:

@@ -56,9 +56,13 @@ preemption channel go through it (the JAX package's GCS KV and pubsub).
 Capacity is the host's: visible cards over ``gpus_per_worker`` with
 ``use_gpu``, else CPUs over ``cpus_per_worker``. The train loop crosses
 to the worker processes by reference, so it must be a module-level
-function. Not ported: ``datasets=`` (``ray_tpu/data``, ROADMAP.md queue
-A's item 14), the chip-pool arbiter's world record (``_publish_world``,
-item 19) and the ``ray-tpu trace train`` CLI (item 18).
+function. ``datasets={name: Dataset}`` gives each rank a disjoint
+``streaming_split`` shard (``train.get_dataset_shard(name)``): the
+controller executes every attempt's shards and ships each rank's blocks
+with its run call, where JAX's workers stream theirs from the object
+store. Not ported: the chip-pool arbiter's world record
+(``_publish_world``, item 19) and the ``ray-tpu trace train`` CLI
+(item 18).
 """
 
 from __future__ import annotations
@@ -95,7 +99,6 @@ from ray_tpu_torch.train.config import (
     ScalingConfig,
 )
 from ray_tpu_torch.train.goodput import _env_float, _env_int
-from ray_tpu_torch.train.session import _DATA_ITEM
 from ray_tpu_torch.train.storage import local_path
 
 logger = logging.getLogger(__name__)
@@ -139,10 +142,6 @@ class TorchTrainer:
         resume_from_checkpoint: Optional[Checkpoint] = None,
         datasets: Optional[Dict[str, Any]] = None,
     ):
-        if datasets:
-            from ray_tpu_torch.models.llama import not_ported
-
-            raise not_ported("TorchTrainer(datasets=...)", _DATA_ITEM)
         try:
             pickle.dumps(train_loop_per_worker)
         except Exception as e:  # noqa: BLE001 — any pickling failure
@@ -156,6 +155,11 @@ class TorchTrainer:
         self.run_config = run_config or RunConfig()
         self.backend = backend
         self.resume_from_checkpoint = resume_from_checkpoint
+        # Train ingest (reference: DataParallelTrainer datasets= +
+        # get_dataset_shard): {name: Dataset}, split per attempt.
+        self.datasets = datasets
+        # Bytes of blocks shipped to each rank, the last attempt's.
+        self.dataset_bytes: List[int] = []
         self.controller_state = ControllerState.INITIALIZING
         self.state_history: List[str] = [ControllerState.INITIALIZING]
         # One entry per elastic recovery: cause, next world size, planned
@@ -177,6 +181,24 @@ class TorchTrainer:
         self._ledger_prev: Dict[str, float] = {}
         self._last_ledgers: List[Dict[str, Any]] = []
         self._kv = None  # the run's store, __train__ namespace
+
+    def _dataset_shards(self, world: int) -> Optional[List[Dict[str, Any]]]:
+        """Each rank's ``{name: DataIterator}`` for this attempt: every
+        dataset's ``streaming_split(world, name=name)``, executed here and
+        held in the iterators (a worker process cannot read this
+        process's store). A restarted attempt splits again at its world
+        size, as JAX's controller does every attempt."""
+        if not self.datasets:
+            return None
+        shards: List[Dict[str, Any]] = [{} for _ in range(world)]
+        for name, ds in self.datasets.items():
+            for rank, it in enumerate(ds.streaming_split(world, name=name)):
+                shards[rank][name] = it._local()
+        self.dataset_bytes = [sum(it.nbytes() for it in s.values())
+                              for s in shards]
+        logger.info("train controller: dataset shards of %s bytes shipped "
+                    "to ranks 0..%d", self.dataset_bytes, world - 1)
+        return shards
 
     def _set_state(self, state: str) -> None:
         if state != self.controller_state:
@@ -326,7 +348,8 @@ class TorchTrainer:
                                        else target)
                     run_futs = executor.start_training(
                         self.train_loop, self.train_loop_config,
-                        restore.path if restore else None, run_dir=exp_dir)
+                        restore.path if restore else None, run_dir=exp_dir,
+                        datasets=self._dataset_shards(scaling.num_workers))
                     self._set_state(ControllerState.RUNNING)
                     self._drive(executor, run_futs, manager, history,
                                 guard, scaling.num_workers, resize_target,

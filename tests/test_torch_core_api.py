@@ -844,3 +844,51 @@ def test_killed_actors_instance_is_freed(max_concurrency):
     assert made[0]() is None
     with pytest.raises(exceptions.ActorDiedError):
         rt.get(h.ping.remote(), timeout=T)
+
+
+def test_lost_streamed_item_error_keeps_the_text_as_its_message(monkeypatch):
+    """C7: a streamed item the count says was produced but the store no
+    longer holds raises ``ObjectLostError``. The port passes the text by
+    keyword, so it is the message and ``object_ref`` stays None; JAX
+    passes it by position, where it lands in ``object_ref`` and the
+    message wraps it ("Object ... was lost.")."""
+    import itertools
+    import types
+
+    from ray_tpu._private import object_ref as jref
+    from ray_tpu._private.ids import ObjectID as JObjectID
+    from ray_tpu._private.worker import global_worker as jworker
+    from ray_tpu_torch._private import object_ref as tref
+    from ray_tpu_torch._private.ids import ObjectID as TObjectID
+    from ray_tpu_torch._private.worker import global_worker as tworker
+
+    # The port's stall deadline is a constant; JAX's is a literal 10 s,
+    # so its module's clock jumps 11 s a reading instead.
+    monkeypatch.setattr(tref, "STREAM_STALL_S", 0.0)
+    ticks = itertools.count()
+    monkeypatch.setattr(jref, "time", types.SimpleNamespace(
+        monotonic=lambda: 11.0 * next(ticks)))
+
+    def case(ray, ids, worker, oid_cls):
+        @ray.remote(num_returns="streaming")
+        def gen(n):
+            for i in range(n):
+                yield i
+
+        g = gen.remote(3)
+        assert ray.get(g.completed(), timeout=T) == 3
+        worker().core.store.delete([oid_cls.from_task(
+            g._task_id, ids.STREAM_INDEX_BASE + 0)])
+        with pytest.raises(ray.exceptions.ObjectLostError) as info:
+            next(g)
+        return info.value
+
+    port = case(rt, tref, tworker, TObjectID)
+    jax_ = case(ray_tpu, jref, jworker, JObjectID)
+    assert port.object_ref is None
+    assert str(port).startswith("streamed item 0 of task ")
+    assert str(port).endswith(" was lost")
+    assert isinstance(jax_.object_ref, str)
+    assert jax_.object_ref.startswith("streamed item 0 of task ")
+    assert jax_.object_ref.endswith("cannot be reconstructed")
+    assert str(jax_) == f"Object {jax_.object_ref} was lost."

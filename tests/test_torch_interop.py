@@ -117,6 +117,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch._private.runtime.local, ray_tpu_torch.dag\n"
         "import ray_tpu_torch.util.placement_group\n"
         "import ray_tpu_torch._private.accelerators.cuda\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.data.block\n"
+        "import ray_tpu_torch.data.datasource, ray_tpu_torch.tune\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'ray_tpu' or "
         "m.startswith('ray_tpu.') or m == 'ml_dtypes')\n"
@@ -141,7 +143,9 @@ def test_source_scan_finds_no_jax_or_ray_tpu_import():
                    "_private/runtime/local.py", "_private/worker.py",
                    "_private/object_ref.py", "dag/__init__.py",
                    "util/placement_group.py",
-                   "util/scheduling_strategies.py"):
+                   "util/scheduling_strategies.py", "data/dataset.py",
+                   "data/block.py", "data/datasource.py", "tune/tuner.py",
+                   "tune/search.py", "tune/schedulers.py"):
         assert os.path.join(REPO, "ray_tpu_torch", module) in files
     for path in files:
         with open(path) as f:

@@ -310,7 +310,17 @@ def test_llama_deployment_merges_concurrent_calls(params):
 
 
 # ---------------------------------------------------------- batch inference
+def _port_runtime():
+    import ray_tpu_torch as rt
+
+    if not rt.is_initialized():
+        rt.init(num_cpus=4, num_gpus=0)
+    return rt
+
+
 def test_batch_worker_and_batch_generate_match_jax(params):
+    from ray_tpu_torch import data as tdata
+
     tp, jp = params
     prompts = _prompts(7, (5, 9, 3, 12, 7, 4))
     kw = dict(max_new_tokens=8, num_slots=4, max_len=64)
@@ -321,30 +331,60 @@ def test_batch_worker_and_batch_generate_match_jax(params):
     got = tworker({"prompt_ids": prompts, "id": list(range(6))})
     assert got["id"] == list(range(6))
     assert got["generated_ids"] == want
-    batches = [{"prompt_ids": prompts[i:i + 2]} for i in range(0, 6, 2)]
-    outs = list(tllm.batch_generate(batches, TCFG, params=tp,
-                                    device="cpu", **kw))
-    assert [g for b in outs for g in b["generated_ids"]] == want
+    rt = _port_runtime()
+    try:
+        # A Dataset in, a Dataset out: three blocks of two prompts, one
+        # engine actor (JAX's batch_generate over its Dataset).
+        ds = tdata.from_items([{"prompt_ids": p} for p in prompts],
+                              parallelism=3)
+        out = tllm.batch_generate(ds, TCFG, params=tp, device="cpu", **kw)
+        assert isinstance(out, tdata.Dataset)
+        rows = out.take_all()
+    finally:
+        rt.shutdown()
+    assert [list(map(int, r["generated_ids"])) for r in rows] == want
+    assert [list(r["prompt_ids"]) for r in rows] == prompts
 
 
 def test_batch_generate_on_replica_processes(params):
-    from ray_tpu_torch import serve
+    """``concurrency=2``: two engine actors of the core API (the port's
+    earlier iterable form ran replica processes, and the test keeps that
+    name; JAX's runs pool actors), each building its engine once; block
+    order is kept, and the pool is gone once the output blocks are made.
+    On the CPU the pool reserves no card; on ``cuda`` it pins each actor
+    to a card of its own (``test_torch_data.py``'s
+    ``test_map_batches_num_gpus_pins_each_actor_to_its_card``, and
+    chip_smoke's ``[data-llm-pool]`` on two cards)."""
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch import data as tdata
 
     tp, _ = params
     prompts = _prompts(8, (5, 9, 3, 12, 7, 4, 6, 10))
     kw = dict(max_new_tokens=6, num_slots=4, max_len=64)
     want = tllm.LLMBatchWorker(TCFG, params=tp, device="cpu", **kw)(
         {"prompt_ids": prompts})["generated_ids"]
-    batches = [{"prompt_ids": [p], "i": i} for i, p in enumerate(prompts)]
+    rt = _port_runtime()
     try:
-        outs = list(tllm.batch_generate(batches, TCFG, params=tp,
-                                        concurrency=2, device="cpu", **kw))
-        controller = serve.api._get_controller()
-        assert controller.list_deployments() == {}   # deleted after use
+        ds = tdata.from_items([{"prompt_ids": p, "i": i}
+                               for i, p in enumerate(prompts)],
+                              parallelism=8)
+        rows = tllm.batch_generate(ds, TCFG, params=tp, concurrency=2,
+                                   device="cpu", **kw).take_all()
+        core = global_worker().core
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and any(
+                core.actor_state(a)["state"] != "DEAD"
+                for a, m in core._actor_meta.items()
+                if m.get("class_name") == "_MapWorker"):
+            time.sleep(0.05)
+        pools = [a for a, m in core._actor_meta.items()
+                 if m.get("class_name") == "_MapWorker"]
+        assert len(pools) == 2
+        assert all(core.actor_state(a)["state"] == "DEAD" for a in pools)
     finally:
-        serve.shutdown()
-    assert [b["i"] for b in outs] == list(range(8))
-    assert [b["generated_ids"][0] for b in outs] == want
+        rt.shutdown()
+    assert [r["i"] for r in rows] == list(range(8))
+    assert [list(map(int, r["generated_ids"])) for r in rows] == want
 
 
 def test_cold_start_from_a_jax_checkpoint(tmp_path):

@@ -44,6 +44,42 @@ def test_scope_restores_the_flag_on_an_exception(flag):
     assert flag.allow_bf16_reduced_precision_reduction is True
 
 
+@pytest.mark.parametrize("start", [True, False])
+def test_overlapping_scopes_in_two_threads_keep_the_flag_off(flag, start):
+    """Two threads' scopes overlap, the first to open closes first: the
+    flag stays off inside the second until it closes too, and then the
+    value from before the first comes back."""
+    import threading
+
+    flag.allow_bf16_reduced_precision_reduction = start
+    a_in, a_out, b_in = (threading.Event() for _ in range(3))
+    seen = {}
+
+    def first():
+        with llama.fp32_reduction(CUDA, torch.bfloat16):
+            a_in.set()
+            b_in.wait(5)
+            seen["a"] = flag.allow_bf16_reduced_precision_reduction
+        a_out.set()
+
+    def second():
+        a_in.wait(5)
+        with llama.fp32_reduction(CUDA, torch.bfloat16):
+            b_in.set()
+            a_out.wait(5)
+            seen["b_after_a"] = flag.allow_bf16_reduced_precision_reduction
+        seen["after"] = flag.allow_bf16_reduced_precision_reduction
+
+    threads = [threading.Thread(target=f) for f in (first, second)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+    assert a_out.is_set() and b_in.is_set()
+    assert seen == {"a": False, "b_after_a": False, "after": start}
+    assert flag.allow_bf16_reduced_precision_reduction is start
+
+
 @pytest.mark.parametrize("device, dtype", [
     (torch.device("cpu"), torch.bfloat16), (CUDA, torch.float32)])
 def test_scope_leaves_other_devices_and_dtypes_alone(flag, device, dtype):

@@ -62,8 +62,21 @@ def test_exports_are_jax_names_with_torch_for_jax():
 
 
 def test_not_ported_parts_raise_naming_their_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ray_tpu/data"):
-        tt.TorchTrainer(loops.report_loop, datasets={"train": [1]})
+    # datasets= is ported (ray_tpu_torch.data): a real Dataset is taken
+    # and split into one shard a rank, each holding its blocks.
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as tdata
+
+    was_up = rt.is_initialized()
+    ds = tdata.range(8, parallelism=2)
+    trainer = tt.TorchTrainer(loops.report_loop, datasets={"train": ds})
+    assert trainer.datasets == {"train": ds}
+    shards = trainer._dataset_shards(2)
+    assert [[r["id"] for r in s["train"].iter_rows()] for s in shards] == \
+        [[0, 1, 2, 3], [4, 5, 6, 7]]
+    assert trainer.dataset_bytes == [32, 32]
+    if not was_up:
+        rt.shutdown()
     with pytest.raises(NotImplementedError, match="placement groups"):
         tt.ScalingConfig(placement_strategy="SPREAD")
     with pytest.raises(NotImplementedError, match="'s3'"):

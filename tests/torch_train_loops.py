@@ -276,3 +276,74 @@ def crash_once_loop(config):
 
 def always_fails_loop(config):
     raise RuntimeError("always fails")
+
+
+def dataset_shard_loop(config):
+    """``tests/test_train_ingest.py``'s shard loop: this rank's ids from
+    ``get_dataset_shard("train")`` through the device-batch path (the
+    CPU here), written to ``ids_<rank>.json`` under ``config["out"]``."""
+    ctx = rt_train.get_context()
+    it = rt_train.get_dataset_shard("train")
+    ids = []
+    with it.iter_device_batches("cpu", batch_size=8) as batches:
+        for b in batches:
+            assert isinstance(b["id"], torch.Tensor)
+            ids.extend(int(x) for x in b["id"])
+    with open(os.path.join(config["out"],
+                           f"ids_{ctx.get_world_rank()}.json"), "w") as f:
+        json.dump(ids, f)
+    rt_train.report({"count": len(ids)})
+
+
+def unknown_shard_loop(config):
+    """Asks for a shard the trainer was not given: ``KeyError`` naming
+    it, then a report that says so."""
+    try:
+        rt_train.get_dataset_shard("eval")
+    except KeyError as e:
+        rt_train.report({"ok": int("no dataset shard" in str(e)
+                                   and "'train'" in str(e))})
+        return
+    rt_train.report({"ok": 0})
+
+
+# The gpu test's model: 2 layers at a small width whose head dim (128)
+# takes the flash kernels, bf16.
+GPU_DATA_CONFIG = dict(vocab_size=1024, hidden_size=256,
+                       intermediate_size=512, num_layers=2, num_heads=2,
+                       num_kv_heads=1, head_dim=128, max_seq_len=512)
+
+
+def gpu_data_trainer():
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (ShardedTrainer,
+                                               default_optimizer)
+
+    cfg = llama.LlamaConfig(**GPU_DATA_CONFIG)
+    return ShardedTrainer(cfg, optimizer=default_optimizer(
+        warmup_steps=1, total_steps=100), device="cuda")
+
+
+def gpu_data_steps(trainer, batches, report):
+    """One synchronous train step a batch: its loss, where its tokens
+    lay and its flash launches."""
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    state = trainer.init_state(0)
+    for i, batch in enumerate(batches):
+        before = dict(flash_attention.launches)
+        on = batch["tokens"].device.type
+        state, metrics = trainer.train_step(state, batch)
+        report({"step": i, "loss": float(metrics["loss"]), "device": on,
+                "launches": {k: flash_attention.launches[k] - before[k]
+                             for k in before}})
+
+
+def gpu_data_loop(config):
+    """[data-train] at the gpu test's width: the shard's device batches
+    through the train step on the worker's card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = gpu_data_trainer()
+    it = rt_train.get_dataset_shard("train")
+    with it.iter_device_batches(trainer, batch_size=config["batch"]) as pf:
+        gpu_data_steps(trainer, pf, rt_train.report)
