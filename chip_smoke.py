@@ -366,7 +366,7 @@ Phases, any failure exits non-zero with no result line:
    of one ``TokenPPOLearner`` on the card (``CountingLearner``: its
    update metrics carry the learner process's launches, peak memory and
    programs). The replica capture's trace goes under the phase's
-   scratch dir (``RAY_TPU_SESSION_DIR``) and is removed with it. Three
+   scratch dir (``RAY_TPU_SESSION_DIR``) and is removed with it. Two
    rounds: phase 5's first 8 prompts cut to 512 tokens as 8 HTTP
    streams of 32 tokens; behavior logprobs from a replica's
    ``score_logprobs`` with the version that scored them; one PPO update
@@ -374,7 +374,7 @@ Phases, any failure exits non-zero with no result line:
    published; every replica brought to the version by its weight sync
    or, respawned or shed, by ``restore_weights`` (the slow path). Round
    1 arms ``kill_replica:phase=decode,token=2``. Gates: versions reach
-   [3, 3], every loss finite, round 0 all by the fast path with no
+   [2, 2], every loss finite, round 0 all by the fast path with no
    shed and each replica's params equal, bit for bit, to version 1's
    checkpoint (``equals_checkpoint``), the kill fired and a resume was
    counted, an ``rl.weight_swap`` chains to its publish through
@@ -517,6 +517,42 @@ Phases, any failure exits non-zero with no result line:
    them). Every replica process has exited and the card's memory is back
    at the end. ``--graph`` runs this phase alone after phase 37's
    yardstick (phase 29's burst in process).
+41. The serve autoscaler and the card-pool arbiter (ROADMAP item 19a;
+   ``ray_tpu_torch/autoscaler/arbiter.py``). (a) ``[autoscale]``:
+   ``CountingLlm`` at Llama-3-8B widths, all 32 layers, half a card a
+   replica, phase 29's engine (paged, 8 slots, max_len 2048, block 64,
+   greedy, the prefix cache off) with AUTOSCALE["config"] (1 to 2
+   replicas on the engines' queue depth). 24 closed-loop HTTP streams
+   over phase 5's prompts run until the second replica, on the same
+   card, has served AUTOSCALE["second_served"] streams; with the load
+   off the fleet drains back to one (one ``scale_down`` drain, its cause
+   the ``serve.autoscale`` decision); then ``pool_set_replicas(cap=1)``
+   holds one replica for AUTOSCALE["cap_hold_s"] under the same load.
+   Gates: no stream dropped; every stream equal to phase 29's tokens for
+   its prompt, or to the prompt's tokens prefilled in a batch of 1, 2, 4
+   or 8 rows (``held_to_phase29``: decode runs every slot at one shape,
+   so only the prefill batch, which the closed loop does not choose,
+   moves a stream's bf16 rounding), or parted at a bf16 near-tie; B4 32
+   a tick in each replica. Prints the seconds
+   from the first decision to the second replica routed, the decisions
+   by signal, each replica's B4 launches and peak memory, and the
+   drain's outcome. (b) ``[pool]``: the JAX e2e's story
+   (``tests/test_pool_arbiter.py::test_diurnal_chip_handoff_e2e``) at
+   Llama-3-8B widths with POOL["layers"] of 32 layers: three replicas at
+   a quarter card (3 units), a ``TorchTrainer(use_gpu=False)`` of gloo
+   CPU workers at world 1 running ``pool_triangle_loop`` (1 unit: one
+   card holds no two NCCL ranks, so the train side's units are CPU
+   worker slots); a night trickle of one stream at a time, whose p95
+   times POOL["slo_factor"] is the SLO guard's latency threshold; the
+   diurnal policy leases 2 units (serve drains to one replica, the
+   trainer re-forms at world 3) with ``preempt_node:stage=FREEING`` and
+   ``kill_arbiter:tick=5`` (a fresh arbiter resumes from the journal);
+   a morning burst of POOL["morning"] streams trips the guard and the
+   lease returns (3 replicas, world 1). Gates: no violation on any tick;
+   no stream dropped; the trainer's loss bit for bit the uninterrupted
+   run's; B4 launched. Prints the seconds of each stage and B4 summed
+   over the replicas (each replica's last reading, ``CountMonitor``).
+   ``--pool`` runs this phase alone after phase 37's yardstick.
 
 Phases 23-24 run before phases 25-28 (27 compares with 24), phases
 11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
@@ -550,7 +586,8 @@ rollouts and the flash forward's ``rl_scoring_launches`` their
 paged entry's ``graph_launches`` are phase 40's Llama replica's over the
 HTTP burst through the graph and its ``workflow_launches`` over the
 workflow's first run, whose scoring step gives the flash forward's
-``workflow_scoring_launches``);
+``workflow_scoring_launches``; its ``autoscale_launches`` are phase
+41a's two replicas' and its ``pool_launches`` phase 41b's replicas');
 the last line is ``{"ok": true, "device": {...}}``. Before the record,
 the script stops every process the port's runtime started (the replica
 and worker processes, their fork server and resource tracker:
@@ -595,9 +632,15 @@ group, every op against numpy, and an allreduce of each size of
 card learners over NCCL (a card each), bit for bit the same over
 ``MESH_RLLIB["updates"]`` updates, and two ``SGDImpalaLearner``s' step
 equal to one card learner's on the whole batch within rtol 1e-5 / atol
-1e-6 (``[mesh-rllib]``). ``--mesh-check SECTION ...`` runs only the
-named sections of ``MESH_SECTIONS`` (trainer, moe, mixtral, ckpt,
-train-controller, collective, rllib). It prints no result line.
+1e-6 (``[mesh-rllib]``); then ``mesh_pool``: phase 41b's story over
+the four whole cards, three replicas at a card each and a ``use_gpu``
+trainer at world 1 whose steps also all-reduce a card tensor over NCCL;
+the world-3 ranks take the cards the drained replicas and the trainer
+held, disjoint from the serve side's, and the replicas come back on the
+cards the world-3 group gave back (``[mesh-pool]``). ``--mesh-check
+SECTION ...`` runs only the named sections of ``MESH_SECTIONS``
+(trainer, moe, mixtral, ckpt, train-controller, collective, rllib,
+pool). It prints no result line.
 
 ``python3 chip_smoke.py --paged-host-us ROOT`` instead measures only the
 host microseconds a paged call takes (``host_us``, the phase-3 cases at
@@ -729,7 +772,7 @@ MESH_MOE = dict(
                peak_gib=75.0),
     ckpt=dict(save=dict(fsdp=4), restore=dict(fsdp=2, tensor=2)))
 MESH_SECTIONS = ("trainer", "moe", "mixtral", "ckpt", "train-controller",
-                 "collective", "rllib")
+                 "collective", "rllib", "pool")
 # Device kernels of the MoE routing by name (after flash and GEMMs): the
 # stable sort of top-k, the cumsum of the slots, the index copies and
 # gathers and the one-hot scatters. The embedding lookup and its
@@ -2666,7 +2709,7 @@ def mesh_check(torch, sections=MESH_SECTIONS):
              f"{torch.cuda.device_count()}")
     _build.build_all()
     ranked = tuple(s for s in sections
-                   if s not in ("train-controller", "rllib"))
+                   if s not in ("train-controller", "rllib", "pool"))
     if ranked:
         with socket.socket() as s:
             s.bind(("localhost", 0))
@@ -2681,6 +2724,11 @@ def mesh_check(torch, sections=MESH_SECTIONS):
     if "rllib" in sections:
         # LearnerGroup places its own learners, a card each.
         mesh_rllib(torch, card_line())
+    if "pool" in sections:
+        # The serving process places its replicas and the trainer's
+        # workers from one card book.
+        mesh_pool(torch, card_line())
+        stop_processes()
 
 
 def mesh_rank(rank, world, init_method, backend, sections=MESH_SECTIONS):
@@ -4157,7 +4205,7 @@ def mesh_rllib(torch, card, use_gpu=True):
 # weights from seed 0 on the card, the replicas' and the learner's one
 # cold start); prompts are phase 5's first RL["prompts"], cut to
 # RL["prompt_cap"] tokens.
-RL = dict(layers=2, replicas=2, num_slots=8, max_len=1024, rounds=3,
+RL = dict(layers=2, replicas=2, num_slots=8, max_len=1024, rounds=2,
           prompts=8, prompt_cap=512, max_new=32, lr=1e-5, rho_clip=2.0,
           publish_timeout_s=5.0, converge_s=60.0, kill_round=1,
           kill="kill_replica:phase=decode,token=2", greedy_prompts=(8, 9),
@@ -7442,14 +7490,703 @@ def graph_phase(torch, card, prompts, phase29):
     tserve.shutdown()
     if not was_up:
         rt.shutdown()
+    wait_memory_back(torch, free0, "phase 40")
+    st.update(preempt=pre, workflow=wf)
+    return st
+
+
+# Phase 41: the serve autoscaler (41a) and the card-pool arbiter (41b) on
+# one card; --mesh-check pool: the arbiter over four whole cards.
+AUTOSCALE = dict(name="as-llm", streams=24, new=32, second_served=12,
+                 cap_hold_s=3.0, up_s=600,
+                 config=dict(min_replicas=1, max_replicas=2,
+                             target_queue_depth=4.0,
+                             # Never decides: the engines' queue does.
+                             target_ongoing_requests=1000.0,
+                             upscale_delay_s=0.3, downscale_delay_s=2.0))
+POOL = dict(name="pool-llm", run="chip-pool", layers=2, replicas=3,
+            num_gpus=0.25, total=400, hold_at=40, width=4, lease_units=2,
+            night_sample=8, slo_factor=2.0, min_samples=4, morning=48,
+            new=32, tick_s=0.25, committed_tick_s=1.0, stage_s=600)
+
+
+def pool_triangle_loop(config):
+    """Phase 41b's and ``[mesh-pool]``'s train loop, in the workers
+    TorchTrainer spawned: the JAX suite's pool loop
+    (``tests/test_pool_arbiter.py::_e2e_loop``): restore the newest
+    committed manifest (checked against the closed form), add ``step+1``
+    to every element each step, save and report each step with the world
+    size; past ``hold_at`` each attempt reports 5 steps, then holds while
+    the file ``hold`` exists. With ``card`` each step also all-reduces a
+    card tensor over the group (NCCL; a world of one forms no group) and
+    checks the sum, and each rank writes its ``CUDA_VISIBLE_DEVICES``
+    under ``cards_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    plane = train.get_checkpoint_plane()
+    w = np.zeros(config["width"], np.float64)
+    start = 0
+    if plane.latest_step() is not None:
+        st = plane.restore()
+        w, start = st["w"].numpy(), int(st["step"]) + 1
+        if not np.array_equal(w, np.full(config["width"],
+                                         start * (start + 1) / 2.0)):
+            raise AssertionError(f"restored {w} at start {start}")
+    if config.get("cards_dir"):
+        with open(os.path.join(config["cards_dir"],
+                               f"{world}-{rank}-{os.getpid()}"), "w") as f:
+            f.write(os.environ.get("CUDA_VISIBLE_DEVICES", ""))
+    hold = config.get("hold", "")
+    done = 0
+    for step in range(start, config["total"]):
+        while done >= 5 and step >= config["hold_at"] and hold and \
+                os.path.exists(hold):
+            time.sleep(0.02)
+        w = w + (step + 1)
+        if config.get("card"):
+            t = torch.full((1,), float(step + 1), device="cuda")
+            if dist.is_initialized():       # a group of one forms none
+                dist.all_reduce(t)
+            if t.item() != world * (step + 1):
+                raise AssertionError(f"all-reduce gave {t.item()}")
+        plane.save(step, {"w": w, "step": np.asarray(step)})
+        train.report({"step": step, "loss": float(w.sum()),
+                      "world": world})
+        done += 1
+    return float(w.sum())
+
+
+def _pool_trainer(root, name, hold, use_gpu=False, cards_dir=""):
+    from ray_tpu_torch import train as tt
+
+    return tt.TorchTrainer(
+        pool_triangle_loop,
+        train_loop_config=dict(total=POOL["total"], hold_at=POOL["hold_at"],
+                               width=POOL["width"], hold=hold,
+                               card=use_gpu, cards_dir=cards_dir),
+        scaling_config=tt.ScalingConfig(num_workers=1, min_workers=1,
+                                        use_gpu=use_gpu),
+        run_config=tt.RunConfig(name=name, storage_path=root,
+                                failure_config=tt.FailureConfig()))
+
+
+class LoadLoop:
+    """``n`` closed-loop streams over HTTP: each thread streams prompt
+    ``k % len(prompts)`` of a shared count ``k`` until :meth:`stop`;
+    every stream is kept as (prompt index, tokens, seconds) or counted as
+    dropped. A stream the ingress sheds (HTTP 429) is sent again after
+    the second its answer asks for, as a client would, and counted in
+    ``shed``."""
+
+    def __init__(self, port, name, prompts, n, new):
+        self.done, self.dropped, self.lock = [], [], threading.Lock()
+        self.shed = 0
+        self._stop = threading.Event()
+        self._k = iter(range(1 << 30))
+        self._threads = [threading.Thread(target=self._run, args=(
+            port, name, prompts, new), daemon=True) for _ in range(n)]
+        for t in self._threads:
+            t.start()
+
+    def _run(self, port, name, prompts, new):
+        while not self._stop.is_set():
+            with self.lock:
+                k = next(self._k)
+            i = k % len(prompts)
+            t0 = time.perf_counter()
+            try:
+                toks = list(http_tokens(port, {"prompt_token_ids":
+                                               prompts[i],
+                                               "max_tokens": new},
+                                        name=name))
+            except RuntimeError as e:
+                if not str(e).startswith("HTTP 429"):
+                    with self.lock:
+                        self.dropped.append((i, repr(e)[:200]))
+                    continue
+                with self.lock:
+                    self.shed += 1
+                m = re.search(r"retry_after_s\W+([0-9.]+)", str(e))
+                self._stop.wait(float(m.group(1)) if m else 1.0)
+                continue
+            except Exception as e:  # noqa: BLE001 — counted, failed later
+                with self.lock:
+                    self.dropped.append((i, repr(e)[:200]))
+                continue
+            with self.lock:
+                self.done.append((i, toks, time.perf_counter() - t0))
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=900)
+        if any(t.is_alive() for t in self._threads):
+            fail("a load stream hung")
+        return self
+
+
+def prefill_variants(torch, eng, prompt, new):
+    """The greedy tokens ``eng`` gives ``prompt`` when its prefill batch
+    holds 1, 2, 4 or 8 rows (copies of the prompt, admitted together):
+    the batch shapes an engine prefills in, each its own GEMM shape and
+    bf16 rounding. The rows of one batch must agree."""
+    out = []
+    for n in (1, 2, 4, 8):
+        rids = [eng.submit(prompt, max_new_tokens=new) for _ in range(n)]
+        done = eng.run_to_completion()
+        rows = [done[r] for r in rids]
+        if any(r != rows[0] for r in rows):
+            fail(f"the {n} rows of one prefill batch of one prompt differ")
+        if rows[0] not in out:
+            out.append(rows[0])
+    torch.cuda.synchronize()
+    return out
+
+
+def held_to_phase29(torch, cfg, prompts, want, runs, what):
+    """Each stream's tokens against phase 29's for its prompt. Decode ticks
+    run every slot at one shape, so a stream's tokens depend only on its
+    prompt and on the rows its prefill batch held (1, 2, 4 or 8: another
+    GEMM shape, another bf16 rounding), which a closed loop does not
+    choose. A stream passes if it equals phase 29's tokens, or the
+    prompt's tokens in an engine of the same weights prefilled in a batch
+    of 1, 2, 4 or 8 rows (:func:`prefill_variants`; the engine is built in
+    this process only when a stream parts from phase 29, after the
+    replicas are gone), or parts from phase 29's at a bf16 near-tie (a
+    top-2 margin under the top logit's 2^-8). Returns (equal to phase 29,
+    equal to a prefill variant, near-tie partings)."""
+    from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+
+    equal, varied, ties = 0, 0, []
+    eng, variants, seen = None, {}, {}
+    for i, toks, _ in runs:
+        if len(toks) != len(want[i]) or \
+                not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{what}: prompt {i} returned {len(toks)} tokens")
+        if toks == want[i]:
+            equal += 1
+            continue
+        if eng is None:
+            eng = ContinuousBatcher(cfg, num_slots=8, max_len=2048,
+                                    block_size=64, prefix_cache=False)
+        if i not in variants:
+            variants[i] = prefill_variants(torch, eng, prompts[i],
+                                           len(want[i]))
+        if toks in variants[i]:
+            varied += 1
+            continue
+        j = next(n for n, (x, y) in enumerate(zip(toks, want[i]))
+                 if x != y)
+        key = (i, j, toks[j])
+        if key not in seen:
+            seen[key] = top2_margin(torch, eng.params, cfg,
+                                    prompts[i] + want[i][:j])
+        m, top = seen[key]
+        print(f"[parity] bf16 {what} and phase-29 runs part at prompt {i}, "
+              f"token {j}: top-2 margin {m:.4e}, top logit {top:.4f} "
+              f"(bf16 rounding there {abs(top) * 2**-8:.4e})")
+        if m >= abs(top) * 2**-8:
+            fail(f"{what}: prompt {i} parts from phase 29 at token {j} with "
+                 f"top-2 margin {m:.4e} (top logit {top:.4f}), and from its "
+                 f"{len(variants[i])} prefill variants: not a bf16 "
+                 f"near-tie")
+        ties.append((i, j, m, top))
+    if eng is not None:
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return equal, varied, ties
+
+
+def replica_counters(r, reset=False):
+    return r.call("counters", (reset,), {}).result(timeout=120)
+
+
+def autoscale_phase(torch, card, prompts, phase29):
+    """Phase 41a: ``ContinuousLlamaDeployment`` at Llama-3-8B widths with
+    an ``autoscaling_config`` (half a card a replica): 24 closed-loop
+    streams scale it from one replica to two on the one card; with the
+    load off it drains back to one; ``pool_set_replicas(cap=1)`` holds it
+    at one under load."""
+    from ray_tpu_torch._private import metrics_defs as mdefs
+    from ray_tpu_torch.llm import build_continuous_llama_app
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve import api as serve_api
+
+    free0 = mem(torch, "phase 41a start")
+    cfg = llama.LlamaConfig.llama3_8b()
+    name, new = AUTOSCALE["name"], AUTOSCALE["new"]
+    want = phase29["outputs"]
+    built = build_continuous_llama_app(cfg, num_slots=8, max_len=2048,
+                                       prefix_cache=False)
+    port = tserve.start_http(port=0)
+    t0 = time.perf_counter()
+    tserve.run(tserve.deployment(
+        CountingLlm, name=name, ray_actor_options={"num_gpus": 0.5},
+        autoscaling_config=AUTOSCALE["config"]).bind(
+        *built.args, **built.kwargs))
+    deploy_s = time.perf_counter() - t0
+    controller = serve_api._get_controller()
+    (first,) = controller.get_replicas(name)
+    list(http_tokens(port, {"prompt_token_ids": prompts[0][:16],
+                            "max_tokens": 2}, name=name))     # warm-up
+    ticks0 = {"first": replica_counters(first, reset=True)["ticks"],
+              "second": 0}
+    t_load = time.time()
+    load = LoadLoop(port, name, prompts, AUTOSCALE["streams"], new)
+    second = None
+    deadline = time.monotonic() + AUTOSCALE["up_s"]
+    while time.monotonic() < deadline:
+        reps = controller.get_replicas(name)
+        if second is None and len(reps) == 2:
+            second = next(r for r in reps if r is not first)
+            t_routed = time.time()
+        if second is not None:
+            # Read under load: with the load off the autoscaler drains
+            # one of the two within its down delay.
+            counts = {"first": replica_counters(first),
+                      "second": replica_counters(second)}
+            if len(counts["second"]["marks"]) >= \
+                    AUTOSCALE["second_served"]:
+                break
+        time.sleep(0.05)
+    else:
+        load.stop()
+        fail(f"phase 41a: the second replica {'never came up' if second is None else 'served too few streams'}")
+    load.stop()
+    for k, c in counts.items():
+        c["ticks"] -= ticks0[k]
+    ups = [e for e in flight_events("serve.autoscale", name)
+           if e["ts"] >= t_load and e["attrs"]["direction"] == "up"]
+    if not ups:
+        fail("phase 41a: no scale-up decision")
+    cards = [r.env.get("CUDA_VISIBLE_DEVICES") for r in (first, second)]
+    if cards[0] != cards[1]:
+        fail(f"phase 41a: the replicas are on cards {cards}, not one")
+    # With the load off the fleet drains back to one replica.
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        if len(controller.get_replicas(name)) == 1 and \
+                not controller.draining_count(name):
+            break
+        time.sleep(0.1)
+    else:
+        fail("phase 41a: the fleet never drained back to one replica")
+    downs = [e for e in flight_events("serve.autoscale", name)
+             if e["ts"] >= t_load and e["attrs"]["direction"] == "down"]
+    down_ids = {e["event_id"] for e in downs}
+    drain_ends = [e for e in flight_events("serve.drain_end", name)
+                  if e["attrs"]["drain_cause"] == "scale_down"
+                  and e["ts"] >= t_load]
+    drain_begins = [e for e in flight_events("serve.drain_begin", name)
+                    if e["cause"] in down_ids]
+    if len(drain_begins) != 1 or len(drain_ends) != 1:
+        fail(f"phase 41a: {len(drain_begins)} scale-down drains began from "
+             f"the decision, {len(drain_ends)} ended")
+    # The cap under load: pool_set_replicas(cap=1) holds one replica.
+    controller.pool_set_replicas(name, 1, cap=1, cause="chip-smoke")
+    hold_load = LoadLoop(port, name, prompts, AUTOSCALE["streams"], new)
+    t_end = time.monotonic() + AUTOSCALE["cap_hold_s"]
+    peak_replicas = 0
+    while time.monotonic() < t_end:
+        peak_replicas = max(peak_replicas, len(controller.get_replicas(
+            name)) + len(controller._starting.get(name, [])))
+        time.sleep(0.05)
+    queued = controller.get_replica_pressure(name)
+    hold_load.stop()
+    if peak_replicas != 1:
+        fail(f"phase 41a: the cap let {peak_replicas} replicas run")
+    tserve.shutdown()
+    wait_memory_back(torch, free0, "phase 41a")
+    runs = load.done + hold_load.done
+    dropped = load.dropped + hold_load.dropped
+    if dropped:
+        fail(f"phase 41a: {len(dropped)} streams dropped: {dropped[:3]}")
+    equal, varied, ties = held_to_phase29(torch, cfg, prompts, want, runs,
+                                          "phase 41a")
+    for k, c in counts.items():
+        if c["ticks"] <= 0 or c["paged"] != cfg.num_layers * c["ticks"]:
+            fail(f"phase 41a: the {k} replica launched B4 {c['paged']} "
+                 f"times over {c['ticks']} ticks")
+    decisions = {}
+    for _n, key, v in mdefs.SERVE_AUTOSCALE_DECISIONS.samples():
+        tags = dict(key)
+        if tags.get("deployment") == name:
+            decisions[f"{tags['direction']}:{tags['signal']}"] = v
+    st = dict(
+        deploy_s=deploy_s, decision_to_routed_s=t_routed - ups[0]["ts"],
+        decisions=decisions, streams=len(runs), dropped=len(dropped),
+        second_served=len(counts["second"]["marks"]),
+        b4_launches={k: c["paged"] for k, c in counts.items()},
+        ticks={k: c["ticks"] for k, c in counts.items()},
+        peak_gib={k: c["peak_gib"] for k, c in counts.items()},
+        cards=cards, drain_outcome=drain_ends[0]["attrs"]["outcome"],
+        drain_s=drain_ends[0]["attrs"]["waited_s"],
+        shed=load.shed + hold_load.shed,
+        equal_to_phase29=equal, equal_to_a_prefill_variant=varied,
+        near_ties=ties, capped_replicas=peak_replicas,
+        capped_queue=sum(float(s.get("queue_depth") or 0) for s in queued),
+        card=card)
+    print(f"[autoscale] {json.dumps(st)}")
+    st["autoscale_launches"] = sum(st["b4_launches"].values())
+    return st
+
+
+def flight_events(etype, deployment):
+    from ray_tpu_torch._private import events as flight
+
+    return [e for e in flight.local_events(types=[etype], limit=100000)
+            if e["subject"].get("deployment") == deployment]
+
+
+def wait_memory_back(torch, free0, what):
+    """Fail unless the card's free memory comes back to within 1 GiB of
+    ``free0`` in 30 s (the replica processes have exited)."""
     deadline = time.monotonic() + 30
     while torch.cuda.mem_get_info()[0] < free0 - 2**30 and \
             time.monotonic() < deadline:
         time.sleep(0.5)
-    if mem(torch, "phase 40 end") < free0 - 2**30:
-        fail("phase 40: the replicas' device memory did not come back")
-    st.update(preempt=pre, workflow=wf)
+    if mem(torch, f"{what} end") < free0 - 2**30:
+        fail(f"{what}: the replicas' device memory did not come back")
+
+
+class CountMonitor:
+    """Reads every replica's counters of deployment ``name`` each
+    ``period_s`` and keeps each replica's last reading, so a replica
+    retired in between still counts (up to its last reading)."""
+
+    def __init__(self, name, period_s=0.5):
+        from ray_tpu_torch.serve import api as serve_api
+
+        self.last, self._stop = {}, threading.Event()
+        self._controller = serve_api._get_controller()
+        self._name = name
+        self._thread = threading.Thread(target=self._run, args=(period_s,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _read(self):
+        c = self._controller
+        with c._lock:
+            reps = c._replicas_of(self._name)
+        for r in reps:
+            if r.alive and r.ready:
+                try:
+                    self.last[r.replica_id] = r.call(
+                        "counters", (), {}).result(timeout=10)
+                except Exception:  # noqa: BLE001 — it went meanwhile
+                    pass
+
+    def _run(self, period_s):
+        while not self._stop.wait(period_s):
+            self._read()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=60)
+        self._read()
+        return self.last
+
+
+def pool_story(torch, card, cfg, whole_cards, cards_dir=""):
+    """Phase 41b's and ``[mesh-pool]``'s story (JAX
+    ``tests/test_pool_arbiter.py::test_diurnal_chip_handoff_e2e``):
+    POOL["replicas"] replicas and a world-1 trainer; a night trickle; the
+    diurnal policy leases POOL["lease_units"] units, so serve drains to
+    one replica and training grows to world 3, with ``preempt_node`` at
+    FREEING and the arbiter killed at tick 5 (a fresh one resumes from
+    the journal); a morning burst trips the SLO guard and the lease
+    returns. Returns the numbers; fails on a violation, a drop, or a
+    loss other than the uninterrupted run's."""
+    from ray_tpu_torch._private import chaos
+    from ray_tpu_torch._private import metrics_defs as mdefs
+    from ray_tpu_torch.autoscaler import arbiter as arb
+    from ray_tpu_torch.experimental import internal_kv as kv
+    from ray_tpu_torch.serve import api as serve_api
+
+    for key in kv.internal_kv_list("", namespace=arb.POOL_KV_NS):
+        kv.internal_kv_del(key, namespace=arb.POOL_KV_NS)
+    root = tempfile.mkdtemp(prefix="chip-pool-")
+    hold = os.path.join(root, "hold")
+    name, new = POOL["name"], POOL["new"]
+    prompts = [p[:256] for p in phase5_prompts(cfg)]
+    t0 = time.perf_counter()
+    baseline = _pool_trainer(root, f"{POOL['run']}-base", "",
+                             whole_cards).fit()
+    if baseline.error is not None:
+        fail(f"pool: the uninterrupted run failed: {baseline.error}")
+    base_s = time.perf_counter() - t0
+    open(hold, "w").close()
+    port = tserve.start_http(port=0)
+    from ray_tpu_torch.llm import build_continuous_llama_app
+
+    built = build_continuous_llama_app(cfg, num_slots=8, max_len=2048,
+                                       prefix_cache=False)
+    gpus = 1 if whole_cards else POOL["num_gpus"]
+    t0 = time.perf_counter()
+    tserve.run(tserve.deployment(
+        CountingLlm, name=name, num_replicas=POOL["replicas"],
+        ray_actor_options={"num_gpus": gpus}).bind(
+        *built.args, **built.kwargs))
+    deploy_s = time.perf_counter() - t0
+    controller = serve_api._get_controller()
+    first_cards = sorted(r.env.get("CUDA_VISIBLE_DEVICES")
+                         for r in controller.get_replicas(name))
+    for r in controller.get_replicas(name):
+        # Each engine's first request is slow (its first prefill): the
+        # night's latency must not count it.
+        warm = r.stream("generate", (prompts[0][:16], 2), {})
+        while True:
+            try:
+                warm.next(timeout=300)
+            except StopIteration:
+                break
+    monitor = CountMonitor(name)
+    run = f"{POOL['run']}-chaos"
+    trainer = _pool_trainer(root, run, hold, whole_cards, cards_dir)
+    box = {}
+    fit_thread = threading.Thread(
+        target=lambda: box.update(result=trainer.fit()), daemon=True)
+    fit_thread.start()
+    serve_w = arb.ServeWorkload(name, chips_per_replica=1, min_chips=1)
+    train_w = arb.TrainWorkload(run, chips_per_worker=1)
+    deadline = time.monotonic() + POOL["stage_s"]
+    while train_w.world() != 1 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if train_w.world() != 1:
+        fail("pool: the trainer never published world 1")
+    train_cards0 = trainer_cards(cards_dir, 1)
+
+    # The night: one stream at a time; its latency sets the SLO.
+    night = LoadLoop(port, name, prompts, 1, new)
+    while len(night.done) < POOL["night_sample"]:
+        if night.dropped:
+            fail(f"pool: night streams dropped {night.dropped}")
+        time.sleep(0.05)
+    night_p95 = float(np.percentile(
+        [s for _, _, s in night.done[:POOL["night_sample"]]], 95))
+    threshold = POOL["slo_factor"] * night_p95
+    guard = arb.SloGuard(name, shed_rate=0, ttft_p95_s=0,
+                         latency_p95_s=threshold,
+                         min_samples=POOL["min_samples"])
+    env = {"RAY_TPU_POOL_IDLE_TICKS": "2",
+           "RAY_TPU_POOL_STEP_CHIPS": str(POOL["lease_units"]),
+           "RAY_TPU_POOL_LEASE_S": "600",
+           "RAY_TPU_POOL_IDLE_PER_CHIP": "1.0"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    arbiter = arb.ChipPoolArbiter(serve_w, train_w, slo=guard)
+    if arbiter.ledger.config()["base"] != {"serve": POOL["replicas"],
+                                           "train": 1}:
+        fail(f"pool: base {arbiter.ledger.config()['base']}")
+    chaos.configure("preempt_node:stage=FREEING,target=*;"
+                    "kill_arbiter:tick=5", seed=7)
+    killed, ticks = False, 0
+
+    def tick():
+        nonlocal arbiter, killed, ticks
+        try:
+            st = arbiter.tick()
+        except chaos.SimulatedProcessDeath:
+            killed = True
+            arbiter = arb.ChipPoolArbiter(serve_w, train_w, slo=guard)
+            return None
+        ticks += 1
+        if st["violations"]:
+            fail(f"pool: violations {st['violations']}")
+        return st
+
+    def stage():
+        leases = arbiter.ledger.leases()
+        return leases[0] if leases else None
+
+    deadline = time.monotonic() + POOL["stage_s"]
+    while time.monotonic() < deadline:
+        tick()
+        lease = stage()
+        if lease and lease["stage"] == arb.COMMITTED:
+            break
+        time.sleep(POOL["tick_s"])
+    else:
+        fail(f"pool: the lease never committed: {arbiter.ledger.leases()}")
+    chaos.reset()
+    lease_id = lease["lease_id"]
+    # The preemption reaches the controller through the trainer's store,
+    # so FREEING may have settled just before it drained the replica the
+    # lease left serve: that replica's replacement may still be starting
+    # at COMMITTED (the pool counts routed replicas only).
+    deadline = time.monotonic() + POOL["stage_s"]
+    while time.monotonic() < deadline and (
+            serve_w.chips() != 1 or controller.draining_count(name)):
+        time.sleep(0.05)
+    committed = dict(world=train_w.world(), serve_units=serve_w.chips(),
+                     allocation=arbiter.ledger.allocation())
+    serve_cards = sorted(r.env.get("CUDA_VISIBLE_DEVICES")
+                         for r in controller.get_replicas(name))
+    grown_cards = trainer_cards(cards_dir, 3)
+    if committed["world"] != 3 or committed["serve_units"] != 1 or \
+            committed["allocation"] != {"serve": 1, "train": 3,
+                                        "in_flight": 0,
+                                        "total": POOL["replicas"] + 1} \
+            or not killed:
+        fail(f"pool: at COMMITTED {committed}, arbiter killed {killed}")
+    if whole_cards and (set(grown_cards) & set(serve_cards) or len(set(
+            grown_cards) | set(serve_cards)) != 4 or not set(grown_cards)
+            <= set(first_cards) | set(train_cards0)):
+        fail(f"pool: world 3 on cards {grown_cards}, serve on "
+             f"{serve_cards}; before: serve {first_cards}, train "
+             f"{train_cards0}")
+
+    # The morning: a burst until the guard reverses the lease.
+    night_done = len(night.done)
+    morning = LoadLoop(port, name, prompts, POOL["morning"], new)
+    deadline = time.monotonic() + POOL["stage_s"]
+    while time.monotonic() < deadline:
+        tick()
+        lease = arbiter.ledger.get_lease(lease_id)
+        if lease["stage"] == arb.RETURNED:
+            break
+        time.sleep(POOL["committed_tick_s"] if lease["stage"] ==
+                   arb.COMMITTED else POOL["tick_s"])
+    else:
+        fail(f"pool: the lease never returned: {lease}")
+    morning.stop()
+    night.stop()
+    for k, v in saved_env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    reversal = arbiter.ledger.last_reversal()
+    deadline = time.monotonic() + POOL["stage_s"]
+    while time.monotonic() < deadline and not (
+            train_w.world() == 1 and serve_w.chips() == POOL["replicas"]
+            and not controller.draining_count(name)):
+        time.sleep(0.1)
+    back_cards = sorted(r.env.get("CUDA_VISIBLE_DEVICES")
+                        for r in controller.get_replicas(name))
+    final_train = trainer_cards(cards_dir, 1)
+    alloc = arbiter.ledger.allocation()
+    if reversal is None or reversal["action"] != "reversed" or \
+            reversal["signal"] != "latency_p95" or \
+            train_w.world() != 1 or serve_w.chips() != POOL["replicas"] or \
+            alloc != {"serve": POOL["replicas"], "train": 1,
+                      "in_flight": 0, "total": POOL["replicas"] + 1}:
+        fail(f"pool: after the return: reversal {reversal}, world "
+             f"{train_w.world()}, serve {serve_w.chips()}, {alloc}")
+    if whole_cards and (set(back_cards) & set(final_train) or len(set(
+            back_cards) | set(final_train)) != 4 or not set(back_cards) -
+            set(serve_cards) <= set(grown_cards)):
+        fail(f"pool: after the return serve on {back_cards}, train on "
+             f"{final_train}; world 3 was on {grown_cards}")
+    os.unlink(hold)
+    fit_thread.join(timeout=600)
+    result = box.get("result")
+    counts = monitor.stop()
+    runs = night.done + morning.done
+    dropped = night.dropped + morning.dropped
+    if result is None or result.error is not None:
+        fail(f"pool: the trainer ended with "
+             f"{'no result' if result is None else result.error}")
+    if result.metrics["loss"] != baseline.metrics["loss"] or \
+            result.metrics["loss"] != POOL["width"] * POOL["total"] * (
+                POOL["total"] + 1) / 2.0:
+        fail(f"pool: loss {result.metrics['loss']} against the "
+             f"uninterrupted {baseline.metrics['loss']}")
+    if dropped:
+        fail(f"pool: {len(dropped)} streams dropped: {dropped[:3]}")
+    for i, toks, _ in runs:
+        if len(toks) != new or not all(0 <= t < cfg.vocab_size
+                                       for t in toks):
+            fail(f"pool: prompt {i} gave {len(toks)} tokens")
+    # The night streams ran alone: each prompt's runs are equal.
+    alone = {}
+    for i, toks, _ in night.done[:night_done]:
+        if alone.setdefault(i, toks) != toks:
+            fail(f"pool: prompt {i}'s night runs differ")
+    hist = arbiter.ledger.get_lease(lease_id)["history"]
+    stage_s = {h[0]: round(n[1] - h[1], 3) for h, n in zip(hist, hist[1:])}
+    b4 = sum(c["paged"] for c in counts.values())
+    if b4 <= 0:
+        fail("pool: no replica launched B4")
+    worlds = sorted({m["metrics"]["world"] for m in result.metrics_history})
+    st = dict(
+        baseline_s=base_s, deploy_s=deploy_s, ticks=ticks,
+        arbiter_killed=killed, violations=0,
+        invariant_violations=_counter_total(
+            mdefs.POOL_INVARIANT_VIOLATIONS),
+        night_p95_s=night_p95, slo_threshold_s=threshold,
+        reversal=reversal, stage_s=stage_s,
+        handoff_s=hist[4][1] - hist[0][1], streams=len(runs),
+        night_streams=night_done, dropped=len(dropped),
+        shed=night.shed + morning.shed, loss_equal=True,
+        worlds=worlds, b4_launches=b4, replicas_counted=len(counts),
+        cards=dict(serve_first=first_cards, train_first=train_cards0,
+                   serve_committed=serve_cards, train_committed=grown_cards,
+                   serve_returned=back_cards, train_returned=final_train),
+        card=card)
+    tserve.shutdown()
+    shutil.rmtree(root, ignore_errors=True)
     return st
+
+
+def trainer_cards(cards_dir, world):
+    """The cards the newest group of ``world`` ranks wrote, by rank."""
+    if not cards_dir:
+        return []
+    found = {}
+    for n in sorted(os.listdir(cards_dir),
+                    key=lambda n: os.path.getmtime(
+                        os.path.join(cards_dir, n))):
+        w, rank, _ = n.split("-")
+        if int(w) == world:
+            with open(os.path.join(cards_dir, n)) as f:
+                found[int(rank)] = f.read()
+    return [found[r] for r in sorted(found)]
+
+
+def pool_phase(torch, card):
+    """Phase 41b: the pool story on one card, at Llama-3-8B widths with
+    POOL["layers"] of 32 layers; the train side's units are CPU worker
+    slots (one card holds no two NCCL ranks)."""
+    from ray_tpu_torch.models import llama
+
+    free0 = mem(torch, "phase 41b start")
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_layers=POOL["layers"])
+    st = pool_story(torch, card, cfg, whole_cards=False)
+    print(f"[pool] {json.dumps(st)}")
+    wait_memory_back(torch, free0, "phase 41b")
+    return st
+
+
+def mesh_pool(torch, card):
+    """``--mesh-check pool``: the pool story over four whole cards: three
+    replicas at a card each, a ``use_gpu`` trainer at world 1 over NCCL
+    whose world-3 ranks land on the cards the drained replicas freed."""
+    from ray_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_layers=POOL["layers"])
+    cards_dir = tempfile.mkdtemp(prefix="chip-pool-cards-")
+    try:
+        st = pool_story(torch, card, cfg, whole_cards=True,
+                        cards_dir=cards_dir)
+    finally:
+        shutil.rmtree(cards_dir, ignore_errors=True)
+    print(f"[mesh-pool] {json.dumps(st)}")
+    return st
+
+
+def phase41(torch, card, prompts, phase29):
+    return dict(autoscale=timed("phase 41a", autoscale_phase, torch, card,
+                                prompts, phase29),
+                pool=timed("phase 41b", pool_phase, torch, card))
 
 
 def timed(name, fn, *args):
@@ -7566,6 +8303,22 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:2] == ["--pool"]:
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.ops import _build
+
+        card = card_line()
+        print(card)
+        _build.build_all()
+        prompts = phase5_prompts(llama.LlamaConfig.llama3_8b())
+        phase29 = timed("phase 41's yardstick", core_yardstick, torch, card,
+                        prompts)
+        timed("phase 41", phase41, torch, card, prompts, phase29)
+        stop_processes()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:2] == ["--graph"]:
         from ray_tpu_torch.models import llama
         from ray_tpu_torch.ops import _build
@@ -7678,6 +8431,8 @@ def main():
     tuned = timed("phase 39", tune_phase, torch, card)
     graph = timed("phase 40", graph_phase, torch, card, served[0],
                   serving["deploy"])
+    pooled = timed("phase 41", phase41, torch, card, served[0],
+                   serving["deploy"])
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(
@@ -7696,6 +8451,8 @@ def main():
         batch_launches=data["batch_launches"],
         graph_launches=graph["graph_launches"],
         workflow_launches=graph["workflow"]["workflow_launches"],
+        autoscale_launches=pooled["autoscale"]["autoscale_launches"],
+        pool_launches=pooled["pool"]["b4_launches"],
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], kernel_ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],

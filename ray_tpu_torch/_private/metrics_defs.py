@@ -8,9 +8,10 @@ other. The profiling plane's ``XLA_*``, ``DEVICE_MEM_*`` and
 ``PROFILE_CAPTURES`` keep JAX's names and descriptions although the port
 compiles no XLA program (:mod:`ray_tpu_torch._private.cuda_monitor`
 counts a program's first call at each argument signature as its
-compile). The series of modules not ported yet stay out:
-``SERVE_AUTOSCALE_DECISIONS`` and ``POOL_*`` (the autoscaler), and the
-GCS, RPC, node, store and agent series (the actor core).
+compile). ``POOL_CHIPS`` keeps its name and counts cards (or fractions
+of one, where replicas ask fractions). The series of modules not ported
+yet stay out: the GCS, RPC, node, store and agent series (the actor
+core).
 
 Units follow Prometheus conventions: ``_total`` counters, ``_seconds`` /
 ``_bytes`` gauges and histograms.
@@ -75,6 +76,16 @@ SERVE_DRAIN_SECONDS = Histogram(
     boundaries=(0.05, 0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
                 300.0),
     tag_keys=("deployment", "outcome"))
+
+# ----------------------------------------- serve pressure autoscaling (L6)
+SERVE_AUTOSCALE_DECISIONS = Counter(
+    "ray_tpu_serve_autoscale_decisions_total",
+    "Serve autoscaler scale intents applied, by direction (up/down) and "
+    "the dominant signal that drove them (ongoing: router in-flight vs "
+    "target_ongoing_requests; queue: engine queue depth vs "
+    "target_queue_depth; kv: paged-KV arena starvation; shed: ingress "
+    "shed rate observed since the last decision)",
+    ("deployment", "direction", "signal"))
 
 # ------------------------------------- serve request path (L6 + engine)
 # Per-request latency attribution emitted by the continuous-batching
@@ -475,3 +486,58 @@ RL_SYNC_SHED = Counter(
     "writer overwrote them (shed-with-attribution: the subscriber tag "
     "names the laggard; it re-converges via the checkpoint fallback)",
     ("run", "subscriber"))
+
+# --------------------------------------- chip pool arbiter (L7, arbiter.py)
+# The serve<->train handoff plane (``autoscaler/arbiter.py``): every unit
+# sits in exactly one ledger state (serve / train / in_flight), and every
+# lease transition is journaled into the __pool__ KV.
+POOL_CHIPS = Gauge(
+    "ray_tpu_pool_chips",
+    "Chips per ledger owner (serve / train / in_flight) — the three "
+    "always sum to the pool total (the conservation invariant)",
+    ("owner",))
+POOL_LEASES = Gauge(
+    "ray_tpu_pool_leases",
+    "Live (non-terminal) chip leases by state-machine stage",
+    ("stage",))
+POOL_HANDOFFS = Counter(
+    "ray_tpu_pool_handoffs_total",
+    "Chip handoffs reaching a terminal disposition, by direction "
+    "(serve_to_train/train_to_serve) and outcome (committed: recipient "
+    "confirmed and the lease went live; returned: lease deadline lapsed "
+    "or an SLO reversal gave the chips back; aborted: rolled back before "
+    "commit)",
+    ("direction", "outcome"))
+POOL_HANDOFF_SECONDS = Histogram(
+    "ray_tpu_pool_handoff_seconds",
+    "Wall time from lease creation to COMMITTED (donor drain/shrink + "
+    "recipient absorb + confirmation), by direction",
+    boundaries=(0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 300.0,
+                1800.0),
+    tag_keys=("direction",))
+POOL_SLO_REVERSALS = Counter(
+    "ray_tpu_pool_slo_reversals_total",
+    "SLO-guard interventions: a planned take of serve chips refused "
+    "(refused) or a committed serve->train lease reversed (reversed), "
+    "by the breaching signal (shed_rate/ttft_p95/latency_p95)",
+    ("action", "signal"))
+POOL_INVARIANT_VIOLATIONS = Counter(
+    "ray_tpu_pool_invariant_violations_total",
+    "Chip-conservation invariant violations detected by the ledger "
+    "verifier (a chip in two ledger states, or orphaned) — any nonzero "
+    "value is a bug",
+    ("kind",))
+
+
+# ---------------------------------------------------- shared readbacks
+def serve_shed_total(deployment: str) -> float:
+    """Cumulative ingress sheds for one deployment (every ``shed*``
+    outcome): the one definition the serve autoscaler's shed signal and
+    the pool's SLO guard both read."""
+    total = 0.0
+    for _name, key, value in SERVE_REQ_OUTCOMES.samples():
+        tags = dict(key)
+        if tags.get("deployment") == deployment and \
+                str(tags.get("outcome", "")).startswith("shed"):
+            total += value
+    return total

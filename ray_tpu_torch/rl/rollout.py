@@ -9,10 +9,11 @@ live, and ``staleness_clip`` drops sequences beyond the clip from the
 batch (the learner additionally rho-clips what remains, the IMPALA/APPO
 off-policy correction).
 
-JAX runs each learner phase under a short lease from the chip-pool
-arbiter when one co-schedules the pool; the port has no arbiter yet (it
-is ROADMAP.md queue A's item 19), so an ``arbiter`` raises and every
-phase runs as a plain call.
+On a shared card pool each learner phase rides a short-deadline
+arbiter lease (``ChipPoolArbiter.request_handoff`` serve to train,
+``lease_s`` the phase deadline, :mod:`ray_tpu_torch.autoscaler.arbiter`),
+so the cards flow back to serving once the update lands. Without an
+arbiter the phases still alternate; only the lease is skipped.
 """
 
 from __future__ import annotations
@@ -43,17 +44,11 @@ class RolloutScheduler:
                  learner_chips: int = 1,
                  lease_s: float = 5.0,
                  gamma: float = 1.0):
-        if arbiter is not None:
-            from ray_tpu_torch.models.llama import not_ported
-
-            raise not_ported("RolloutScheduler(arbiter=...) (the chip-pool "
-                             "arbiter's learner-phase lease)",
-                             "item 19 (the autoscaler and the arbiter)")
         self.generate = generate_fn
         self.trainer_version = trainer_version_fn
         self.run = run
         self.staleness_clip = staleness_clip
-        self.arbiter = None
+        self.arbiter = arbiter
         self.learner_chips = max(int(learner_chips), 1)
         self.lease_s = float(lease_s)
         self.buffer = ExperienceBuffer(gamma=gamma)
@@ -101,11 +96,20 @@ class RolloutScheduler:
     # ----------------------------------------------------- learner phase
     def learner_phase(self, fn: Callable[[], Any], cause: str = "") -> Any:
         """Run one learner step between ``rl.learner_phase`` and
-        ``rl.learner_phase_done`` events (the lease id stays empty: no
-        arbiter)."""
+        ``rl.learner_phase_done`` events, under a serve-to-train lease of
+        ``learner_chips`` for ``lease_s`` when an arbiter co-schedules
+        the pool (the lease's deadline returns the cards). The step runs
+        whether or not the lease was granted."""
         from ray_tpu_torch._private import events as _events
 
         lease_id = ""
+        if self.arbiter is not None:
+            try:
+                lease_id = self.arbiter.request_handoff(
+                    "serve", self.learner_chips, lease_s=self.lease_s)
+            except Exception:  # noqa: BLE001 — degraded: run unleased
+                logger.exception("rl: learner-phase lease failed; "
+                                 "running without a handoff")
         event_id = _events.emit(
             "rl.learner_phase", cause=cause,
             subject={"run": self.run, "lease_id": lease_id})

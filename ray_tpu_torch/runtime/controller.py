@@ -20,9 +20,12 @@ gets its cards through ``CUDA_VISIBLE_DEVICES``, the counterpart of
 ``ray_tpu/_private/node_manager/server.py:1037``: ``n`` cards of its own
 for a whole ``n``, or a share of one card for a fraction below 1, as Ray
 takes ``num_gpus`` (replicas whose fractions sum to at most 1 share a
-card, packed first-fit onto the cards already shared). A deployment that
-does not fit the host's cards raises, and a replacement waits for its
-share to free.
+card, packed first-fit onto the cards already shared). The shares come
+from :data:`CARDS`, the process's one book of card shares, which a
+``use_gpu`` trainer's workers take theirs from too (JAX counts replicas
+and train workers against one runtime's ``TPU`` resource); a share goes
+back only once its process has exited. A deployment that does not fit
+the host's cards raises, and a replacement waits for its share to free.
 
 A deployment's ``placement_strategy`` is JAX's (``serve/api.py:419-463``,
 ``:967-1032``, ``:1071-1100``): ``"COMPACT"`` gangs its replicas into one
@@ -57,20 +60,35 @@ for a replica that died draining). :meth:`ServeController.metrics_text`
 is the ``GET /metrics`` body: this process's registry with each live
 replica's samples, labelled ``replica="<replica_id>"``.
 
+The autoscaler (JAX ``serve/api.py:100-120``, ``:416-426``,
+``:480-605``, ``:793-823``): a deployment deployed with an
+``autoscaling_config`` (or ``num_replicas="auto"``) starts at
+``min_replicas``, and each reconcile pass sets its replica target from
+the replicas' pressure (:meth:`ServeController._pressure_desired`: the
+ongoing count, the engines' queue depth, KV starvation, prefill tokens,
+the importable floor and ingress sheds), clamped to ``[min, max]`` and
+the chip-pool arbiter's cap, once the change has held for the up or down
+delay. Each decision counts ``SERVE_AUTOSCALE_DECISIONS`` and emits
+``serve.autoscale``. Scale-down always goes through the drain path: a
+replica still starting is retired first, then the victims leave the
+routing table and drain (``cause="scale_down"``, the decision as their
+cause event). :meth:`ServeController.pool_set_replicas` and
+:meth:`ServeController.pool_state` are the arbiter's surface
+(:mod:`ray_tpu_torch.autoscaler.arbiter`).
+
 The controller's KV (``kv``: None for a dict of its own, a dict, or a
 ``torch.distributed`` store such as ``TCPStore``/``FileStore``, as the
 checkpoint plane's :class:`~ray_tpu_torch.checkpoint.plane.StoreKV`)
 holds ``deployments``: each deployment's replica count, pids and cards,
 rewritten on every routing change, and ``role_groups`` (the
-disaggregated pairs), so another process can read the serve state. The
-autoscaler and the pool arbiter are not ported (ROADMAP.md queue A,
-item 19).
+disaggregated pairs), so another process can read the serve state.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import threading
 import time
@@ -143,6 +161,82 @@ def _place(use: Dict[str, float], cards: List[str],
     return None
 
 
+class CardBook:
+    """The host's card shares, one book for the serving process: each
+    card's share in use by serve replicas and ``use_gpu`` train workers
+    (``runtime/controller.py`` and ``train/backend_executor.py`` take and
+    give through :data:`CARDS`). Cards are the ones :func:`_visible_gpus`
+    names when a share is taken."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._use: Dict[str, float] = {}   # card -> share in use
+
+    def use(self) -> Dict[str, float]:
+        with self._cond:
+            return dict(self._use)
+
+    def take(self, gpus: float, count: int = 1, spread: bool = False,
+             timeout_s: float = 0.0) -> Optional[List[List[str]]]:
+        """The cards of ``count`` holders of ``gpus`` each (:func:`_place`),
+        all taken or none; waits up to ``timeout_s`` for shares given
+        back, then None."""
+        deadline = time.monotonic() + timeout_s
+        with self._cond:
+            while True:
+                use, cards = dict(self._use), _visible_gpus()
+                got = []
+                for _ in range(count):
+                    placed = _place(use, cards, gpus, spread)
+                    if placed is None:
+                        break
+                    got.append(placed)
+                if len(got) == count:
+                    self._use = use
+                    return got
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return None
+                self._cond.wait(left)
+
+    def give(self, cards: List[str], share: float) -> None:
+        """Return ``share`` of each of ``cards`` (its holder has exited)."""
+        with self._cond:
+            for c in cards:
+                self._use[c] = max(self._use.get(c, 0.0) - share, 0.0)
+            self._cond.notify_all()
+
+    def free_cards(self) -> int:
+        """Cards no share of which is in use."""
+        with self._cond:
+            return sum(1 for c in _visible_gpus()
+                       if self._use.get(c, 0.0) <= _SHARE_EPS)
+
+
+#: The serving process's one card book.
+CARDS = CardBook()
+
+DEFAULT_AUTOSCALING = {
+    "min_replicas": 1,
+    "max_replicas": 4,
+    "target_ongoing_requests": 2.0,
+    "upscale_delay_s": 0.3,
+    "downscale_delay_s": 2.0,
+    # Engine pressure: desired replicas also scale on the admission-queue
+    # depth per replica, on paged-KV arena starvation (every engine
+    # replica with no free or reclaimable block) and on ingress sheds
+    # since the last decision. 0 disables a signal.
+    "target_queue_depth": 4.0,
+    "kv_starvation_upscale": True,
+    "shed_upscale": True,
+    # The split's roles (off by default): prefill fleets scale on waiting
+    # prompt tokens per replica; decode fleets add a replica when every
+    # engine's importable-block headroom drops under the floor.
+    "target_prefill_queue_tokens": 0.0,
+    "importable_floor": 0.0,
+}
+
+
 def _replica_bundle(actor_options: Dict[str, Any]) -> Dict[str, float]:
     """One replica's whole resource request, a COMPACT group's bundle."""
     opts = actor_options or {}
@@ -194,15 +288,17 @@ class ServeController:
         self._loads_cache: Dict[str, Any] = {}
         self._pressure_cache: Dict[str, Any] = {}
         self._probes: Dict[int, Any] = {}       # id(replica) -> (t0, future)
-        self._cards: Optional[List[str]] = None  # this host's, by id
-        self._card_use: Dict[str, float] = {}    # card -> share in use
-        # id(replica) -> (its cards, its share of each)
+        # id(replica) -> (its cards, its share of each), booked in CARDS
         self._gpu_held: Dict[int, Tuple[List[str], float]] = {}
         self._listeners: List[Callable[[str], None]] = []
         # Logical name -> {"prefill": name, "decode": name}.
         self._role_groups: Dict[str, Dict[str, str]] = {}
         # A COMPACT deployment's placement group, by deployment name.
         self._groups: Dict[str, Any] = {}
+        # The autoscaler's pending intent (desired, since) and the sheds
+        # its last decision saw, by deployment name.
+        self._scale_intent: Dict[str, Tuple[int, float]] = {}
+        self._shed_seen: Dict[str, float] = {}
         self.node_id = _host_node_id()
         self._lock = threading.RLock()
         self._stop = threading.Event()
@@ -216,41 +312,50 @@ class ServeController:
 
     # ------------------------------------------------------------- deploy
     def deploy(self, name: str, cls_or_fn, init_args, init_kwargs,
-               num_replicas: int, is_function: bool,
+               num_replicas, is_function: bool,
                max_concurrency: int = 100,
                ray_actor_options: Optional[Dict[str, Any]] = None,
-               placement_strategy: Optional[str] = None) -> bool:
+               placement_strategy: Optional[str] = None,
+               autoscaling_config: Optional[Dict[str, Any]] = None) -> bool:
         """Start ``num_replicas`` replica processes of ``cls_or_fn`` and
         route to them once every one is built; a redeploy of ``name``
-        replaces its replicas. A replica that fails to start fails the
-        deploy (its error raised, the others stopped): nothing falls back
-        to serving in this process. A COMPACT deployment's placement group
-        is placed before its replicas start (a ``ValueError``, with the
-        deployment gone, when the host cannot hold it)."""
+        replaces its replicas. With ``autoscaling_config`` (over
+        :data:`DEFAULT_AUTOSCALING`) or ``num_replicas="auto"`` the
+        deployment starts at ``min_replicas`` and the autoscaler moves
+        it. A replica that fails to start fails the deploy (its error
+        raised, the others stopped): nothing falls back to serving in
+        this process. A COMPACT deployment's placement group is placed
+        before its replicas start (a ``ValueError``, with the deployment
+        gone, when the host cannot hold it)."""
         opts = dict(ray_actor_options or {})
+        autoscaling = None
+        if autoscaling_config is not None or num_replicas == "auto":
+            autoscaling = {**DEFAULT_AUTOSCALING,
+                           **(autoscaling_config or {})}
+            num_replicas = autoscaling["min_replicas"]
         spec = {"cls": cls_or_fn, "args": init_args, "kwargs": init_kwargs,
                 "num_replicas": int(num_replicas),
                 "is_function": is_function,
                 "max_concurrency": max_concurrency, "actor_options": opts,
                 "gpus": _gpus_per_replica(opts), "retry_at": 0.0,
-                "placement": placement_strategy}
+                "placement": placement_strategy,
+                "autoscaling": autoscaling, "pool_cap": None}
         with self._lock:
             # The shares a redeploy frees count as free: the running
             # deployment goes only once the new spec is known to fit.
-            use = dict(self._card_use)
+            use = CARDS.use()
             for r in self._replicas_of(name):
                 cards, share = self._gpu_held.get(id(r), ([], 0.0))
                 for c in cards:
                     use[c] -= share
             busy = sum(use.values())
             if spec["gpus"] and any(
-                    _place(use, self._host_cards(), spec["gpus"]) is None
+                    _place(use, _visible_gpus(), spec["gpus"]) is None
                     for _ in range(spec["num_replicas"])):
                 raise ValueError(
                     f"deployment {name!r} asks for {spec['num_replicas']} "
                     f"replicas x {spec['gpus']} GPU(s); this host has "
-                    f"{len(self._host_cards())}, {busy:g} of them in use "
-                    f"by other deployments")
+                    f"{len(_visible_gpus())}, {busy:g} of them in use")
         # The running replicas go first, and with them a group whose shape
         # changed: on one host the new group may need its reservation.
         with self._lock:
@@ -265,9 +370,16 @@ class ServeController:
             started = [self._start_replica(name, spec)
                        for _ in range(spec["num_replicas"])]
         try:
+            if None in started:
+                # A trainer took the shares since the check above.
+                raise ValueError(
+                    f"deployment {name!r}: {spec['num_replicas']} replicas "
+                    f"x {spec['gpus']} GPU(s) no longer fit this host's "
+                    f"cards")
             for r in started:
                 r.wait_ready(self.REPLICA_START_S)
         except Exception:
+            started = [r for r in started if r is not None]
             for r in started:
                 self._retire(r, kill=True)
             if group is not None:
@@ -310,35 +422,36 @@ class ServeController:
         except Exception:  # noqa: BLE001 — the runtime already went
             logger.exception("serve: removing a placement group failed")
 
-    def _host_cards(self) -> List[str]:
-        if self._cards is None:
-            self._cards = _visible_gpus()
-        return self._cards
-
     def _start_replica(self, name: str, spec) -> Optional[ReplicaProcess]:
         """Spawn one replica (None when its share of cards is not free
         yet). It gets the chaos plan before its first request."""
         env = {"RAY_TPU_NODE_ID": self.node_id}
         cards: List[str] = []
+        share = 1.0 if spec["gpus"] >= 1 else spec["gpus"]
         if spec["gpus"]:
-            cards = _place(self._card_use, self._host_cards(), spec["gpus"],
-                           spread=spec["placement"] == "SPREAD")
-            if cards is None:
+            got = CARDS.take(spec["gpus"],
+                             spread=spec["placement"] == "SPREAD")
+            if got is None:
                 return None
+            cards = got[0]
             env["CUDA_VISIBLE_DEVICES"] = ",".join(cards)
-        replica = ReplicaProcess(
-            name, spec["cls"], spec["args"], spec["kwargs"],
-            spec["is_function"], sync_workers=spec["max_concurrency"],
-            env=env,
-            num_threads=int(spec["actor_options"].get("num_cpus", 1) or 1))
+        try:
+            replica = ReplicaProcess(
+                name, spec["cls"], spec["args"], spec["kwargs"],
+                spec["is_function"], sync_workers=spec["max_concurrency"],
+                env=env, num_threads=int(
+                    spec["actor_options"].get("num_cpus", 1) or 1))
+        except BaseException:
+            CARDS.give(cards, share)
+            raise
         replica.push_chaos(chaos.state())
         if cards:
-            self._gpu_held[id(replica)] = (
-                cards, 1.0 if spec["gpus"] >= 1 else spec["gpus"])
+            self._gpu_held[id(replica)] = (cards, share)
         return replica
 
     def _retire(self, replica: ReplicaProcess, kill: bool = False) -> None:
-        """Stop a replica (SIGKILL with ``kill``) and free its cards."""
+        """Stop a replica (SIGKILL with ``kill``), wait for its process to
+        exit, then give its cards back to the book."""
         if kill:
             replica.kill()
         else:
@@ -346,8 +459,7 @@ class ServeController:
         with self._lock:
             self._probes.pop(id(replica), None)
             cards, share = self._gpu_held.pop(id(replica), ([], 0.0))
-            for c in cards:
-                self._card_use[c] = max(self._card_use[c] - share, 0.0)
+        CARDS.give(cards, share)
 
     def _push_chaos(self) -> None:
         """The chaos plan or its firings changed: every replica process
@@ -695,6 +807,7 @@ class ServeController:
             for name in names:
                 try:
                     self._advance_drains(name)
+                    self._autoscale_once(name)
                     self._reconcile_once(name)
                 except Exception:  # noqa: BLE001 — keep reconciling
                     logger.exception("serve: reconcile of %s failed", name)
@@ -710,8 +823,14 @@ class ServeController:
         self._probes[id(r)] = (now, r.control("health"))
         return True
 
-    def _reconcile_once(self, name: str) -> None:
+    def _reconcile_once(self, name: str, cause_event: str = "") -> None:
+        """Bring ``name``'s replicas to its target: replace the dead and
+        the hung, route the replacements that came up, start more, or
+        shrink. A shrink retires replicas still starting first, then
+        drains routed ones (``cause="scale_down"``, ``cause_event`` as
+        the drain's cause)."""
         now = time.monotonic()
+        doomed: List[ReplicaProcess] = []
         with self._lock:
             spec = self.deployments.get(name)
             if spec is None:
@@ -728,7 +847,22 @@ class ServeController:
             starting = self._starting.get(name, [])
             ready = [r for r in starting if r.ready]
             failed = [r for r in starting if r.ready is False]
-            self._starting[name] = [r for r in starting if r.ready is None]
+            pending = [r for r in starting if r.ready is None]
+            # Scale-down: a replica not routed yet goes before a routed
+            # one drains (newest first).
+            excess = len(live) + len(ready) + len(pending) - \
+                spec["num_replicas"]
+            for group in (pending, ready):
+                while excess > 0 and group:
+                    doomed.append(group.pop())
+                    excess -= 1
+            victims = []
+            while excess > 0 and live:
+                victims.append(live.pop())
+                excess -= 1
+            for r in victims:
+                self._begin_drain(name, r, "scale_down", cause_event)
+            self._starting[name] = pending
             live += ready
             while (len(live) + len(self._starting[name])
                    < spec["num_replicas"] and now >= spec["retry_at"]):
@@ -736,9 +870,11 @@ class ServeController:
                 if r is None:
                     break             # its cards are still held
                 self._starting[name].append(r)
-            if lost or ready:
+            if lost or ready or victims:
                 self.replicas[name] = live
                 self._routes_changed(name)
+        for r in doomed:
+            self._retire(r, kill=True)
         for r in failed:
             try:
                 r.wait_ready(0)
@@ -747,3 +883,138 @@ class ServeController:
                                  "failed to start", name)
             spec["retry_at"] = time.monotonic() + 5.0
             self._retire(r, kill=True)
+
+    # ---------------------------------------------------------- autoscale
+    def _pressure_desired(self, name: str, cfg: Dict[str, Any],
+                          current: int) -> Tuple[int, str]:
+        """(desired, signal) under the pressure policy: the largest of the
+        ongoing-count target, the engines' queue-depth target, arena
+        starvation, the prefill-token target, the importable floor and
+        the ingress sheds since the last decision, each read off the
+        replicas' pressure snapshots."""
+        snaps = [s for s in self.get_replica_pressure(name)
+                 if s and not s.get("unreachable")]
+        ongoing = sum(float(s.get("ongoing") or 0) for s in snaps)
+        desired = math.ceil(ongoing / max(cfg["target_ongoing_requests"],
+                                          1e-9))
+        signal = "ongoing"
+        tq = float(cfg.get("target_queue_depth") or 0)
+        if tq > 0:
+            queue = sum(float(s.get("queue_depth") or 0) for s in snaps)
+            d_q = math.ceil(queue / tq)
+            if d_q > desired:
+                desired, signal = d_q, "queue"
+        engines = [s for s in snaps
+                   if float(s.get("kv_blocks_total") or 0) > 0]
+        if cfg.get("kv_starvation_upscale"):
+            starved = [s for s in engines
+                       if (float(s.get("kv_blocks_free") or 0)
+                           + float(s.get("kv_blocks_cached") or 0)) <= 0]
+            if engines and len(starved) == len(engines) and \
+                    current + 1 > desired:
+                # Every engine replica has nothing left to admit with.
+                desired, signal = current + 1, "kv"
+        tpt = float(cfg.get("target_prefill_queue_tokens") or 0)
+        if tpt > 0:
+            ptoks = sum(float(s.get("prefill_queue_tokens") or 0)
+                        for s in snaps)
+            d_p = math.ceil(ptoks / tpt)
+            if d_p > desired:
+                desired, signal = d_p, "prefill_tokens"
+        imp_floor = float(cfg.get("importable_floor") or 0)
+        if imp_floor > 0:
+            low = [s for s in engines
+                   if float(s.get("kv_blocks_importable") or 0)
+                   < imp_floor]
+            if engines and len(low) == len(engines) and \
+                    current + 1 > desired:
+                # The next KV handoff's reservation is about to fail.
+                desired, signal = current + 1, "importable"
+        if cfg.get("shed_upscale"):
+            sheds = mdefs.serve_shed_total(name)
+            last = self._shed_seen.setdefault(name, sheds)
+            self._shed_seen[name] = sheds
+            if sheds > last and current + 1 > desired:
+                desired, signal = current + 1, "shed"
+        return desired, signal
+
+    def _autoscale_once(self, name: str) -> None:
+        """One autoscaler decision for ``name``: the pressure policy's
+        desired count, clamped to ``[min, max]`` and the pool arbiter's
+        cap, applied once it has held for the up or down delay."""
+        with self._lock:
+            spec = self.deployments.get(name)
+            if spec is None or spec["autoscaling"] is None or \
+                    not self.replicas.get(name):
+                return
+            cfg = spec["autoscaling"]
+            current = spec["num_replicas"]
+            cap = spec["pool_cap"]
+        desired, signal = self._pressure_desired(name, cfg, current)
+        lo, hi = cfg["min_replicas"], cfg["max_replicas"]
+        if cap is not None:
+            # Cards leased away by the arbiter are a hard ceiling, below
+            # min_replicas too: its SLO guard is the way back.
+            hi = min(hi, int(cap))
+            lo = min(lo, hi)
+        desired = max(lo, min(hi, desired))
+        if desired == current:
+            self._scale_intent.pop(name, None)
+            return
+        now = time.monotonic()
+        intent = self._scale_intent.get(name)
+        if intent is None or intent[0] != desired:
+            self._scale_intent[name] = (desired, now)
+            return
+        delay = (cfg["upscale_delay_s"] if desired > current
+                 else cfg["downscale_delay_s"])
+        if now - intent[1] < delay:
+            return
+        with self._lock:
+            live = self.deployments.get(name)
+            if live is None or live["num_replicas"] != current:
+                return      # the arbiter moved the target meanwhile
+            live["num_replicas"] = desired
+        self._scale_intent.pop(name, None)
+        direction = "up" if desired > current else "down"
+        mdefs.SERVE_AUTOSCALE_DECISIONS.inc(tags={
+            "deployment": name, "direction": direction, "signal": signal})
+        # The scale-down drains below cite this decision as their cause.
+        scale_ev = _events.emit(
+            "serve.autoscale", subject={"deployment": name},
+            direction=direction, signal=signal, current=current,
+            desired=desired)
+        self._reconcile_once(name, cause_event=scale_ev)
+
+    # ------------------------------------------------- the pool's surface
+    def pool_set_replicas(self, name: str, target: int,
+                          cap: Optional[int] = None,
+                          cause: str = "pool") -> Dict[str, Any]:
+        """The pool arbiter's ask: set ``name``'s replica target and its
+        cap in one step (``cap=None`` lifts it), and reconcile in the
+        caller's thread; a shrink goes through the drain path. Returns
+        the previous target and cap, so a restarted arbiter can repeat
+        the ask."""
+        with self._lock:
+            spec = self.deployments.get(name)
+            if spec is None:
+                raise ValueError(f"unknown deployment {name!r}")
+            prev = {"target": spec["num_replicas"], "cap": spec["pool_cap"]}
+            spec["num_replicas"] = max(int(target), 0)
+            spec["pool_cap"] = None if cap is None else max(int(cap), 0)
+            self._scale_intent.pop(name, None)
+        logger.info("pool: %s replicas -> %d (cap=%s, cause=%s)",
+                    name, target, cap, cause)
+        self._reconcile_once(name)
+        return prev
+
+    def pool_state(self, name: str) -> Dict[str, Any]:
+        """What the arbiter confirms a stage against: the routed replicas
+        (not those starting or draining), the target, the drains in
+        flight and the cap."""
+        with self._lock:
+            spec = self.deployments.get(name) or {}
+            return {"routed": len(self.replicas.get(name, [])),
+                    "target": spec.get("num_replicas", 0),
+                    "draining": len(self._draining.get(name, [])),
+                    "cap": spec.get("pool_cap")}

@@ -40,8 +40,11 @@ under ``RAY_TPU_TRACING=1`` a ``serve.route`` span a dispatch whose id
 rides the request context to the replica, where the engine's spans
 parent to it; a unary retry emits ``serve.resume``.
 
-Not ported: the autoscaler (ROADMAP.md queue A, item 19). Route changes
-reach handles by a callback, not a pubsub.
+A deployment with an ``autoscaling_config`` (or ``num_replicas="auto"``)
+is scaled by the controller's autoscaler (JAX ``:100-120``, ``:416-605``),
+and the chip-pool arbiter caps it through ``pool_set_replicas``
+(:mod:`ray_tpu_torch.autoscaler.arbiter`). Route changes reach handles
+by a callback, not a pubsub.
 """
 
 from __future__ import annotations
@@ -59,7 +62,6 @@ from ray_tpu_torch import exceptions
 from ray_tpu_torch._private import chaos
 from ray_tpu_torch._private import events as _events
 from ray_tpu_torch._private import metrics_defs as mdefs
-from ray_tpu_torch.models.llama import not_ported
 from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.metrics import prometheus_text
 
@@ -649,8 +651,10 @@ def deployment(_cls=None, *, name: Optional[str] = None,
                ray_actor_options: Optional[Dict] = None):
     """``@serve.deployment`` decorator (class or function). The class or
     function must be defined at module level: each replica process
-    imports it by name. ``autoscaling_config`` is kept on the record, and
-    :func:`run` refuses it (not ported). ``placement_strategy`` is JAX's:
+    imports it by name. ``autoscaling_config`` (or ``num_replicas="auto"``)
+    hands the replica count to the controller's autoscaler, over JAX's
+    defaults (``runtime.controller.DEFAULT_AUTOSCALING``).
+    ``placement_strategy`` is JAX's:
     ``"COMPACT"`` gangs the replicas into one PACK placement group,
     ``"SPREAD"`` spreads them (see
     :class:`~ray_tpu_torch.runtime.controller.ServeController`), and any
@@ -720,9 +724,6 @@ def _deploy_application(app: Application,
         # A diamond: a deployment bound into several consumers deploys
         # once and shares its handle.
         return deployed[dep.name]
-    if dep.num_replicas == "auto" or dep.autoscaling_config is not None:
-        raise not_ported("the serve autoscaler",
-                         "item 19 (the autoscaler and the arbiter)")
     args = tuple(_resolve_bound_args(a, deployed) for a in app.args)
     kwargs = {k: _resolve_bound_args(v, deployed)
               for k, v in app.kwargs.items()}
@@ -730,7 +731,8 @@ def _deploy_application(app: Application,
     start().deploy(dep.name, dep._cls_or_fn, args, kwargs,
                    dep.num_replicas, not inspect.isclass(dep._cls_or_fn),
                    dep.max_ongoing_requests, dep.ray_actor_options,
-                   placement_strategy=dep.placement_strategy)
+                   placement_strategy=dep.placement_strategy,
+                   autoscaling_config=dep.autoscaling_config)
     handle = DeploymentHandle(dep.name)
     deployed[dep.name] = handle
     return handle

@@ -13,9 +13,12 @@ calls answered on a pool of threads, so ``run``, ``poll`` and ``stop``
 run concurrently as ``max_concurrency=3`` gives the JAX actor). The
 processes fork from the replicas' fork server, which imported torch
 once, so a restart costs no torch import. Each worker sees
-its cards through ``CUDA_VISIBLE_DEVICES``, handed out as the serve
-controller hands them to replicas (``runtime/controller.py::_place``),
-and an empty one when ``use_gpu`` is off.
+its cards through ``CUDA_VISIBLE_DEVICES``, and an empty one when
+``use_gpu`` is off. A ``use_gpu`` group takes its cards from the serving
+process's one card book (``runtime/controller.py::CARDS``), where the
+serve replicas take theirs, so a worker never lands on a card a replica
+holds; a group that does not fit waits for shares to come back up to
+``WORKER_START_S`` and gives its own back when it stops.
 
 ``TorchBackend.on_start`` forms the ``torch.distributed`` group from
 worker 0 (the JAX package's ``jax.distributed`` bootstrap): worker 0
@@ -289,26 +292,33 @@ class WorkerGroup:
 
     def __init__(self, scaling: ScalingConfig, group_id: str = "",
                  store_address: Optional[str] = None):
-        from ray_tpu_torch.runtime.controller import _place
+        from ray_tpu_torch.runtime.controller import CARDS, _place
 
         self.scaling = scaling
         self.group_id = group_id or uuid.uuid4().hex[:8]
         n = scaling.num_workers
+        # The shares this group holds in the card book: (cards, share).
+        self._held: List[Tuple[List[str], float]] = []
+        self.workers: List[ReplicaProcess] = []
         envs: List[Dict[str, str]] = []
         if scaling.use_gpu:
-            cards, use = visible_cards(), {}
+            cards = visible_cards()
             per = float(scaling.gpus_per_worker or 1.0)
-            for rank in range(n):
-                got = _place(use, cards, per)
-                if got is None:
-                    raise RuntimeError(
-                        f"{n} workers of {per} GPU each do not fit the "
-                        f"host's cards {cards}")
-                envs.append({"CUDA_VISIBLE_DEVICES": ",".join(got)})
+            empty: Dict[str, float] = {}
+            got = None
+            if all(_place(empty, cards, per) is not None for _ in range(n)):
+                # It fits the host: wait for replicas (or another group)
+                # to give shares back.
+                got = CARDS.take(per, n, timeout_s=WORKER_START_S)
+            if got is None:
+                raise RuntimeError(
+                    f"{n} workers of {per} GPU each do not fit the "
+                    f"host's cards {cards} (in use: {CARDS.use()})")
+            self._held = [(c, 1.0 if per >= 1 else per) for c in got]
+            envs = [{"CUDA_VISIBLE_DEVICES": ",".join(c)} for c in got]
         else:
             envs = [{"CUDA_VISIBLE_DEVICES": ""} for _ in range(n)]
         threads = max(1, int(scaling.cpus_per_worker))
-        self.workers: List[ReplicaProcess] = []
         try:
             for rank in range(n):
                 self.workers.append(ReplicaProcess(
@@ -399,7 +409,10 @@ class WorkerGroup:
 
     def shutdown(self, graceful: bool = False):
         """Kill the worker processes (``graceful``: ask each to exit
-        first, as at the end of a finished run)."""
+        first, as at the end of a finished run), then give the group's
+        card shares back to the book."""
+        from ray_tpu_torch.runtime.controller import CARDS
+
         chaos.unsubscribe(self._push_chaos)
         for w in self.workers:
             try:
@@ -410,6 +423,9 @@ class WorkerGroup:
             except Exception:  # noqa: BLE001 — teardown must proceed
                 logger.exception("train worker teardown failed")
         self.workers = []
+        held, self._held = self._held, []
+        for cards, share in held:
+            CARDS.give(cards, share)
 
 
 class TorchBackend:

@@ -60,9 +60,11 @@ function. ``datasets={name: Dataset}`` gives each rank a disjoint
 ``streaming_split`` shard (``train.get_dataset_shard(name)``): the
 controller executes every attempt's shards and ships each rank's blocks
 with its run call, where JAX's workers stream theirs from the object
-store. Not ported: the chip-pool arbiter's world record
-(``_publish_world``, item 19) and the ``ray-tpu trace train`` CLI
-(item 18).
+store. Each attempt's formed world goes into the process's
+``internal_kv`` (``world/<run>`` under ``__train__``, marked
+``run_ended`` when the run ends), where the chip-pool arbiter confirms a
+handoff (:class:`~ray_tpu_torch.autoscaler.arbiter.TrainWorkload`). Not
+ported: the ``ray-tpu trace train`` CLI (item 18b).
 """
 
 from __future__ import annotations
@@ -121,12 +123,14 @@ class ControllerState:
 
 
 def _available() -> Dict[str, float]:
-    """What this host can give workers: its CPUs and visible cards."""
+    """What this host can give workers: its CPUs and the cards no serve
+    replica or train worker holds a share of (JAX's
+    ``available_resources()``)."""
     import torch
 
-    from ray_tpu_torch.runtime.controller import _visible_gpus
+    from ray_tpu_torch.runtime.controller import CARDS
 
-    gpus = len(_visible_gpus()) if torch.cuda.is_available() else 0
+    gpus = CARDS.free_cards() if torch.cuda.is_available() else 0
     return {"CPU": float(os.cpu_count() or 1), "GPU": float(gpus)}
 
 
@@ -346,6 +350,9 @@ class TorchTrainer:
                     guard.clear_target(resize_target
                                        if resize_target is not None
                                        else target)
+                    # The group formed at this world: the pool arbiter
+                    # confirms a handoff against this record.
+                    self._publish_world(scaling.num_workers, attempt_idx)
                     run_futs = executor.start_training(
                         self.train_loop, self.train_loop_config,
                         restore.path if restore else None, run_dir=exp_dir,
@@ -478,6 +485,8 @@ class TorchTrainer:
                     self._pending_recovery = rec
         finally:
             guard.close()
+            # The arbiter must not confirm against a run that ended.
+            self._publish_world(0, attempt_idx, ended=True)
             preempt.stop_listener(address)
             preempt.attach(attached)
             # The straggler GAUGE must not report an active straggler
@@ -562,6 +571,21 @@ class TorchTrainer:
             "fractions": ({c: v / wall for c, v in comps.items()}
                           if wall > 0 else {}),
         }
+
+    def _publish_world(self, world: int, attempt: int,
+                       ended: bool = False) -> None:
+        """Write the attempt's formed world size to ``world/<run>`` in the
+        process's ``internal_kv`` (namespace ``__train__``), as JAX writes
+        it to the GCS KV."""
+        from ray_tpu_torch.experimental import internal_kv as kv
+
+        rec = {"world": int(world), "attempt": int(attempt),
+               "ts": time.time()}
+        if ended:
+            rec["run_ended"] = True
+        kv.internal_kv_put(f"world/{self._run_name}",
+                           json.dumps(rec).encode(), overwrite=True,
+                           namespace=TRAIN_KV_NS)
 
     def _publish_straggler(self, rank: int,
                            info: Optional[Dict[str, Any]]) -> None:

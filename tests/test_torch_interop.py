@@ -123,6 +123,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.experimental.internal_kv\n"
         "import ray_tpu_torch._private.usage, ray_tpu_torch.serve.config\n"
         "import ray_tpu_torch.serve.grpc_codec\n"
+        "import ray_tpu_torch.autoscaler, ray_tpu_torch.rl.rollout\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'ray_tpu' or "
         "m.startswith('ray_tpu.') or m == 'ml_dtypes')\n"

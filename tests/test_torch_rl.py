@@ -383,8 +383,41 @@ def test_rollout_scheduler_staleness_clip_and_metrics():
     assert phases[-1]["cause"] == phases[-2]["event_id"]
     batch = sched2.drain_batch()
     assert batch["actions"].shape == (3, 1) and len(sched2.buffer) == 0
-    with pytest.raises(NotImplementedError, match="arbiter"):
-        RolloutScheduler(fake_generate, lambda: 0, arbiter=object())
+    # Under an arbiter each learner phase journals a serve-to-train lease
+    # of learner_chips for lease_s; the step runs whether or not it is
+    # granted.
+    from ray_tpu_torch.autoscaler import arbiter as arb
+
+    class _Fixed:
+        def __init__(self, kind, chips):
+            self.kind, self.deployment, self.run = kind, kind, kind
+            self.min_chips, self._chips = 1, chips
+
+        def chips(self):
+            return self._chips
+
+        target_chips = chips
+
+    pool = arb.ChipPoolArbiter(_Fixed("serve", 3), _Fixed("train", 1),
+                               kv=arb.DictKv(), policy="manual")
+    sched3 = RolloutScheduler(fake_generate, lambda: 0, run="lease3",
+                              arbiter=pool, learner_chips=2, lease_s=7.5)
+    assert sched3.learner_phase(lambda: 43) == 43
+    (lease,) = pool.ledger.leases()
+    assert (lease["donor"], lease["recipient"], lease["chips"],
+            lease["lease_s"], lease["stage"]) == ("serve", "train", 2, 7.5,
+                                                  arb.PENDING)
+    started = [e for e in flight.local_events(types=["rl.learner_phase"])
+               if e["subject"].get("run") == "lease3"]
+    assert started[-1]["subject"]["lease_id"] == lease["lease_id"]
+
+    class _Refusing:
+        def request_handoff(self, donor, chips, lease_s=None):
+            raise RuntimeError("no pool")
+
+    sched4 = RolloutScheduler(fake_generate, lambda: 0, run="lease4",
+                              arbiter=_Refusing())
+    assert sched4.learner_phase(lambda: 44) == 44
 
 
 # ------------------------------------- engine: tick-boundary weight swap

@@ -318,20 +318,23 @@ def test_builders_ask_one_card_per_replica(app, monkeypatch):
                                   {"autoscaling_config": {"min_replicas": 1}},
                                   {"num_replicas": "auto"}])
 def test_run_refuses_what_is_not_ported(opts):
-    """The autoscaler raises naming its ROADMAP item; a placement strategy
-    other than COMPACT and SPREAD is kept and changes nothing, as in JAX
-    (the deployment serves, with no placement group)."""
+    """What JAX serves the port serves: a deployment with an
+    ``autoscaling_config`` or ``num_replicas="auto"`` starts at its
+    ``min_replicas`` under the autoscaler (item 19a), and a placement
+    strategy other than COMPACT and SPREAD is kept and changes nothing, as
+    in JAX (no placement group). ``options`` still refuses what it does
+    not take."""
     dep = serve.deployment(double, name="refused", **opts)
-    if "placement_strategy" in opts:
-        try:
-            assert serve.run(dep.bind()).remote(4).result() == 8
-            assert "refused" not in serve_api._get_controller()._groups
-        finally:
-            serve.delete("refused")
-    else:
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue A, item 19 \("):
-            serve.run(dep.bind())
+    try:
+        assert serve.run(dep.bind()).remote(4).result() == 8
+        controller = serve_api._get_controller()
+        assert "refused" not in controller._groups
+        autoscaled = "placement_strategy" not in opts
+        assert (controller.deployments["refused"]["autoscaling"]
+                is not None) == autoscaled
+        assert controller.pool_state("refused")["routed"] == 1
+    finally:
+        serve.delete("refused")
     with pytest.raises(TypeError):
         dep.options(user_config={})
 

@@ -347,3 +347,36 @@ def gpu_data_loop(config):
     it = rt_train.get_dataset_shard("train")
     with it.iter_device_batches(trainer, batch_size=config["batch"]) as pf:
         gpu_data_steps(trainer, pf, rt_train.report)
+
+
+def pool_loop(config):
+    """The JAX suite's card-pool loop (``tests/test_pool_arbiter.py::
+    _e2e_loop``): restore from the newest committed manifest (checked
+    against the closed form), add ``step+1`` to every element each step,
+    save and report each step with the world size. Past ``hold_at`` each
+    attempt reports 5 steps and then holds while the file ``hold``
+    exists, so the trainer lives through every handoff; the holding is
+    not training state, so the loss is a pure function of the steps
+    done."""
+    ctx = rt_train.get_context()
+    plane = rt_train.get_checkpoint_plane()
+    width = config.get("width", 4)
+    w = np.zeros(width, np.float64)
+    start = 0
+    if plane.latest_step() is not None:
+        st = plane.restore()
+        w, start = st["w"].numpy(), int(st["step"]) + 1
+        if not np.array_equal(w, np.full(width, triangle(start))):
+            raise AssertionError(f"restored {w} at start {start}")
+    hold = config.get("hold", "")
+    steps_this_attempt = 0
+    for step in range(start, config["total"]):
+        while steps_this_attempt >= 5 and step >= config["hold_at"] and \
+                hold and os.path.exists(hold):
+            time.sleep(0.02)
+        w = w + (step + 1)
+        plane.save(step, {"w": w, "step": np.asarray(step)})
+        rt_train.report({"step": step, "loss": float(w.sum()),
+                         "world": ctx.get_world_size()})
+        steps_this_attempt += 1
+    return float(w.sum())
