@@ -553,6 +553,31 @@ Phases, any failure exits non-zero with no result line:
    run's; B4 launched. Prints the seconds of each stage and B4 summed
    over the replicas (each replica's last reading, ``CountMonitor``).
    ``--pool`` runs this phase alone after phase 37's yardstick.
+42. the cluster runtime (``[cluster]``, ROADMAP item 20a): a
+   ``cluster_utils.Cluster`` in this process (a GCS persisting under a
+   scratch dir, a 4-CPU head node, a node owning card 0) and
+   ``init(address=cluster.address)``; phase 37's ``CoreLlm`` (Llama-3-8B
+   at full width, 8 slots, max_len 2048) as ``ClusterLlm``, an actor with
+   ``num_gpus=1, max_concurrency=16, max_restarts=1, name="llm"``, which
+   the GCS places on the card node and its node manager on a worker it
+   forks with ``CUDA_VISIBLE_DEVICES=0`` (its pid and visible devices
+   printed; the prefix cache off, as in every phase that serves the
+   prompts more than once); phase 5's 12 prompts as 32-token streams through
+   ``ObjectRefGenerator``s held to phase 29's tokens by phase 41a's gate,
+   B4 counted in the worker at 32 launches a tick; the 12 scored through
+   ``actor.score`` (B1 at 32 a call), compared bit for bit with phase
+   37's ``.remote`` scores (with the yardstick's in-process scores under
+   ``--cluster``) and any mismatch printed as a finding; the GCS
+   restarted between two bursts (``rt.get_actor("llm")`` finds the actor
+   and the second burst passes the gate); the actor's worker killed
+   (SIGKILL), the actor restarted on the card node and one prompt passing
+   the gate again, with the seconds from the kill to its first token and
+   the card's free memory before and after; teardown leaving no child
+   process, no runtime thread, no new segment and the card's free memory
+   back within ``CLUSTER["mem_slack_gib"]``. Prints ``init_s``, TTFT p50
+   and tick ms beside phase 37's (the yardstick's under ``--cluster``),
+   the restart seconds and the launches. ``--cluster`` runs this phase
+   alone after phase 37's yardstick.
 
 Phases 23-24 run before phases 25-28 (27 compares with 24), phases
 11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
@@ -583,6 +608,9 @@ rollouts and the flash forward's ``rl_scoring_launches`` their
 ``score_logprobs`` calls; the paged entry's ``core_launches`` are phase
 37's actor's over its 12 streams and the flash forward's
 ``core_scoring_launches`` its 12 scores through the compiled DAG; the
+paged entry's ``cluster_launches`` are phase 42's cluster actor's over
+its first burst, counted in its worker, and the flash forward's
+``cluster_scoring_launches`` its 12 scores; the
 paged entry's ``graph_launches`` are phase 40's Llama replica's over the
 HTTP burst through the graph and its ``workflow_launches`` over the
 workflow's first run, whose scoring step gives the flash forward's
@@ -6270,6 +6298,9 @@ def core_yardstick(torch, card, prompts):
     st.update(breakdown(eng.request_breakdowns, len(prompts)))
     print(f"[core-yardstick] {json.dumps(st)}; {card}")
     st["outputs"] = outs
+    # In-process scores of the yardstick's own tokens: phase 42's
+    # reference when it runs alone (``--cluster``).
+    st["scores"] = [dep.score_logprobs(p, o) for p, o in zip(prompts, outs)]
     dep.close()
     del dep, eng
     gc.collect()
@@ -6374,7 +6405,7 @@ def core_phase(torch, card, prompts, phase29):
     if not compiled._channel_mode:
         fail("phase 37: the scoring DAG did not compile to channels")
     segs = {c.name.lstrip("/") for c in compiled._channels}
-    dag_s, remote_s, b1 = [], [], []
+    dag_s, remote_s, b1, remote_scores = [], [], [], []
     for i, req in enumerate(zip(prompts, want)):
         before = flash_attention.launches["fwd"]
         t0 = time.perf_counter()
@@ -6384,6 +6415,7 @@ def core_phase(torch, card, prompts, phase29):
         t0 = time.perf_counter()
         via_remote = rt.get(actor.score.remote(req), timeout=600)
         remote_s.append(time.perf_counter() - t0)
+        remote_scores.append(via_remote)
         lp = np.asarray(via_dag)
         if via_dag != via_remote or b1[-1] != cfg.num_layers or \
                 lp.shape != (CORE["new"],) or not (
@@ -6446,7 +6478,8 @@ def core_phase(torch, card, prompts, phase29):
     stop_processes()
     return dict(b4_launches=st["launches"]["paged"],
                 b1_scoring_launches=dag_st["b1_launches"],
-                actor=st, dag=dag_st, hop=hop_st, teardown=down)
+                actor=st, dag=dag_st, hop=hop_st, teardown=down,
+                remote_scores=remote_scores)
 
 
 # --------------------------------------- phases 38-39: the data plane, Tune
@@ -8188,6 +8221,258 @@ def phase41(torch, card, prompts, phase29):
                                 prompts, phase29),
                 pool=timed("phase 41b", pool_phase, torch, card))
 
+# ------------------------------------------- phase 42: the cluster runtime
+# Phase 42's cluster: a CPU head of `head_cpus`, a card node of
+# `card_cpus` owning card 0; the actor's concurrency; the card's free
+# memory may end `mem_slack_gib` below where it started.
+CLUSTER = dict(head_cpus=4, card_cpus=2, max_concurrency=16,
+               mem_slack_gib=1.0)
+
+
+class ClusterLlm(CoreLlm):
+    """Phase 42's actor: phase 37's, with the launch counts and the card
+    of the worker process it runs in."""
+
+    def launch_counts(self, reset=False):
+        from ray_tpu_torch.ops.attention import flash_attention
+        from ray_tpu_torch.ops.decode_attention import decode_attention
+        from ray_tpu_torch.ops.paged_decode_attention import \
+            paged_decode_attention
+
+        out = {"paged": paged_decode_attention.launches,
+               "dense": decode_attention.launches,
+               "fwd": flash_attention.launches["fwd"]}
+        if reset:
+            reset_launch_counts()
+        return out
+
+    def where(self):
+        import ray_tpu_torch as rt
+        import torch
+
+        return dict(pid=os.getpid(),
+                    node_id=rt.get_runtime_context().get_node_id(),
+                    cuda_visible_devices=os.environ.get(
+                        "CUDA_VISIBLE_DEVICES"),
+                    device_count=torch.cuda.device_count(),
+                    device=torch.cuda.get_device_name(0))
+
+
+def cluster_stream(rt, actor, prompt, n, client=None):
+    """``actor.generate`` as tokens, through an ``ObjectRefGenerator``."""
+    stream = actor.generate.options(num_returns="streaming").remote(prompt,
+                                                                    n)
+    for ref in stream:
+        yield int(rt.get(ref, timeout=600))
+
+
+def cluster_burst(rt, torch, cfg, actor, prompts, want, what):
+    """The 12 prompts as concurrent 32-token streams through the actor,
+    the worker's launch counts set to 0 just before: the tokens held to
+    phase 29's by phase 41a's gate, B4 at num_layers a tick."""
+    rt.get(actor.launch_counts.remote(True), timeout=600)
+    ticks0, pre0, dec0 = rt.get(actor.counters.remote(), timeout=600)
+    outs, ttft, wall = stream_all(
+        lambda i: cluster_stream(rt, actor, prompts[i], 32), len(prompts))
+    counts = rt.get(actor.launch_counts.remote(), timeout=600)
+    ticks1, pre1, dec1 = rt.get(actor.counters.remote(), timeout=600)
+    st = served_stats(outs, ttft, wall, ticks1 - ticks0,
+                      {"paged": counts["paged"], "dense": counts["dense"]},
+                      pre1 - pre0, dec1 - dec0, cfg.num_layers,
+                      cfg.vocab_size, what)
+    equal, varied, ties = held_to_phase29(
+        torch, cfg, prompts, want, [(i, o, None) for i, o in
+                                    enumerate(outs)], what)
+    st.update(equal_phase29=equal, prefill_variants=varied,
+              near_ties=len(ties))
+    return outs, st
+
+
+def cluster_phase(torch, card, prompts, phase29, core=None):
+    """Phase 42: the cluster runtime on the card (module docstring)."""
+    import signal
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import rpc
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.models import llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    threads0 = set(threading.enumerate())
+    segs0 = set(shm_segments())
+    free0 = mem(torch, "phase 42 start")
+    cfg = llama.LlamaConfig.llama3_8b()
+    want = phase29["outputs"]
+    scratch, _ = _scratch_dir(1 << 30, "phase 42")
+
+    # 1. the cluster in this process, the driver connected to it.
+    t0 = time.perf_counter()
+    cluster = Cluster(head_node_args={"num_cpus": CLUSTER["head_cpus"]},
+                      gcs_persist_path=os.path.join(scratch, "gcs_state"))
+    card_node = cluster.add_node(num_cpus=CLUSTER["card_cpus"], num_gpus=1,
+                                 card_ids=[0])
+    cluster.wait_for_nodes()
+    rt.init(address=cluster.address)
+    start_s = time.perf_counter() - t0
+    # The first task waits for the fork server (started here when no
+    # earlier phase left one) and a worker forked from it.
+    t0 = time.perf_counter()
+    rt.get(rt.remote(num_cpus=1)(os.getpid).remote(), timeout=300)
+    first_task_s = time.perf_counter() - t0
+    res = rt.cluster_resources()
+    print(f"[cluster] nodes {len(rt.nodes())}, resources {json.dumps(res)},"
+          f" start {start_s:.3f} s, first task {first_task_s:.3f} s; "
+          f"{card}")
+    if res.get("GPU") != 1.0:
+        fail(f"phase 42: the cluster counts {res.get('GPU')} cards")
+
+    # 2. the engine as a card actor the GCS places on the card node.
+    t0 = time.perf_counter()
+    actor = rt.remote(num_gpus=1, max_concurrency=CLUSTER["max_concurrency"],
+                      max_restarts=1, name="llm")(ClusterLlm).remote(
+        config=cfg, num_slots=CORE["num_slots"], max_len=CORE["max_len"],
+        prefix_cache=False)
+    rt.get(actor.counters.remote(), timeout=900)
+    init_s = time.perf_counter() - t0
+    where = rt.get(actor.where.remote(), timeout=600)
+    print(f"[cluster] actor on node {where['node_id'][:12]} (the card "
+          f"node: {where['node_id'] == card_node.node_id}), worker pid "
+          f"{where['pid']}, CUDA_VISIBLE_DEVICES="
+          f"{where['cuda_visible_devices']}, {where['device_count']} "
+          f"visible card(s): {where['device']}; init {init_s:.2f} s; "
+          f"{card}")
+    if where["node_id"] != card_node.node_id or \
+            where["cuda_visible_devices"] != "0" or \
+            where["device_count"] != 1 or where["pid"] == os.getpid() or \
+            where["pid"] not in card_node.worker_pids():
+        fail(f"phase 42: the actor runs at {where}, not in a worker the "
+             f"card node forked for card 0")
+
+    # 3. 12 streams through ObjectRefGenerators, held to phase 29.
+    list(cluster_stream(rt, actor, prompts[0][:16], 2))     # warm-up
+    outs, st = cluster_burst(rt, torch, cfg, actor, prompts, want,
+                             "phase 42")
+    st.update(breakdown(rt.get(actor.records.remote(), timeout=600),
+                        len(prompts)))
+    ref37 = core["actor"] if core else phase29
+    st.update(init_s=init_s, start_s=start_s, first_task_s=first_task_s,
+              card=card, beside={
+        "what": "phase 37's actor in process" if core
+        else "phase 37's yardstick in process",
+        **{k: ref37.get(k) for k in ("init_s", "ttft_p50_ms", "tick_ms",
+                                     "client_tok_s")}})
+    print(f"[cluster-actor] {json.dumps(st)}")
+
+    # 4. the 12 scores through actor.score: B1 32 a call, bit for bit.
+    ref_scores = core["remote_scores"] if core else phase29["scores"]
+    b1, equal_bits, max_diff = [], 0, 0.0
+    for i, (p, w) in enumerate(zip(prompts, want)):
+        before = rt.get(actor.launch_counts.remote(), timeout=600)["fwd"]
+        lp = rt.get(actor.score.remote((p, w)), timeout=600)
+        b1.append(rt.get(actor.launch_counts.remote(), timeout=600)["fwd"]
+                  - before)
+        arr = np.asarray(lp)
+        if b1[-1] != cfg.num_layers or arr.shape != (CORE["new"],) or not (
+                np.all(np.isfinite(arr)) and np.all(arr <= 0)):
+            fail(f"phase 42 score {i}: {b1[-1]} flash forward launches, "
+                 f"logprobs {arr[:4]}...")
+        equal_bits += list(lp) == list(ref_scores[i])
+        max_diff = max(max_diff, float(np.max(np.abs(
+            arr - np.asarray(ref_scores[i])))))
+    score_st = dict(requests=len(b1), b1_launches=sum(b1),
+                    bitwise_equal=equal_bits, max_abs_diff=max_diff,
+                    against="phase 37's .remote scores" if core
+                    else "the yardstick's in-process scores", card=card)
+    print(f"[cluster-score] {json.dumps(score_st)}")
+    if equal_bits != len(b1):
+        print(f"[cluster-finding] {len(b1) - equal_bits} of {len(b1)} "
+              f"scores through the cluster actor differ from "
+              f"{score_st['against']} (max abs diff {max_diff:.3e})")
+
+    # 5. the GCS restarted between two bursts.
+    t0 = time.perf_counter()
+    cluster.restart_gcs()
+    cluster.wait_for_nodes(timeout_s=60)
+    gcs_restart_s = time.perf_counter() - t0
+    found = rt.get_actor("llm")
+    outs2, st2 = cluster_burst(rt, torch, cfg, found, prompts, want,
+                               "phase 42 after the GCS restart")
+    print(f"[cluster-gcs-restart] {json.dumps(dict(restart_s=gcs_restart_s, streams=len(outs2), equal_phase29=st2['equal_phase29'], ttft_p50_ms=st2['ttft_p50_ms'], card=card))}")
+
+    # 6. the actor's worker killed: the actor restarts on the card node.
+    free_before_kill = mem(torch, "phase 42 before the kill")
+    t_kill = time.perf_counter()
+    os.kill(where["pid"], signal.SIGKILL)
+    deadline = time.monotonic() + 300
+    while True:
+        # A push the node had not yet seen die fails: ask again until the
+        # restarted actor answers.
+        try:
+            gen = cluster_stream(rt, actor, prompts[1], 32)
+            first = next(gen)
+            break
+        except Exception:  # noqa: BLE001 — the actor is restarting
+            if time.monotonic() > deadline:
+                fail("phase 42: the actor never came back after the kill")
+            time.sleep(0.2)
+    restart_s = time.perf_counter() - t_kill
+    toks = [first] + list(gen)
+    again = rt.get(actor.where.remote(), timeout=600)
+    if again["node_id"] != card_node.node_id or \
+            again["pid"] == where["pid"] or \
+            again["cuda_visible_devices"] != "0":
+        fail(f"phase 42: after the kill the actor runs at {again}")
+    equal, varied, ties = held_to_phase29(
+        torch, cfg, prompts, want, [(1, toks, None)],
+        "phase 42 after the worker kill")
+    free_after_kill = mem(torch, "phase 42 after the restart")
+    kill_st = dict(kill_to_first_token_s=restart_s, new_pid=again["pid"],
+                   equal_phase29=equal, prefill_variants=varied,
+                   near_ties=len(ties),
+                   free_gib_before=free_before_kill / 2**30,
+                   free_gib_after=free_after_kill / 2**30, card=card)
+    print(f"[cluster-kill] {json.dumps(kill_st)}")
+
+    # 7. teardown: no child, no runtime thread, no segment, the card back.
+    rt.get(actor.close.remote(), timeout=600)
+    rt.kill(actor)
+    core_rt = rt._private.worker.global_worker().core
+    del actor, found
+    rt.shutdown()
+    cluster_threads = (cluster.gcs.threads()
+                       + [t for n in cluster.nodes for t in n.threads()])
+    cluster.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    runtime_left = [t.name for t in core_rt.runtime_threads()
+                    + cluster_threads if t.is_alive()]
+    threads_left = sorted(t.name for t in set(threading.enumerate())
+                          - threads0 if t.is_alive())
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and \
+            torch.cuda.mem_get_info()[0] < free0 - \
+            CLUSTER["mem_slack_gib"] * 2**30:
+        time.sleep(0.2)
+    free1 = mem(torch, "phase 42 end")
+    down = dict(new_segments=sorted(set(shm_segments()) - segs0),
+                runtime_threads=runtime_left, threads=threads_left,
+                free_gib_start=free0 / 2**30, free_gib_end=free1 / 2**30,
+                open_connections=len(rpc._conns), card=card)
+    print(f"[cluster-teardown] {json.dumps(down)}")
+    if down["new_segments"] or runtime_left or threads_left or \
+            free1 < free0 - CLUSTER["mem_slack_gib"] * 2**30:
+        fail(f"phase 42 teardown left {down}")
+    stop_processes()
+    print(f"[cluster] launches B4 {st['launches']['paged']} over "
+          f"{st['ticks']} ticks, B1 {score_st['b1_launches']} over "
+          f"{len(b1)} scores; restart {restart_s:.2f} s, GCS restart "
+          f"{gcs_restart_s:.2f} s; {card}")
+    return dict(b4_launches=st["launches"]["paged"],
+                b1_scoring_launches=score_st["b1_launches"], actor=st,
+                score=score_st, gcs_restart=st2, kill=kill_st,
+                teardown=down)
+
 
 def timed(name, fn, *args):
     t0 = time.perf_counter()
@@ -8319,6 +8604,21 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:2] == ["--cluster"]:
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.ops import _build
+
+        card = card_line()
+        print(card)
+        _build.build_all()
+        prompts = phase5_prompts(llama.LlamaConfig.llama3_8b())
+        phase29 = timed("phase 42's yardstick", core_yardstick, torch, card,
+                        prompts)
+        timed("phase 42", cluster_phase, torch, card, prompts, phase29)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:2] == ["--graph"]:
         from ray_tpu_torch.models import llama
         from ray_tpu_torch.ops import _build
@@ -8433,6 +8733,8 @@ def main():
                   serving["deploy"])
     pooled = timed("phase 41", phase41, torch, card, served[0],
                    serving["deploy"])
+    clustered = timed("phase 42", cluster_phase, torch, card, served[0],
+                      serving["deploy"], core)
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(
@@ -8453,6 +8755,7 @@ def main():
         workflow_launches=graph["workflow"]["workflow_launches"],
         autoscale_launches=pooled["autoscale"]["autoscale_launches"],
         pool_launches=pooled["pool"]["b4_launches"],
+        cluster_launches=clustered["b4_launches"],
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], kernel_ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
@@ -8477,6 +8780,8 @@ def main():
                 serving["deploy"]["scoring_launches"],
                 "rl_scoring_launches": rl["b1_scoring_launches"],
                 "core_scoring_launches": core["b1_scoring_launches"],
+                "cluster_scoring_launches":
+                    clustered["b1_scoring_launches"],
                 "workflow_scoring_launches":
                     graph["workflow"]["workflow_scoring_launches"]}
                if n == "fwd" else {}),

@@ -3,10 +3,12 @@
 
 Re-design of the reference CoreWorker boundary (reference:
 ``src/ray/core_worker/core_worker.h:166`` — SubmitTask/Put/Get/Wait/
-CreateActor etc. exposed to the language frontend). The port has one
-implementation, :class:`ray_tpu_torch._private.runtime.local.LocalRuntime`
-(in-process execution on threads); JAX's ``ClusterRuntime``, the client of
-a node daemon and control plane, is queued in ROADMAP.md.
+CreateActor etc. exposed to the language frontend). The port has two
+implementations, as JAX has:
+:class:`ray_tpu_torch._private.runtime.local.LocalRuntime` (in-process
+execution on threads) and
+:class:`ray_tpu_torch._private.runtime.cluster.ClusterRuntime` (the client
+of a cluster's node managers and GCS).
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ As in JAX there is no network reporter: records aggregate in this
 process, surfaced by :func:`usage_summary`, and are written to a local
 JSON file under the temp dir (``ray_tpu_torch_usage_<pid>.json``, removed
 when the process exits, or by the process that reaps it). Recording is
-on by default; ``RAY_TPU_USAGE_STATS_ENABLED=0`` turns it off. JAX also puts each record
-in the GCS KV; the port has no GCS (ROADMAP.md queue A, item 20).
+on by default; ``RAY_TPU_USAGE_STATS_ENABLED=0`` turns it off. A process
+connected to a cluster also puts its record in the GCS KV, as JAX does
+(namespace ``usage``, key ``worker/<pid>``).
 """
 
 from __future__ import annotations
@@ -74,6 +75,18 @@ def _persist() -> None:
             json.dump(summary, f)
     except OSError:
         return
+    try:
+        from ray_tpu_torch._private import messages as pb
+        from ray_tpu_torch._private import worker as worker_mod
+
+        w = worker_mod.global_worker_or_none()
+        gcs = getattr(getattr(w, "core", None), "gcs", None)
+        if gcs is not None:
+            gcs.KvPut(pb.KvRequest(
+                ns="usage", key=f"worker/{os.getpid()}",
+                value=json.dumps(summary).encode(), overwrite=True))
+    except Exception:  # noqa: BLE001 — a record is best-effort
+        pass
     with _lock:
         if not _exit_hook:
             # A forked child inherits the hook, which removes its own

@@ -4,9 +4,16 @@
 Re-design of the reference driver/worker plumbing (reference:
 ``python/ray/_private/worker.py`` — ``init`` :1275, ``get`` :2636, global
 ``Worker`` :427). The Worker owns a :class:`CoreRuntime`: the in-process
-:class:`LocalRuntime`. JAX's cluster modes (``address="host:port"``,
-``"auto"`` and ``"ray://"``) raise ``not_ported`` here, naming the cluster
-runtime's ROADMAP.md entry. This module's globals are the port's own: a
+:class:`LocalRuntime`, or a
+:class:`~ray_tpu_torch._private.runtime.cluster.ClusterRuntime` connected
+to a cluster (JAX's ``init``, ``ray_tpu/_private/worker.py:51-130``):
+``address="host:port"`` connects to that GCS, ``"auto"`` reads
+``RAY_TPU_ADDRESS`` and then the port's own address file
+(:data:`ADDRESS_FILE`, a name of the port's, so that the two packages
+never find each other's head), and ``RAY_TPU_START_CLUSTER=1`` with no
+address starts a local cluster (:mod:`ray_tpu_torch.cluster_utils`) and
+connects to it. ``"ray://"`` (remote drivers) raises ``not_ported``
+naming its ROADMAP.md item. This module's globals are the port's own: a
 process may run ``ray_tpu.init()`` and ``ray_tpu_torch.init()`` side by
 side, and neither reaches the other's runtime.
 """
@@ -21,8 +28,18 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.runtime.interface import CoreRuntime
 
-# ROADMAP.md queue A's entry that holds JAX's cluster runtime.
-CLUSTER_ITEM = "item 20 (the cluster runtime)"
+# ROADMAP.md queue A's entries that hold the rest of JAX's cluster runtime.
+ITEM_20A_II = ("item 20a-ii (the native shared-memory object store, the "
+               "compiled DAG and serve over the cluster)")
+ITEM_20B = ("item 20b (the object plane: reference counts, lineage, "
+            "spilling and locality)")
+ITEM_20C = "item 20c (runtime environments and the node agent)"
+ITEM_20D = "item 20d (remote drivers, the ray:// client proxy)"
+
+# The port's address file for ``init(address="auto")``: the head node's
+# GCS address, one line (JAX's CLI reads its own, scripts/cli.py:104-110).
+ADDRESS_FILE = os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                            "ray_tpu_torch_current_cluster")
 
 _global_lock = threading.Lock()
 _global_worker: Optional["Worker"] = None
@@ -54,6 +71,24 @@ def is_initialized() -> bool:
     return _global_worker is not None
 
 
+def _auto_address() -> str:
+    """``RAY_TPU_ADDRESS``, else the port's address file; a
+    ``ConnectionError`` when neither names a cluster."""
+    env = os.environ.get("RAY_TPU_ADDRESS", "")
+    if env and env != "auto":
+        return env
+    try:
+        with open(ADDRESS_FILE) as f:
+            found = f.read().strip()
+    except OSError:
+        found = ""
+    if not found:
+        raise ConnectionError(
+            "address='auto' found no running cluster: start a head node "
+            "or set RAY_TPU_ADDRESS")
+    return found
+
+
 def init(
     address: Optional[str] = None,
     *,
@@ -66,12 +101,16 @@ def init(
     _system_config: Optional[Dict[str, Any]] = None,
     **kwargs,
 ):
-    """Start the in-process runtime.
+    """Start the in-process runtime, or connect to a cluster.
 
-    ``num_gpus=None`` counts the visible cards
+    ``address=None`` starts the in-process runtime (or, with
+    ``RAY_TPU_START_CLUSTER=1``, a local cluster of one node with
+    ``num_cpus`` and ``num_gpus``, which :func:`shutdown` stops);
+    ``address="host:port"`` connects to that cluster's GCS;
+    ``address="auto"`` finds one (:func:`_auto_address`). ``num_gpus=None``
+    counts the visible cards
     (:mod:`~ray_tpu_torch._private.accelerators.cuda`), as JAX's
-    ``num_tpus=None`` counts the visible chips. An ``address`` (also from
-    ``RAY_TPU_ADDRESS``) raises ``not_ported``, and ``num_tpus`` a
+    ``num_tpus=None`` counts the visible chips; ``num_tpus`` raises a
     ``ValueError``.
     """
     global _global_worker
@@ -89,13 +128,12 @@ def init(
 
         if address is None and os.environ.get("RAY_TPU_ADDRESS"):
             address = os.environ["RAY_TPU_ADDRESS"]
-        if address is not None:
+        if address is not None and address.startswith("ray://"):
             from ray_tpu_torch.exceptions import not_ported
 
-            raise not_ported(
-                f"init(address={address!r}): the cluster runtime (a head "
-                f"node, node managers, worker processes and the Ray Client "
-                f"proxy)", CLUSTER_ITEM)
+            raise not_ported(f"init(address={address!r})", ITEM_20D)
+        if address == "auto":
+            address = _auto_address()
         if num_tpus is not None:
             raise ValueError(
                 "init(num_tpus=...): the port's accelerator is the CUDA "
@@ -107,11 +145,34 @@ def init(
                 detect_num_cards
 
             num_gpus = detect_num_cards()
-        from ray_tpu_torch._private.runtime.local import LocalRuntime
+        cluster = None
+        if address is None and \
+                os.environ.get("RAY_TPU_START_CLUSTER") == "1":
+            from ray_tpu_torch.cluster_utils import Cluster
 
-        core: CoreRuntime = LocalRuntime(
-            num_cpus=num_cpus, num_gpus=num_gpus, resources=resources)
-        mode = "local"
+            cluster = Cluster(head_node_args={
+                "num_cpus": num_cpus, "num_gpus": num_gpus,
+                "resources": resources})
+            address = cluster.address
+        if address is None:
+            from ray_tpu_torch._private.runtime.local import LocalRuntime
+
+            core: CoreRuntime = LocalRuntime(
+                num_cpus=num_cpus, num_gpus=num_gpus, resources=resources)
+            mode = "local"
+        else:
+            from ray_tpu_torch._private.runtime.cluster import \
+                ClusterRuntime
+
+            try:
+                core = ClusterRuntime.connect(
+                    address, namespace=namespace or "default")
+            except BaseException:
+                if cluster is not None:
+                    cluster.shutdown()
+                raise
+            core.started_cluster = cluster
+            mode = "driver"
 
         _global_worker = Worker(core, mode, namespace or "default")
         atexit.register(shutdown)
@@ -143,6 +204,9 @@ def shutdown():
         w.core.shutdown()
     except Exception:  # noqa: BLE001 — shutdown is best-effort, as in JAX
         pass
+    cluster = getattr(w.core, "started_cluster", None)
+    if cluster is not None:  # RAY_TPU_START_CLUSTER=1 started it
+        cluster.shutdown()
 
 
 # ---------------------------------------------------------------- public ops

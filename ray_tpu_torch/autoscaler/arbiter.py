@@ -61,8 +61,10 @@ The port's journal is the process's ``internal_kv`` (namespace
 ``__pool__``; :class:`InternalKv`), the local mode of JAX's. The serve
 side is the in-process controller (``serve.api._get_controller()``),
 where JAX calls the controller actor; the train side reads the world
-record the trainer writes to the same ``internal_kv``. ``GrpcKv`` and
-``read_pool_state(gcs_address=...)`` need the cluster runtime (item 20).
+record the trainer writes to the same ``internal_kv``, which is the GCS
+KV when the process is connected to a cluster. :class:`GrpcKv` and
+``read_pool_state(gcs_address=...)`` go straight to a GCS's KV over the
+port's wire, no runtime needed, as JAX's do over gRPC.
 
 Chaos sites (:mod:`ray_tpu_torch._private.chaos`): ``pool_tick``
 (``kill_arbiter``) fires at the top of :meth:`ChipPoolArbiter.tick`;
@@ -214,14 +216,38 @@ class InternalKv:
 
 
 class GrpcKv:
-    """JAX's ``__pool__`` namespace over a GCS's gRPC KV: needs the
-    cluster runtime."""
+    """The ``__pool__`` namespace of a GCS's KV, over the port's wire (JAX's
+    name; its transport is gRPC): a PoolLedger journaling straight against
+    a GCS's Kv handlers, no runtime required."""
 
     def __init__(self, address: str, namespace: str = POOL_KV_NS):
-        from ray_tpu_torch.exceptions import not_ported
+        from ray_tpu_torch._private import rpc
 
-        raise not_ported("GrpcKv (the pool journal in a GCS)",
-                         "item 20 (the cluster runtime)")
+        self.namespace = namespace
+        self._stub = rpc.get_stub("GcsService", address)
+
+    def get(self, key: str) -> Optional[bytes]:
+        from ray_tpu_torch._private import messages as pb
+
+        reply = self._stub.KvGet(pb.KvRequest(ns=self.namespace, key=key))
+        return bytes(reply.value) if reply.found else None
+
+    def put(self, key: str, value: bytes) -> None:
+        from ray_tpu_torch._private import messages as pb
+
+        self._stub.KvPut(pb.KvRequest(ns=self.namespace, key=key,
+                                      value=bytes(value), overwrite=True))
+
+    def delete(self, key: str) -> None:
+        from ray_tpu_torch._private import messages as pb
+
+        self._stub.KvDel(pb.KvRequest(ns=self.namespace, key=key))
+
+    def keys(self, prefix: str = "") -> List[str]:
+        from ray_tpu_torch._private import messages as pb
+
+        return list(self._stub.KvKeys(pb.KvRequest(
+            ns=self.namespace, prefix=prefix)).keys)
 
 
 # ----------------------------------------------------------------- ledger
@@ -1031,14 +1057,9 @@ class ChipPoolArbiter:
 def read_pool_state(gcs_address: Optional[str] = None) -> Dict[str, Any]:
     """The pool's snapshot: config, allocation, leases (non-terminal
     first), in-flight handoffs and the last SLO-guard reversal, read from
-    this process's ``internal_kv``. A ``gcs_address`` needs the cluster
-    runtime (item 20)."""
-    if gcs_address:
-        from ray_tpu_torch.exceptions import not_ported
-
-        raise not_ported("read_pool_state(gcs_address=...)",
-                         "item 20 (the cluster runtime)")
-    store = InternalKv()
+    the GCS KV at ``gcs_address`` (no runtime needed), else from this
+    process's ``internal_kv``."""
+    store = GrpcKv(gcs_address) if gcs_address else InternalKv()
 
     def _load(key):
         raw = store.get(key)

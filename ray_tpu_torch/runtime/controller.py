@@ -165,7 +165,8 @@ class CardBook:
     """The host's card shares, one book for the serving process: each
     card's share in use by serve replicas and ``use_gpu`` train workers
     (``runtime/controller.py`` and ``train/backend_executor.py`` take and
-    give through :data:`CARDS`). Cards are the ones :func:`_visible_gpus`
+    give through :data:`CARDS`), and the cards a cluster node built in
+    the process owns (``node_manager/server.py`` claims them). Cards are the ones :func:`_visible_gpus`
     names when a share is taken."""
 
     def __init__(self):
@@ -198,6 +199,16 @@ class CardBook:
                 if left <= 0:
                     return None
                 self._cond.wait(left)
+
+    def claim(self, cards: List[str]) -> bool:
+        """Take the whole of each of ``cards`` (a cluster node's, for its
+        lifetime), all or none: False when any share of one is in use."""
+        with self._cond:
+            if any(self._use.get(c, 0.0) > _SHARE_EPS for c in cards):
+                return False
+            for c in cards:
+                self._use[c] = 1.0
+            return True
 
     def give(self, cards: List[str], share: float) -> None:
         """Return ``share`` of each of ``cards`` (its holder has exited)."""

@@ -712,6 +712,7 @@ class ReplicaStream:
 # and a script's main module, so a class or train loop defined in the
 # script that starts the replica resolves in the replica.
 PRELOAD = ("__main__", "ray_tpu_torch.runtime.replica",
+           "ray_tpu_torch._private.workers.default_worker",
            "ray_tpu_torch.train.backend_executor",
            "torch.utils.flop_counter")
 

@@ -1,5 +1,5 @@
 """Placement groups: gang reservation of resource bundles (the port's copy
-of ``ray_tpu/util/placement_group.py``, local mode).
+of ``ray_tpu/util/placement_group.py``).
 
 Re-design of the reference API (reference:
 ``python/ray/util/placement_group.py:145``): a group reserves every bundle;
@@ -9,9 +9,12 @@ and consume the reserved resources instead of free capacity.
 
 The in-process runtime places a group on its one node, so the strategies
 are validated but all pack (``STRICT_SPREAD`` of more than one bundle is
-infeasible). A group's state is the :class:`PlacementGroupInfo` dataclass,
-with the fields of JAX's protobuf ``PlacementGroupInfo`` (the card's
-machine has no protobuf); the request that creates it is one too.
+infeasible); a process connected to a cluster reserves the bundles on the
+node managers through the GCS's 2PC, by the strategy's bundle policy. A
+local group's state is the :class:`PlacementGroupInfo` dataclass, a
+cluster group's the wire's message of the same name, both with the
+fields of JAX's protobuf ``PlacementGroupInfo`` (the card's machine has
+no protobuf); the request that creates a group is the dataclass.
 """
 
 from __future__ import annotations
@@ -91,11 +94,7 @@ class PlacementGroup:
         full lease path is exercised (``placement_group.py:145`` ready())."""
         import ray_tpu_torch
 
-        @ray_tpu_torch.remote(num_cpus=0)
-        def _pg_ready():
-            return True
-
-        return _pg_ready.options(
+        return ray_tpu_torch.remote(num_cpus=0)(_pg_ready).options(
             placement_group=self, placement_group_bundle_index=0).remote()
 
     def bundle_node_ids(self) -> List[str]:
@@ -105,6 +104,12 @@ class PlacementGroup:
     def __repr__(self):
         return (f"PlacementGroup(id={self.id.hex()[:12]}, "
                 f"bundles={self.bundle_specs}, strategy={self.strategy!r})")
+
+
+def _pg_ready():
+    """``PlacementGroup.ready``'s task (module-level: a cluster worker
+    imports it by name)."""
+    return True
 
 
 def placement_group(bundles: List[Dict[str, float]],

@@ -636,17 +636,42 @@ def test_num_tpus_is_refused_naming_num_gpus():
 
 @pytest.mark.parametrize("address", ["127.0.0.1:6379", "auto",
                                      "ray://127.0.0.1:10001"])
-def test_init_with_an_address_raises_not_ported(address, monkeypatch):
+def test_init_with_an_address_raises_not_ported(address, monkeypatch,
+                                                tmp_path):
+    """``init``'s cluster modes with no cluster there, given as the
+    argument and through ``RAY_TPU_ADDRESS``: a closed ``host:port`` (the
+    parameter's stands for a port just closed here) raises a
+    ``ConnectionError`` within 10 s; ``"auto"`` raises JAX's
+    ``ConnectionError`` message; ``"ray://"`` raises ``not_ported`` naming
+    item 20d (remote drivers)."""
+    import socket
+
+    from ray_tpu_torch._private import worker as worker_mod
+
+    monkeypatch.setattr(worker_mod, "ADDRESS_FILE",
+                        str(tmp_path / "no_cluster"))
+    if address.startswith("127.0.0.1:"):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            address = f"127.0.0.1:{s.getsockname()[1]}"
+        want = (ConnectionError, address)
+    elif address == "auto":
+        want = (ConnectionError, "address='auto' found no running cluster")
+    else:
+        want = (NotImplementedError,
+                r"ROADMAP\.md queue A, item 20d \(remote drivers")
     rt.shutdown()
     try:
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue A, item 20 "
-                                 r"\(the cluster runtime\)"):
-            rt.init(address=address)
-        monkeypatch.setenv("RAY_TPU_ADDRESS", address)
-        with pytest.raises(NotImplementedError, match="cluster runtime"):
-            rt.init()
-        assert not rt.is_initialized()
+        for via_env in (False, True):
+            t0 = time.monotonic()
+            with pytest.raises(want[0], match=want[1]):
+                if via_env:
+                    monkeypatch.setenv("RAY_TPU_ADDRESS", address)
+                    rt.init()
+                else:
+                    rt.init(address=address)
+            assert time.monotonic() - t0 < 10
+            assert not rt.is_initialized()
     finally:
         monkeypatch.delenv("RAY_TPU_ADDRESS", raising=False)
         rt.init(num_cpus=4, num_gpus=0)

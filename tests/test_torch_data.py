@@ -386,18 +386,29 @@ def test_memory_backpressure_env_drains_window(monkeypatch):
 
 
 def test_shuffle_is_distributed_no_driver_concat(monkeypatch):
-    """JAX runs this case on a cluster; the port's cluster runtime is
-    queue A's item 20, so ``init(address=...)`` raises naming it. The
-    case's checks run in process on both packages: the two-stage shuffle
-    (its map and reduce task counts), a descending sort, an
-    order-preserving repartition, a per-key count and an all-empty
-    sort; and no driver-side concat in the port's shuffles."""
+    """JAX runs this case on a cluster, and so does the port: on a port
+    cluster (a 4-CPU head, the workers forked processes), the two-stage
+    shuffle (its map and reduce task counts), a descending sort, an
+    order-preserving repartition, a per-key count and an all-empty sort
+    (its predicate module-level: the cluster sends callables by
+    reference), with no concat on the driver, equal to JAX's in
+    process."""
+    import torch_cluster_cases as cases
+    from ray_tpu_torch.cluster_utils import Cluster
     from ray_tpu_torch.data import block as tblock
 
     rt.shutdown()
-    with pytest.raises(NotImplementedError, match="item 20"):
-        rt.init(address="127.0.0.1:6379")
-    rt.init(num_cpus=8, num_gpus=0)
+    cluster = Cluster(head_node_args={"num_cpus": 4})
+    try:
+        rt.init(address=cluster.address)
+        _shuffle_case(monkeypatch, tblock, cases.never)
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
+        rt.init(num_cpus=8, num_gpus=0)
+
+
+def _shuffle_case(monkeypatch, tblock, never):
 
     def case(d):
         ds = d.range(300, parallelism=6)
@@ -407,7 +418,7 @@ def test_shuffle_is_distributed_no_driver_concat(monkeypatch):
                 ds.repartition(10).num_blocks(),
                 ds.repartition(10).take_all(),
                 sorted(r["id"] for r in ds.groupby("id").count().take_all()),
-                ds.filter(lambda r: False).sort("id").take_all())
+                ds.filter(never).sort("id").take_all())
 
     jax_ = case(jdata)
     driver = threading.get_ident()

@@ -99,6 +99,8 @@ def test_truncated_shares_storage():
 
 
 def test_port_imports_neither_jax_nor_ray_tpu():
+    """The port's modules (the cluster runtime's among them) import no JAX,
+    in this process and in a worker a cluster node forks."""
     code = (
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.interop\n"
@@ -124,11 +126,27 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch._private.usage, ray_tpu_torch.serve.config\n"
         "import ray_tpu_torch.serve.grpc_codec\n"
         "import ray_tpu_torch.autoscaler, ray_tpu_torch.rl.rollout\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'ray_tpu' or "
-        "m.startswith('ray_tpu.') or m == 'ml_dtypes')\n"
+        "import ray_tpu_torch._private.gcs.server\n"
+        "import ray_tpu_torch._private.gcs.wal_backend\n"
+        "import ray_tpu_torch._private.node_manager.server\n"
+        "import ray_tpu_torch._private.workers.default_worker\n"
+        "import ray_tpu_torch._private.scheduler.policies\n"
+        "import ray_tpu_torch._private.runtime.cluster\n"
+        "import ray_tpu_torch.cluster_utils\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_cluster_cases as cases\n"
+        "bad = cases.forbidden_modules()\n"
         "print(bad)\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "c = ray_tpu_torch.cluster_utils.Cluster(\n"
+        "    head_node_args={'num_cpus': 1})\n"
+        "ray_tpu_torch.init(address=c.address)\n"
+        "in_worker = ray_tpu_torch.get(ray_tpu_torch.remote(\n"
+        "    cases.forbidden_modules).remote(), timeout=60)\n"
+        "ray_tpu_torch.shutdown()\n"
+        "c.shutdown()\n"
+        "print(in_worker)\n"
+        "assert in_worker == [], in_worker\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)

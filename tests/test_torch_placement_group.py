@@ -1,12 +1,13 @@
-"""The port's placement groups (:mod:`ray_tpu_torch.util.placement_group`,
-local mode), held to ``tests/test_placement_group.py``: its
-``test_validation`` and its three ``test_local_mode_*`` cases, with the
-same assertions. Its cluster cases need the cluster runtime, which is not
-ported: in their place, ``init(address=...)`` is shown to raise
-``not_ported`` naming that runtime's ROADMAP.md entry. The group's state
-is a dataclass (the JAX package's is a protobuf message), shown here to
-carry the same table. Both runtimes live for the module (``num_cpus=4``,
-no accelerator); every ``get`` has a timeout.
+"""The port's placement groups (:mod:`ray_tpu_torch.util.placement_group`),
+held to ``tests/test_placement_group.py``: its ``test_validation`` and
+its three ``test_local_mode_*`` cases, with the same assertions, and its
+cluster cases on a port cluster laid out as JAX's ``pg_cluster`` (a
+2-CPU head and two 4-CPU nodes of one ``tpu-slice``), the bundles
+reserved through the node managers' 2PC. The local group's state is a
+dataclass and the cluster's a wire message (the JAX package's is a
+protobuf message), shown here to carry the same table. Both in-process
+runtimes live for the module (``num_cpus=4``, no accelerator); every
+``get`` has a timeout.
 """
 
 import time
@@ -100,12 +101,58 @@ def test_local_mode_capture():
 # ------------------------------------------------------- the port's own
 
 def test_cluster_cases_raise_not_ported():
+    """JAX's cluster cases on the port's cluster: a PACK group's table,
+    tasks and an actor placed on their bundle's node, STRICT_PACK on one
+    node, PACK over two nodes kept inside one ``tpu-slice``, and removal
+    giving the reservation back."""
+    import torch_cluster_cases as cases
+    from ray_tpu_torch.cluster_utils import Cluster
+
     rt.shutdown()
+    c = Cluster(head_node_args={"num_cpus": 2})
     try:
-        with pytest.raises(NotImplementedError,
-                           match=r"queue A, item 20 \(the cluster runtime\)"):
-            rt.init(address="127.0.0.1:6379")
+        c.add_node(num_cpus=4, labels={"tpu-slice": "slice-a"})
+        c.add_node(num_cpus=4, labels={"tpu-slice": "slice-a"})
+        c.wait_for_nodes()
+        rt.init(address=c.address)
+        pg = placement_group([{"CPU": 1}, {"CPU": 1}], strategy="PACK")
+        assert pg.wait(30)
+        table = placement_group_table(pg)
+        assert table["state"] == "CREATED" and table["strategy"] == "PACK"
+        assert set(table["bundles"]) == {0, 1}
+        assert all(table["bundles_to_node_id"].values())
+        where = rt.remote(num_cpus=1)(cases.where)
+        got = rt.get(where.options(
+            scheduling_strategy=PlacementGroupSchedulingStrategy(
+                pg, placement_group_bundle_index=1)).remote(), timeout=T)
+        assert got == pg.bundle_node_ids()[1]
+        actor = rt.remote(num_cpus=1)(cases.Counter).options(
+            placement_group=pg, placement_group_bundle_index=0).remote()
+        assert rt.get(actor.node.remote(), timeout=T) == \
+            pg.bundle_node_ids()[0]
+        assert rt.get(pg.ready(), timeout=T) is True
+        rt.kill(actor)
+        remove_placement_group(pg)
+
+        strict = placement_group([{"CPU": 1}] * 3, strategy="STRICT_PACK")
+        assert strict.wait(30) and len(set(strict.bundle_node_ids())) == 1
+        remove_placement_group(strict)
+        slice_nodes = {n.node_id for n in c.nodes[1:]}
+        wide = placement_group([{"CPU": 3}, {"CPU": 3}], strategy="PACK")
+        assert wide.wait(30)
+        assert set(wide.bundle_node_ids()) <= slice_nodes
+        remove_placement_group(wide)
+        deadline = time.monotonic() + 10
+        while rt.available_resources().get("CPU") != 10.0 and \
+                time.monotonic() < deadline:
+            time.sleep(0.1)
+        assert rt.available_resources()["CPU"] == 10.0
+        infeasible = placement_group([{"CPU": 100}], strategy="STRICT_PACK")
+        assert not infeasible.wait(30)
+        assert placement_group_table(infeasible)["state"] == "INFEASIBLE"
     finally:
+        rt.shutdown()
+        c.shutdown()
         rt.init(num_cpus=4, num_gpus=0)
 
 

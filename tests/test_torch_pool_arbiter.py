@@ -369,8 +369,9 @@ def test_journal_truncated_at_every_transition_recovers(scenario):
 
 def test_read_pool_state_matches_ledger():
     """``read_pool_state`` over the process's KV mirrors the live ledger
-    (JAX's CLI rendering of it is item 18b); a GCS address needs the
-    cluster runtime."""
+    (JAX's CLI rendering of it is item 18b), and so do ``GrpcKv`` and
+    ``read_pool_state(gcs_address=...)`` against a port cluster's GCS: a
+    ledger journaling through ``GrpcKv`` reads back the same state."""
     _clear_pool_kv()
     try:
         led = arb.PoolLedger()            # InternalKv by default
@@ -383,10 +384,25 @@ def test_read_pool_state_matches_ledger():
         assert [r["lease_id"] for r in state["in_flight"]] == [
             lease["lease_id"]]
         assert state["config"] == led.config()
-        with pytest.raises(NotImplementedError, match="item 20"):
-            arb.read_pool_state(gcs_address="127.0.0.1:1")
-        with pytest.raises(NotImplementedError, match="item 20"):
-            arb.GrpcKv("127.0.0.1:1")
+        from ray_tpu_torch.cluster_utils import Cluster
+
+        cluster = Cluster(head_node_args={"num_cpus": 1})
+        try:
+            remote = arb.PoolLedger(arb.GrpcKv(cluster.address))
+            remote.bootstrap(2, 2)
+            rlease = remote.create_lease("train", "serve", 1, 60)
+            remote.advance(rlease, arb.FREEING, donor_target=1)
+            got = arb.read_pool_state(gcs_address=cluster.address)
+            assert got["allocation"] == state["allocation"]
+            assert got["config"] == remote.config()
+            assert {k: v for k, v in got["config"].items() if k != "ts"} \
+                == {k: v for k, v in state["config"].items() if k != "ts"}
+            assert [r["lease_id"] for r in got["in_flight"]] == [
+                rlease["lease_id"]]
+            assert arb.GrpcKv(cluster.address).keys("lease/") == [
+                f"lease/{rlease['lease_id']}"]
+        finally:
+            cluster.shutdown()
     finally:
         _clear_pool_kv()
 
