@@ -242,8 +242,8 @@ Phases, any failure exits non-zero with no result line:
    params and peak beside phase 24's, and one profiled step's idle share
    and MoE routing ms (``[mixtral-mesh-profile]``);
 28. the checkpoint plane, inside the same group: ``ShardedTrainer`` at
-   Llama-3-8B widths cut to 2 layers (``CKPT``; bf16 params and both
-   bf16 moments, 8.9 GB a saved step) on the one-rank mesh takes phase
+   Llama-3-8B widths cut to 1 layer (``CKPT``; bf16 params and both
+   bf16 moments, 7.6 GB a saved step) on the one-rank mesh takes phase
    10's batch; step 1 is saved asynchronously while step 2 runs, then
    step 2 is saved, under a temp dir (its file system's free bytes
    checked first against two steps and a margin; removed at the end).
@@ -577,7 +577,40 @@ Phases, any failure exits non-zero with no result line:
    back within ``CLUSTER["mem_slack_gib"]``. Prints ``init_s``, TTFT p50
    and tick ms beside phase 37's (the yardstick's under ``--cluster``),
    the restart seconds and the launches. ``--cluster`` runs this phase
-   alone after phase 37's yardstick.
+   and phase 43 alone after phase 37's yardstick.
+43. the rest of the cluster runtime (ROADMAP item 20a-ii), on phase 42's
+   cluster before its teardown. ``[cluster-store]``: the free bytes of
+   ``/dev/shm``; the driver ``put``s a host tensor of ``[128256, 4096]``
+   bf16 (the embedding's shape, 1.05 GB, drawn on the card from seed 43);
+   a method of phase 42's actor ``get``s it, checks that it arrived
+   without a copy (its first byte inside the worker's mapping of the
+   store segment, ``/proc/self/maps``), uploads it to the card and sums
+   it, equal bit for bit to the driver's sum of the same bits; put and
+   get GB/s, each node store's used bytes and count, and after ``free``
+   the segment gone from ``/dev/shm`` (a ``/dev/shm`` too small fails,
+   naming the size). ``[cluster-dag]``: a compiled DAG over the cluster
+   (a CPU actor pinned to the head node feeding phase 42's
+   ``ClusterLlm.score``, in ``_channel_mode``): its 12 scores equal
+   phase 42's ``.remote`` scores bit for bit, B1 counted in the worker at
+   32 a score; the hop (the minimum over 3 trials of 60 calls of a
+   compiled CPU ``f`` against ``.remote`` on a second actor) beside
+   phase 37's; no ``rtch-*`` segment after teardown.
+   ``[cluster-serve]``: phase 42's actor closed and killed without
+   restart; ``serve.run`` of phase 30's ``CountingLlm`` at Llama-3-8B
+   widths (8 slots, max_len 2048, the prefix cache off) with
+   ``num_replicas=2`` and ``ray_actor_options={"num_gpus": 0.5}``: the
+   GCS places both replicas, as cluster actors, on the card node (each
+   one's pid, node id and visible devices printed); the 12 prompts as
+   32-token streams through the handle, held to phase 29's tokens by
+   phase 41a's gate, B4 counted in each replica's worker at 32 a tick,
+   the node stores holding no more objects after the streams than before
+   (each streamed token is a store object its stream frees); one
+   ``score_logprobs`` (B1 at 32 a call, its logprobs equal to phase 42's
+   first score bit for bit); one replica's worker
+   SIGKILLed and the next stream through the handle passing the gate
+   after its refresh-and-retry (seconds from the kill to its first
+   token); TTFT p50 and tick ms beside phase 42's.
+   ``[cluster-teardown]`` (phase 42's, after ``serve.shutdown()``).
 
 Phases 23-24 run before phases 25-28 (27 compares with 24), phases
 11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
@@ -610,7 +643,11 @@ rollouts and the flash forward's ``rl_scoring_launches`` their
 ``core_scoring_launches`` its 12 scores through the compiled DAG; the
 paged entry's ``cluster_launches`` are phase 42's cluster actor's over
 its first burst, counted in its worker, and the flash forward's
-``cluster_scoring_launches`` its 12 scores; the
+``cluster_scoring_launches`` its 12 scores; the paged entry's
+``cluster_serve_launches`` are phase 43's two serve replicas' (cluster
+actors) over the 12 streams, counted in their workers, and the flash
+forward's ``cluster_dag_launches`` phase 43's 12 scores through the
+compiled DAG over the cluster; the
 paged entry's ``graph_launches`` are phase 40's Llama replica's over the
 HTTP burst through the graph and its ``workflow_launches`` over the
 workflow's first run, whose scoring step gives the flash forward's
@@ -776,11 +813,14 @@ MESH_CHECK = dict(world=4, parity_steps=3, batch=8, layouts=[
 MIXTRAL_PARITY = dict(layers=2, seq=512)
 MIXTRAL_TRAIN = dict(layers=4, batch=2, seq=2048, steps=12, warmup=5,
                      total=1000, peak_gib=70.0)
-# Phase 28: ShardedTrainer at Llama-3-8B widths cut to 2 layers (1.49 B
-# params; bf16 params and both bf16 moments, 8.9 GB a saved step), phase
+# Phase 28: ShardedTrainer at Llama-3-8B widths cut to 1 layer (1.27 B
+# params; bf16 params and both bf16 moments, 7.6 GB a saved step), phase
 # 10's batch and optimizer; two steps saved, so the temp dir's file
-# system must hold disk_margin x two steps.
-CKPT = dict(layers=2, disk_margin=1.2)
+# system must hold disk_margin x two steps. Phases 34, 38 and 39 train
+# the same model. One layer, not two, keeps the whole script under its
+# time limit with phase 43: the state is mostly the embedding and the
+# head, which stay at full width.
+CKPT = dict(layers=1, disk_margin=1.2)
 # --mesh-check's expert-parallel sections. moe: a tiny fp32 Mixtral at
 # head dim 128 (the fp32 flash kernels run), pairs dropping at capacity
 # 0.5, on each layout against one device on rank 0; mixtral: Mixtral-8x7B
@@ -5752,8 +5792,10 @@ DISAGG = dict(name="dllm", chaos_tokens=48, parity_kill="import")
 
 
 def shm_segments():
-    """The shm channel segments on this host (``/dev/shm/rtch-*``)."""
-    return sorted(n for n in os.listdir("/dev/shm") if n.startswith("rtch-"))
+    """The port's shm segments on this host: the channels'
+    (``/dev/shm/rtch-*``) and the object stores' (``rtst-*``)."""
+    return sorted(n for n in os.listdir("/dev/shm")
+                  if n.startswith(("rtch-", "rtst-")))
 
 
 def deploy_group(cfg, **engine):
@@ -8257,6 +8299,49 @@ class ClusterLlm(CoreLlm):
                     device_count=torch.cuda.device_count(),
                     device=torch.cuda.get_device_name(0))
 
+    def take(self, refs):
+        """Phase 43's get in the worker: the object of ``refs[0]`` (a
+        host tensor the driver put), whether it arrived without a copy
+        (its first byte inside this process's mapping of a store
+        segment, and that mapping's permissions), its upload to the card
+        and its fp32 sum there; the worker's cached copy is dropped."""
+        import ray_tpu_torch as rt
+        import torch
+
+        core = rt._private.worker.global_worker().core
+        t0 = time.perf_counter()
+        x = rt.get(refs[0], timeout=600)
+        get_s = time.perf_counter() - t0
+        mapping = segment_mapping(x.data_ptr())
+        t0 = time.perf_counter()
+        y = x.to("cuda")
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        total = float(y.sum(dtype=torch.float32))
+        out = dict(get_s=get_s, upload_s=upload_s, sum=total,
+                   dtype=str(x.dtype), shape=list(x.shape),
+                   zero_copy=mapping is not None, mapping=mapping)
+        core.memory.delete([refs[0].id()])
+        del x, y
+        torch.cuda.empty_cache()
+        return out
+
+
+def segment_mapping(addr):
+    """The mapping of a store segment (``/dev/shm/rtst-*``) of this
+    process holding ``addr`` (``/proc/self/maps``): its permissions and
+    segment name, or None when no such mapping holds it."""
+    with open("/proc/self/maps") as f:
+        for line in f:
+            fields = line.split()
+            if len(fields) >= 6 and "/dev/shm/rtst-" in fields[5]:
+                lo, hi = (int(v, 16) for v in fields[0].split("-"))
+                if lo <= addr < hi:
+                    return dict(perms=fields[1],
+                                segment=os.path.basename(fields[5]),
+                                mib=(hi - lo) / 2**20)
+    return None
+
 
 def cluster_stream(rt, actor, prompt, n, client=None):
     """``actor.generate`` as tokens, through an ``ObjectRefGenerator``."""
@@ -8366,10 +8451,11 @@ def cluster_phase(torch, card, prompts, phase29, core=None):
 
     # 4. the 12 scores through actor.score: B1 32 a call, bit for bit.
     ref_scores = core["remote_scores"] if core else phase29["scores"]
-    b1, equal_bits, max_diff = [], 0, 0.0
+    b1, equal_bits, max_diff, scores42 = [], 0, 0.0, []
     for i, (p, w) in enumerate(zip(prompts, want)):
         before = rt.get(actor.launch_counts.remote(), timeout=600)["fwd"]
         lp = rt.get(actor.score.remote((p, w)), timeout=600)
+        scores42.append(lp)
         b1.append(rt.get(actor.launch_counts.remote(), timeout=600)["fwd"]
                   - before)
         arr = np.asarray(lp)
@@ -8434,9 +8520,13 @@ def cluster_phase(torch, card, prompts, phase29, core=None):
                    free_gib_after=free_after_kill / 2**30, card=card)
     print(f"[cluster-kill] {json.dumps(kill_st)}")
 
+    # Phase 43 on this cluster; it closes and kills the actor.
+    p43 = timed("phase 43", cluster_rest_phase, torch, card, dict(
+        rt=rt, cluster=cluster, card_node=card_node, actor=actor, cfg=cfg,
+        prompts=prompts, want=want, scores42=scores42, st42=st))
+
     # 7. teardown: no child, no runtime thread, no segment, the card back.
-    rt.get(actor.close.remote(), timeout=600)
-    rt.kill(actor)
+    tserve.shutdown()
     core_rt = rt._private.worker.global_worker().core
     del actor, found
     rt.shutdown()
@@ -8471,7 +8561,279 @@ def cluster_phase(torch, card, prompts, phase29, core=None):
     return dict(b4_launches=st["launches"]["paged"],
                 b1_scoring_launches=score_st["b1_launches"], actor=st,
                 score=score_st, gcs_restart=st2, kill=kill_st,
-                teardown=down)
+                teardown=down, phase43=p43)
+
+
+# ------------------------------ phase 43: the rest of the cluster runtime
+# Phase 43's store value (the embedding's shape, bf16) and its seed, the
+# deployment's name, and the hop's trials and calls a trial.
+CLUSTER_REST = dict(store_shape=(128256, 4096), store_seed=43,
+                    serve_name="cluster-llm", hop_trials=3, hop_calls=60)
+
+
+def cluster_store(torch, card, ctx):
+    """Phase 43's ``[cluster-store]`` (module docstring)."""
+    rt, cluster, actor = ctx["rt"], ctx["cluster"], ctx["actor"]
+    core = rt._private.worker.global_worker().core
+    du = shutil.disk_usage("/dev/shm")
+    shape = CLUSTER_REST["store_shape"]
+    nbytes = shape[0] * shape[1] * 2
+    print(f"[cluster-store] /dev/shm total {du.total} free {du.free} "
+          f"bytes; the value takes {nbytes}")
+    if du.free < nbytes:
+        fail(f"phase 43: /dev/shm has {du.free} bytes free, the store "
+             f"value needs a segment of {nbytes}")
+    gen = torch.Generator(device="cuda").manual_seed(
+        CLUSTER_REST["store_seed"])
+    on_card = torch.randn(*shape, dtype=torch.bfloat16, device="cuda",
+                          generator=gen)
+    want_sum = float(on_card.sum(dtype=torch.float32))
+    host = on_card.cpu()
+    del on_card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = rt.put(host)
+    put_s = time.perf_counter() - t0
+    del host
+    seg = f"rtst-{ref.id().hex()}"
+    stats = {n.node_id[:12]: dict(zip(("used_bytes", "objects"),
+                                      n.store_stats()))
+             for n in cluster.nodes}
+    got = rt.get(actor.take.remote([ref]), timeout=900)
+    core.free([ref])
+    gone = seg not in os.listdir("/dev/shm")
+    st = dict(bytes=nbytes, put_s=put_s, put_gb_s=nbytes / put_s / 1e9,
+              get_s=got["get_s"], get_gb_s=nbytes / got["get_s"] / 1e9,
+              upload_s=got["upload_s"], zero_copy=got["zero_copy"],
+              mapping=got["mapping"], sum=got["sum"], driver_sum=want_sum,
+              sum_equal=got["sum"] == want_sum, node_stores=stats,
+              segment_gone_after_free=gone, card=card)
+    print(f"[cluster-store] {json.dumps(st)}")
+    if not got["zero_copy"] or got["sum"] != want_sum or \
+            got["dtype"] != "torch.bfloat16" or got["shape"] != list(shape) \
+            or not gone or not any(v["used_bytes"] >= nbytes
+                                   for v in stats.values()):
+        fail(f"phase 43 store: {st}")
+    return st
+
+
+def cluster_dag(torch, card, ctx):
+    """Phase 43's ``[cluster-dag]`` (module docstring)."""
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.util.scheduling_strategies import \
+        NodeAffinitySchedulingStrategy
+
+    rt, cluster, actor, cfg = (ctx["rt"], ctx["cluster"], ctx["actor"],
+                               ctx["cfg"])
+    prompts, want = ctx["prompts"], ctx["want"]
+    segs0 = {n for n in shm_segments() if n.startswith("rtch-")}
+    head = NodeAffinitySchedulingStrategy(cluster.head_node.node_id,
+                                          soft=False)
+    source = rt.remote(num_cpus=1, scheduling_strategy=head)(
+        CoreRequests).remote([(p, w) for p, w in zip(prompts, want)])
+    with InputNode() as i:
+        dag = actor.score.bind(source.make.bind(i))
+    compiled = dag.experimental_compile()
+    if not compiled._channel_mode:
+        fail("phase 43: the scoring DAG over the cluster did not compile "
+             "to channels")
+    b1, equal = [], 0
+    for i in range(len(prompts)):
+        before = rt.get(actor.launch_counts.remote(), timeout=600)["fwd"]
+        lp = rt.get(compiled.execute(i), timeout=600)
+        b1.append(rt.get(actor.launch_counts.remote(), timeout=600)["fwd"]
+                  - before)
+        equal += list(lp) == list(ctx["scores42"][i])
+    compiled.teardown()
+    hop_cls = rt.remote(num_cpus=0, scheduling_strategy=head)(CoreHop)
+    a, b = hop_cls.remote(), hop_cls.remote()
+    with InputNode() as i:
+        hop = b.f.bind(i)
+    hops = hop.experimental_compile()
+    rt.get(hops.execute(0), timeout=60)
+    rt.get(a.f.remote(0), timeout=60)
+    dag_s = remote_s = float("inf")
+    n = CLUSTER_REST["hop_calls"]
+    for _ in range(CLUSTER_REST["hop_trials"]):
+        dag_s = min(dag_s, sum(call_seconds(
+            lambda k: rt.get(hops.execute(k), timeout=60), n)) / n)
+        remote_s = min(remote_s, sum(call_seconds(
+            lambda k: rt.get(a.f.remote(k), timeout=60), n)) / n)
+    hops.teardown()
+    for h in (source, a, b):
+        rt.kill(h)
+    left = sorted({n for n in shm_segments() if n.startswith("rtch-")}
+                  - segs0)
+    st = dict(scores=len(b1), bitwise_equal=equal, b1_launches=sum(b1),
+              channel_mode=True, hop_us=dag_s * 1e6,
+              remote_us=remote_s * 1e6, ratio=remote_s / dag_s,
+              beside="phase 37's compiled hop 209-351 us in local mode",
+              rtch_left=left, card=card)
+    print(f"[cluster-dag] {json.dumps(st)}")
+    if equal != len(b1) or any(x != cfg.num_layers for x in b1) or left:
+        fail(f"phase 43 DAG: {st}")
+    return st
+
+
+def cluster_serve(torch, card, ctx):
+    """Phase 43's ``[cluster-serve]`` (module docstring)."""
+    from ray_tpu_torch.runtime.cluster_replica import ClusterReplica
+    from ray_tpu_torch.serve import api as serve_api
+
+    rt, card_node, actor, cfg = (ctx["rt"], ctx["card_node"], ctx["actor"],
+                                 ctx["cfg"])
+    prompts, want, name = ctx["prompts"], ctx["want"], \
+        CLUSTER_REST["serve_name"]
+    rt.get(actor.close.remote(), timeout=600)
+    rt.kill(actor, no_restart=True)
+    t0 = time.perf_counter()
+    h = tserve.run(tserve.deployment(
+        CountingLlm, name=name, num_replicas=2, max_ongoing_requests=16,
+        ray_actor_options={"num_gpus": 0.5}).bind(
+        config=cfg, num_slots=CORE["num_slots"], max_len=CORE["max_len"],
+        prefix_cache=False))
+    deploy_s = time.perf_counter() - t0
+    reps = serve_api._get_controller().get_replicas(name)
+    where = [dict(replica=r.replica_id, pid=r.pid,
+                  node_id=r.info.get("node_id"),
+                  cuda_visible_devices=r.info.get("cuda_visible_devices"))
+             for r in reps]
+    print(f"[cluster-serve] deployed in {deploy_s:.2f} s: "
+          f"{json.dumps(where)}; card node {card_node.node_id}; {card}")
+    if len(reps) != 2 or not all(isinstance(r, ClusterReplica)
+                                 for r in reps) or \
+            {w["node_id"] for w in where} != {card_node.node_id} or \
+            {w["cuda_visible_devices"] for w in where} != {"0"} or \
+            len({w["pid"] for w in where}) != 2 or \
+            not {w["pid"] for w in where} <= set(card_node.worker_pids()):
+        fail(f"phase 43: the replicas run at {where}, not as two cluster "
+             f"actors on the card node")
+
+    def stream(prompt, n):
+        return h.options("generate", stream=True).remote(prompt, n)
+
+    for r in reps:                              # one warm-up each
+        st = r.stream("generate", (prompts[0][:16], 2), {})
+        while True:
+            try:
+                st.next(600)
+            except StopIteration:
+                break
+    def store_objects():
+        return sum(n.store_stats()[1] for n in ctx["cluster"].nodes)
+
+    c0 = {r.replica_id: replica_counters(r, reset=True) for r in reps}
+    objects0 = store_objects()
+    outs, ttft, wall = stream_all(lambda i: stream(prompts[i], 32),
+                                  len(prompts))
+    c1 = {r.replica_id: replica_counters(r) for r in reps}
+    # Each streamed token is a node-store object the handle's stream
+    # reads once and frees: the streams leave the stores' counts as
+    # they were (the frees run off the reader's thread).
+    deadline = time.monotonic() + 20
+    while store_objects() > objects0 and time.monotonic() < deadline:
+        time.sleep(0.1)
+    objects1 = store_objects()
+    if objects1 > objects0:
+        fail(f"phase 43: the node stores held {objects0} objects before "
+             f"the 12 streams and {objects1} after")
+    per = {}
+    for rid in c1:
+        ticks = c1[rid]["ticks"] - c0[rid]["ticks"]
+        per[rid] = dict(ticks=ticks, b4=c1[rid]["paged"],
+                        dense=c1[rid]["dense"],
+                        tick_s=c1[rid]["tick_s"] - c0[rid]["tick_s"])
+        if per[rid]["b4"] != cfg.num_layers * ticks or not ticks or \
+                per[rid]["dense"]:
+            fail(f"phase 43: replica {rid} launched B4 {per[rid]['b4']} "
+                 f"(dense {per[rid]['dense']}) over {ticks} ticks")
+    check_outputs(outs, 32, cfg.vocab_size, "phase 43")
+    equal, varied, ties = held_to_phase29(
+        torch, cfg, prompts, want, [(i, o, None) for i, o in
+                                    enumerate(outs)], "phase 43")
+    ticks = sum(v["ticks"] for v in per.values())
+    burst = dict(streams=len(outs), equal_phase29=equal,
+                 prefill_variants=varied, near_ties=len(ties),
+                 store_objects=[objects0, objects1],
+                 ttft_p50_ms=float(np.median(ttft)) * 1e3, wall_s=wall,
+                 tick_ms=sum(v["tick_s"] for v in per.values())
+                 / max(ticks, 1) * 1e3, replicas=per,
+                 b4_launches=sum(v["b4"] for v in per.values()),
+                 beside={"what": "phase 42's cluster actor",
+                         **{k: ctx["st42"].get(k) for k in (
+                             "ttft_p50_ms", "tick_ms")}}, card=card)
+    # One score through the handle: B1 at num_layers, in one replica.
+    f0 = {r.replica_id: replica_counters(r, reset=True)["flash_fwd"]
+          for r in reps}
+    lp = h.score_logprobs.remote(prompts[0], want[0]).result(timeout_s=600)
+    b1 = sum(replica_counters(r)["flash_fwd"] for r in reps)
+    arr = np.asarray(lp)
+    # The same weights, inputs and kernels as phase 42's first score.
+    equal = list(lp) == list(ctx["scores42"][0])
+    if b1 != cfg.num_layers or arr.shape != (CORE["new"],) or not (
+            np.all(np.isfinite(arr)) and np.all(arr <= 0)) or not equal:
+        fail(f"phase 43: score_logprobs launched B1 {b1} times, logprobs "
+             f"{arr[:4]}..., equal to phase 42's bit for bit: {equal}")
+    burst.update(score_b1_launches=b1, score_equal_phase42=equal)
+    print(f"[cluster-serve] {json.dumps(burst)}")
+    del f0
+    # One replica's worker killed: the next stream through the handle
+    # passes after its refresh-and-retry. The handle's table is left
+    # holding only the replica about to die (a handle that has not heard
+    # of the death yet; the router would otherwise steer clear of a
+    # replica whose load probe goes unanswered), so the first attempt
+    # lands on the dead one.
+    victim = reps[0]
+    router = h._router
+    with router.lock:
+        router.replicas, router.dirty, router.inflight = [victim], False, {}
+    t_kill = time.perf_counter()
+    os.kill(victim.pid, signal.SIGKILL)
+    attempts, errors, deadline = 0, [], time.monotonic() + 300
+    while True:
+        attempts += 1
+        gen = stream(prompts[1], 32)
+        try:
+            first = next(gen)
+            break
+        except rt.exceptions.ActorDiedError as e:
+            errors.append(f"{type(e).__name__} from "
+                          f"{gen._replica.replica_id}")
+            if time.monotonic() > deadline:
+                fail("phase 43: no stream got through after the kill")
+    kill_s = time.perf_counter() - t_kill
+    toks = [first] + [int(t) for t in gen]
+    equal_k, varied_k, ties_k = held_to_phase29(
+        torch, cfg, prompts, want, [(1, toks, None)],
+        "phase 43 after the replica kill")
+    kill_st = dict(kill_to_first_token_s=kill_s, attempts=attempts,
+                   first_attempts=errors,
+                   table_after=[r.replica_id for r in h._replicas],
+                   served_by=gen._replica.replica_id,
+                   killed=victim.replica_id, equal_phase29=equal_k,
+                   prefill_variants=varied_k, near_ties=len(ties_k),
+                   card=card)
+    print(f"[cluster-serve-kill] {json.dumps(kill_st)}")
+    if gen._replica is victim or attempts < 2:
+        fail(f"phase 43: after the kill the handle did not retry off the "
+             f"dead replica: {kill_st}")
+    return dict(burst=burst, kill=kill_st, deploy_s=deploy_s, where=where)
+
+
+def cluster_rest_phase(torch, card, ctx):
+    """Phase 43: the store, the compiled DAG and serve on phase 42's
+    cluster (module docstring); phase 42's teardown follows."""
+    store = cluster_store(torch, card, ctx)
+    dag = cluster_dag(torch, card, ctx)
+    served = cluster_serve(torch, card, ctx)
+    print(f"[cluster-rest] launches B4 {served['burst']['b4_launches']} "
+          f"over the two replicas, B1 {dag['b1_launches']} over "
+          f"{dag['scores']} DAG scores; put {store['put_gb_s']:.2f} GB/s, "
+          f"get {store['get_gb_s']:.2f} GB/s; hop {dag['hop_us']:.0f} us; "
+          f"{card}")
+    return dict(store=store, dag=dag, serve=served,
+                b4_launches=served["burst"]["b4_launches"],
+                b1_dag_launches=dag["b1_launches"])
 
 
 def timed(name, fn, *args):
@@ -8614,7 +8976,8 @@ def main():
         prompts = phase5_prompts(llama.LlamaConfig.llama3_8b())
         phase29 = timed("phase 42's yardstick", core_yardstick, torch, card,
                         prompts)
-        timed("phase 42", cluster_phase, torch, card, prompts, phase29)
+        timed("phases 42-43", cluster_phase, torch, card, prompts,
+              phase29)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -8733,8 +9096,8 @@ def main():
                   serving["deploy"])
     pooled = timed("phase 41", phase41, torch, card, served[0],
                    serving["deploy"])
-    clustered = timed("phase 42", cluster_phase, torch, card, served[0],
-                      serving["deploy"], core)
+    clustered = timed("phases 42-43", cluster_phase, torch, card,
+                      served[0], serving["deploy"], core)
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(
@@ -8756,6 +9119,7 @@ def main():
         autoscale_launches=pooled["autoscale"]["autoscale_launches"],
         pool_launches=pooled["pool"]["b4_launches"],
         cluster_launches=clustered["b4_launches"],
+        cluster_serve_launches=clustered["phase43"]["b4_launches"],
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], kernel_ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
@@ -8782,6 +9146,8 @@ def main():
                 "core_scoring_launches": core["b1_scoring_launches"],
                 "cluster_scoring_launches":
                     clustered["b1_scoring_launches"],
+                "cluster_dag_launches":
+                    clustered["phase43"]["b1_dag_launches"],
                 "workflow_scoring_launches":
                     graph["workflow"]["workflow_scoring_launches"]}
                if n == "fwd" else {}),

@@ -10,8 +10,8 @@ compiles no XLA program (:mod:`ray_tpu_torch._private.cuda_monitor`
 counts a program's first call at each argument signature as its
 compile). ``POOL_CHIPS`` keeps its name and counts cards (or fractions
 of one, where replicas ask fractions). The series of modules not ported
-yet stay out: the GCS, RPC, node, store and agent series (the actor
-core).
+yet stay out: the GCS, RPC, node and agent series, and of the store's
+all but its two gauges.
 
 Units follow Prometheus conventions: ``_total`` counters, ``_seconds`` /
 ``_bytes`` gauges and histograms.
@@ -21,6 +21,18 @@ from __future__ import annotations
 
 from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
 
+
+# ------------------------------------------------------ node store (L4)
+# The node manager's shared-memory store, set each heartbeat
+# (``_private/node_manager/server.py``).
+STORE_USED_BYTES = Gauge(
+    "ray_tpu_store_used_bytes",
+    "Bytes resident in the node shared-memory store",
+    ("node_id",))
+STORE_OBJECTS = Gauge(
+    "ray_tpu_store_objects",
+    "Objects resident in the node shared-memory store",
+    ("node_id",))
 
 # ----------------------------------------------------------- serve (L6)
 # The router's series (``serve/api.py``).

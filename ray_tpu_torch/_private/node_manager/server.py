@@ -29,16 +29,26 @@ Where the port differs:
   replicas and train workers of the process) for its lifetime and gives
   them back at :meth:`NodeManager.shutdown`; a card the book already
   lends out cannot make a node.
-* **The object store is the dict store** until the native shared-memory
-  store (ROADMAP.md item 20a-ii); spilling and the memory monitor
-  (:1109-1252) are item 20b and the runtime-env agent (:441-531) item
-  20c. A put past the store's budget (``RAY_TPU_OBJECT_STORE_BYTES``,
-  4 GiB by default), which JAX spills, raises ``not_ported`` naming 20b.
+* **The object store** is the native shared-memory store
+  (:class:`~ray_tpu_torch._private.shm.ShmStore`, JAX's :95-135), the
+  node's store of record: a put whose request names a segment the client
+  created (``shm_name``) is registered, inline bytes are written into a
+  segment of the store's own, ``GetObject`` answers with the segment's
+  name and size (the reader maps it), ``PullObject`` streams a segment to
+  another node in chunks, ``FreeObjects`` and :meth:`NodeManager.shutdown`
+  unlink the segments, and the heartbeat loop sets the store's gauges
+  (``STORE_USED_BYTES``, ``STORE_OBJECTS``) from its ``stats()``. JAX
+  falls back to a dict when the native library does not build; the port
+  raises. Spilling and the memory monitor (:1109-1252) are item 20b and
+  the runtime-env agent (:441-531) item 20c: a put past the store's
+  budget (``RAY_TPU_OBJECT_STORE_BYTES``, 4 GiB by default), which JAX
+  spills, raises ``not_ported`` naming 20b, its segment unlinked.
 """
 
 from __future__ import annotations
 
 import logging
+import mmap
 import os
 import pickle
 import threading
@@ -48,6 +58,7 @@ from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
 from ray_tpu_torch._private import messages as pb
+from ray_tpu_torch._private import metrics_defs as mdefs
 from ray_tpu_torch._private import rpc
 from ray_tpu_torch._private.scheduler import policies
 
@@ -62,6 +73,11 @@ WORKER_START_S = 60.0
 # Workers a node forks at its start, at most one a CPU (JAX's 4: a fork
 # from the warm server costs milliseconds, so fewer idle processes wait).
 PRESTART_WORKERS = 2
+
+
+def _pages(nbytes: int) -> int:
+    """The bytes of the whole pages a segment of ``nbytes`` takes."""
+    return -(-nbytes // mmap.PAGESIZE) * mmap.PAGESIZE
 
 
 def _heartbeat_period_s() -> float:
@@ -114,6 +130,12 @@ class NodeManager:
         self.node_id = node_id or uuid.uuid4().hex
         self.gcs_address = gcs_address
         self.gcs = rpc.get_stub("GcsService", gcs_address)
+        # The budget is held here (JAX spills past it, item 20b), so the
+        # C++ store never evicts. Built first: a failed build raises
+        # before the node takes anything.
+        from ray_tpu_torch._private.shm import ShmStore
+
+        self._shm = ShmStore(capacity_bytes=1 << 62)
 
         resources = dict(resources or {"CPU": float(os.cpu_count() or 4)})
         n_cards = resources.get("GPU", 0.0)
@@ -144,11 +166,12 @@ class NodeManager:
         self._cards_free: List[str] = list(reversed(cards))
         self._cards_held: Dict[bytes, List[str]] = {}
 
-        self._objects: Dict[bytes, bytes] = {}
-        self._obj_bytes = 0
-        self._obj_lock = threading.RLock()
+        self._obj_lock = threading.Lock()
         self._store_capacity = int(os.environ.get(
             "RAY_TPU_OBJECT_STORE_BYTES", 4 << 30))
+        # The budget counts the whole pages each segment takes in
+        # /dev/shm, not its payload bytes: a small object costs a page.
+        self._store_pages = 0
 
         self._workers: Dict[str, _Worker] = {}
         self._idle: List[str] = []
@@ -190,6 +213,7 @@ class NodeManager:
             except Exception:  # noqa: BLE001 — GCS still starting
                 if time.monotonic() >= deadline:
                     self._server.stop()
+                    self._shm.close()
                     self._give_cards()
                     raise
                 time.sleep(0.1)
@@ -365,6 +389,14 @@ class NodeManager:
                     pass
             self._reap_idle_workers()
             self._check_dead_workers()
+            used, count = self._shm.stats()
+            tags = {"node_id": self.node_id[:12]}
+            mdefs.STORE_USED_BYTES.set(used, tags=tags)
+            mdefs.STORE_OBJECTS.set(count, tags=tags)
+
+    def store_stats(self) -> Tuple[int, int]:
+        """The node store's (bytes in use, objects)."""
+        return self._shm.stats()
 
     def _view_subscriber_loop(self):
         """NODE_RES availability deltas and NODE liveness events
@@ -801,26 +833,38 @@ class NodeManager:
 
     # ------------------------------------------------------------ objects
     def _store_object(self, request) -> int:
-        if request.shm_name:
-            from ray_tpu_torch._private.worker import ITEM_20A_II
-            from ray_tpu_torch.exceptions import not_ported
+        """Seat one object in the store (JAX's :1252-1290): register the
+        segment a client made, or write inline bytes into one. Past the
+        budget, ``not_ported`` naming 20b, with the client's segment
+        unlinked (nothing indexes it)."""
+        from ray_tpu_torch._private.shm import ShmClient
 
-            raise not_ported("a put through a shared-memory segment",
-                             ITEM_20A_II)
+        oid_hex = request.object_id.hex()
+        size = request.size or len(request.data)
         with self._obj_lock:
-            old = self._objects.get(request.object_id)
-            grow = len(request.data) - (len(old) if old is not None else 0)
-            if self._obj_bytes + grow > self._store_capacity:
+            if self._shm.contains(oid_hex):
+                return size           # immutable: a re-put changes nothing
+            if self._store_pages + _pages(size) > self._store_capacity:
                 from ray_tpu_torch._private.worker import ITEM_20B
                 from ray_tpu_torch.exceptions import not_ported
 
+                if request.shm_name:
+                    ShmClient.unlink_segment(request.shm_name)
                 raise not_ported(
                     f"spilling the node store past its "
                     f"{self._store_capacity} bytes "
                     f"(RAY_TPU_OBJECT_STORE_BYTES)", ITEM_20B)
-            self._objects[request.object_id] = request.data
-            self._obj_bytes += grow
-        return len(request.data)
+            if request.shm_name:
+                ok = self._shm.register(oid_hex, request.shm_name, size)
+            else:
+                ok = self._shm.put(oid_hex, request.data) is not None
+            if ok:
+                self._store_pages += _pages(size)
+        if not ok:
+            raise RuntimeError(
+                f"the node store could not seat object {oid_hex[:16]} "
+                f"({size} bytes) in /dev/shm")
+        return size
 
     def PutObject(self, request, context):
         size = self._store_object(request)
@@ -845,36 +889,38 @@ class NodeManager:
         return pb.PutObjectBatchReply(rejected=[False] * len(batch.updates))
 
     def GetObject(self, request, context):
-        with self._obj_lock:
-            data = self._objects.get(request.object_id)
-        if data is None:
+        """The object's segment name and size (the reader maps it)."""
+        meta = self._shm.get(request.object_id.hex())
+        if meta is None:
             return pb.GetObjectReply(found=False)
+        name, size = meta
         if request.metadata_only:
-            return pb.GetObjectReply(found=True, size=len(data))
-        return pb.GetObjectReply(found=True, data=data, size=len(data))
+            return pb.GetObjectReply(found=True, size=size)
+        return pb.GetObjectReply(found=True, shm_name=name, size=size)
 
     def GetObjectsMeta(self, request, context):
         """Batched local readiness (reference: plasma Contains)."""
-        with self._obj_lock:
-            found = [oid in self._objects for oid in request.object_ids]
-        return pb.GetObjectsMetaReply(found=found)
+        return pb.GetObjectsMetaReply(found=[
+            self._shm.contains(oid.hex()) for oid in request.object_ids])
 
     def PullObject(self, request, context):
-        """Chunked transfer (reference: ObjectManager chunks,
-        object_manager.h:117), outbound streams capped (PushManager,
-        push_manager.h:30)."""
-        with self._obj_lock:
-            data = self._objects.get(request.object_id)
-        if data is None or not self._push_slots.acquire(timeout=60.0):
+        """Chunked transfer out of the mapped segment (reference:
+        ObjectManager chunks, object_manager.h:117), outbound streams
+        capped (PushManager, push_manager.h:30)."""
+        from ray_tpu_torch._private.shm import ShmClient
+
+        meta = self._shm.get(request.object_id.hex())
+        view = None if meta is None else ShmClient.map_segment_view(*meta)
+        if view is None or not self._push_slots.acquire(timeout=60.0):
             yield pb.ObjectChunk(object_id=request.object_id, found=False,
                                  eof=True)
             return
         try:
-            total = len(data)
+            total = len(view)
             for off in range(0, max(total, 1), CHUNK_SIZE):
                 yield pb.ObjectChunk(object_id=request.object_id,
                                      total_size=total, offset=off,
-                                     data=data[off:off + CHUNK_SIZE],
+                                     data=bytes(view[off:off + CHUNK_SIZE]),
                                      found=True,
                                      eof=off + CHUNK_SIZE >= total)
         finally:
@@ -882,13 +928,13 @@ class NodeManager:
 
     def FreeObjects(self, request, context):
         batch = pb.ObjectLocationBatch()
-        with self._obj_lock:
-            for oid in request.object_ids:
-                data = self._objects.pop(oid, None)
-                if data is not None:
-                    self._obj_bytes -= len(data)
-                batch.updates.append(pb.ObjectLocationUpdate(
-                    object_id=oid, node_id=self.node_id, added=False))
+        for oid in request.object_ids:
+            with self._obj_lock:
+                meta = self._shm.get(oid.hex())
+                if meta is not None and self._shm.delete(oid.hex()):
+                    self._store_pages -= _pages(meta[1])
+            batch.updates.append(pb.ObjectLocationUpdate(
+                object_id=oid, node_id=self.node_id, added=False))
         try:
             self.gcs.UpdateObjectLocationsBatch(batch)
         except Exception:  # noqa: BLE001
@@ -925,6 +971,7 @@ class NodeManager:
         for t in self._threads:
             if t is not threading.current_thread():
                 t.join(timeout=5.0)
+        self._shm.close()
         self._give_cards()
 
     def threads(self) -> List[threading.Thread]:

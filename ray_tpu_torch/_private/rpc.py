@@ -639,7 +639,9 @@ class FrameServer:
         with self._lock:
             threads = list(self._threads)
         for t in threads:
-            if t is not threading.current_thread():
+            # A thread is tracked just before it starts: one not started
+            # yet has nothing to wait for.
+            if t is not threading.current_thread() and t.is_alive():
                 t.join(max(0.0, deadline - time.monotonic()))
 
     close = stop

@@ -17,7 +17,13 @@ Reference: the CoreWorker (``src/ray/core_worker/core_worker.cc``):
   process's memory store and go to the node store when their ref leaves
   the process; larger ones and puts go to the node store with their
   location in the GCS directory, pulled in chunks across nodes on demand
-  (``_fetch_object``, JAX's :754);
+  (``_fetch_object``, JAX's :754). The node store is the native
+  shared-memory store (JAX's :101-145, :515-600): a value over
+  ``INLINE_RESULT_MAX`` is written by the putting process into a segment
+  of its own (one ``writev``, each out-of-band buffer copied once) and
+  only its name and size cross the node's socket; a get on the same node
+  maps the segment and deserializes in place, so an array or a tensor in
+  the value is a view of the mapping, not a copy;
 * streaming generators (``release_stream_tail``, :1443), cancellation
   (:2170-2240), placement groups (:2630-2648), ``nodes()`` and the
   resource views.
@@ -27,8 +33,9 @@ names its ROADMAP.md item: distributed reference counting and lineage
 reconstruction (``_maybe_reconstruct`` :911), locality hints (:1187,
 :1208) and spilling are item 20b, so a produced object whose every copy is
 gone raises ``ObjectLostError`` naming 20b, and objects leave the stores
-only through ``free`` or their node's end; a ``runtime_env`` is item 20c;
-the shared-memory store, with zero-copy puts, is item 20a-ii.
+only through ``free`` or their node's end; a ``runtime_env`` is item 20c.
+A segment that cannot be created raises, naming the object's size: no
+value falls back to the socket.
 """
 
 from __future__ import annotations
@@ -50,7 +57,9 @@ from ray_tpu_torch._private.memory_store import MemoryStore
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.options import is_streaming
 from ray_tpu_torch._private.runtime.interface import CoreRuntime
-from ray_tpu_torch._private.serialization import (Serializer, loads)
+from ray_tpu_torch._private.serialization import (SerializedObject,
+                                                  Serializer, loads)
+from ray_tpu_torch._private.shm import SEGMENT_PREFIX, ShmClient
 
 logger = logging.getLogger(__name__)
 
@@ -58,12 +67,49 @@ INLINE_RESULT_MAX = 100 * 1024  # reference: >100KB promoted to plasma
 PUSH_TIMEOUT_S = 24 * 3600.0
 
 
-def put_bytes_to_node(node_stub, oid_binary: bytes, data: bytes,
-                      owner: str) -> bool:
-    """Store serialized bytes in a node's store; False when it refused."""
-    reply = node_stub.PutObject(pb.PutObjectRequest(
-        object_id=oid_binary, data=data, owner=owner, size=len(data)))
+def put_to_node(node_stub, oid_binary: bytes, value, owner: str) -> bool:
+    """Store a serialized value (a :class:`SerializedObject` or its bytes)
+    in a node's store; False when the node refused it. Over
+    ``INLINE_RESULT_MAX`` its bytes go into a segment this process
+    creates and only the segment's name rides the RPC (JAX's
+    ``put_bytes_to_node``, :101-122); a segment that cannot be created
+    raises."""
+    parts = value.to_parts() if isinstance(value, SerializedObject) \
+        else [value]
+    size = value.wire_size() if isinstance(value, SerializedObject) \
+        else len(value)
+    if size <= INLINE_RESULT_MAX:
+        reply = node_stub.PutObject(pb.PutObjectRequest(
+            object_id=oid_binary, data=b"".join(parts), owner=owner,
+            size=size))
+        return not reply.rejected
+    # The whole object id: the objects of one task differ only in its
+    # last bytes.
+    seg = f"/{SEGMENT_PREFIX}{oid_binary.hex()}"
+    if not ShmClient.create_segment_vectored(seg, parts):
+        raise exceptions.RayTpuError(
+            f"could not create a shared-memory segment of {size} bytes "
+            f"for object {oid_binary.hex()[:16]} in /dev/shm")
+    try:
+        reply = node_stub.PutObject(pb.PutObjectRequest(
+            object_id=oid_binary, shm_name=seg, size=size, owner=owner))
+    except BaseException:
+        # Unregistered (or refused, which unlinked it already): nothing
+        # else would ever unlink it.
+        ShmClient.unlink_segment(seg)
+        raise
     return not reply.rejected
+
+
+def read_object_reply(reply) -> Tuple[bool, Any]:
+    """``(found, value)`` of a found ``GetObjectReply``: its segment mapped
+    and the value deserialized over the mapping (JAX's :125-145); not
+    found when this host has no such segment (it was freed between the
+    reply and the map, or it lives on another host)."""
+    view = ShmClient.map_segment_view(reply.shm_name, reply.size)
+    if view is None:
+        return False, None
+    return True, loads(view)
 
 
 def _run_callback(cb) -> None:
@@ -160,6 +206,9 @@ class ClusterRuntime(CoreRuntime):
         self._lease_reaper: Optional[threading.Thread] = None
         self._threads: List[threading.Thread] = []
         self._sub_stream = None
+        # Callbacks of the other channels this process subscribes to (the
+        # serve route events), by channel.
+        self._channel_cbs: Dict[str, List] = {}
         # GCS pubsub drives actor resolution and object readiness wakeups.
         self._ready_cond = threading.Condition()
         self._spawn(self._subscriber_loop, "gcs-subscriber")
@@ -211,13 +260,36 @@ class ClusterRuntime(CoreRuntime):
         return True
 
     # ------------------------------------------------------------- pubsub
+    def on_channel(self, channel: str, callback) -> None:
+        """``callback(data)`` for each message of ``channel`` (one of
+        :data:`EXTRA_CHANNELS`), and ``callback(None)`` once the
+        subscription is restored after a broken stream, when messages may
+        have been missed."""
+        with self._ready_cond:
+            self._channel_cbs.setdefault(channel, []).append(callback)
+
+    def _dispatch_channel(self, channel: str, data) -> None:
+        with self._ready_cond:
+            cbs = list(self._channel_cbs.get(channel, ()))
+        for cb in cbs:
+            try:
+                cb(data)
+            except Exception:  # noqa: BLE001 — one bad callback only
+                logger.exception("%s callback failed", channel)
+
+    #: Channels subscribed besides the runtime's own: the serve route
+    #: events (``runtime/cluster_replica.py``).
+    EXTRA_CHANNELS = ("SERVE_ROUTES",)
+
     def _subscriber_loop(self):
-        """ACTOR and OBJECT_LOC (and, on a driver, LOG) subscription,
-        resubscribing after a broken stream (a GCS restart included)."""
-        channels = ["ACTOR", "OBJECT_LOC"]
+        """ACTOR, OBJECT_LOC and :data:`EXTRA_CHANNELS` (and, on a driver,
+        LOG) subscription, resubscribing after a broken stream (a GCS
+        restart included)."""
+        channels = ["ACTOR", "OBJECT_LOC", *self.EXTRA_CHANNELS]
         if not self.is_worker and \
                 os.environ.get("RAY_TPU_LOG_TO_DRIVER", "1") != "0":
             channels.append("LOG")
+        resubscribed = False
         while not self._shutdown:
             try:
                 stream = self.gcs.Subscribe(pb.SubscribeRequest(
@@ -228,11 +300,17 @@ class ClusterRuntime(CoreRuntime):
                 if self._shutdown:
                     stream.cancel()
                     return
+                if resubscribed:
+                    for ch in self.EXTRA_CHANNELS:
+                        self._dispatch_channel(ch, None)
+                resubscribed = True
                 for msg in stream:
                     if msg.channel == "ACTOR":
                         self._on_actor_event(msg.data)
                     elif msg.channel == "LOG":
                         self._on_log_event(msg.data)
+                    elif msg.channel in self.EXTRA_CHANNELS:
+                        self._dispatch_channel(msg.channel, msg.data)
                     elif msg.data:
                         if len(self._located) > 100_000:
                             self._located.clear()
@@ -279,14 +357,18 @@ class ClusterRuntime(CoreRuntime):
                         self._actor_dead.pop(next(iter(self._actor_dead)))
 
     # ---------------------------------------------------------------- objects
-    def dumps(self, value: Any) -> bytes:
-        """``value`` as the wire's bytes; the refs it carries leave this
-        process with it, so the ones this process holds inline go to the
-        node store (their readers look them up in the directory)."""
+    def serialize(self, value: Any) -> SerializedObject:
+        """``value`` serialized; the refs it carries leave this process
+        with it, so the ones this process holds inline go to the node
+        store (their readers look them up in the directory)."""
         s = Serializer().serialize(value)
         if s.contained_refs:
             self._flush_escaped(s.contained_refs)
-        return s.to_bytes()
+        return s
+
+    def dumps(self, value: Any) -> bytes:
+        """``value`` as the wire's bytes (:meth:`serialize`)."""
+        return self.serialize(value).to_bytes()
 
     def _flush_escaped(self, oid_bins) -> None:
         """Mark refs as escaped (sticky: a ref can leave before its task
@@ -297,12 +379,15 @@ class ClusterRuntime(CoreRuntime):
             if data is not None:
                 self._store_bytes(ob, data)
 
-    def _store_bytes(self, oid_bin: bytes, data: bytes) -> None:
+    def _store_bytes(self, oid_bin: bytes, data) -> None:
+        """Store a serialized value (or its bytes) in the local node's
+        store, failing over once to another node when it is gone."""
         try:
-            put_bytes_to_node(self.node, oid_bin, data, self.worker_id)
+            put_to_node(self.node, oid_bin, data, self.worker_id)
         except Exception:  # noqa: BLE001 — local node gone: fail over once
-            if self._refresh_local_node():
-                put_bytes_to_node(self.node, oid_bin, data, self.worker_id)
+            if not self._refresh_local_node():
+                raise
+            put_to_node(self.node, oid_bin, data, self.worker_id)
 
     def put(self, value: Any,
             owner_ref: Optional[ObjectRef] = None) -> ObjectRef:
@@ -312,9 +397,9 @@ class ClusterRuntime(CoreRuntime):
             self._put_index += 1
             index = self._put_index
         oid = ObjectID.from_task(self._put_task_id, index)
-        data = self.dumps(value)
+        s = self.serialize(value)
+        self._store_bytes(oid.binary(), s)
         self.memory.put(oid, value)
-        self._store_bytes(oid.binary(), data)
         return ObjectRef(oid, owner_address=self.node_address)
 
     def _pull(self, addr: str, oid_bin: bytes) -> Optional[bytes]:
@@ -363,9 +448,10 @@ class ClusterRuntime(CoreRuntime):
             self._refresh_local_node()
             reply = pb.GetObjectReply(found=False)
         if reply.found:
-            value = loads(reply.data)
-            self.memory.put(oid, value)
-            return True, value
+            found, value = read_object_reply(reply)
+            if found:
+                self.memory.put(oid, value)
+                return True, value
         candidates = []
         if ref.owner_address() and ref.owner_address() != self.node_address:
             candidates.append(ref.owner_address())
@@ -381,12 +467,27 @@ class ClusterRuntime(CoreRuntime):
             if addr == self.node_address:
                 continue
             try:
+                # Another node of this host: its segment maps here too,
+                # without a copy (a node elsewhere answers with a name
+                # this host has no segment of, and the object is pulled).
+                reply = rpc.get_stub("NodeService", addr).GetObject(
+                    pb.GetObjectRequest(object_id=oid.binary()))
+                found, value = read_object_reply(reply) if reply.found \
+                    else (False, None)
+                if found:
+                    self.memory.put(oid, value)
+                    return True, value
                 data = self._pull(addr, oid.binary())
             except Exception:  # noqa: BLE001
                 continue
             if data is not None:
                 value = loads(data)
                 self.memory.put(oid, value)
+                try:  # kept on this node for its other readers (JAX's)
+                    put_to_node(self.node, oid.binary(), data,
+                                self.worker_id)
+                except Exception:  # noqa: BLE001
+                    pass
                 return True, value
         return False, None
 
@@ -522,6 +623,11 @@ class ClusterRuntime(CoreRuntime):
                         pb.FreeObjectsRequest(object_ids=ids))
         except Exception:  # noqa: BLE001
             pass
+
+    def free_later(self, refs) -> None:
+        """:meth:`free` on the runtime's pool, for a caller that must not
+        wait on its RPCs."""
+        self._submit(self.free, list(refs))
 
     def _submit(self, fn, *args) -> None:
         try:
@@ -1348,6 +1454,12 @@ class ClusterRuntime(CoreRuntime):
             info.max_restarts = 0
         self.gcs.UpdateActor(pb.UpdateActorRequest(info=info))
         self._on_actor_event(info.SerializeToString())
+
+    def actor_death(self, actor_id: ActorID) -> Optional[str]:
+        """The death cause of an actor this process has seen die (the
+        ACTOR events it subscribes to), else None."""
+        with self._actor_lock:
+            return self._actor_dead.get(actor_id.binary())
 
     def get_named_actor(self, name: str, namespace: Optional[str]):
         ns = namespace or self.namespace

@@ -15,6 +15,15 @@ Two rules differ from JAX's, which pickles with cloudpickle:
   stands for the function or class it wraps. A lambda, a closure or a
   class defined inside a function has no such name: pickling one raises
   a ``TypeError`` that says the callable must be defined at module level.
+* **A tensor's bytes go out of band.** torch pickles a CPU tensor's
+  storage in-band, so its bytes would be copied into the pickle and never
+  reach a shared-memory segment whole. The pickler writes a plain dense
+  tensor as a numpy view of its bytes (a bf16 tensor as its 16-bit
+  integers) and a dtype tag; the view's buffer goes out of band, and the
+  reader gets ``torch.from_numpy`` of the array it reads. A get from the
+  node's store hands a tensor over the mapped segment, without a copy
+  (``_private/shm.py`` says what a reader may do with it); a tensor read
+  from a message's bytes is a copy, since those bytes are immutable.
 * **A CUDA tensor is written as a host tensor.** Pickled as it is, a
   tensor carries its device index, and in a process with another
   ``CUDA_VISIBLE_DEVICES`` that index names another card or none at all;
@@ -60,17 +69,35 @@ class SerializedObject:
         self.contained_refs = contained_refs
         self.is_error = is_error
 
-    def to_bytes(self) -> bytes:
+    def total_bytes(self) -> int:
+        """The pickle's and the out-of-band buffers' bytes."""
+        return len(self.pickled) + sum(memoryview(b).nbytes
+                                       for b in self.buffers)
+
+    def wire_size(self) -> int:
+        """The exact length of :meth:`to_bytes` (and of :meth:`to_parts`
+        joined)."""
+        return (_HDR.size + 4 + sum(4 + len(r) for r in self.contained_refs)
+                + 8 * len(self.buffers) + self.total_bytes())
+
+    def to_parts(self) -> List[Any]:
+        """The wire encoding as a list of buffers, not joined: written
+        with ``os.writev``, a large out-of-band buffer is copied once,
+        into its destination (a shared-memory segment)."""
         views = [memoryview(b).cast("B") for b in self.buffers]
-        parts = [_HDR.pack(len(self.pickled), 1 if self.is_error else 0,
-                           len(views)),
-                 struct.pack("<I", len(self.contained_refs))]
+        parts: List[Any] = [
+            _HDR.pack(len(self.pickled), 1 if self.is_error else 0,
+                      len(views)),
+            struct.pack("<I", len(self.contained_refs))]
         for r in self.contained_refs:
             parts += [struct.pack("<I", len(r)), r]
         parts += [struct.pack("<Q", v.nbytes) for v in views]
         parts.append(self.pickled)
         parts.extend(views)
-        return b"".join(parts)
+        return parts
+
+    def to_bytes(self) -> bytes:
+        return b"".join(self.to_parts())
 
     @staticmethod
     def parse(data) -> "SerializedObject":
@@ -150,9 +177,62 @@ def _reduce_callable(obj):
     return NotImplemented
 
 
+# A tensor dtype the numpy view carries its bytes as, where numpy has no
+# dtype of its own.
+_VIEW_AS = {"bfloat16": "int16"}
+
+
+def _tensor_from_numpy(array, dtype: str, requires_grad: bool):
+    """The reader's end of :func:`_reduce_tensor`: a tensor over
+    ``array``'s buffer. A read-only buffer is either a store segment this
+    process mapped, which takes writes copy-on-write (the tensor aliases
+    it: ``shm.writable_alias``), or the bytes of a message (an inline
+    argument, result or pulled chunk), which a write must not reach (the
+    tensor gets a copy)."""
+    import torch
+
+    if not array.flags.writeable:
+        from ray_tpu_torch._private import shm
+
+        alias = shm.writable_alias(array)
+        array = array.copy() if alias is None else alias
+    t = torch.from_numpy(array)
+    if dtype in _VIEW_AS:
+        t = t.view(getattr(torch, dtype))
+    if requires_grad:
+        t.requires_grad_(True)
+    return t
+
+
+def _reduce_tensor(torch, obj):
+    """A plain dense CPU or CUDA tensor as a numpy view of its bytes and
+    its dtype, so the bytes leave the pickle as an out-of-band buffer; a
+    tensor of another kind (a subclass, sparse, quantized, a dtype numpy
+    cannot view) as torch writes it, a CUDA one moved to the host."""
+    host = obj
+    if obj.device.type == "cuda":
+        host = obj.detach().to("cpu")
+    plain = (type(obj) is torch.Tensor and host.layout == torch.strided
+             and host.device.type == "cpu" and not host.is_quantized
+             and not host.is_conj() and not host.is_neg())
+    dtype = str(host.dtype).split(".")[-1]
+    if plain:
+        try:
+            view = host.detach()
+            if dtype in _VIEW_AS:
+                view = view.view(getattr(torch, _VIEW_AS[dtype]))
+            array = view.numpy()
+        except (TypeError, RuntimeError):
+            plain = False
+    if not plain:
+        return host.as_subclass(torch.Tensor).__reduce_ex__(5) \
+            if host is not obj else NotImplemented
+    return _tensor_from_numpy, (array, dtype, bool(obj.requires_grad))
+
+
 class _RefPickler(pickle.Pickler):
     """Protocol-5 pickler recording nested ObjectRefs (``contained``),
-    writing callables by reference and CUDA tensors as host tensors."""
+    writing callables by reference and tensors through numpy views."""
 
     def __init__(self, file, buffer_callback, contained):
         super().__init__(file, protocol=5, buffer_callback=buffer_callback)
@@ -170,10 +250,8 @@ class _RefPickler(pickle.Pickler):
         if isinstance(obj, (types.FunctionType, type)):
             return _reduce_callable(obj)
         torch = sys.modules.get("torch")
-        if torch is not None and isinstance(obj, torch.Tensor) and \
-                obj.device.type == "cuda":
-            host = obj.detach().to("cpu").as_subclass(torch.Tensor)
-            return host.__reduce_ex__(5)
+        if torch is not None and isinstance(obj, torch.Tensor):
+            return _reduce_tensor(torch, obj)
         return NotImplemented
 
 

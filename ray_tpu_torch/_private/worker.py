@@ -29,8 +29,6 @@ from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.runtime.interface import CoreRuntime
 
 # ROADMAP.md queue A's entries that hold the rest of JAX's cluster runtime.
-ITEM_20A_II = ("item 20a-ii (the native shared-memory object store, the "
-               "compiled DAG and serve over the cluster)")
 ITEM_20B = ("item 20b (the object plane: reference counts, lineage, "
             "spilling and locality)")
 ITEM_20C = "item 20c (runtime environments and the node agent)"

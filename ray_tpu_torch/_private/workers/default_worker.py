@@ -25,10 +25,16 @@ This process:
 * mirrors its stdout and stderr to the driver (the ``LOG`` channel) and
   reports task state changes to the GCS (``TASK_EVENT``).
 
-Left out, with the ROADMAP.md item that brings each: runtime
-environments (20c) and the compiled DAG's actor loop over the cluster
-(``__ray_dag_loop__``, 20a-ii). Results and stream items go to the node's
-dict store (the native shared-memory store is 20a-ii).
+* runs a compiled DAG's pinned loop (``__ray_dag_loop__``, JAX's
+  :600-607): the actor executes its schedule over shared-memory channels
+  (:func:`~ray_tpu_torch.experimental.channel.run_dag_loop`) until
+  teardown closes them, holding one of its concurrency slots meanwhile.
+
+A result or a streamed item over ``INLINE_RESULT_MAX`` goes into a
+shared-memory segment this process writes, registered with the node's
+store (JAX's :355, :393, :765); a smaller result rides the push reply.
+Left out, with the ROADMAP.md item that brings it: runtime environments
+(20c).
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ from ray_tpu_torch._private.ids import ActorID, TaskID
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.runtime.cluster import (INLINE_RESULT_MAX,
                                                     ClusterRuntime,
-                                                    put_bytes_to_node)
+                                                    put_to_node)
 from ray_tpu_torch._private.serialization import loads
 
 logger = logging.getLogger(__name__)
@@ -259,8 +265,10 @@ class WorkerServer:
             fast_address=self.address))
 
     # ------------------------------------------------------------- helpers
-    def _put_store(self, oid: bytes, data: bytes) -> None:
-        if not put_bytes_to_node(self.node, oid, data, self.worker_id):
+    def _put_store(self, oid: bytes, value) -> None:
+        """Store a serialized value in the node's store (a segment of this
+        process's over ``INLINE_RESULT_MAX``)."""
+        if not put_to_node(self.node, oid, value, self.worker_id):
             raise exceptions.RayTpuError(
                 f"object store rejected {oid.hex()[:12]}")
 
@@ -284,7 +292,7 @@ class WorkerServer:
                 f"{spec.name!r} returned {type(gen).__name__}")
         return drain_stream(gen, TaskID(bytes(spec.task_id)),
                             lambda oid, item: self._put_store(
-                                oid.binary(), self.runtime.dumps(item)))
+                                oid.binary(), self.runtime.serialize(item)))
 
     async def _drain_stream_async(self, agen, spec) -> int:
         from ray_tpu_torch._private.object_ref import drain_stream_async
@@ -292,7 +300,7 @@ class WorkerServer:
         return await drain_stream_async(
             agen, TaskID(bytes(spec.task_id)),
             lambda oid, item: self._put_store(oid.binary(),
-                                              self.runtime.dumps(item)))
+                                              self.runtime.serialize(item)))
 
     def _resolve_args(self, args, kwargs):
         """Top-level ObjectRef resolution (nested refs pass through)."""
@@ -320,12 +328,12 @@ class WorkerServer:
             return pb.PushTaskResult(ok=False, error=pickle.dumps(err))
         out = pb.PushTaskResult(ok=True)
         for oid, value in zip(return_ids, values):
-            data = self.runtime.dumps(value)
-            if len(data) <= INLINE_RESULT_MAX:
-                out.inline_results.append(data)
+            s = self.runtime.serialize(value)
+            if s.wire_size() <= INLINE_RESULT_MAX:
+                out.inline_results.append(s.to_bytes())
                 out.in_store.append(False)
             else:
-                self._put_store(bytes(oid), data)
+                self._put_store(bytes(oid), s)
                 out.inline_results.append(b"")
                 out.in_store.append(True)
         return out
@@ -483,11 +491,15 @@ class WorkerServer:
             _, args, kwargs = loads(spec.payload)
             args, kwargs = self._resolve_args(args, kwargs)
             if spec.method_name == "__ray_dag_loop__":
-                from ray_tpu_torch._private.worker import ITEM_20A_II
-                from ray_tpu_torch.exceptions import not_ported
+                # The compiled DAG's pinned loop: it occupies this call's
+                # turn or concurrency slot until teardown closes its
+                # channels.
+                from ray_tpu_torch.experimental.channel import run_dag_loop
 
-                raise not_ported("the compiled DAG over the cluster",
-                                 ITEM_20A_II)
+                result = run_dag_loop(runner.instance, *args)
+                out = self._package_results(result, spec.return_ids)
+                self._report_task(spec, "FINISHED")
+                return out
             method = getattr(runner.instance, spec.method_name)
             ctx_token = _context.set(_TaskCtx(
                 TaskID(bytes(spec.task_id)),

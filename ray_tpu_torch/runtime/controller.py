@@ -40,6 +40,17 @@ so the strategies differ only on the cards: a fractional replica packs
 onto a card already shared unless its deployment is SPREAD, which puts
 it on the least used card.
 
+On a cluster (the serving process is a driver of
+``ray_tpu_torch.init(address=...)``) the replicas are cluster actors the
+GCS places (:mod:`ray_tpu_torch.runtime.cluster_replica`, JAX
+``serve/api.py:1098-1101``, ``:1147-1152``): the controller takes no
+card share for them (the node hosting a replica books its card), a
+COMPACT deployment's replicas go into its PACK group and a SPREAD one's
+take the ``SPREAD`` strategy, and every routing change is written to the
+GCS and published as a route event, which handles in any process of the
+cluster read. The controller itself stays an object of the serving
+process (ROADMAP.md §C).
+
 A preemption notice (:mod:`ray_tpu_torch.checkpoint.preempt`; JAX
 ``serve/api.py:396-411``, ``:710-770``) drains the replicas on the node
 it names: every replica for ``node`` ``*``, ``""`` or ``all``, else those
@@ -105,6 +116,9 @@ from ray_tpu_torch._private.ids import NodeID
 from ray_tpu_torch._private import metrics_defs as mdefs
 from ray_tpu_torch.checkpoint import preempt as _preempt
 from ray_tpu_torch.checkpoint.plane import StoreKV, as_kv
+from ray_tpu_torch.runtime.cluster_replica import (ClusterReplica,
+                                                   cluster_core,
+                                                   publish_routes)
 from ray_tpu_torch.runtime.replica import ReplicaProcess
 from ray_tpu_torch.util import metrics as _metrics
 
@@ -351,16 +365,18 @@ class ServeController:
                 "gpus": _gpus_per_replica(opts), "retry_at": 0.0,
                 "placement": placement_strategy,
                 "autoscaling": autoscaling, "pool_cap": None}
+        on_cluster = cluster_core() is not None
         with self._lock:
             # The shares a redeploy frees count as free: the running
-            # deployment goes only once the new spec is known to fit.
+            # deployment goes only once the new spec is known to fit. On a
+            # cluster the GCS places the replicas' cards.
             use = CARDS.use()
             for r in self._replicas_of(name):
                 cards, share = self._gpu_held.get(id(r), ([], 0.0))
                 for c in cards:
                     use[c] -= share
             busy = sum(use.values())
-            if spec["gpus"] and any(
+            if spec["gpus"] and not on_cluster and any(
                     _place(use, _visible_gpus(), spec["gpus"]) is None
                     for _ in range(spec["num_replicas"])):
                 raise ValueError(
@@ -378,7 +394,7 @@ class ServeController:
         if placement_strategy == "COMPACT" and group is None:
             group = self._place_group(name, spec)
         with self._lock:
-            started = [self._start_replica(name, spec)
+            started = [self._start_replica(name, spec, group)
                        for _ in range(spec["num_replicas"])]
         try:
             if None in started:
@@ -433,9 +449,25 @@ class ServeController:
         except Exception:  # noqa: BLE001 — the runtime already went
             logger.exception("serve: removing a placement group failed")
 
-    def _start_replica(self, name: str, spec) -> Optional[ReplicaProcess]:
-        """Spawn one replica (None when its share of cards is not free
-        yet). It gets the chaos plan before its first request."""
+    def _start_replica(self, name: str, spec, group=None):
+        """Start one replica: a cluster actor on a cluster (in ``group``
+        for a COMPACT deployment), else a replica process (None when its
+        share of cards is not free yet), which gets the chaos plan before
+        its first request."""
+        if cluster_core() is not None:
+            strategy = None
+            if spec["placement"] == "COMPACT" and group is not None:
+                from ray_tpu_torch.util.scheduling_strategies import \
+                    PlacementGroupSchedulingStrategy
+
+                strategy = PlacementGroupSchedulingStrategy(
+                    placement_group=group, placement_group_bundle_index=-1)
+            elif spec["placement"] == "SPREAD":
+                strategy = "SPREAD"
+            return ClusterReplica(
+                name, spec["cls"], spec["args"], spec["kwargs"],
+                spec["is_function"], sync_workers=spec["max_concurrency"],
+                actor_options=spec["actor_options"], strategy=strategy)
         env = {"RAY_TPU_NODE_ID": self.node_id}
         cards: List[str] = []
         share = 1.0 if spec["gpus"] >= 1 else spec["gpus"]
@@ -547,6 +579,13 @@ class ServeController:
         self._loads_cache.pop(name, None)
         self._pressure_cache.pop(name, None)
         self._route_version[name] = self._route_version.get(name, 0) + 1
+        if cluster_core() is not None:
+            try:
+                publish_routes(name, self.replicas.get(name)
+                               if name in self.deployments else None)
+            except Exception:  # noqa: BLE001 — the GCS restarting
+                logger.exception("serve: publishing %s's routes failed",
+                                 name)
         for cb in list(self._listeners):
             try:
                 cb(name)
@@ -600,7 +639,8 @@ class ServeController:
                         "class_name": getattr(cls, "__name__", name),
                         "state": state if r.alive else "DEAD",
                         "name": r.replica_id, "namespace": "serve",
-                        "node_id": self.node_id, "num_restarts": 0,
+                        "node_id": r.info.get("node_id") or self.node_id,
+                        "num_restarts": 0,
                         "death_cause": ""})
         return rows
 
@@ -877,7 +917,7 @@ class ServeController:
             live += ready
             while (len(live) + len(self._starting[name])
                    < spec["num_replicas"] and now >= spec["retry_at"]):
-                r = self._start_replica(name, spec)
+                r = self._start_replica(name, spec, self._groups.get(name))
                 if r is None:
                     break             # its cards are still held
                 self._starting[name].append(r)

@@ -109,10 +109,12 @@ class Replica:
     def __init__(self, cls_or_fn, init_args, init_kwargs, is_function: bool,
                  sync_workers: int = 8):
         self.is_function = is_function
+        t0 = time.perf_counter()
         if is_function:
             self.instance = cls_or_fn
         else:
             self.instance = cls_or_fn(*init_args, **(init_kwargs or {}))
+        self._init_s = time.perf_counter() - t0
         self._ongoing = 0
         self._total = 0
         self._draining = False
@@ -288,9 +290,23 @@ class Replica:
         return True
 
     def node_id(self):
-        """The node this process runs on: the serving process's, which
+        """The node this process runs on: its cluster node's for a
+        replica that is a cluster actor, else the serving process's, which
         the controller passes in ``RAY_TPU_NODE_ID``."""
+        from ray_tpu_torch._private import worker as _worker
+
+        w = _worker.global_worker_or_none()
+        if w is not None and w.mode == "worker":
+            return w.core.node_id.hex()
         return os.environ.get("RAY_TPU_NODE_ID", "")
+
+    def info(self):
+        """``{"pid", "node_id", "cuda_visible_devices", "init_s"}`` of the
+        process hosting this replica (a cluster replica's readiness
+        answer, as a replica process's ``ready`` message)."""
+        return {"pid": os.getpid(), "node_id": self.node_id(),
+                "cuda_visible_devices": os.environ.get(
+                    "CUDA_VISIBLE_DEVICES"), "init_s": self._init_s}
 
     def capture(self, cmd):
         """A profiler capture of this process on command (the profiling

@@ -43,8 +43,16 @@ parent to it; a unary retry emits ``serve.resume``.
 A deployment with an ``autoscaling_config`` (or ``num_replicas="auto"``)
 is scaled by the controller's autoscaler (JAX ``:100-120``, ``:416-605``),
 and the chip-pool arbiter caps it through ``pool_set_replicas``
-(:mod:`ray_tpu_torch.autoscaler.arbiter`). Route changes reach handles
-by a callback, not a pubsub.
+(:mod:`ray_tpu_torch.autoscaler.arbiter`). Route changes reach the
+handles of the serving process by a callback of the controller. On a
+cluster (``ray_tpu_torch.init(address=...)``) the replicas are cluster
+actors (:mod:`ray_tpu_torch.runtime.cluster_replica`), and the controller
+also publishes each route change as an event of the GCS pubsub (JAX
+``:60-95``, ``:1436-1540``): a handle in any other process of the cluster
+subscribes on its first use and re-reads its table from the GCS KV on
+each event (a handle injected into a replica routes from the replica's
+worker); a unary call on a replica that died refreshes the table and
+retries (JAX ``:1054``, ``:1280-1290``).
 """
 
 from __future__ import annotations
@@ -98,6 +106,26 @@ def _get_controller():
         raise RuntimeError("serve is not running in this process: call "
                            "serve.run (or serve.start) first")
     return _controller
+
+
+_gcs_routes = None
+
+
+def _routes():
+    """Where this process's handles read their routing tables: the
+    controller in the serving process, else, in a process of a cluster,
+    the tables the controller wrote to the GCS."""
+    global _gcs_routes
+    if _controller is not None:
+        return _controller
+    from ray_tpu_torch.runtime.cluster_replica import GcsRoutes, cluster_core
+
+    if cluster_core() is None:
+        return _get_controller()
+    with _controller_lock:
+        if _gcs_routes is None:
+            _gcs_routes = GcsRoutes()
+        return _gcs_routes
 
 
 # ------------------------------------------------------------ role groups
@@ -217,16 +245,24 @@ class DeploymentResponseGenerator:
     when the stream dies; :meth:`close` abandons the stream, which closes
     the user's generator in the replica."""
 
-    def __init__(self, stream, per_item_timeout_s=None, replica: Any = None):
+    def __init__(self, stream, per_item_timeout_s=None, replica: Any = None,
+                 handle: Optional["DeploymentHandle"] = None):
         self._stream = stream
         self._timeout = per_item_timeout_s
         self._replica = replica
+        self._handle = handle
 
     def __iter__(self):
         return self
 
     def __next__(self):
-        return self._stream.next(self._timeout)
+        try:
+            return self._stream.next(self._timeout)
+        except exceptions.ActorDiedError:
+            # The next call through the handle re-reads the table.
+            if self._handle is not None:
+                self._handle._evict(self._replica)
+            raise
 
     def close(self) -> None:
         self._stream.close()
@@ -401,13 +437,15 @@ class DeploymentHandle:
             return
         st.subscribed = True
 
-        def on_event(name: str):
-            if name == self._name:
+        def on_event(name: Optional[str]):
+            # None: the GCS subscription was restored; anything may have
+            # changed meanwhile.
+            if name is None or name == self._name:
                 with st.lock:
                     st.dirty = True
                     st.invalidate()
 
-        _get_controller().subscribe(on_event)
+        _routes().subscribe(on_event)
 
     def _refresh(self, force: bool = False):
         self._ensure_subscribed()
@@ -415,7 +453,7 @@ class DeploymentHandle:
         if not force and not st.dirty and st.replicas and \
                 not any(r.dead for r in st.replicas):
             return
-        _, replicas = _get_controller().get_routes(self._name)
+        _, replicas = _routes().get_routes(self._name)
         with st.lock:
             changed = [id(r) for r in replicas] != \
                 [id(r) for r in st.replicas]
@@ -445,7 +483,7 @@ class DeploymentHandle:
         while not self._replicas:
             # A recovering deployment may still be starting replicas; a
             # name the controller does not know (yet) waits as JAX does.
-            known = self._name in _get_controller().list_deployments()
+            known = self._name in _routes().list_deployments()
             if time.monotonic() - t0 >= (NO_REPLICA_WAIT_S if known
                                          else UNKNOWN_DEPLOYMENT_WAIT_S):
                 break
@@ -494,7 +532,7 @@ class DeploymentHandle:
         if now - st.loads_ts < self.LOADS_TTL_S:
             return st.shared_loads
         st.loads_ts = now  # claim the slot first: no thundering herd
-        loads = list(_get_controller().get_replica_loads(self._name))
+        loads = list(_routes().get_replica_loads(self._name))
         with st.lock:
             st.shared_loads = loads
         return loads
@@ -516,7 +554,7 @@ class DeploymentHandle:
             if d and d.get("drop"):
                 return st.shared_pressure
         st.pressure_ts = now
-        snaps = list(_get_controller().get_replica_pressure(self._name))
+        snaps = list(_routes().get_replica_pressure(self._name))
         with st.lock:
             st.shared_pressure = snaps
         return snaps
@@ -577,7 +615,8 @@ class DeploymentHandle:
             stream = replica.stream(self._method, args, kwargs,
                                     self._model_id, request_ctx,
                                     on_done=_done)
-            return DeploymentResponseGenerator(stream, replica=replica)
+            return DeploymentResponseGenerator(stream, replica=replica,
+                                               handle=self)
         fut = replica.call(self._method, args, kwargs, self._model_id,
                            request_ctx)
         fut.add_done_callback(_done)
@@ -781,12 +820,13 @@ def delete(name: str) -> None:
 def shutdown() -> None:
     """Stop the ingresses and every replica process, and forget the
     controller."""
-    global _controller, _shared_router
+    global _controller, _shared_router, _gcs_routes
     stop_http()
     stop_grpc()
     with _controller_lock:
         controller, _controller = _controller, None
         _shared_router = None
+        _gcs_routes = None
     if controller is not None:
         controller.shutdown()
 

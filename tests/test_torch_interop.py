@@ -133,6 +133,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch._private.scheduler.policies\n"
         "import ray_tpu_torch._private.runtime.cluster\n"
         "import ray_tpu_torch.cluster_utils\n"
+        "import ray_tpu_torch._private.shm\n"
+        "import ray_tpu_torch._private.native_build\n"
+        "import ray_tpu_torch.runtime.cluster_replica\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_cluster_cases as cases\n"
         "bad = cases.forbidden_modules()\n"
@@ -177,6 +180,21 @@ def test_source_scan_finds_no_jax_or_ray_tpu_import():
         with open(path) as f:
             hits = pattern.findall(f.read())
         assert not hits, (path, hits)
+    # The port's C++ (the shared-memory store's copy) includes nothing of
+    # the JAX package's native/ tree or of ray_tpu: system headers only.
+    sources = [os.path.join(root, n)
+               for root, _, names in os.walk(os.path.join(REPO,
+                                                          "ray_tpu_torch"))
+               for n in names if n.endswith((".cpp", ".cc", ".h", ".hpp"))]
+    assert os.path.join(REPO, "ray_tpu_torch", "_private", "native",
+                        "shm_store.cpp") in sources
+    for path in sources:
+        with open(path) as f:
+            includes = re.findall(r'^\s*#\s*include\s*([<"][^>"]+[>"])',
+                                  f.read(), re.M)
+        assert includes, path
+        assert not [i for i in includes if i.startswith('"')
+                    or "native" in i or "ray_tpu" in i], (path, includes)
 
 
 def test_gymnasium_is_imported_only_inside_the_string_env_resolver():

@@ -314,3 +314,110 @@ class Stateful:
     def inc(self):
         self.n += 1
         return self.n
+
+
+# ------------------------------------------------ serve over the cluster
+# Deployment classes of ``test_torch_serve_cluster.py`` (each replica, a
+# cluster actor, imports its class by name).
+class Echo:
+    def __call__(self, x):
+        return x
+
+
+class Worky:
+    def __call__(self, x):
+        return x * 2
+
+
+class WhereNode:
+    def __call__(self, _):
+        import ray_tpu_torch as rt
+
+        return rt.get_runtime_context().get_node_id()
+
+
+class SlowAsync:
+    async def __call__(self, x):
+        await asyncio.sleep(0.5)
+        return x
+
+
+class Doubler:
+    def __call__(self, x):
+        return x * 2
+
+
+class Chain:
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __call__(self, x):
+        return self.inner.remote(x).result(timeout_s=30) + 1
+
+
+class CardWhere:
+    """Where a replica that asked for a card runs: its process, node and
+    ``CUDA_VISIBLE_DEVICES`` (it touches no card)."""
+
+    def __call__(self, _):
+        import ray_tpu_torch as rt
+
+        return {"pid": os.getpid(),
+                "node_id": rt.get_runtime_context().get_node_id(),
+                "cuda_visible_devices": os.environ.get(
+                    "CUDA_VISIBLE_DEVICES")}
+
+
+def big_stream(n, size):
+    """A stream of ``n`` items of ``size`` bytes each (an item over the
+    inline bound goes through a segment)."""
+    for i in range(n):
+        yield np.full(size, i, dtype=np.uint8)
+
+
+def bump(x):
+    """``x`` written in place, plus one: a task that writes its
+    argument."""
+    x.add_(1)
+    return x
+
+
+def view_info(x):
+    """Whether a value a task got is a view of a store segment's mapping:
+    an array's ``writeable`` flag (a tensor has none: None), whether its
+    first byte lies in the mapping, and its sum."""
+    if hasattr(x, "data_ptr"):       # a tensor
+        return {"writeable": None, "in_segment": in_segment(x),
+                "sum": float(x.float().sum())}
+    return {"writeable": bool(x.flags.writeable),
+            "in_segment": in_segment(x),
+            "sum": float(np.asarray(x, dtype=np.float64).sum())}
+
+
+def in_segment(arr) -> bool:
+    """Whether the first byte of ``arr`` (an array or a tensor) lies in a
+    mapping of a store segment (``/dev/shm/rtst-*``) of this process
+    (``/proc/self/maps``)."""
+    addr = arr.data_ptr() if hasattr(arr, "data_ptr") else \
+        arr.__array_interface__["data"][0]
+    with open("/proc/self/maps") as f:
+        for line in f:
+            fields = line.split()
+            if len(fields) >= 6 and "/dev/shm/rtst-" in fields[5]:
+                lo, hi = (int(v, 16) for v in fields[0].split("-"))
+                if lo <= addr < hi:
+                    return True
+    return False
+
+
+class Adder:
+    """The compiled-DAG stage of ``test_torch_dag_cluster.py``."""
+
+    def __init__(self, offset):
+        self.offset = offset
+
+    def forward(self, x):
+        return x + self.offset
+
+    def ident(self, x):
+        return x
