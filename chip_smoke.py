@@ -54,8 +54,8 @@ Phases, any failure exits non-zero with no result line:
 9. kernel vs plain inside the model: Llama-3-8B widths at 2 layers in
    fp32, one sequence of 512 tokens: loss_fn and every param leaf's grad
    with the kernels and with ``attention_kernel=False``;
-10. end to end, training: ``ShardedTrainer`` on Llama-3-8B widths at 16 of
-   its 32 layers (bf16, remat "full"), a 2 x 2048-token batch from
+10. end to end, training: ``ShardedTrainer`` on Llama-3-8B widths at 8 of
+   its 32 layers (cut from 16, "Time" below; bf16, remat "full"), a 2 x 2048-token batch from
    ``synthetic_batch`` seed 0, ``default_optimizer(warmup_steps=5,
    total_steps=1000)``, 12 steps on that batch: every loss finite, the
    last below the first and below TRAIN["last_loss_below"], and per step
@@ -127,9 +127,10 @@ Phases, any failure exits non-zero with no result line:
 19. speculative serving: phase 5's model, weights and requests through
    ``ContinuousBatcher(spec_k=4, spec_adaptive=False)``: self-draft with
    the default 8 of 32 layers on a bf16 arena, on an int8 arena (4
-   requests), with ``sync_every=4``; an external drafter at Llama-3.2-1B's
-   published widths (``DRAFTER``, random weights from seed 1; its steps
-   run the dense kernel); and JAX's default, adaptive k. Each request
+   requests), with ``sync_every=4`` (4 requests, cut from 12); an external
+   drafter at Llama-3.2-1B's published widths (``DRAFTER``, random
+   weights from seed 1; its steps run the dense kernel); and JAX's
+   default, adaptive k (4 requests, cut from 12). Each request
    must return 32 in-vocab tokens, spec ticks must run, and the kernels
    must launch as ``want_launches`` says (per spec tick at rung k: (k + 1)
    x 32 paged in verify, k x 8 paged in the self-draft or k x 16 dense in
@@ -185,8 +186,8 @@ Phases, any failure exits non-zero with no result line:
    9's limits; the kernel run must launch fwd, dq and dk/dv; prints
    ``aux_loss`` and each layer's ``dropped_fraction`` (``moe.moe_layer``
    on that layer's input);
-24. end to end, Mixtral training: Mixtral-8x7B widths at 4 of its 32
-   layers (6.07 B params, bf16, remat "full"), a 2 x 2048-token batch
+24. end to end, Mixtral training: Mixtral-8x7B widths at 2 of its 32
+   layers (cut from 4; bf16, remat "full"), a 2 x 2048-token batch
    from ``synthetic_batch`` seed 0, ``default_optimizer(warmup_steps=5,
    total_steps=1000)`` applied with ``AdamW.apply_``, ``mixtral.loss_fn``
    (aux_coeff 0.02) under ``llama.fp32_reduction``, 12 steps on that
@@ -230,7 +231,7 @@ Phases, any failure exits non-zero with no result line:
    forward and forward-and-backward timed alone, times the layers, over
    the profiled step's device time) beside phase 25's;
 27. Mixtral on the mesh, inside phase 25's NCCL group: phase 24's run
-   (Mixtral-8x7B widths, 4 of 32 layers, bf16, remat "full", phase 10's
+   (Mixtral-8x7B widths, 2 of 32 layers, bf16, remat "full", phase 10's
    batch, 12 steps) with the params placed on ``make_mesh(MeshConfig())``
    by ``mixtral.logical_axes``, its loss and grads through the
    expert-parallel layer (``moe.moe_layer`` on a DeviceMesh), each grad
@@ -325,8 +326,9 @@ Phases, any failure exits non-zero with no result line:
    under the replica's label, 12 more ``SERVE_REQ_TTFT`` observations,
    ``CB_DECODE_TOKENS`` grown by the tokens streamed less the 12 first
    tokens (the prefill's), ``CB_PREFILL_TOKENS`` by the prompts' tokens;
-   num_layers B4 launches a tick. Then four bursts of the same 12
-   prompts (prefix-cached now) with tracing off, on, on, off, toggled in
+   num_layers B4 launches a tick. Then two bursts of the same 12
+   prompts (prefix-cached now) with tracing off, then on (off, on, on,
+   off before the cut), toggled in
    both processes: the tick ms and TTFT p50 of each mode (metrics stay
    on; ``[observe-cost]``), and the spans and samples the serving
    process pulled per request. Every replica process has exited and its memory is back
@@ -336,12 +338,12 @@ Phases, any failure exits non-zero with no result line:
    num_workers=1, use_gpu=True))``, one worker process that owns the
    card (``CUDA_VISIBLE_DEVICES``) and runs ``controller_loop``: the
    batch through ``DevicePrefetcher`` (pinned memory, a side stream),
-   ``AsyncStepLoop(sync_every=4)``, a checkpoint-plane save at step 8
-   of its 20 (``train.get_checkpoint_plane()``), a report a step; a
-   chaos ``kill_worker`` at step 12's report ends the process; the
-   controller classifies it ``worker_lost``, tears the group down and
-   spawns a new worker, which restores the newest committed manifest
-   (step 8) and trains to the end. Gates: every loss from the restored
+   ``AsyncStepLoop(sync_every=4)``, a checkpoint-plane save at step 4
+   of its 12 (``train.get_checkpoint_plane()``; 8 of 20 before the cut), a
+   report a step; a chaos ``kill_worker`` at step 8's report ends the
+   process; the controller classifies it ``worker_lost``, tears the
+   group down and spawns a new worker, which restores the newest
+   committed manifest (step 4) and trains to the end. Gates: every loss from the restored
    step on equals, bit for bit, the same loop run in this process
    without the controller; every loss finite and the run's falling; the
    restored step the newest committed before the kill;
@@ -349,8 +351,8 @@ Phases, any failure exits non-zero with no result line:
    trace's children tiling ``TRAIN_RECOVERY_SECONDS``' value; the
    goodput fractions summing to 1; 2 L / L / L flash launches a step,
    counted in the worker. Prints the step ms (the median of the
-   windows after each attempt's first that hold no save: three in the
-   worker, four in this process) beside the in-process loop's, the
+   windows after each attempt's first that hold no save: one in the
+   worker, two in this process) beside the in-process loop's, the
    recovery seconds and their phases (teardown, backoff,
    reacquire, restore, first step), the blocked ms of each save and the
    goodput fractions. ``--train-controller`` runs this phase alone
@@ -577,7 +579,7 @@ Phases, any failure exits non-zero with no result line:
    back within ``CLUSTER["mem_slack_gib"]``. Prints ``init_s``, TTFT p50
    and tick ms beside phase 37's (the yardstick's under ``--cluster``),
    the restart seconds and the launches. ``--cluster`` runs this phase
-   and phase 43 alone after phase 37's yardstick.
+   and phases 43-44 alone after phase 37's yardstick.
 43. the rest of the cluster runtime (ROADMAP item 20a-ii), on phase 42's
    cluster before its teardown. ``[cluster-store]``: the free bytes of
    ``/dev/shm``; the driver ``put``s a host tensor of ``[128256, 4096]``
@@ -609,8 +611,53 @@ Phases, any failure exits non-zero with no result line:
    first score bit for bit); one replica's worker
    SIGKILLed and the next stream through the handle passing the gate
    after its refresh-and-retry (seconds from the kill to its first
-   token); TTFT p50 and tick ms beside phase 42's.
-   ``[cluster-teardown]`` (phase 42's, after ``serve.shutdown()``).
+   token); TTFT p50 and tick ms beside phase 42's. With the reference
+   counts, no explicit free anywhere keeps the stores' count down.
+44. the trainer and the object plane on phase 42's cluster (ROADMAP fault
+   C9 and item 20b), after ``serve.shutdown()``. ``[cluster-train]``:
+   ``TorchTrainer(ScalingConfig(num_workers=1, use_gpu=True))`` runs
+   phase 34's model (Llama-3-8B widths at CKPT["layers"] layers, bf16,
+   phase 10's optimizer and batch) for CLUSTER_OBJ["train_steps"] steps
+   from init in a cluster actor the GCS places on the card node (its
+   node id, pid and ``CUDA_VISIBLE_DEVICES`` printed). Gates: the losses
+   equal phase 34's in-process first steps bit for bit (under
+   ``--cluster`` the same loop runs here first); B1/B2/B3 counted in the
+   worker at 2 L / L / L a step; ``CARDS.use()`` the same before, during
+   and after; the card node's available GPU 0 in the GCS during the run
+   and 1 after. Prints the step ms beside phase 34's and the seconds from
+   ``fit()`` to the first report. ``[cluster-refcount]``: the node stores'
+   object count back at its count before phase 42's streams without any
+   ``free`` (within CLUSTER_OBJ["refcount_s"]); a 1.05 GB ``put`` of
+   phase 43's tensor dropped with ``del`` and its segment gone from
+   ``/dev/shm`` within CLUSTER_OBJ["del_gone_s"] (the seconds printed).
+   ``[cluster-lineage]``: a CPU node (``resources={"pin": 1}``) added; a
+   task with a soft affinity to it returns 64 MB of fp32 drawn from seed
+   44 on the CPU; the node removed ungracefully; ``get`` rebuilds the
+   value from its lineage on another node, equal bit for bit to the same
+   draw here (the seconds from the ``get`` to the value printed).
+   ``[cluster-spill]``: a node whose store budget
+   (``RAY_TPU_OBJECT_STORE_BYTES`` set while it is built) holds one
+   ``[128256, 4096]`` bf16 tensor but not two, its spill directory under
+   a scratch dir checked for three tensors' disk space; an actor pinned
+   there puts three such tensors, their bytes drawn from seeds 45-47; at
+   least two spill during the puts, and the driver gets all three back
+   bit for bit (spill and restore GB/s printed). ``[cluster-locality]``,
+   between the puts and the gets: a CPU task given the first tensor runs
+   on the spill node, which holds it, not on the head.
+   ``[cluster-teardown]`` (phase 42's, after phase 44): also nothing left
+   in the spill directory.
+
+Time: a run may take 1,200 s, and hosts differ ~1.4x in every
+host-bound phase. Phase 44 came with cuts of depth inside paths to
+pay for it: phases 10, 25 and 26c train 8 of Llama-3-8B's 32 layers (16
+before), phases 24 and 27 2 of Mixtral's (4 before), phase 34 takes 12
+steps with its save at 4 and its kill at 8 (20, 8 and 12 before), phase
+19's buffered and adaptive runs serve 4 requests (12 before), phase 33
+times two bursts (four before), phase 41a's second replica serves 6
+streams before the load goes off (12 before) and phase 35's capture
+lasts 1 s (2 before). Earlier phases were paid for by cutting the
+checkpoint model of phases 28, 34, 38 and 39 to one layer and phase 35
+to two rounds.
 
 Phases 23-24 run before phases 25-28 (27 compares with 24), phases
 11-12 after phases 3-4; 13, 15, 17, 18, 19 and 21 inside
@@ -647,7 +694,8 @@ its first burst, counted in its worker, and the flash forward's
 ``cluster_serve_launches`` are phase 43's two serve replicas' (cluster
 actors) over the 12 streams, counted in their workers, and the flash
 forward's ``cluster_dag_launches`` phase 43's 12 scores through the
-compiled DAG over the cluster; the
+compiled DAG over the cluster; the flash entries' ``cluster_train_launches``
+are phase 44's cluster worker's over its steps; the
 paged entry's ``graph_launches`` are phase 40's Llama replica's over the
 HTTP burst through the graph and its ``workflow_launches`` over the
 workflow's first run, whose scoring step gives the flash forward's
@@ -770,13 +818,13 @@ FLASH_REPLACES = {"fwd": "ray_tpu/ops/attention.py:74",
 # summation order, carried through two layers).
 MODEL_LOSS_RTOL = 1e-5
 MODEL_GRAD_TOL = 1e-4
-TRAIN = dict(layers=16, batch=2, seq=2048, steps=12, warmup=5, total=1000,
+TRAIN = dict(layers=8, batch=2, seq=2048, steps=12, warmup=5, total=1000,
              last_loss_below=0.5)
 # Phases 23-24: Mixtral-8x7B's published widths (MixtralConfig.mixtral_8x7b)
 # cut in depth: 2 layers in fp32 for parity (3.16 B params, 12.7 GB, and
-# as much again of grads a run); 4 of 32 layers in bf16 for training (6.07
-# B params: params, grads and both bf16 moments take 48.5 GB; 6 layers
-# would take 71.8 GB before activations).
+# as much again of grads a run); 2 of 32 layers in bf16 for training too
+# since phase 44 came (4 before, 6.07 B params: params, grads and both bf16
+# moments took 48.5 GB; 6 layers would take 71.8 GB before activations).
 # Phase 25: the sharded trainer on a one-rank mesh; its tiny fp32 parity
 # model takes the flash path (head dim 128).
 SHARDED = dict(tol=1e-5, peak_gib=70.0, parity_steps=2)
@@ -811,7 +859,7 @@ MESH_CHECK = dict(world=4, parity_steps=3, batch=8, layouts=[
                                               8192)],
     steps=8)
 MIXTRAL_PARITY = dict(layers=2, seq=512)
-MIXTRAL_TRAIN = dict(layers=4, batch=2, seq=2048, steps=12, warmup=5,
+MIXTRAL_TRAIN = dict(layers=2, batch=2, seq=2048, steps=12, warmup=5,
                      total=1000, peak_gib=70.0)
 # Phase 28: ShardedTrainer at Llama-3-8B widths cut to 1 layer (1.27 B
 # params; bf16 params and both bf16 moments, 7.6 GB a saved step), phase
@@ -1519,9 +1567,11 @@ def spec_serving(torch, cfg, params, prompts, outputs, card):
     for name, ps, kw, against in [
             ("self-bf16", prompts, fixed, "bf16"),
             ("self-int8", prompts[:4], dict(fixed, kv_dtype="int8"), "int8"),
-            ("self-buffered", prompts, dict(fixed, sync_every=4), "bf16"),
+            ("self-buffered", prompts[:4], dict(fixed, sync_every=4),
+             "bf16"),
             ("external", prompts, dict(fixed, drafter=None), "bf16"),
-            ("adaptive", prompts, dict(spec_k=fixed["spec_k"]), "bf16")]:
+            ("adaptive", prompts[:4], dict(spec_k=fixed["spec_k"]),
+             "bf16")]:
         if "drafter" in kw:
             # Made for its run alone, so the other runs' peak memory
             # leaves its 2.9 GB of weights out.
@@ -3820,13 +3870,14 @@ def mesh_ckpt(torch, rank, device):
 # kill_step's report, in the window after the save's, so the save's
 # window is reported whole. The steps after the restore give the
 # worker's step time three windows without a save.
-CONTROLLER = dict(steps=20, sync_every=4, save_step=8, kill_step=12)
+CONTROLLER = dict(steps=12, sync_every=4, save_step=4, kill_step=8)
 
 
 def controller_steps(torch, trainer, state, start, plane=None,
-                     on_window=None):
+                     on_window=None, steps=None):
     """Phase 34's loop, in the worker and (with no ``plane``) in this
-    process: steps ``start`` to CONTROLLER["steps"] on phase 10's batch
+    process: steps ``start`` to ``steps`` (CONTROLLER["steps"] by
+    default; phase 44 runs 4) on phase 10's batch
     through DevicePrefetcher and AsyncStepLoop. ``on_window(records)``
     gets each synced window's records, one a step: loss, grad norm, the
     window's ms a step, its flash launches a step, and whether a save
@@ -3843,7 +3894,7 @@ def controller_steps(torch, trainer, state, start, plane=None,
                                        trainer.config.vocab_size, steps=1))
 
     def batches():
-        for _ in range(start, c["steps"]):
+        for _ in range(start, steps or c["steps"]):
             yield {k: v.copy() for k, v in host.items()}
 
     loop = AsyncStepLoop(trainer, state, sync_every=c["sync_every"],
@@ -4277,7 +4328,7 @@ RL = dict(layers=2, replicas=2, num_slots=8, max_len=1024, rounds=2,
           prompts=8, prompt_cap=512, max_new=32, lr=1e-5, rho_clip=2.0,
           publish_timeout_s=5.0, converge_s=60.0, kill_round=1,
           kill="kill_replica:phase=decode,token=2", greedy_prompts=(8, 9),
-          capture_s=2.0, b4_kernels=("paged_split_kernel",
+          capture_s=1.0, b4_kernels=("paged_split_kernel",
                                      "split_combine_kernel"))
 RL_NAME = "rl-llm"
 RL_RUN = "chip-rl"
@@ -6057,7 +6108,7 @@ def series_sum(text, name, **labels):
 # The warm bursts' tracing modes, alternated so the host clock's drift
 # falls on both; the TTFT split's tolerance (JAX's,
 # tests/test_serve_request_tracing.py:47-60).
-OBSERVE = dict(modes=(False, True, True, False), ttft_rel=0.10,
+OBSERVE = dict(modes=(False, True), ttft_rel=0.10,
                ttft_abs_s=5e-3)
 OBSERVE_SPANS = ("serve.ingress", "serve.route", "engine.queue",
                  "engine.prefill", "engine.decode_window")
@@ -7572,7 +7623,7 @@ def graph_phase(torch, card, prompts, phase29):
 
 # Phase 41: the serve autoscaler (41a) and the card-pool arbiter (41b) on
 # one card; --mesh-check pool: the arbiter over four whole cards.
-AUTOSCALE = dict(name="as-llm", streams=24, new=32, second_served=12,
+AUTOSCALE = dict(name="as-llm", streams=24, new=32, second_served=6,
                  cap_hold_s=3.0, up_s=600,
                  config=dict(min_replicas=1, max_replicas=2,
                              target_queue_depth=4.0,
@@ -8373,8 +8424,9 @@ def cluster_burst(rt, torch, cfg, actor, prompts, want, what):
     return outs, st
 
 
-def cluster_phase(torch, card, prompts, phase29, core=None):
-    """Phase 42: the cluster runtime on the card (module docstring)."""
+def cluster_phase(torch, card, prompts, phase29, core=None, controller=None):
+    """Phase 42: the cluster runtime on the card (module docstring);
+    phases 43 and 44 run on its cluster before its teardown."""
     import signal
 
     import ray_tpu_torch as rt
@@ -8434,7 +8486,9 @@ def cluster_phase(torch, card, prompts, phase29, core=None):
         fail(f"phase 42: the actor runs at {where}, not in a worker the "
              f"card node forked for card 0")
 
-    # 3. 12 streams through ObjectRefGenerators, held to phase 29.
+    # 3. 12 streams through ObjectRefGenerators, held to phase 29 (phase
+    # 44 holds the stores to their count from before them).
+    objects_before_streams = _store_objects(cluster)
     list(cluster_stream(rt, actor, prompts[0][:16], 2))     # warm-up
     outs, st = cluster_burst(rt, torch, cfg, actor, prompts, want,
                              "phase 42")
@@ -8525,8 +8579,14 @@ def cluster_phase(torch, card, prompts, phase29, core=None):
         rt=rt, cluster=cluster, card_node=card_node, actor=actor, cfg=cfg,
         prompts=prompts, want=want, scores42=scores42, st42=st))
 
-    # 7. teardown: no child, no runtime thread, no segment, the card back.
     tserve.shutdown()
+    # Phase 44 on this cluster.
+    p44 = timed("phase 44", cluster_object_phase, torch, card, dict(
+        rt=rt, cluster=cluster, card_node=card_node, controller=controller,
+        controller_losses=(controller or {}).get("inprocess_losses"),
+        objects_before_streams=objects_before_streams))
+
+    # 7. teardown: no child, no runtime thread, no segment, the card back.
     core_rt = rt._private.worker.global_worker().core
     del actor, found
     rt.shutdown()
@@ -8545,13 +8605,17 @@ def cluster_phase(torch, card, prompts, phase29, core=None):
             CLUSTER["mem_slack_gib"] * 2**30:
         time.sleep(0.2)
     free1 = mem(torch, "phase 42 end")
+    spill_root = p44["spill_root"]
+    spill_left = sorted(os.listdir(spill_root))
+    shutil.rmtree(spill_root, ignore_errors=True)
     down = dict(new_segments=sorted(set(shm_segments()) - segs0),
                 runtime_threads=runtime_left, threads=threads_left,
                 free_gib_start=free0 / 2**30, free_gib_end=free1 / 2**30,
-                open_connections=len(rpc._conns), card=card)
+                open_connections=len(rpc._conns), spill_dir_left=spill_left,
+                card=card)
     print(f"[cluster-teardown] {json.dumps(down)}")
     if down["new_segments"] or runtime_left or threads_left or \
-            free1 < free0 - CLUSTER["mem_slack_gib"] * 2**30:
+            spill_left or free1 < free0 - CLUSTER["mem_slack_gib"] * 2**30:
         fail(f"phase 42 teardown left {down}")
     stop_processes()
     print(f"[cluster] launches B4 {st['launches']['paged']} over "
@@ -8561,7 +8625,7 @@ def cluster_phase(torch, card, prompts, phase29, core=None):
     return dict(b4_launches=st["launches"]["paged"],
                 b1_scoring_launches=score_st["b1_launches"], actor=st,
                 score=score_st, gcs_restart=st2, kill=kill_st,
-                teardown=down, phase43=p43)
+                teardown=down, phase43=p43, phase44=p44)
 
 
 # ------------------------------ phase 43: the rest of the cluster runtime
@@ -8836,6 +8900,369 @@ def cluster_rest_phase(torch, card, ctx):
                 b1_dag_launches=dag["b1_launches"])
 
 
+# ------------------------- phase 44: the trainer and the object plane on
+# phase 42's cluster (ROADMAP fault C9 and item 20b).
+# [cluster-train]'s steps; [cluster-refcount]'s wait for the stores to
+# empty and for the dropped put's segment; [cluster-lineage]'s tensor (64 MB
+# of fp32) and seed; [cluster-spill]'s seeds, each one tensor of phase 43's
+# embedding shape, and the spill node's store budget: one tensor (1.05 GB)
+# fits, two do not, and one stays under the high-water mark.
+CLUSTER_OBJ = dict(train_steps=4, refcount_s=30.0, del_gone_s=5.0,
+                   lineage_elems=16 << 20, lineage_seed=44,
+                   spill_seeds=(45, 46, 47), spill_budget=int(1.25e9))
+
+
+def cluster_train_loop(config):
+    """Phase 44's train loop, in a cluster actor the GCS placed on the
+    card node: phase 34's model, batch and loop from init for
+    ``config["steps"]`` steps, each record with the worker's node, pid and
+    ``CUDA_VISIBLE_DEVICES`` and the wall time it went out."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private import worker as worker_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    w = worker_mod.global_worker_or_none()
+    where = dict(pid=os.getpid(), cuda_visible_devices=os.environ.get(
+                     "CUDA_VISIBLE_DEVICES"),
+                 node_id=w.core.node_id.hex() if w is not None else "",
+                 device=torch.cuda.get_device_name(0))
+    trainer = _ckpt_trainer()
+    state = trainer.init_state(0)
+
+    def report(recs):
+        for r in recs:
+            train.report(dict(r, ts=time.time(), **where))
+
+    controller_steps(torch, trainer, state, 0, None, report,
+                     steps=config["steps"])
+
+
+def lineage_tensor(seed, n):
+    """``[cluster-lineage]``'s task: the node it ran on and n fp32 values
+    drawn from ``seed`` on the CPU."""
+    import torch
+
+    import ray_tpu_torch as rt
+
+    g = torch.Generator().manual_seed(seed)
+    return dict(node_id=rt.get_runtime_context().get_node_id(),
+                tensor=torch.randn(n, generator=g))
+
+
+def spill_tensor(seed, shape):
+    """A bf16 tensor of ``shape`` whose bytes ``seed`` draws (numpy's
+    generator: the same bits in any process, at GB/s)."""
+    import torch
+
+    n = shape[0] * shape[1] * 2
+    raw = np.random.default_rng(seed).bytes(n)
+    return torch.frombuffer(bytearray(raw), dtype=torch.bfloat16).reshape(
+        shape)
+
+
+class SpillPutter:
+    """``[cluster-spill]``'s actor on the small-store node: puts its
+    tensors and keeps their refs for its life."""
+
+    def __init__(self):
+        self.refs = []
+
+    def put_all(self, seeds, shape):
+        import ray_tpu_torch as rt
+
+        t0 = time.perf_counter()
+        for s in seeds:
+            self.refs.append(rt.put(spill_tensor(s, shape)))
+        return list(self.refs), time.perf_counter() - t0
+
+
+def arg_node(x):
+    """``[cluster-locality]``'s task: the node it ran on and its
+    argument's shape."""
+    import ray_tpu_torch as rt
+
+    return rt.get_runtime_context().get_node_id(), list(x.shape)
+
+
+def core_actors(rt):
+    """The GCS's actor table (every namespace)."""
+    from ray_tpu_torch._private import messages as pb
+
+    core = rt._private.worker.global_worker().core
+    return list(core.gcs.ListActors(pb.ListActorsRequest(
+        all_namespaces=True)).actors)
+
+
+def _store_objects(cluster):
+    return sum(n.store_stats()[1] for n in cluster.nodes)
+
+
+def cluster_train(torch, card, ctx):
+    """Phase 44's ``[cluster-train]`` (module docstring)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.runtime.controller import CARDS
+
+    steps, L = CLUSTER_OBJ["train_steps"], CKPT["layers"]
+    per_step = {"fwd": 2 * L, "dq": L, "dkv": L}
+    want = ctx["controller_losses"]
+    if want is None:
+        # No phase 34 in this run (--cluster): its loop here, as it runs
+        # there.
+        trainer = _ckpt_trainer()
+        recs = []
+        controller_steps(torch, trainer, trainer.init_state(0), 0, None,
+                         recs.extend, steps=steps)
+        want = [r["loss"] for r in recs]
+        del trainer, recs
+        gc.collect()
+        torch.cuda.empty_cache()
+    want = want[:steps]
+    card_node = ctx["card_node"]
+
+    def card_gpu():
+        return [n["Available"].get("GPU") for n in rt.nodes()
+                if n["NodeID"] == card_node.node_id]
+
+    # Serve's replicas and phase 42's actor are gone: the card is free.
+    deadline = time.monotonic() + 60
+    while card_gpu() != [1.0] and time.monotonic() < deadline:
+        time.sleep(0.1)
+    if card_gpu() != [1.0]:
+        fail(f"phase 44 train: the card node's available GPU reads "
+             f"{card_gpu()} before the run (actors: "
+             f"{[(a.name, a.state, a.node_id[:8]) for a in core_actors(rt)]})")
+    book0 = CARDS.use()
+    seen, stop = [], threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            gpu = [n["Available"].get("GPU") for n in rt.nodes()
+                   if n["NodeID"] == card_node.node_id]
+            seen.append((gpu[0] if gpu else None, CARDS.use()))
+            time.sleep(0.1)
+
+    watcher = threading.Thread(target=watch, name="phase44-watch")
+    gpu_before = card_gpu()
+    tmp, _ = _scratch_dir(1 << 30, "phase 44 train")
+    watcher.start()
+    try:
+        t0 = time.time()
+        result = train.TorchTrainer(
+            cluster_train_loop, train_loop_config={"steps": steps},
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(name="phase44",
+                                       storage_path=tmp)).fit()
+        fit_s = time.time() - t0
+    finally:
+        stop.set()
+        watcher.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if result.error is not None:
+        fail(f"phase 44 train: fit failed: {result.error!r}")
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and card_gpu() != [1.0]:
+        time.sleep(0.1)
+    gpu_after = card_gpu()
+    recs = [h["metrics"] for h in result.metrics_history]
+    got = [r["loss"] for r in recs]
+    where = {(r["node_id"], r["pid"], r["cuda_visible_devices"])
+             for r in recs}
+    launches = {k: sum(r["launches"][k] for r in recs) for k in per_step}
+    ref34 = ctx["controller"] or {}
+    st = dict(steps=len(recs), losses=got, inprocess_losses=want,
+              bitwise_equal=got == want,
+              worker=[dict(node_id=n, pid=p, cuda_visible_devices=c)
+                      for n, p, c in where],
+              card_node=card_node.node_id,
+              step_ms=float(np.median([r["step_ms"] for r in recs])),
+              beside=dict(what="phase 34's worker (median after its "
+                               "first window) and in-process loop",
+                          step_ms=ref34.get("step_ms"),
+                          inprocess_step_ms=ref34.get("inprocess_step_ms")),
+              fit_to_first_report_s=min(r["ts"] for r in recs) - t0,
+              fit_s=fit_s,
+              card_gpu_available_before=gpu_before,
+              card_gpu_available_during=min(g for g, _ in seen
+                                            if g is not None),
+              card_gpu_available_after=gpu_after,
+              cards_book=[book0, sorted({json.dumps(b, sort_keys=True)
+                                         for _, b in seen}), CARDS.use()],
+              launches=launches, launches_per_step=per_step, card=card)
+    print(f"[cluster-train] {json.dumps(st)}")
+    if got != want:
+        print(f"[cluster-finding] the cluster worker's losses {got} differ "
+              f"from the in-process loop's {want}")
+    if len(recs) != steps or got != want or len(where) != 1 or \
+            next(iter(where))[0] != card_node.node_id or \
+            next(iter(where))[2] != "0" or \
+            next(iter(where))[1] == os.getpid() or \
+            any(r["launches"] != per_step for r in recs) or \
+            st["card_gpu_available_during"] != 0.0 or gpu_after != [1.0] or \
+            any(b != book0 for _, b in seen) or CARDS.use() != book0:
+        fail(f"phase 44 train: {st}")
+    return st
+
+
+def cluster_refcount(torch, card, ctx):
+    """Phase 44's ``[cluster-refcount]`` (module docstring)."""
+    rt, cluster = ctx["rt"], ctx["cluster"]
+    before = ctx["objects_before_streams"]
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + CLUSTER_OBJ["refcount_s"]
+    while _store_objects(cluster) > before and time.monotonic() < deadline:
+        time.sleep(0.1)
+    empty_s = time.perf_counter() - t0
+    after = _store_objects(cluster)
+    shape = CLUSTER_REST["store_shape"]
+    gen = torch.Generator(device="cuda").manual_seed(
+        CLUSTER_REST["store_seed"])
+    host = torch.randn(*shape, dtype=torch.bfloat16, device="cuda",
+                       generator=gen).cpu()
+    torch.cuda.empty_cache()
+    ref = rt.put(host)
+    seg = f"rtst-{ref.id().hex()}"
+    there = seg in os.listdir("/dev/shm")
+    del host, ref
+    gc.collect()
+    t0 = time.perf_counter()
+    while seg in os.listdir("/dev/shm") and \
+            time.perf_counter() - t0 < CLUSTER_OBJ["del_gone_s"]:
+        time.sleep(0.01)
+    gone_s = time.perf_counter() - t0
+    gone = seg not in os.listdir("/dev/shm")
+    st = dict(objects_before_phase42_streams=before, objects_now=after,
+              wait_s=empty_s, put_segment_made=there,
+              del_to_segment_gone_s=gone_s, segment_gone=gone,
+              bytes=shape[0] * shape[1] * 2, card=card)
+    print(f"[cluster-refcount] {json.dumps(st)}")
+    if after > before or not there or not gone:
+        fail(f"phase 44 refcount: {st}")
+    return st
+
+
+def cluster_lineage(torch, card, ctx):
+    """Phase 44's ``[cluster-lineage]`` (module docstring)."""
+    from ray_tpu_torch._private import messages as pb
+    from ray_tpu_torch.util.scheduling_strategies import \
+        NodeAffinitySchedulingStrategy
+
+    rt, cluster = ctx["rt"], ctx["cluster"]
+    core = rt._private.worker.global_worker().core
+    node = cluster.add_node(num_cpus=2, resources={"pin": 1.0})
+    cluster.wait_for_nodes()
+    n, seed = CLUSTER_OBJ["lineage_elems"], CLUSTER_OBJ["lineage_seed"]
+    task = rt.remote(num_cpus=1, scheduling_strategy=(
+        NodeAffinitySchedulingStrategy(node.node_id, soft=True)))(
+        lineage_tensor)
+    ref = task.remote(seed, n)
+    rt.wait([ref], num_returns=1, timeout=300, fetch_local=False)
+    locs = list(core.gcs.GetObjectLocations(pb.GetObjectLocationsRequest(
+        object_id=ref.binary())).node_ids)
+    want = torch.randn(n, generator=torch.Generator().manual_seed(seed))
+    cluster.remove_node(node, allow_graceful=False)
+    t0 = time.perf_counter()
+    got = rt.get(ref, timeout=300)
+    rebuild_s = time.perf_counter() - t0
+    st = dict(bytes=n * 4, first_locations=locs, removed=node.node_id,
+              rebuilt_on=got["node_id"], get_to_value_s=rebuild_s,
+              bitwise_equal=bool(torch.equal(got["tensor"], want)),
+              card=card)
+    print(f"[cluster-lineage] {json.dumps(st)}")
+    if locs != [node.node_id] or got["node_id"] == node.node_id or \
+            not st["bitwise_equal"]:
+        fail(f"phase 44 lineage: {st}")
+    del got, ref
+    return st
+
+
+def cluster_spill(torch, card, ctx):
+    """Phase 44's ``[cluster-spill]`` and ``[cluster-locality]`` (module
+    docstring)."""
+    from ray_tpu_torch.util.scheduling_strategies import \
+        NodeAffinitySchedulingStrategy
+
+    rt, cluster = ctx["rt"], ctx["cluster"]
+    core = rt._private.worker.global_worker().core
+    shape = CLUSTER_REST["store_shape"]
+    nbytes = shape[0] * shape[1] * 2
+    seeds = CLUSTER_OBJ["spill_seeds"]
+    spill_root, free = _scratch_dir(int(1.2 * len(seeds) * nbytes),
+                                    "phase 44 spill")
+    spill_dir = os.path.join(spill_root, "spill")
+    old = os.environ.get("RAY_TPU_OBJECT_STORE_BYTES")
+    os.environ["RAY_TPU_OBJECT_STORE_BYTES"] = str(CLUSTER_OBJ["spill_budget"])
+    try:
+        node = cluster.add_node(num_cpus=2, spill_dir=spill_dir)
+    finally:
+        if old is None:
+            os.environ.pop("RAY_TPU_OBJECT_STORE_BYTES")
+        else:
+            os.environ["RAY_TPU_OBJECT_STORE_BYTES"] = old
+    cluster.wait_for_nodes()
+    putter = rt.remote(num_cpus=1, scheduling_strategy=(
+        NodeAffinitySchedulingStrategy(node.node_id, soft=False)))(
+        SpillPutter).remote()
+    refs, put_s = rt.get(putter.put_all.remote(list(seeds), list(shape)),
+                         timeout=600)
+    spilled_after_puts = dict(node.spill_stats)
+    # [cluster-locality]: a CPU task on one of them, which no process
+    # but its node holds, leases where it lives.
+    where = rt.remote(num_cpus=1)(arg_node)
+    ran_on, arg_shape = rt.get(where.remote(refs[0]), timeout=600)
+    loc = dict(ran_on=ran_on, holder=node.node_id,
+               head=cluster.head_node.node_id, arg_shape=arg_shape,
+               arg_bytes=nbytes, card=card)
+    print(f"[cluster-locality] {json.dumps(loc)}")
+    if ran_on != node.node_id or arg_shape != list(shape):
+        fail(f"phase 44 locality: {loc}")
+    equal = []
+    for s, ref in zip(seeds, refs):
+        got = rt.get(ref, timeout=600)
+        want = spill_tensor(s, shape)
+        equal.append(bool(torch.equal(got.view(torch.int16),
+                                      want.view(torch.int16))))
+        core.memory.delete([ref.id()])
+        del got, want
+    stats = dict(node.spill_stats)
+    st = dict(budget=CLUSTER_OBJ["spill_budget"], tensor_bytes=nbytes,
+              tensors=len(seeds), put_s=put_s,
+              spilled_during_puts=spilled_after_puts["spilled"],
+              bitwise_equal=equal, spill_dir=spill_dir, disk_free=free,
+              spill_gb_s=stats["spilled_bytes"] / max(stats["spill_s"],
+                                                      1e-9) / 1e9,
+              restore_gb_s=stats["restored_bytes"] / max(
+                  stats["restore_s"], 1e-9) / 1e9, **stats, card=card)
+    print(f"[cluster-spill] {json.dumps(st)}")
+    if not all(equal) or spilled_after_puts["spilled"] < 2:
+        fail(f"phase 44 spill: {st}")
+    rt.kill(putter)
+    del refs
+    return st, spill_root
+
+
+def cluster_object_phase(torch, card, ctx):
+    """Phase 44: the trainer's workers as cluster actors and the object
+    plane, on phase 42's cluster (module docstring)."""
+    train_st = cluster_train(torch, card, ctx)
+    refcount = cluster_refcount(torch, card, ctx)
+    lineage = cluster_lineage(torch, card, ctx)
+    spill, spill_root = cluster_spill(torch, card, ctx)
+    print(f"[cluster-objects] launches B1 {train_st['launches']['fwd']} "
+          f"B2 {train_st['launches']['dq']} B3 {train_st['launches']['dkv']}"
+          f" in the cluster worker; del to segment gone "
+          f"{refcount['del_to_segment_gone_s']:.3f} s; rebuild "
+          f"{lineage['get_to_value_s']:.2f} s; spill "
+          f"{spill['spill_gb_s']:.2f} GB/s, restore "
+          f"{spill['restore_gb_s']:.2f} GB/s; {card}")
+    return dict(train=train_st, refcount=refcount, lineage=lineage,
+                spill=spill, spill_root=spill_root,
+                launches=train_st["launches"])
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -8976,7 +9403,7 @@ def main():
         prompts = phase5_prompts(llama.LlamaConfig.llama3_8b())
         phase29 = timed("phase 42's yardstick", core_yardstick, torch, card,
                         prompts)
-        timed("phases 42-43", cluster_phase, torch, card, prompts,
+        timed("phases 42-44", cluster_phase, torch, card, prompts,
               phase29)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -9096,8 +9523,8 @@ def main():
                   serving["deploy"])
     pooled = timed("phase 41", phase41, torch, card, served[0],
                    serving["deploy"])
-    clustered = timed("phases 42-43", cluster_phase, torch, card,
-                      served[0], serving["deploy"], core)
+    clustered = timed("phases 42-44", cluster_phase, torch, card,
+                      served[0], serving["deploy"], core, controller)
 
     main_case = timing["bf16"]
     record = {"kernels": [dict(
@@ -9136,6 +9563,8 @@ def main():
             mixtral_mesh_launches=mix_mesh["launches"][n],
             sharded_launches=sharded["launches"][n],
             controller_launches=controller["launches"][n],
+            cluster_train_launches=int(
+                clustered["phase44"]["launches"][n]),
             ulysses_launches=seq["ulysses"]["launches"][n],
             rl_launches=rl["learner_launches"][n],
             data_launches=data["data_launches"][n],

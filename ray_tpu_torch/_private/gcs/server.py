@@ -7,23 +7,35 @@ with its scheduler and restarts, pubsub, placement groups (2PC over the
 node managers) and the object directory, served over the port's wire
 (:mod:`ray_tpu_torch._private.rpc`).
 
+Distributed reference counts, as JAX's (``UpdateRefCounts`` :1557,
+``ReapHolder`` :1604, ``_free_if_still_zero`` :1642): each holder (a
+driver or worker process, :mod:`~ray_tpu_torch._private.refcount`)
+flushes count deltas; an object whose summed count returns to zero is
+freed from every node that stores it after a short grace
+(``FREE_GRACE_S``) and remembered in a bounded table of freed objects
+(``MAX_FREED_REMEMBERED``), so a late increment or location update never
+brings it back and a borrower's get fails fast. A holder's counts go when
+its node dies (worker holders), when its node manager reports its
+process dead (``ReapHolder``), or when it stops flushing for
+``DRIVER_HOLDER_TTL_S``. The port runs the graced frees on a thread of
+its own where JAX starts a timer for each.
+
 Fault tolerance, as JAX's: with ``persist_path`` set (or
 ``RAY_TPU_GCS_PERSIST_PATH``, or ``RAY_TPU_GCS_WAL_URL=logd://host:port``
 for a log server that survives the head machine), the durable tables
-(KV, actors, placement groups, object directory) persist through a
-write-ahead log of idempotent upsert records that compacts into a
-snapshot (:mod:`~ray_tpu_torch._private.gcs.wal`); recovery loads the
-snapshot and replays the log. Nodes are not persisted: a restarted GCS
+(KV, actors, placement groups, object directory, reference counts and
+their holders, the freed table) persist through a write-ahead log of
+idempotent upsert records that compacts into a snapshot
+(:mod:`~ray_tpu_torch._private.gcs.wal`); recovery loads the snapshot
+and replays the log. Nodes are not persisted: a restarted GCS
 answers their next heartbeat with ``ok=false`` and they register again.
 The heartbeat and health periods keep JAX's env names
 (``RAY_TPU_HEARTBEAT_TTL_S``, the node side's
 ``RAY_TPU_HEARTBEAT_PERIOD_S``).
 
-Left out here, each with the ROADMAP.md item that brings it: the
-distributed reference counts, the frees they drive and the table of
-freed objects (``UpdateRefCounts``, ``ReapHolder``: item 20b; objects
-leave the directory through an explicit ``free``), and the head's metrics TSDB, flight-event store, export events
-and job reconciler (the dashboard and job plane of item 18b). Worker task
+Left out here, with the ROADMAP.md item that brings them: the head's
+metrics TSDB, flight-event store, export events and job reconciler (the
+dashboard and job plane of item 18b). Worker task
 events land in a bounded ring served under the reserved
 ``__task_events__`` KV namespace, as JAX's.
 """
@@ -31,6 +43,7 @@ events land in a bounded ring served under the reserved
 from __future__ import annotations
 
 import argparse
+import heapq
 import json
 import logging
 import os
@@ -54,6 +67,14 @@ HEALTH_CHECK_PERIOD_S = 0.5
 HEALTH_FAILURE_THRESHOLD_S = 3.0
 # One probe per lapsed node per this window.
 HEALTH_PROBE_BACKOFF_S = 2.0
+
+
+# A holder that stops flushing and pinging for this long is taken for
+# crashed and its counts reaped (every holder with counts pings each
+# PING_PERIOD_S, 2 s).
+DRIVER_HOLDER_TTL_S = 10.0
+FREE_GRACE_S = 0.5
+MAX_FREED_REMEMBERED = 65536
 
 
 def _health_failure_threshold_s() -> float:
@@ -89,6 +110,18 @@ class GcsServer:
         self._locations: Dict[bytes, Set[str]] = defaultdict(set)
         self._object_sizes: Dict[bytes, int] = {}
         self._restore_pending: List[bytes] = []
+        # Reference counts: object -> {holder -> count}; an object is
+        # freed when its summed count returns to zero.
+        self._refcounts: Dict[bytes, Dict[str, int]] = {}
+        # holder -> (node_id, is_driver, last seen, monotonic).
+        self._holder_meta: Dict[str, Tuple[str, bool, float]] = {}
+        # Recently freed objects (bounded FIFO): late increments and
+        # location updates for these are refused.
+        self._freed: Dict[bytes, float] = {}
+        # Graced frees: a heap of (due, seq, object ids).
+        self._free_heap: List[Tuple[float, int, List[bytes]]] = []
+        self._free_seq = 0
+        self._free_cv = threading.Condition()
 
         self._lock = threading.RLock()
         self._stop = threading.Event()
@@ -126,6 +159,7 @@ class GcsServer:
             self._wal = WriteAheadLog(backend, self._state_blob)
         self._server, self.port = rpc.serve("GcsService", self, port=port)
         self._spawn(self._health_loop, "gcs-health")
+        self._spawn(self._free_loop, "gcs-free")
 
     def _spawn(self, target, name: str) -> None:
         t = threading.Thread(target=target, daemon=True, name=name)
@@ -156,6 +190,13 @@ class GcsServer:
                 "locations": {k: sorted(v)
                               for k, v in self._locations.items() if v},
                 "object_sizes": dict(self._object_sizes),
+                "refcounts": {k: dict(v)
+                              for k, v in self._refcounts.items() if v},
+                # Holder -> node bindings survive a restart, so a node
+                # death reaps its workers' counts afterwards too.
+                "holders": {h: (nid, is_drv) for h, (nid, is_drv, _)
+                            in self._holder_meta.items()},
+                "freed": list(self._freed),
             }
         return pickle.dumps(state)
 
@@ -174,6 +215,13 @@ class GcsServer:
         for k, nodes in state.get("locations", {}).items():
             self._locations[k] = set(nodes)
         self._object_sizes = dict(state.get("object_sizes", {}))
+        now = time.monotonic()
+        for k, holders in state.get("refcounts", {}).items():
+            self._refcounts[k] = dict(holders)
+        for h, (nid, is_drv) in state.get("holders", {}).items():
+            self._holder_meta[h] = (nid, is_drv, now)
+        for oid in state.get("freed", ()):
+            self._freed[oid] = now
 
     def _claim_actor_name(self, info) -> None:
         """Maintain the name table for one actor update (caller holds the
@@ -222,6 +270,39 @@ class GcsServer:
         elif kind == "locs":
             for sub in rec[1]:
                 self._apply_wal_record(("loc",) + tuple(sub))
+        elif kind == "refs":
+            for oid, holder, count in rec[1]:
+                holders = self._refcounts.get(oid)
+                if count <= 0:
+                    if holders is not None:
+                        holders.pop(holder, None)
+                        if not holders:
+                            del self._refcounts[oid]
+                else:
+                    if holders is None:
+                        holders = self._refcounts[oid] = {}
+                    holders[holder] = count
+        elif kind == "holder":
+            _, hid, nid, is_drv = rec
+            self._holder_meta[hid] = (nid, is_drv, time.monotonic())
+        elif kind == "rmholder":
+            hset = set(rec[1])
+            for hid in hset:
+                self._holder_meta.pop(hid, None)
+            for oid in list(self._refcounts):
+                holders = self._refcounts[oid]
+                for hid in hset & holders.keys():
+                    del holders[hid]
+                if not holders:
+                    del self._refcounts[oid]
+        elif kind == "freed":
+            now = time.monotonic()
+            for oid in rec[1]:
+                self._freed[oid] = now
+                self._locations.pop(oid, None)
+                self._object_sizes.pop(oid, None)
+            while len(self._freed) > MAX_FREED_REMEMBERED:
+                self._freed.pop(next(iter(self._freed)))
         else:
             logger.warning("unknown WAL record kind %r", kind)
 
@@ -336,6 +417,14 @@ class GcsServer:
                           for node_id, info in self._nodes.items()
                           if info.alive and now - self._last_heartbeat.get(
                               node_id, now) > node_ttl]
+                # A crashed process sends no last flush and its pings
+                # stop; a worker reap lost to a GCS outage lands here too.
+                stale = [hid for hid, (_, _d, seen)
+                         in self._holder_meta.items()
+                         if now - seen > DRIVER_HOLDER_TTL_S]
+            if stale:
+                logger.warning("reaping %d stale holder(s)", len(stale))
+                self._reap_holders(stale)
             for node_id, address in lapsed:
                 # A lapsed node is probed first: one that answers is slow,
                 # not dead (co-tenant load stalls heartbeat senders).
@@ -475,9 +564,17 @@ class GcsServer:
         return pb.ListActorsReply(actors=actors)
 
     def _on_node_dead(self, node_id: str):
-        """Re-place the dead node's bundles and restart or kill its actors
-        (reference: GcsActorManager::OnNodeDead, gcs_actor_manager.cc:1279;
-        GcsPlacementGroupManager::OnNodeDead, :585)."""
+        """Reap the dead node's worker holders, re-place its bundles and
+        restart or kill its actors (reference:
+        GcsActorManager::OnNodeDead, gcs_actor_manager.cc:1279;
+        GcsPlacementGroupManager::OnNodeDead, :585). Drivers survive a
+        node failover: their counts go by the ping TTL."""
+        with self._lock:
+            holders = [hid for hid, (nid, is_driver, _)
+                       in self._holder_meta.items()
+                       if nid == node_id and not is_driver]
+        if holders:
+            self._reap_holders(holders)
         to_replace: List[pb.PlacementGroupInfo] = []
         with self._lock:
             for info in self._pgroups.values():
@@ -540,6 +637,11 @@ class GcsServer:
                         if self._actor_placing[node_id] <= 0:
                             del self._actor_placing[node_id]
                 if reply.ok:
+                    if self._killed_meanwhile(info):
+                        # Killed while its node built it: the kill found
+                        # no worker to stop, so stop the one built now.
+                        self._kill_built(info, reply.worker_address)
+                        return
                     info.state = "ALIVE"
                     info.node_id = node_id
                     info.address = reply.worker_address
@@ -558,6 +660,22 @@ class GcsServer:
         info.state = "DEAD"
         info.death_cause = last_err
         self.UpdateActor(pb.UpdateActorRequest(info=info), None)
+
+    def _killed_meanwhile(self, info: pb.ActorInfo) -> bool:
+        """Whether the actor this placement builds was killed since (a
+        kill stores a DEAD copy of its record)."""
+        with self._lock:
+            cur = self._actors.get(bytes(info.actor_id))
+        return cur is not None and cur is not info and cur.state == "DEAD"
+
+    @staticmethod
+    def _kill_built(info: pb.ActorInfo, address: str) -> None:
+        try:
+            rpc.get_stub("WorkerService", address).KillActor(
+                pb.KillActorRequest(actor_id=bytes(info.actor_id),
+                                    no_restart=True), timeout=5)
+        except Exception:  # noqa: BLE001 — the worker is gone already
+            pass
 
     def _schedule_actor(self, info: pb.ActorInfo):
         """Candidate nodes, best first (GcsActorScheduler), and whether a
@@ -840,20 +958,42 @@ class GcsServer:
         return pb.Empty()
 
     # ------------------------------------------------------ object directory
-    def _apply_loc_update(self, request) -> None:
-        """Apply one location update (caller holds the lock)."""
+    def _apply_loc_update(self, request) -> Tuple[bool, Optional[str]]:
+        """Apply one location update (caller holds the lock):
+        ``(applied, sweep_address)``. A freed object's update is not
+        applied (logged, it would bring the location back on replay), and
+        a copy stored after its free is swept from its node."""
         if request.added:
+            if request.object_id in self._freed:
+                node = self._nodes.get(request.node_id)
+                return False, (node.address if node is not None else None)
             self._locations[request.object_id].add(request.node_id)
             if request.size:
                 self._object_sizes[request.object_id] = request.size
         else:
-            self._locations[request.object_id].discard(request.node_id)
+            locs = self._locations.get(request.object_id)
+            if locs is not None:
+                locs.discard(request.node_id)
+                if not locs:
+                    del self._locations[request.object_id]
+        return True, None
+
+    def _sweep(self, sweeps: Dict[str, List[bytes]]) -> None:
+        for addr, oids in sweeps.items():
+            self._submit_work(lambda a=addr, o=oids: rpc.get_stub(
+                "NodeService", a).FreeObjects(
+                    pb.FreeObjectsRequest(object_ids=o), timeout=10))
 
     def UpdateObjectLocation(self, request, context):
         with self._lock:
-            self._apply_loc_update(request)
-            self._wal_append(("loc", request.object_id, request.node_id,
-                              request.added, request.size))
+            applied, sweep = self._apply_loc_update(request)
+            if applied:
+                self._wal_append(("loc", request.object_id, request.node_id,
+                                  request.added, request.size))
+        if not applied:
+            if sweep:
+                self._sweep({sweep: [request.object_id]})
+            return pb.Empty()
         if request.added:
             # Wake blocked get()/wait() callers (reference:
             # pubsub/publisher.h:297 object channel).
@@ -862,14 +1002,19 @@ class GcsServer:
 
     def UpdateObjectLocationsBatch(self, request, context):
         """One RPC and one pubsub wakeup per node-side put batch."""
+        sweeps: Dict[str, List[bytes]] = defaultdict(list)
+        applied = []
         with self._lock:
             for u in request.updates:
-                self._apply_loc_update(u)
-            if request.updates:
-                self._wal_append(("locs", [(u.object_id, u.node_id, u.added,
-                                            u.size)
-                                           for u in request.updates]))
-        if any(u.added for u in request.updates):
+                ok, addr = self._apply_loc_update(u)
+                if ok:
+                    applied.append((u.object_id, u.node_id, u.added, u.size))
+                elif addr:
+                    sweeps[addr].append(u.object_id)
+            if applied:
+                self._wal_append(("locs", applied))
+        self._sweep(sweeps)
+        if any(a[2] for a in applied):
             self._publish("OBJECT_LOC", b"")
         return pb.Empty()
 
@@ -877,20 +1022,156 @@ class GcsServer:
         with self._lock:
             locs = list(self._locations.get(request.object_id, ()))
             size = self._object_sizes.get(request.object_id, 0)
-        return pb.GetObjectLocationsReply(node_ids=locs, size=size)
+            freed = request.object_id in self._freed
+        return pb.GetObjectLocationsReply(node_ids=locs, size=size,
+                                          freed=freed)
 
     def GetObjectsLocations(self, request, context):
         """Batched has-any-location probe for wait() fan-in."""
         with self._lock:
             found = [bool(self._locations.get(oid))
+                     and oid not in self._freed
                      for oid in request.object_ids]
         return pb.GetObjectsMetaReply(found=found)
+
+    # ------------------------------------------------- reference counts
+    def UpdateRefCounts(self, request, context):
+        to_free: List[bytes] = []
+        late: List[bytes] = []
+        changes: List[Tuple[bytes, str, int]] = []
+        with self._lock:
+            if request.holder_id:
+                self._holder_meta[request.holder_id] = (
+                    request.node_id, request.is_driver, time.monotonic())
+            for d in request.deltas:
+                if d.object_id in self._freed:
+                    # Late traffic for a freed object never brings it
+                    # back; a late +1 is a holder that still thinks it
+                    # has the object.
+                    if d.delta > 0:
+                        late.append(d.object_id)
+                    continue
+                holders = self._refcounts.get(d.object_id)
+                if holders is None:
+                    if d.delta <= 0:
+                        # A decrement of an object never counted makes no
+                        # entry and drives no free.
+                        continue
+                    holders = self._refcounts[d.object_id] = {}
+                n = holders.get(request.holder_id, 0) + d.delta
+                if n <= 0:
+                    holders.pop(request.holder_id, None)
+                else:
+                    holders[request.holder_id] = n
+                # WAL records carry the absolute count (idempotent).
+                changes.append((d.object_id, request.holder_id, max(n, 0)))
+                if not holders:
+                    del self._refcounts[d.object_id]
+                    to_free.append(d.object_id)
+            # A ping changes nothing persisted and logs nothing.
+            if changes and request.holder_id:
+                self._wal_append(("holder", request.holder_id,
+                                  request.node_id, request.is_driver))
+            if changes:
+                self._wal_append(("refs", changes))
+        self._schedule_free(to_free)
+        for oid in late:
+            self._publish("OBJECT_FREED", oid)
+        return pb.Empty()
+
+    def ReapHolder(self, request, context):
+        """Drop every count a dead process held (node managers send this
+        when a worker process dies)."""
+        self._reap_holders([request.holder_id])
+        return pb.Empty()
+
+    def _reap_holders(self, holder_ids) -> None:
+        to_free: List[bytes] = []
+        with self._lock:
+            hset = set(holder_ids)
+            for hid in hset:
+                self._holder_meta.pop(hid, None)
+            for oid in list(self._refcounts):
+                holders = self._refcounts[oid]
+                for hid in hset & holders.keys():
+                    del holders[hid]
+                if not holders:
+                    del self._refcounts[oid]
+                    to_free.append(oid)
+            self._wal_append(("rmholder", list(hset)))
+        if to_free:
+            logger.info("reaped %d holder(s): freeing %d orphaned objects",
+                        len(holder_ids), len(to_free))
+        self._schedule_free(to_free)
+
+    def _schedule_free(self, oids: List[bytes]) -> None:
+        """Free ``oids`` after ``FREE_GRACE_S`` unless a count came back
+        meanwhile (defence in depth: the order of borrows and pin
+        releases makes a zero final in the task-argument path)."""
+        if not oids:
+            return
+        with self._free_cv:
+            self._free_seq += 1
+            heapq.heappush(self._free_heap, (
+                time.monotonic() + FREE_GRACE_S, self._free_seq,
+                list(oids)))
+            self._free_cv.notify()
+
+    def _free_loop(self) -> None:
+        while not self._stop.is_set():
+            with self._free_cv:
+                while not self._stop.is_set() and (
+                        not self._free_heap
+                        or self._free_heap[0][0] > time.monotonic()):
+                    wait = (self._free_heap[0][0] - time.monotonic()
+                            if self._free_heap else 0.5)
+                    self._free_cv.wait(max(0.01, min(wait, 0.5)))
+                if self._stop.is_set():
+                    return
+                _, _, oids = heapq.heappop(self._free_heap)
+            try:
+                self._free_if_still_zero(oids)
+            except Exception:  # noqa: BLE001 — one batch must not stop it
+                logger.exception("freeing %d objects failed", len(oids))
+
+    def _free_if_still_zero(self, oids: List[bytes]) -> None:
+        """Free the objects still at zero: one ``FreeObjects`` a node for
+        the whole batch."""
+        survivors: List[bytes] = []
+        by_node: Dict[str, List[bytes]] = defaultdict(list)
+        now = time.monotonic()
+        with self._lock:
+            for oid in oids:
+                if self._refcounts.get(oid):
+                    continue  # a late increment brought it back
+                self._freed[oid] = now
+                survivors.append(oid)
+                for node_id in self._locations.pop(oid, ()):
+                    by_node[node_id].append(oid)
+                self._object_sizes.pop(oid, None)
+            while len(self._freed) > MAX_FREED_REMEMBERED:
+                self._freed.pop(next(iter(self._freed)))
+            if survivors:
+                self._wal_append(("freed", survivors))
+        for node_id, node_oids in by_node.items():
+            stub = self._node_stub(node_id)
+            if stub is None:
+                continue
+            try:
+                stub.FreeObjects(pb.FreeObjectsRequest(object_ids=node_oids),
+                                 timeout=10)
+            except Exception:  # noqa: BLE001 — the node went meanwhile
+                pass
+        for oid in survivors:
+            self._publish("OBJECT_FREED", oid)
 
     # ------------------------------------------------------------- lifecycle
     def shutdown(self):
         """Stop serving: the health loop and placement runs end, the WAL
         flushes and compacts, and every connection closes."""
         self._stop.set()
+        with self._free_cv:
+            self._free_cv.notify_all()
         timer = getattr(self, "_sweep_timer", None)
         if timer is not None:
             timer.cancel()

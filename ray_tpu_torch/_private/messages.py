@@ -10,9 +10,7 @@ pickled on the wire (:mod:`ray_tpu_torch._private.rpc`). What the JAX
 code calls on a message, the classes offer: keyword construction,
 attribute access, ``add()`` on a repeated submessage field,
 ``SerializeToString``, ``FromString`` and ``CopyFrom``. One field is renamed: ``tpu_chips`` (``TaskSpec`` and
-``LeaseReply``) is ``card_ids``, the CUDA card ids a lease grants. The
-refcount messages (``UpdateRefCounts``, ``ReapHolder``) belong to the
-distributed reference counting of ROADMAP.md item 20b and are not here.
+``LeaseReply``) is ``card_ids``, the CUDA card ids a lease grants.
 """
 
 from __future__ import annotations
@@ -55,6 +53,9 @@ _SCHEMA = {
     "GetObjectsMetaRequest": (("object_ids", "list", None),),
     "GetObjectsMetaReply": (("found", "list", None),),
     "GetObjectLocationsReply": (("node_ids", "list", None), ("size", "scalar", 0), ("freed", "scalar", False)),
+    "RefCountDelta": (("object_id", "scalar", b""), ("delta", "scalar", 0)),
+    "UpdateRefCountsRequest": (("holder_id", "scalar", ""), ("deltas", "msgs", "RefCountDelta"), ("node_id", "scalar", ""), ("is_driver", "scalar", False)),
+    "ReapHolderRequest": (("holder_id", "scalar", ""),),
     "LeaseRequest": (("spec", "msg", "TaskSpec"), ("caller", "scalar", "")),
     "LeaseReply": (("granted", "scalar", False), ("worker_address", "scalar", ""), ("worker_id", "scalar", ""), ("spillback_node_id", "scalar", ""), ("spillback_address", "scalar", ""), ("error", "scalar", ""), ("card_ids", "list", None), ("worker_fast_address", "scalar", "")),
     "ReturnWorkerRequest": (("worker_id", "scalar", ""), ("lease_id", "scalar", b"")),
@@ -112,6 +113,8 @@ SERVICES = {
         "UpdateObjectLocationsBatch": ("ObjectLocationBatch", "Empty", False),
         "GetObjectLocations": ("GetObjectLocationsRequest", "GetObjectLocationsReply", False),
         "GetObjectsLocations": ("GetObjectsMetaRequest", "GetObjectsMetaReply", False),
+        "UpdateRefCounts": ("UpdateRefCountsRequest", "Empty", False),
+        "ReapHolder": ("ReapHolderRequest", "Empty", False),
     },
     "NodeService": {
         "RequestWorkerLease": ("LeaseRequest", "LeaseReply", False),

@@ -39,10 +39,30 @@ Where the port differs:
   unlink the segments, and the heartbeat loop sets the store's gauges
   (``STORE_USED_BYTES``, ``STORE_OBJECTS``) from its ``stats()``. JAX
   falls back to a dict when the native library does not build; the port
-  raises. Spilling and the memory monitor (:1109-1252) are item 20b and
-  the runtime-env agent (:441-531) item 20c: a put past the store's
-  budget (``RAY_TPU_OBJECT_STORE_BYTES``, 4 GiB by default), which JAX
-  spills, raises ``not_ported`` naming 20b, its segment unlinked.
+  raises. The budget (``RAY_TPU_OBJECT_STORE_BYTES``, 4 GiB by default)
+  counts the whole pages each segment takes.
+* **Spilling** (JAX's :105-114, :1105-1166, the reference's
+  ``LocalObjectManager``, ``local_object_manager.h:41``): past
+  ``SPILL_HIGH`` of the budget a thread of the node writes the least
+  recently used objects to files under the node's spill directory
+  (``spill_dir``, else ``ray_tpu_spill_<node>`` in the temp dir) down to
+  ``SPILL_LOW``; a put that does not fit drains synchronously first, and
+  waits for a drain in progress, instead of being refused. A spilled
+  object is brought back on get (``_restore_spilled``), served from its
+  file to a pull, and counts as present; a spill that fails (a full
+  disk) raises with the path and the size and drops nothing. The spill
+  directory goes at shutdown.
+* **The memory monitor** (JAX's :1168-1229, the reference's
+  ``memory_monitor.h:52``): above ``RAY_TPU_MEMORY_USAGE_THRESHOLD`` of
+  the host's memory (the cgroup's limit when one is set; a
+  ``RAY_TPU_MEMORY_USAGE_FILE`` overrides the reading, as JAX's test
+  does) the node kills its newest leased task worker, whose owner's
+  retry runs the task again.
+* **Reference holders**: a worker process that dies, or an idle one the
+  node reaps, has its counts dropped at the GCS (``ReapHolder``, JAX's
+  :737, :757).
+
+The runtime-env agent (JAX's :441-531) is item 20c.
 """
 
 from __future__ import annotations
@@ -51,6 +71,8 @@ import logging
 import mmap
 import os
 import pickle
+import shutil
+import tempfile
 import threading
 import time
 import uuid
@@ -98,6 +120,7 @@ class _Worker:
         self.leased_for: Optional[bytes] = None
         self.is_actor_worker = False
         self.idle_since = time.monotonic()
+        self.busy_since = 0.0
 
     def alive(self) -> bool:
         return self.proc.exitcode is None
@@ -126,11 +149,12 @@ class NodeManager:
                  resources: Optional[Dict[str, float]] = None,
                  labels: Optional[Dict[str, str]] = None,
                  node_id: Optional[str] = None,
-                 card_ids: Optional[List[int]] = None):
+                 card_ids: Optional[List[int]] = None,
+                 spill_dir: Optional[str] = None):
         self.node_id = node_id or uuid.uuid4().hex
         self.gcs_address = gcs_address
         self.gcs = rpc.get_stub("GcsService", gcs_address)
-        # The budget is held here (JAX spills past it, item 20b), so the
+        # The budget is held here, where objects spill past it, so the
         # C++ store never evicts. Built first: a failed build raises
         # before the node takes anything.
         from ray_tpu_torch._private.shm import ShmStore
@@ -172,6 +196,21 @@ class NodeManager:
         # The budget counts the whole pages each segment takes in
         # /dev/shm, not its payload bytes: a small object costs a page.
         self._store_pages = 0
+        # Spilling: oid hex -> (path, size) of each object on disk.
+        self._spill_dir = spill_dir or os.path.join(
+            tempfile.gettempdir(), f"ray_tpu_spill_{self.node_id[:12]}")
+        self._spilled: Dict[str, Tuple[str, int]] = {}
+        self._spill_lock = threading.RLock()
+        self._spill_event = threading.Event()
+        # Bytes and seconds of the spills and restores, and their counts.
+        self.spill_stats = dict(spilled=0, spilled_bytes=0, spill_s=0.0,
+                                restored=0, restored_bytes=0, restore_s=0.0)
+        # The memory monitor.
+        self._mem_threshold = float(os.environ.get(
+            "RAY_TPU_MEMORY_USAGE_THRESHOLD", 0.95))
+        self._mem_usage_file = os.environ.get("RAY_TPU_MEMORY_USAGE_FILE",
+                                              "")
+        self.oom_kills = 0
 
         self._workers: Dict[str, _Worker] = {}
         self._idle: List[str] = []
@@ -219,6 +258,8 @@ class NodeManager:
                 time.sleep(0.1)
         self._spawn(self._heartbeat_loop, "nm-heartbeat")
         self._spawn(self._view_subscriber_loop, "nm-view-sub")
+        self._spawn(self._spill_loop, "nm-spill")
+        self._spawn(self._memory_monitor_loop, "nm-memmon")
         # Prestart workers so first leases skip the fork (reference:
         # worker pool prestart, worker_pool.h:216).
         self._spawn(self._prestart_workers, "nm-prestart")
@@ -510,8 +551,17 @@ class NodeManager:
                     self._spawning_task -= 1
         return worker if self._wait_ready(worker, timeout_s) else None
 
+    def _reap_holder(self, worker_id: str) -> None:
+        """Drop a gone worker's reference counts at the GCS."""
+        try:
+            self.gcs.ReapHolder(pb.ReapHolderRequest(holder_id=worker_id),
+                                timeout=5)
+        except Exception:  # noqa: BLE001 — the GCS's holder TTL catches it
+            pass
+
     def _reap_idle_workers(self):
         now = time.monotonic()
+        reaped = []
         with self._pool_lock:
             keep = []
             for wid in self._idle:
@@ -521,9 +571,12 @@ class NodeManager:
                 if now - w.idle_since > IDLE_WORKER_TTL_S:
                     w.proc.terminate()
                     self._workers.pop(wid, None)
+                    reaped.append(wid)
                 else:
                     keep.append(wid)
             self._idle = keep
+        for wid in reaped:
+            self._reap_holder(wid)
 
     def _check_dead_workers(self):
         """Hand a dead actor worker's restart decision to the GCS
@@ -538,6 +591,7 @@ class NodeManager:
                     self._idle.remove(w.worker_id)
         for w in dead:
             w.proc.join(timeout=1.0)
+            self._reap_holder(w.worker_id)
             for actor_id, (wid, demand) in list(self._actor_demands.items()):
                 if wid != w.worker_id:
                     continue
@@ -577,6 +631,7 @@ class NodeManager:
     def _granted(self, lease_id: bytes, demand: Dict[str, float],
                  worker: _Worker):
         worker.leased_for = lease_id
+        worker.busy_since = time.monotonic()
         self._leases[lease_id] = (worker.worker_id, demand)
         with self._res_lock:
             cards = [int(c) for c in self._cards_held.get(lease_id, ())]
@@ -831,39 +886,243 @@ class NodeManager:
             self._release(dict(freed))
         return pb.Empty()
 
-    # ------------------------------------------------------------ objects
-    def _store_object(self, request) -> int:
-        """Seat one object in the store (JAX's :1252-1290): register the
-        segment a client made, or write inline bytes into one. Past the
-        budget, ``not_ported`` naming 20b, with the client's segment
-        unlinked (nothing indexes it)."""
+    # ----------------------------------------------------------- spilling
+    SPILL_HIGH = 0.9  # spilling starts above this share of the budget
+    SPILL_LOW = 0.7   # ... and runs down to this share
+    # Seconds a put that does not fit waits for drains before it fails.
+    SEAT_WAIT_S = 120.0
+
+    def _maybe_spill(self) -> None:
+        """Wake the spill thread past the high-water mark (the put and get
+        handlers never wait on the disk for it)."""
+        if self._store_pages > self._store_capacity * self.SPILL_HIGH:
+            self._spill_event.set()
+
+    def _spill_loop(self) -> None:
+        while not self._stop.is_set():
+            if not self._spill_event.wait(0.25):
+                continue
+            self._spill_event.clear()
+            try:
+                self._drain_to_low_water()
+            except Exception:  # noqa: BLE001 — the next put raises it
+                logger.exception("background spill failed")
+
+    def _drain_to_low_water(self, min_free_bytes: int = 0) -> None:
+        """Spill least recently used objects until the store is at the
+        low-water mark, or low enough that ``min_free_bytes`` fits (JAX's
+        :1131). The lock is taken a victim at a time, so restores and
+        pulls interleave with a drain. A failed write raises, naming the
+        path and the size; the object stays in the store."""
         from ray_tpu_torch._private.shm import ShmClient
 
-        oid_hex = request.object_id.hex()
-        size = request.size or len(request.data)
-        with self._obj_lock:
-            if self._shm.contains(oid_hex):
-                return size           # immutable: a re-put changes nothing
-            if self._store_pages + _pages(size) > self._store_capacity:
-                from ray_tpu_torch._private.worker import ITEM_20B
-                from ray_tpu_torch.exceptions import not_ported
+        target = min(self._store_capacity * self.SPILL_LOW,
+                     max(self._store_capacity - min_free_bytes, 0))
+        os.makedirs(self._spill_dir, exist_ok=True)
+        while not self._stop.is_set() and self._store_pages > target:
+            with self._spill_lock:
+                oid = self._shm.coldest()
+                if oid is None:
+                    return
+                meta = self._shm.get(oid)
+                if meta is None:
+                    continue
+                view = ShmClient.map_segment_view(*meta)
+                if view is None:   # unlinked under us: drop the entry
+                    self._forget(oid, meta[1])
+                    continue
+                path = os.path.join(self._spill_dir, oid)
+                tmp = f"{path}.tmp"
+                t0 = time.perf_counter()
+                try:
+                    with open(tmp, "wb") as f:
+                        f.write(view)
+                    os.replace(tmp, path)
+                except OSError as e:
+                    try:
+                        os.unlink(tmp)
+                    except OSError:
+                        pass
+                    raise RuntimeError(
+                        f"spilling object {oid[:16]} ({meta[1]} bytes) to "
+                        f"{path} failed: {e}") from e
+                finally:
+                    del view
+                self._spilled[oid] = (path, meta[1])
+                self._forget(oid, meta[1])
+                st = self.spill_stats
+                st["spilled"] += 1
+                st["spilled_bytes"] += meta[1]
+                st["spill_s"] += time.perf_counter() - t0
 
-                if request.shm_name:
-                    ShmClient.unlink_segment(request.shm_name)
-                raise not_ported(
-                    f"spilling the node store past its "
-                    f"{self._store_capacity} bytes "
-                    f"(RAY_TPU_OBJECT_STORE_BYTES)", ITEM_20B)
-            if request.shm_name:
-                ok = self._shm.register(oid_hex, request.shm_name, size)
-            else:
-                ok = self._shm.put(oid_hex, request.data) is not None
-            if ok:
-                self._store_pages += _pages(size)
+    def _forget(self, oid_hex: str, size: int) -> None:
+        """Drop an object from the store and its pages from the budget."""
+        with self._obj_lock:
+            if self._shm.delete(oid_hex):
+                self._store_pages -= _pages(size)
+
+    def _restore_spilled(self, oid_hex: str) -> bool:
+        """Bring a spilled object back into the store (JAX's :1168): its
+        file copied into a segment the store indexes, others spilled to
+        make room. False when it is in neither."""
+        from ray_tpu_torch._private.shm import SEGMENT_PREFIX
+
+        with self._spill_lock:
+            meta = self._spilled.get(oid_hex)
+            if meta is None:
+                return self._shm.contains(oid_hex)
+            path, size = meta
+            seg = f"/{SEGMENT_PREFIX}{oid_hex}"
+            t0 = time.perf_counter()
+
+            def seat():
+                try:
+                    shutil.copyfile(path, f"/dev/shm{seg}")
+                except OSError as e:
+                    raise RuntimeError(
+                        f"restoring object {oid_hex[:16]} ({size} bytes) "
+                        f"from {path} failed: {e}") from e
+                if self._shm.register(oid_hex, seg, size):
+                    return True
+                os.unlink(f"/dev/shm{seg}")
+                return False
+
+            self._seat(oid_hex, size, seat)
+            self._spilled.pop(oid_hex, None)
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+            st = self.spill_stats
+            st["restored"] += 1
+            st["restored_bytes"] += size
+            st["restore_s"] += time.perf_counter() - t0
+        self._maybe_spill()
+        return True
+
+    def spilled_objects(self) -> Dict[str, Tuple[str, int]]:
+        """The spilled objects: oid hex -> (file, bytes)."""
+        with self._spill_lock:
+            return dict(self._spilled)
+
+    # ------------------------------------------------------ memory monitor
+    def _memory_usage_fraction(self) -> float:
+        if self._mem_usage_file:
+            try:
+                with open(self._mem_usage_file) as f:
+                    return float(f.read().strip() or 0.0)
+            except (OSError, ValueError):
+                return 0.0
+        try:  # the cgroup's limit, when one is set
+            with open("/sys/fs/cgroup/memory.current") as f:
+                cur = int(f.read())
+            with open("/sys/fs/cgroup/memory.max") as f:
+                mx = f.read().strip()
+            if mx != "max":
+                return cur / max(int(mx), 1)
+        except (OSError, ValueError):
+            pass
+        try:
+            info = {}
+            with open("/proc/meminfo") as f:
+                for line in f:
+                    k, v = line.split(":", 1)
+                    info[k] = int(v.strip().split()[0])
+            return 1.0 - info["MemAvailable"] / max(info["MemTotal"], 1)
+        except (OSError, ValueError, KeyError):
+            return 0.0
+
+    def _memory_monitor_loop(self) -> None:
+        while not self._stop.wait(0.25):
+            if self._memory_usage_fraction() < self._mem_threshold:
+                continue
+            if self._shed_memory():
+                # Time for the freed memory to show before the next look.
+                self._stop.wait(1.0)
+
+    def _shed_memory(self) -> bool:
+        """Kill the newest leased task worker (newest first sheds the
+        work most likely to be retried; the owner's retry budget decides
+        on the crash-retry path)."""
+        with self._pool_lock:
+            busy = [w for w in self._workers.values()
+                    if w.leased_for is not None and not w.is_actor_worker
+                    and w.alive()]
+            if not busy:
+                return False
+            victim = max(busy, key=lambda w: w.busy_since)
+        logger.warning("memory usage above %.2f: killing the newest task "
+                       "worker %s", self._mem_threshold, victim.worker_id)
+        try:
+            victim.proc.kill()
+        except Exception:  # noqa: BLE001
+            return False
+        self.oom_kills += 1
+        return True
+
+    # ------------------------------------------------------------ objects
+    def _seat(self, oid_hex: str, size: int, attempt) -> None:
+        """Run ``attempt()`` (which seats the object) once the budget has
+        room for ``size``, spilling to make it (JAX's
+        ``_seat_with_backpressure`` :1290): a put that does not fit drains
+        the store synchronously and waits for other drains, up to
+        ``SEAT_WAIT_S``. It raises only when the object can never fit,
+        the wait ran out, or a spill failed."""
+        need = _pages(size)
+        if need > self._store_capacity:
+            raise RuntimeError(
+                f"object {oid_hex[:16]} ({size} bytes) is larger than the "
+                f"node store's {self._store_capacity} bytes "
+                f"(RAY_TPU_OBJECT_STORE_BYTES)")
+        deadline = time.monotonic() + self.SEAT_WAIT_S
+        while True:
+            with self._obj_lock:
+                if self._store_pages + need <= self._store_capacity:
+                    ok = attempt()
+                    if ok:
+                        self._store_pages += need
+                    break
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"the node store could not make room for object "
+                    f"{oid_hex[:16]} ({size} bytes) within "
+                    f"{self.SEAT_WAIT_S} s")
+            self._drain_to_low_water(min_free_bytes=need)
+            if self._store_pages + need > self._store_capacity:
+                time.sleep(0.01)  # another drain or a restore holds room
         if not ok:
             raise RuntimeError(
                 f"the node store could not seat object {oid_hex[:16]} "
                 f"({size} bytes) in /dev/shm")
+
+    def _store_object(self, request) -> int:
+        """Seat one object in the store (JAX's :1252-1290): register the
+        segment a client made, or write inline bytes into one, spilling
+        others first when the budget is full. A put that fails has its
+        client's segment unlinked (nothing indexes it)."""
+        from ray_tpu_torch._private.shm import ShmClient
+
+        oid_hex = request.object_id.hex()
+        size = request.size or len(request.data)
+        if self._shm.contains(oid_hex):
+            return size           # immutable: a re-put changes nothing
+        if oid_hex in self._spilled:
+            if request.shm_name:  # a new copy nothing will index
+                ShmClient.unlink_segment(request.shm_name)
+            return size
+        if request.shm_name:
+            def attempt():
+                return self._shm.register(oid_hex, request.shm_name, size)
+        else:
+            def attempt():
+                return self._shm.put(oid_hex, request.data) is not None
+        try:
+            self._seat(oid_hex, size, attempt)
+        except BaseException:
+            if request.shm_name:
+                ShmClient.unlink_segment(request.shm_name)
+            raise
+        self._maybe_spill()
         return size
 
     def PutObject(self, request, context):
@@ -889,33 +1148,58 @@ class NodeManager:
         return pb.PutObjectBatchReply(rejected=[False] * len(batch.updates))
 
     def GetObject(self, request, context):
-        """The object's segment name and size (the reader maps it)."""
-        meta = self._shm.get(request.object_id.hex())
+        """The object's segment name and size (the reader maps it); a
+        spilled object is restored first (for ``metadata_only`` its
+        presence is enough)."""
+        oid_hex = request.object_id.hex()
+        meta = self._shm.get(oid_hex)
         if meta is None:
-            return pb.GetObjectReply(found=False)
+            spilled = self._spilled.get(oid_hex)
+            if spilled is None:
+                return pb.GetObjectReply(found=False)
+            if request.metadata_only:
+                return pb.GetObjectReply(found=True, size=spilled[1])
+            if self._restore_spilled(oid_hex):
+                meta = self._shm.get(oid_hex)
+            if meta is None:
+                return pb.GetObjectReply(found=False)
         name, size = meta
         if request.metadata_only:
             return pb.GetObjectReply(found=True, size=size)
         return pb.GetObjectReply(found=True, shm_name=name, size=size)
 
     def GetObjectsMeta(self, request, context):
-        """Batched local readiness (reference: plasma Contains)."""
+        """Batched local readiness (reference: plasma Contains); a
+        spilled object is present."""
         return pb.GetObjectsMetaReply(found=[
-            self._shm.contains(oid.hex()) for oid in request.object_ids])
+            self._shm.contains(oid.hex()) or oid.hex() in self._spilled
+            for oid in request.object_ids])
 
     def PullObject(self, request, context):
-        """Chunked transfer out of the mapped segment (reference:
-        ObjectManager chunks, object_manager.h:117), outbound streams
-        capped (PushManager, push_manager.h:30)."""
+        """Chunked transfer out of the mapped segment, or out of a spilled
+        object's file without restoring it (reference: ObjectManager
+        chunks, object_manager.h:117), outbound streams capped
+        (PushManager, push_manager.h:30)."""
         from ray_tpu_torch._private.shm import ShmClient
 
-        meta = self._shm.get(request.object_id.hex())
+        oid_hex = request.object_id.hex()
+        meta = self._shm.get(oid_hex)
         view = None if meta is None else ShmClient.map_segment_view(*meta)
-        if view is None or not self._push_slots.acquire(timeout=60.0):
+        spilled = self._spilled.get(oid_hex) if view is None else None
+        if (view is None and spilled is None) or \
+                not self._push_slots.acquire(timeout=60.0):
             yield pb.ObjectChunk(object_id=request.object_id, found=False,
                                  eof=True)
             return
         try:
+            if view is None:
+                try:
+                    with open(spilled[0], "rb") as f:
+                        view = memoryview(f.read())
+                except OSError:
+                    yield pb.ObjectChunk(object_id=request.object_id,
+                                         found=False, eof=True)
+                    return
             total = len(view)
             for off in range(0, max(total, 1), CHUNK_SIZE):
                 yield pb.ObjectChunk(object_id=request.object_id,
@@ -933,6 +1217,13 @@ class NodeManager:
                 meta = self._shm.get(oid.hex())
                 if meta is not None and self._shm.delete(oid.hex()):
                     self._store_pages -= _pages(meta[1])
+            with self._spill_lock:
+                spilled = self._spilled.pop(oid.hex(), None)
+            if spilled is not None:
+                try:
+                    os.unlink(spilled[0])
+                except OSError:
+                    pass
             batch.updates.append(pb.ObjectLocationUpdate(
                 object_id=oid, node_id=self.node_id, added=False))
         try:
@@ -945,8 +1236,9 @@ class NodeManager:
     def shutdown(self, graceful: bool = True):
         """Stop the node. ``graceful=False`` is a crash: no drain notice,
         so the GCS health checker must find the death. Every worker
-        process is killed and reaped, the node's threads end, and its
-        cards go back to the process's card book."""
+        process is killed and reaped, the node's threads end, its store's
+        segments and its spill directory go, and its cards go back to the
+        process's card book."""
         self._stop.set()
         if graceful:
             try:
@@ -972,6 +1264,7 @@ class NodeManager:
             if t is not threading.current_thread():
                 t.join(timeout=5.0)
         self._shm.close()
+        shutil.rmtree(self._spill_dir, ignore_errors=True)
         self._give_cards()
 
     def threads(self) -> List[threading.Thread]:

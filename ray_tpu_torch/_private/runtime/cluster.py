@@ -26,16 +26,30 @@ Reference: the CoreWorker (``src/ray/core_worker/core_worker.cc``):
   the value is a view of the mapping, not a copy;
 * streaming generators (``release_stream_tail``, :1443), cancellation
   (:2170-2240), placement groups (:2630-2648), ``nodes()`` and the
-  resource views.
+  resource views;
+* the object plane (JAX's :167-212, :472-504, :754-1000, :1088-1410):
+  every live ``ObjectRef`` is counted (:mod:`~ray_tpu_torch._private.
+  refcount`), and an object leaves the node stores with its last
+  reference in the cluster; the refs a task's payload carries, nested
+  ones too, are pinned for its flight and an actor's constructor
+  arguments until it settles; the task that made a result stays pinned
+  (its lineage) while this process holds a ref to it, so a result whose
+  every copy died is made again by resubmitting its task, through its
+  lost arguments too, up to three rebuilds a get (``_maybe_reconstruct``);
+  a payload over ``INLINE_RESULT_MAX`` rides the store by reference
+  (``_maybe_promote_payload``), kept for a rebuild while the lineage
+  lives; a task whose argument of ``LOCALITY_MIN_BYTES`` or more lives on
+  another node leases there with a soft affinity
+  (``_apply_locality_hint``), unless it names its own placement; and
+  pulls go through a pull manager (:class:`_PullManager`) that shares
+  one pull of an object among its getters and bounds the bytes in
+  flight. A borrower of an object the cluster freed gets
+  ``ObjectLostError``, as does a getter of a result whose every copy is
+  gone and whose lineage this process does not hold.
 
-Left for later, each raising ``not_ported`` or ``ObjectLostError`` that
-names its ROADMAP.md item: distributed reference counting and lineage
-reconstruction (``_maybe_reconstruct`` :911), locality hints (:1187,
-:1208) and spilling are item 20b, so a produced object whose every copy is
-gone raises ``ObjectLostError`` naming 20b, and objects leave the stores
-only through ``free`` or their node's end; a ``runtime_env`` is item 20c.
-A segment that cannot be created raises, naming the object's size: no
-value falls back to the socket.
+Left for later: a ``runtime_env`` (item 20c). A segment that cannot be
+created raises, naming the object's size: no value falls back to the
+socket.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ from ray_tpu_torch._private.memory_store import MemoryStore
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.options import is_streaming
 from ray_tpu_torch._private.runtime.interface import CoreRuntime
+from ray_tpu_torch._private.refcount import ReferenceCounter
 from ray_tpu_torch._private.serialization import (SerializedObject,
                                                   Serializer, loads)
 from ray_tpu_torch._private.shm import SEGMENT_PREFIX, ShmClient
@@ -112,6 +127,89 @@ def read_object_reply(reply) -> Tuple[bool, Any]:
     return True, loads(view)
 
 
+def loads_payload(data) -> Tuple[Any, int]:
+    """A task payload's value and the number of refs it carries (each
+    deserialized ref counts a borrow, which the executor flushes before
+    it runs the task: JAX's :87)."""
+    s = SerializedObject.parse(data)
+    return Serializer().deserialize(s), len(s.contained_refs)
+
+
+def pull_bytes(node_stub, oid_binary: bytes) -> Optional[bytes]:
+    """An object's serialized bytes pulled from a node in chunks; None
+    when that node does not hold it."""
+    buf = bytearray()
+    found = False
+    for chunk in node_stub.PullObject(
+            pb.PullObjectRequest(object_id=oid_binary), timeout=120.0):
+        if not chunk.found:
+            break
+        found = True
+        buf.extend(chunk.data)
+        if chunk.eof:
+            break
+    return bytes(buf) if found else None
+
+
+def fetch_segment_or_pull(node_stub, oid_binary: bytes) -> Optional[bytes]:
+    """An object's serialized bytes from one node: a copy of its segment
+    when it maps on this host, else pulled; None when that node does not
+    hold it."""
+    reply = node_stub.GetObject(pb.GetObjectRequest(object_id=oid_binary))
+    if reply.found and reply.shm_name:
+        data = ShmClient.read_segment(reply.shm_name, reply.size)
+        if data is not None:
+            return data
+    return pull_bytes(node_stub, oid_binary)
+
+
+class _PullManager:
+    """Receiver-side pull admission (JAX's :167, the reference's
+    ``pull_manager.h:53``): bounds the bytes of the pulls in flight in
+    this process and shares one pull of an object among its getters."""
+
+    def __init__(self, budget_bytes: int):
+        self._budget = max(budget_bytes, 1)
+        self._avail = self._budget
+        self._cv = threading.Condition()
+        self._inflight: Dict[bytes, threading.Event] = {}
+
+    def _cost(self, size: int) -> int:
+        return min(max(size, 1), self._budget)
+
+    def begin(self, oid: bytes, size: int, wait_s: float = 60.0):
+        """Admit a pull: None when this caller pulls, or the event of the
+        pull of the same object already in flight. ``wait_s`` bounds the
+        wait for budget (the caller's remaining deadline); past it the
+        pull is admitted anyway: admission never extends a timeout, and
+        an object over the whole budget is admitted alone."""
+        cost = self._cost(size)
+        deadline = time.monotonic() + max(wait_s, 0.0)
+        with self._cv:
+            ev = self._inflight.get(oid)
+            if ev is not None:
+                return ev
+            while self._avail < cost:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._cv.wait(timeout=min(remaining, 1.0))
+                ev = self._inflight.get(oid)
+                if ev is not None:
+                    return ev
+            self._avail -= cost
+            self._inflight[oid] = threading.Event()
+            return None
+
+    def end(self, oid: bytes, size: int) -> None:
+        with self._cv:
+            self._avail += self._cost(size)
+            ev = self._inflight.pop(oid, None)
+            self._cv.notify_all()
+        if ev is not None:
+            ev.set()
+
+
 def _run_callback(cb) -> None:
     try:
         cb()
@@ -131,8 +229,11 @@ def _future_set(fut: Future, value: Any) -> None:
         fut.set_result(value)
 
 
-# Seconds a produced object may stay unfound before it counts as lost.
+# Seconds a produced object may stay unfound before it counts as lost
+# (when this process holds no lineage to rebuild it).
 LOST_AFTER_S = 5.0
+# Rebuilds of one object a get may run (JAX's).
+MAX_REBUILDS = 3
 
 
 class _HexId(str):
@@ -182,17 +283,23 @@ class ClusterRuntime(CoreRuntime):
         self._escaped_ids: set = set()
         self._task_done: set = set()
         # Objects the directory announced (OBJECT_LOC events carry their
-        # ids), and pulls in flight: a waiter and a getter of one object
-        # share one pull (JAX's PullManager dedup, pull_manager.h:53).
+        # ids), and the pulls in flight with their byte budget.
         self._located: set = set()
-        self._fetching: Dict[bytes, threading.Event] = {}
-        self._fetch_lock = threading.Lock()
+        self._pulls = _PullManager(int(os.environ.get(
+            "RAY_TPU_PULL_BUDGET_BYTES", 512 << 20)))
+        # The locality hint's directory cache: oid -> (ts, size, nodes).
+        self._loc_cache: Dict[bytes, tuple] = {}
         self._submit_slots = threading.BoundedSemaphore(
             int(os.environ.get("RAY_TPU_SUBMIT_RPC_SLOTS", 8)))
         self._completion_slots = threading.BoundedSemaphore(
             int(os.environ.get("RAY_TPU_SUBMIT_RPC_SLOTS", 8)))
         self._actor_cache: Dict[bytes, pb.ActorInfo] = {}
         self._actor_dead: Dict[bytes, str] = {}
+        # An actor's constructor arguments, pinned until it settles.
+        self._actor_create_pins: Dict[bytes, List[bytes]] = {}
+        # A task's flight pins (the refs its payload carries, a promoted
+        # payload), released when its returns complete.
+        self._flight_pins: Dict[bytes, List[bytes]] = {}
         self._actor_seq: Dict[bytes, int] = {}
         self._actor_session: Dict[bytes, int] = {}
         self._actor_window: Dict[bytes, dict] = {}
@@ -209,6 +316,21 @@ class ClusterRuntime(CoreRuntime):
         # Callbacks of the other channels this process subscribes to (the
         # serve route events), by channel.
         self._channel_cbs: Dict[str, List] = {}
+        # Ownership: the counts of this process's live refs go to the GCS,
+        # which frees an object when every holder's count is gone; the
+        # task that made a result stays pinned (its lineage) while this
+        # process holds a ref to it (JAX's :314-341).
+        self.refs = ReferenceCounter(self.gcs, self.worker_id,
+                                     on_local_zero=self._on_ref_zero,
+                                     node_id=node_id or "",
+                                     is_driver=not is_worker)
+        self._lineage: Dict[bytes, pb.TaskSpec] = {}
+        self._lineage_lock = threading.RLock()
+        self._reconstructing: Dict[bytes, threading.Event] = {}
+        self._task_lineage_count: Dict[bytes, int] = {}
+        # task id -> a promoted payload's bytes, kept while the lineage
+        # lives, to put again when its only store copy died.
+        self._lineage_payload_bytes: Dict[bytes, bytes] = {}
         # GCS pubsub drives actor resolution and object readiness wakeups.
         self._ready_cond = threading.Condition()
         self._spawn(self._subscriber_loop, "gcs-subscriber")
@@ -344,6 +466,8 @@ class ClusterRuntime(CoreRuntime):
         except Exception:  # noqa: BLE001
             return
         key = bytes(info.actor_id)
+        if info.state in ("ALIVE", "DEAD"):
+            self._release_create_pins(key)
         with self._actor_lock:
             if info.state == "ALIVE":
                 self._actor_cache[key] = info
@@ -355,6 +479,49 @@ class ClusterRuntime(CoreRuntime):
                         info.death_cause or "actor is dead"
                     while len(self._actor_dead) > 4096:
                         self._actor_dead.pop(next(iter(self._actor_dead)))
+
+    # ------------------------------------------------------------- references
+    def add_local_reference(self, ref: ObjectRef) -> None:
+        self.refs.incr(ref.id().binary())
+
+    def remove_local_reference(self, object_id) -> None:
+        if not self._shutdown:
+            self.refs.decr(object_id.binary())
+
+    def _on_ref_zero(self, oid: bytes) -> None:
+        """This process's last ref went: evict the in-process copy and
+        unpin the lineage (the cluster-wide free is the GCS's, once every
+        holder's count is gone)."""
+        self.memory.delete([ObjectID(oid)])
+        self._lazy_results.pop(oid, None)
+        self._escaped_ids.discard(oid)
+        payload_oid = None
+        with self._lineage_lock:
+            spec = self._lineage.pop(oid, None)
+            if spec is not None:
+                task_key = ObjectID(oid).task_id().binary()
+                n = self._task_lineage_count.get(task_key, 0) - 1
+                if n <= 0:
+                    self._task_lineage_count.pop(task_key, None)
+                    self._task_done.discard(task_key)
+                    self._reconstructing.pop(task_key, None)
+                    self._lineage_payload_bytes.pop(task_key, None)
+                    payload_oid = bytes(spec.payload_ref) or None
+                else:
+                    self._task_lineage_count[task_key] = n
+        if payload_oid is not None:
+            # The lineage went: its promoted payload can go too.
+            self.refs.decr(payload_oid)
+
+    def _pin(self, oids) -> List[bytes]:
+        oids = list(oids)
+        for ob in oids:
+            self.refs.incr(ob)
+        return oids
+
+    def _unpin(self, oids) -> None:
+        for ob in oids or ():
+            self.refs.decr(ob)
 
     # ---------------------------------------------------------------- objects
     def serialize(self, value: Any) -> SerializedObject:
@@ -372,7 +539,10 @@ class ClusterRuntime(CoreRuntime):
 
     def _flush_escaped(self, oid_bins) -> None:
         """Mark refs as escaped (sticky: a ref can leave before its task
-        finishes) and store any lazily held bytes of theirs."""
+        finishes) and store any lazily held bytes of theirs, before the
+        value that carries them leaves: a borrower finds the object in
+        the store, and its borrow reaches the GCS while the sender's pin
+        still holds the count."""
         for ob in oid_bins:
             self._escaped_ids.add(ob)
             data = self._lazy_results.pop(ob, None)
@@ -402,44 +572,11 @@ class ClusterRuntime(CoreRuntime):
         self.memory.put(oid, value)
         return ObjectRef(oid, owner_address=self.node_address)
 
-    def _pull(self, addr: str, oid_bin: bytes) -> Optional[bytes]:
-        buf = bytearray()
-        found = False
-        for chunk in rpc.get_stub("NodeService", addr).PullObject(
-                pb.PullObjectRequest(object_id=oid_bin), timeout=120.0):
-            if not chunk.found:
-                break
-            found = True
-            buf.extend(chunk.data)
-            if chunk.eof:
-                break
-        return bytes(buf) if found else None
-
     def _fetch_object(self, ref: ObjectRef, deadline=None):
-        """Try every known location once: ``(found, value)``. A pull of
-        the same object already in flight here is waited for instead of
-        repeated."""
-        oid = ref.id()
-        key = oid.binary()
-        with self._fetch_lock:
-            ev = self._fetching.get(key)
-            leader = ev is None
-            if leader:
-                ev = self._fetching[key] = threading.Event()
-        if not leader:
-            ev.wait(120.0)
-            try:
-                return True, self.memory.get_if_ready(oid)
-            except KeyError:
-                return False, None
-        try:
-            return self._fetch_once(ref)
-        finally:
-            with self._fetch_lock:
-                self._fetching.pop(key, None)
-            ev.set()
-
-    def _fetch_once(self, ref: ObjectRef):
+        """Try every known location once: ``(found, value, freed,
+        pending)``. ``freed``: the GCS freed the object (its count reached
+        zero), so it is gone for good; ``pending``: another thread's pull
+        of it is in flight, so a miss is no loss (JAX's :754)."""
         oid = ref.id()
         try:
             reply = self.node.GetObject(
@@ -451,45 +588,67 @@ class ClusterRuntime(CoreRuntime):
             found, value = read_object_reply(reply)
             if found:
                 self.memory.put(oid, value)
-                return True, value
+                return True, value, False, False
         candidates = []
         if ref.owner_address() and ref.owner_address() != self.node_address:
             candidates.append(ref.owner_address())
+        freed, size = False, 0
         try:
             locs = self.gcs.GetObjectLocations(
                 pb.GetObjectLocationsRequest(object_id=oid.binary()))
+            freed, size = locs.freed, int(locs.size)
             nodes = self._node_addresses()
             candidates.extend(nodes[nid] for nid in locs.node_ids
                               if nid in nodes)
         except Exception:  # noqa: BLE001
             pass
-        for addr in dict.fromkeys(candidates):
-            if addr == self.node_address:
-                continue
+        candidates = [a for a in dict.fromkeys(candidates)
+                      if a != self.node_address]
+        if not candidates:
+            return False, None, freed, False
+
+        def remaining(cap):
+            if deadline is None:
+                return cap
+            return max(0.0, min(cap, deadline - time.monotonic()))
+
+        waited = self._pulls.begin(oid.binary(), size,
+                                   wait_s=remaining(60.0))
+        if waited is not None:
+            waited.wait(timeout=remaining(120.0))
             try:
-                # Another node of this host: its segment maps here too,
-                # without a copy (a node elsewhere answers with a name
-                # this host has no segment of, and the object is pulled).
-                reply = rpc.get_stub("NodeService", addr).GetObject(
-                    pb.GetObjectRequest(object_id=oid.binary()))
-                found, value = read_object_reply(reply) if reply.found \
-                    else (False, None)
-                if found:
-                    self.memory.put(oid, value)
-                    return True, value
-                data = self._pull(addr, oid.binary())
-            except Exception:  # noqa: BLE001
-                continue
-            if data is not None:
-                value = loads(data)
-                self.memory.put(oid, value)
-                try:  # kept on this node for its other readers (JAX's)
-                    put_to_node(self.node, oid.binary(), data,
-                                self.worker_id)
+                return True, self.memory.get_if_ready(oid), freed, False
+            except KeyError:
+                return False, None, freed, True
+        try:
+            for addr in candidates:
+                try:
+                    # Another node of this host: its segment maps here
+                    # too, without a copy (a node elsewhere answers with a
+                    # name this host has no segment of: pulled).
+                    reply = rpc.get_stub("NodeService", addr).GetObject(
+                        pb.GetObjectRequest(object_id=oid.binary()))
+                    found, value = read_object_reply(reply) if reply.found \
+                        else (False, None)
+                    if found:
+                        self.memory.put(oid, value)
+                        return True, value, freed, False
+                    data = pull_bytes(rpc.get_stub("NodeService", addr),
+                                      oid.binary())
                 except Exception:  # noqa: BLE001
-                    pass
-                return True, value
-        return False, None
+                    continue
+                if data is not None:
+                    value = loads(data)
+                    self.memory.put(oid, value)
+                    try:  # kept on this node for its other readers
+                        put_to_node(self.node, oid.binary(), data,
+                                    self.worker_id)
+                    except Exception:  # noqa: BLE001
+                        pass
+                    return True, value, freed, False
+            return False, None, freed, False
+        finally:
+            self._pulls.end(oid.binary(), size)
 
     def get(self, refs: Sequence[ObjectRef],
             timeout: Optional[float]) -> List[Any]:
@@ -508,6 +667,7 @@ class ClusterRuntime(CoreRuntime):
         oid = ref.id()
         backoff = 0.002
         first_miss = None
+        rebuilds = 0
         while True:
             try:
                 return self.memory.get_if_ready(oid)
@@ -522,19 +682,30 @@ class ClusterRuntime(CoreRuntime):
                         f"Timed out getting object {oid.hex()}")
                 ev.wait(5.0 if remaining is None else min(remaining, 5.0))
                 continue
-            found, value = self._fetch_object(ref, deadline)
+            found, value, freed, pending = self._fetch_object(ref,
+                                                              deadline)
             if found:
                 return value
-            if oid.task_id().binary() in self._task_done:
-                # Produced, then every copy went (its node died).
+            if not pending and rebuilds < MAX_REBUILDS and \
+                    self._maybe_reconstruct(ref):
+                rebuilds += 1
+                continue
+            with self._lineage_lock:
+                has_lineage = oid.binary() in self._lineage
+            if freed and not has_lineage:
+                raise exceptions.ObjectLostError(message=(
+                    f"Object {oid.hex()} was freed cluster-wide (its "
+                    f"reference count reached zero or its owner died) "
+                    f"and cannot be reconstructed by this process."))
+            if oid.task_id().binary() in self._task_done and \
+                    not has_lineage:
+                # Produced, then every copy went, and nothing here can
+                # make it again.
                 first_miss = first_miss or time.monotonic()
                 if time.monotonic() - first_miss > LOST_AFTER_S:
-                    from ray_tpu_torch._private.worker import ITEM_20B
-
                     raise exceptions.ObjectLostError(message=(
-                        f"Object {oid.hex()} lost every copy; rebuilding "
-                        f"it from its lineage is not ported yet: "
-                        f"ROADMAP.md queue A, {ITEM_20B}"))
+                        f"Object {oid.hex()} lost every copy and cannot "
+                        f"be reconstructed by this process."))
             if deadline is not None and time.monotonic() >= deadline:
                 raise exceptions.GetTimeoutError(
                     f"Timed out getting object {oid.hex()}")
@@ -550,6 +721,71 @@ class ClusterRuntime(CoreRuntime):
                     self._ready_cond.wait(backoff if remaining is None
                                           else min(backoff, remaining))
             backoff = min(backoff * 2, 0.5)
+
+    def _maybe_reconstruct(self, ref: ObjectRef, depth: int = 0) -> bool:
+        """Run again the task that made a result whose every copy is gone
+        (JAX's :911; the reference's ``TaskManager::ResubmitTask``,
+        ``task_manager.h:274``), first rebuilding its lost ref arguments.
+        Only an owner holding the task's lineage can; True when a rebuild
+        ran (the caller fetches again)."""
+        oid = ref.id().binary()
+        with self._lineage_lock:
+            spec = self._lineage.get(oid)
+        if spec is None or depth > 10:
+            return False
+        task_key = bytes(spec.task_id)
+        # A miss on a task still running only means pending.
+        if task_key not in self._task_done:
+            return False
+        with self._lineage_lock:
+            ev = self._reconstructing.get(task_key)
+            leader = ev is None
+            if leader:
+                ev = self._reconstructing[task_key] = threading.Event()
+        if not leader:
+            ev.wait(300)
+            return True
+        try:
+            # The directory may lag the task's completion: look again
+            # before paying for a run.
+            for _ in range(3):
+                if self.memory.contains(ref.id()) or \
+                        self._fetch_object(ref)[0]:
+                    return True
+                time.sleep(0.05)
+            logger.warning("all copies of %s lost; running task %s (%s) "
+                           "again", ref.id().hex()[:12], task_key.hex()[:12],
+                           spec.name)
+            raw = spec.payload
+            if spec.payload_ref:
+                # The promoted payload's only copy may have died with its
+                # node: put it again from the kept bytes.
+                raw = self._lineage_payload_bytes.get(task_key, b"")
+                if raw and not self._batch_ready([ObjectRef(
+                        ObjectID(bytes(spec.payload_ref)),
+                        skip_ref_count=True)]):
+                    try:
+                        put_to_node(self.node, bytes(spec.payload_ref), raw,
+                                    self.worker_id)
+                    except Exception:  # noqa: BLE001
+                        logger.exception("putting the payload of task %s "
+                                         "again failed", task_key.hex()[:12])
+            if depth < 10 and raw:
+                try:
+                    (_, args, kwargs), _ = loads_payload(raw)
+                    for a in list(args) + list(kwargs.values()):
+                        if isinstance(a, ObjectRef) and \
+                                not self._fetch_object(a)[0]:
+                            self._maybe_reconstruct(a, depth + 1)
+                except Exception:  # noqa: BLE001
+                    pass
+            return_ids = [ObjectID(b) for b in spec.return_ids]
+            self._lease_and_push(spec, return_ids, int(spec.max_retries))
+            return True
+        finally:
+            ev.set()
+            with self._lineage_lock:
+                self._reconstructing.pop(task_key, None)
 
     def _batch_ready(self, refs: List[ObjectRef]) -> List[ObjectRef]:
         """Readiness of many refs in O(1) RPCs: this process's store, one
@@ -624,11 +860,6 @@ class ClusterRuntime(CoreRuntime):
         except Exception:  # noqa: BLE001
             pass
 
-    def free_later(self, refs) -> None:
-        """:meth:`free` on the runtime's pool, for a caller that must not
-        wait on its RPCs."""
-        self._submit(self.free, list(refs))
-
     def _submit(self, fn, *args) -> None:
         try:
             self._pool.submit(fn, *args)
@@ -649,12 +880,14 @@ class ClusterRuntime(CoreRuntime):
         streaming = is_streaming(options.num_returns)
         nreturns = 1 if streaming else max(options.num_returns, 1)
         return_ids = [ObjectID.from_task(task_id, i) for i in range(nreturns)]
+        s = self.serialize((function, args, kwargs))
         spec = pb.TaskSpec(
             task_id=task_id.binary(), name=function_name,
-            payload=self.dumps((function, args, kwargs)),
             return_ids=[oid.binary() for oid in return_ids],
             max_retries=options.max_retries or 0, returns_stream=streaming,
             resources=options.task_resources())
+        payload = s.to_bytes()
+        payload_oid = self._maybe_promote_payload(task_id, payload, spec)
         from ray_tpu_torch._private.options import resolve_placement
 
         pf = resolve_placement(options)
@@ -665,6 +898,22 @@ class ClusterRuntime(CoreRuntime):
         spec.affinity_soft = pf.affinity_soft
         spec.strategy = pf.strategy
         spec.label_selector = pf.label_selector
+        # Every ref the payload carries (nested ones too) is pinned for
+        # the task's flight, so its count cannot reach zero before the
+        # worker's borrow; a promoted payload too, and besides pinned as
+        # long as the lineage lives (released in _on_ref_zero).
+        pins = list(s.contained_refs)
+        if payload_oid is not None:
+            pins.append(payload_oid)
+            self.refs.incr(payload_oid)
+        self._flight_pins[task_id.binary()] = self._pin(pins)
+        with self._lineage_lock:
+            for oid in return_ids:
+                self._lineage[oid.binary()] = spec
+            self._task_lineage_count[task_id.binary()] = \
+                self._task_lineage_count.get(task_id.binary(), 0) + nreturns
+            if payload_oid is not None:
+                self._lineage_payload_bytes[task_id.binary()] = payload
         self._register_pending(return_ids)
         # Child registry for recursive cancellation.
         from ray_tpu_torch._private.runtime.local import current_task_context
@@ -674,6 +923,10 @@ class ClusterRuntime(CoreRuntime):
             with self._cancel_lock:
                 self._children.setdefault(pctx.task_id.binary(), []).append(
                     (task_id.binary(), [o.binary() for o in return_ids]))
+        # The refs first: a result that comes back before they exist
+        # would find none and not be kept.
+        refs = [ObjectRef(oid, owner_address=self.node_address)
+                for oid in return_ids]
         # A task is dispatched once its direct ObjectRef args exist
         # (reference: dependency_resolver.h), so dependents never hold
         # workers waiting on producers.
@@ -684,12 +937,71 @@ class ClusterRuntime(CoreRuntime):
             self._submit(self._wait_deps_then_dispatch, deps, spec,
                          return_ids, retries)
         else:
+            self._apply_locality_hint(spec, deps)
             self._dispatch_task(spec, return_ids, retries)
-        return [ObjectRef(oid, owner_address=self.node_address)
-                for oid in return_ids]
+        return refs
+
+    # Locality-aware lease targeting (reference: LocalityAwareLeasePolicy,
+    # ``core_worker/lease_policy.h:58``; JAX's :1180-1238): only argument
+    # bytes at least this large steer the lease, below it a pull costs
+    # less than giving up lease reuse.
+    LOCALITY_MIN_BYTES = 100 * 1024
+    LOCALITY_CACHE_TTL_S = 5.0
+
+    def _dep_locations(self, oid: ObjectID):
+        """``(size, node_ids)`` from the GCS directory, cached for a few
+        seconds: a fan-out of tasks sharing one large argument pays one
+        directory call."""
+        key = oid.binary()
+        now = time.monotonic()
+        hit = self._loc_cache.get(key)
+        if hit is not None and now - hit[0] < self.LOCALITY_CACHE_TTL_S:
+            return hit[1], hit[2]
+        try:
+            locs = self.gcs.GetObjectLocations(
+                pb.GetObjectLocationsRequest(object_id=key))
+        except Exception:  # noqa: BLE001 — no directory answer: no hint
+            return 0, ()
+        size = 0 if locs.freed else locs.size
+        node_ids = tuple(locs.node_ids)
+        if len(self._loc_cache) > 4096:
+            self._loc_cache.clear()
+        self._loc_cache[key] = (now, size, node_ids)
+        return size, node_ids
+
+    def _apply_locality_hint(self, spec: pb.TaskSpec,
+                             deps: List[ObjectRef]) -> None:
+        """Lease on the node holding the most bytes of the task's
+        arguments, as a soft affinity (spillback handles a full node):
+        a task whose 1 GB argument lives on node B runs on B instead of
+        pulling it. An explicit placement wins."""
+        if (spec.placement_group_id or spec.affinity_node_id
+                or spec.strategy or spec.label_selector or not deps):
+            return
+        per_node: Dict[str, int] = {}
+        local_bytes = 0
+        for ref in deps[:4]:  # a bounded directory cost a submit
+            oid = ref.id()
+            if self.memory.contains(oid):
+                continue  # in this process: no pull either way
+            size, node_ids = self._dep_locations(oid)
+            if not size:
+                continue
+            for nid in node_ids:
+                if nid == self.node_id:
+                    local_bytes += size
+                else:
+                    per_node[nid] = per_node.get(nid, 0) + size
+        if not per_node:
+            return
+        best, best_bytes = max(per_node.items(), key=lambda kv: kv[1])
+        if best_bytes >= self.LOCALITY_MIN_BYTES and best_bytes > local_bytes:
+            spec.affinity_node_id = best
+            spec.affinity_soft = True
 
     def _wait_deps_then_dispatch(self, deps, spec, return_ids, retries):
         deadline = time.monotonic() + 300.0
+        all_deps = list(deps)
         while not self._shutdown and time.monotonic() < deadline:
             if self._task_cancelled(bytes(spec.task_id)):
                 self._store_cancelled(spec, return_ids)
@@ -709,6 +1021,8 @@ class ClusterRuntime(CoreRuntime):
             deps = unready
             with self._ready_cond:
                 self._ready_cond.wait(0.05)
+        # The hint after the deps exist: their locations are known now.
+        self._apply_locality_hint(spec, all_deps)
         self._dispatch_task(spec, return_ids, retries)
 
     def _register_pending(self, return_ids: List[ObjectID]) -> None:
@@ -726,7 +1040,14 @@ class ClusterRuntime(CoreRuntime):
             return ev
 
     def _complete_pending(self, return_ids) -> None:
+        """Wake the task's getters and run its futures' callbacks; its
+        flight pins go (after its worker flushed its borrows)."""
         cbs: List = []
+        if return_ids:
+            first = return_ids[0]
+            first = first if hasattr(first, "task_id") else ObjectID(first)
+            self._unpin(self._flight_pins.pop(first.task_id().binary(),
+                                              None))
         with self._pending_res_lock:
             evs = set()
             for oid in return_ids:
@@ -744,6 +1065,54 @@ class ClusterRuntime(CoreRuntime):
                 _run_callback(cb)
         with self._ready_cond:
             self._ready_cond.notify_all()
+
+    PAYLOAD_INDEX = (1 << 30) - 1   # the object index of a task's payload
+
+    def _maybe_promote_payload(self, task_id: TaskID, payload: bytes,
+                               spec: pb.TaskSpec) -> Optional[bytes]:
+        """A payload over ``INLINE_RESULT_MAX`` goes into the node store
+        (a segment of this process) and the task carries its id (JAX's
+        :1334, the reference's ``core_worker.cc:1527``): a retry, a
+        spillback or a rebuild ships an id, not the bytes. Its object id,
+        which the caller pins, or None when it rides inline."""
+        if len(payload) <= INLINE_RESULT_MAX:
+            spec.payload = payload
+            return None
+        oid = ObjectID.from_task(task_id, self.PAYLOAD_INDEX).binary()
+        self._store_bytes(oid, payload)
+        spec.payload_ref = oid
+        return oid
+
+    def fetch_object_bytes(self, oid_binary: bytes,
+                           timeout: float = 120.0) -> Optional[bytes]:
+        """A store object's serialized bytes (a promoted payload): from
+        this node, else from a node the directory names; None when it was
+        freed or did not appear in ``timeout``."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and not self._shutdown:
+            try:
+                data = fetch_segment_or_pull(self.node, oid_binary)
+                if data is not None:
+                    return data
+            except Exception:  # noqa: BLE001
+                self._refresh_local_node()
+            try:
+                locs = self.gcs.GetObjectLocations(
+                    pb.GetObjectLocationsRequest(object_id=oid_binary))
+                if locs.freed:
+                    return None
+                nodes = self._node_addresses()
+                for nid in locs.node_ids:
+                    if nid in nodes:
+                        data = fetch_segment_or_pull(
+                            rpc.get_stub("NodeService", nodes[nid]),
+                            oid_binary)
+                        if data is not None:
+                            return data
+            except Exception:  # noqa: BLE001
+                pass
+            time.sleep(0.05)
+        return None
 
     def release_stream_tail(self, length_ref: ObjectRef,
                             from_index: int) -> None:
@@ -1038,6 +1407,10 @@ class ClusterRuntime(CoreRuntime):
 
     def _affinity_target(self, spec: pb.TaskSpec):
         addr = self._node_addresses().get(spec.affinity_node_id)
+        if addr is None:
+            # A node added since the cached read: read the table again.
+            self._node_addr_cache = None
+            addr = self._node_addresses().get(spec.affinity_node_id)
         if addr is not None:
             return rpc.get_stub("NodeService", addr)
         if spec.affinity_soft:
@@ -1181,6 +1554,8 @@ class ClusterRuntime(CoreRuntime):
         for i, oid in enumerate(return_ids):
             if i < len(result.in_store) and result.in_store[i]:
                 continue  # a large result: fetched from the store on demand
+            if self._unreferenced(oid.binary()):
+                continue
             data = result.inline_results[i]
             self.memory.put(oid, loads(data))
             # Stored lazily: only a ref that leaves this process needs the
@@ -1196,12 +1571,20 @@ class ClusterRuntime(CoreRuntime):
             self._task_done.add(return_ids[0].task_id().binary())
         self._complete_pending(return_ids)
 
+    def _unreferenced(self, ob: bytes) -> bool:
+        """A result no ref of this process names and none took out of it:
+        nothing can read it, so it is not kept (its refs went before the
+        task finished)."""
+        return ob not in self._escaped_ids and self.refs.local_count(ob) == 0
+
     def _store_error(self, err, return_ids):
         try:
             blob = self.dumps(err)
         except Exception:  # noqa: BLE001 — unpicklable error chain
             blob = None
         for oid in return_ids:
+            if self._unreferenced(oid.binary()):
+                continue
             self.memory.put(oid, err)
             if blob is not None:
                 self._lazy_results[oid.binary()] = blob
@@ -1270,9 +1653,10 @@ class ClusterRuntime(CoreRuntime):
         from ray_tpu_torch._private.options import resolve_placement
 
         pf = resolve_placement(options)
+        s = self.serialize((cls, args, kwargs, options))
         spec = pickle.dumps({
             "resources": dict(options.task_resources()),
-            "payload": self.dumps((cls, args, kwargs, options)),
+            "payload": s.to_bytes(),
             "pg": ((pf.placement_group_id, pf.bundle_index)
                    if pf.placement_group_id else None),
             "pg_capture": pf.capture_child_tasks,
@@ -1282,6 +1666,13 @@ class ClusterRuntime(CoreRuntime):
                          if pf.affinity_node_id else None),
             "strategy": pf.strategy,
         })
+        # The constructor's refs stay pinned until the actor settles
+        # (ALIVE after its constructor's borrows, or DEAD): placement can
+        # outlast the caller's last ref.
+        if s.contained_refs:
+            with self._actor_lock:
+                self._actor_create_pins[actor_id.binary()] = self._pin(
+                    s.contained_refs)
         reply = self.gcs.RegisterActor(pb.RegisterActorRequest(
             info=pb.ActorInfo(
                 actor_id=actor_id.binary(), name=options.name or "",
@@ -1291,6 +1682,11 @@ class ClusterRuntime(CoreRuntime):
         if not reply.ok:
             raise ValueError(reply.error)
         return actor_id
+
+    def _release_create_pins(self, actor_key: bytes) -> None:
+        with self._actor_lock:
+            pins = self._actor_create_pins.pop(actor_key, None)
+        self._unpin(pins)
 
     def _resolve_actor(self, actor_id: ActorID,
                        timeout_s: float = 600.0) -> pb.ActorInfo:
@@ -1315,6 +1711,7 @@ class ClusterRuntime(CoreRuntime):
                 except rpc.RpcError:  # the GCS restarting: retry
                     reply = pb.GetActorReply(found=False)
                 if reply.found and reply.info.state in ("ALIVE", "DEAD"):
+                    # Settled (releases the constructor's pins too).
                     self._on_actor_event(reply.info.SerializeToString())
                     continue
             if self._shutdown or time.monotonic() > deadline:
@@ -1345,19 +1742,26 @@ class ClusterRuntime(CoreRuntime):
             st = self._actor_window_state(actor_id.binary())
             st["window"] = max(self.ACTOR_SEND_WINDOW,
                                min(eff, self.ASYNC_ACTOR_SEND_WINDOW_MAX))
+        s = self.serialize((None, args, kwargs))
         spec = pb.TaskSpec(
             task_id=task_id.binary(), name=method_name,
             method_name=method_name,
-            payload=self.dumps((None, args, kwargs)),
             return_ids=[oid.binary() for oid in return_ids],
             actor_id=actor_id.binary(), sequence_no=seq,
             caller_address=f"{self.worker_id}:{session}".encode(),
             returns_stream=streaming)
+        payload_oid = self._maybe_promote_payload(task_id, s.to_bytes(), spec)
+        # Pinned for the push, as a task's (actor tasks keep no lineage).
+        pins = list(s.contained_refs)
+        if payload_oid is not None:
+            pins.append(payload_oid)
+        self._flight_pins[task_id.binary()] = self._pin(pins)
         self._register_pending(return_ids)
+        refs = [ObjectRef(oid, owner_address=self.node_address)
+                for oid in return_ids]   # before a result can come back
         self._submit(self._push_actor_task, actor_id, spec, return_ids,
                      options.max_task_retries)
-        return [ObjectRef(oid, owner_address=self.node_address)
-                for oid in return_ids]
+        return refs
 
     def _invalidate_actor(self, actor_id: ActorID):
         with self._actor_lock:
@@ -1587,6 +1991,10 @@ class ClusterRuntime(CoreRuntime):
             return
         self._shutdown = True
         self._drain_lease_cache()
+        try:
+            self.refs.shutdown()  # every count this process held goes
+        except Exception:  # noqa: BLE001 — the GCS is gone already
+            pass
         stream = self._sub_stream
         if stream is not None:
             stream.cancel()

@@ -29,8 +29,6 @@ from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.runtime.interface import CoreRuntime
 
 # ROADMAP.md queue A's entries that hold the rest of JAX's cluster runtime.
-ITEM_20B = ("item 20b (the object plane: reference counts, lineage, "
-            "spilling and locality)")
 ITEM_20C = "item 20c (runtime environments and the node agent)"
 ITEM_20D = "item 20d (remote drivers, the ray:// client proxy)"
 

@@ -32,9 +32,13 @@ This process:
 
 A result or a streamed item over ``INLINE_RESULT_MAX`` goes into a
 shared-memory segment this process writes, registered with the node's
-store (JAX's :355, :393, :765); a smaller result rides the push reply.
-Left out, with the ROADMAP.md item that brings it: runtime environments
-(20c).
+store (JAX's :355, :393, :765); a smaller result rides the push reply. A
+payload the caller promoted to the store is read from it
+(``payload_ref``, JAX's :324). The refs a payload carries are borrows of
+this process: they are flushed to the GCS before the task or the
+constructor runs (JAX's flush points :486, :598, :673, :787), so the
+caller's pin is released after them. Left out, with the ROADMAP.md item
+that brings it: runtime environments (20c).
 """
 
 from __future__ import annotations
@@ -57,8 +61,8 @@ from ray_tpu_torch._private.ids import ActorID, TaskID
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.runtime.cluster import (INLINE_RESULT_MAX,
                                                     ClusterRuntime,
+                                                    loads_payload,
                                                     put_to_node)
-from ray_tpu_torch._private.serialization import loads
 
 logger = logging.getLogger(__name__)
 
@@ -302,6 +306,26 @@ class WorkerServer:
             lambda oid, item: self._put_store(oid.binary(),
                                               self.runtime.serialize(item)))
 
+    def _payload(self, spec):
+        """The task's ``(function or None, args, kwargs)``: its payload
+        inline or read from the store, its borrows flushed first."""
+        raw = spec.payload
+        if spec.payload_ref:
+            raw = self.runtime.fetch_object_bytes(bytes(spec.payload_ref))
+            if raw is None:
+                raise exceptions.ObjectLostError(message=(
+                    f"the payload {bytes(spec.payload_ref).hex()[:16]} of "
+                    f"task {spec.name} was lost"))
+        return self._borrowed(raw)
+
+    def _borrowed(self, raw):
+        value, n_borrows = loads_payload(raw)
+        if n_borrows:
+            # Before the caller's pin release, which follows this push's
+            # reply: the order that keeps the count from dipping to zero.
+            self.runtime.refs.flush()
+        return value
+
     def _resolve_args(self, args, kwargs):
         """Top-level ObjectRef resolution (nested refs pass through)."""
         refs = [a for a in args if isinstance(a, ObjectRef)]
@@ -400,7 +424,7 @@ class WorkerServer:
             ctx_token = None
             self._report_task(spec, "RUNNING")
             try:
-                fn, args, kwargs = loads(spec.payload)
+                fn, args, kwargs = self._payload(spec)
                 args, kwargs = self._resolve_args(args, kwargs)
                 if spec.placement_group_id:
                     # Children of a capturing task inherit its group.
@@ -488,7 +512,7 @@ class WorkerServer:
                     TaskID(bytes(spec.task_id)))
             self._report_task(spec, "RUNNING",
                               actor_id=bytes(spec.actor_id).hex()[:12])
-            _, args, kwargs = loads(spec.payload)
+            _, args, kwargs = self._payload(spec)
             args, kwargs = self._resolve_args(args, kwargs)
             if spec.method_name == "__ray_dag_loop__":
                 # The compiled DAG's pinned loop: it occupies this call's
@@ -552,7 +576,7 @@ class WorkerServer:
                     raise exceptions.TaskCancelledError(TaskID(tid))
                 self._report_task(spec, "RUNNING",
                                   actor_id=bytes(spec.actor_id).hex()[:12])
-                _, args, kwargs = loads(spec.payload)
+                _, args, kwargs = self._payload(spec)
                 args, kwargs = self._resolve_args(args, kwargs)
                 if self._take_cancel(pb.TaskSpec(task_id=tid)):
                     raise exceptions.TaskCancelledError(TaskID(tid))
@@ -622,7 +646,7 @@ class WorkerServer:
             for k, v in request.env.items():
                 os.environ[k] = v
             outer = pickle.loads(info.spec)
-            cls, args, kwargs, options = loads(outer["payload"])
+            cls, args, kwargs, options = self._borrowed(outer["payload"])
             pg_ctx = None
             if outer.get("pg") is not None:
                 gid, idx = outer["pg"]

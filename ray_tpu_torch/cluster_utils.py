@@ -8,8 +8,10 @@ process, each with a server of its own on the port's wire; the workers
 are real processes forked from the runtime's fork server, so tasks cross
 process boundaries.
 
-A node with ``num_gpus=n`` owns cards ``0..n-1`` unless ``card_ids``
-names others: two nodes on one host own disjoint cards, and each node's
+A node spills past its store's budget into ``spill_dir`` (a directory
+of its own in the temp dir by default), which goes with the node. A node
+with ``num_gpus=n`` owns cards ``0..n-1`` unless ``card_ids`` names
+others: two nodes on one host own disjoint cards, and each node's
 cards are out of this process's card book for as long as it lives.
 :meth:`Cluster.shutdown` stops every node (its worker processes killed
 and reaped) and the GCS, and closes this process's connections, so no
@@ -50,13 +52,14 @@ class Cluster:
     def add_node(self, num_cpus: float = 4, num_gpus: float = 0,
                  resources: Optional[Dict[str, float]] = None,
                  labels: Optional[Dict[str, str]] = None,
-                 card_ids: Optional[List[int]] = None) -> NodeManager:
+                 card_ids: Optional[List[int]] = None,
+                 spill_dir: Optional[str] = None) -> NodeManager:
         res = {"CPU": float(num_cpus)}
         if num_gpus:
             res["GPU"] = float(num_gpus)
         res.update(resources or {})
         node = NodeManager(self.address, resources=res, labels=labels,
-                           card_ids=card_ids)
+                           card_ids=card_ids, spill_dir=spill_dir)
         self.nodes.append(node)
         return node
 

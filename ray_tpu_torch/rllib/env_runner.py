@@ -7,10 +7,11 @@ vectorized envs stepped with the current policy) and ``EnvRunnerGroup``
 (utils/actor_manager.py:198): a dead runner is replaced, re-synced and
 re-sampled within the round.
 
-A runner lives in a CPU process of the port's runtime
-(:func:`start_runner`: forked from the fork server, no card, one torch
-thread), as RLlib's runners default to no GPU; its forwards are plain
-torch on the CPU. The learners run on the card. The runners' env and
+A runner lives in a CPU process (:func:`start_runner`: no card, one
+torch thread, one call at a time), as RLlib's runners default to no GPU:
+on a cluster an actor of the cluster runtime the GCS places, otherwise a
+process forked from the fork server. Its forwards are plain torch on the
+CPU. The learners run on the card. The runners' env and
 callables cross to that process by pickle, so they must be module-level
 (or ``functools.partial``s of module-level callables).
 
@@ -72,14 +73,23 @@ def resolve_env(config) -> Callable:
 
 
 def start_runner(cls, *args):
-    """A process hosting ``cls(*args)``: forked from the runtime's fork
-    server, with no card (``CUDA_VISIBLE_DEVICES=""``), one intra-op
+    """A process hosting ``cls(*args)``, with no card, one intra-op
     thread (four runners' default thread counts would fight over the
     cores for matmuls of a few rows), and one call at a time, in order
-    (JAX's actors are serial too). Not waited for: a call queues until
-    the runner is built, and fails if it could not be."""
+    (JAX's actors are serial too): on a cluster a CPU actor with
+    ``max_concurrency=1`` the GCS places, else a process forked from the
+    runtime's fork server with ``CUDA_VISIBLE_DEVICES=""``. Not waited
+    for: a call queues until the runner is built, and fails if it could
+    not be."""
+    from ray_tpu_torch.runtime.cluster_replica import (ClusterReplica,
+                                                       cluster_core)
     from ray_tpu_torch.runtime.replica import ReplicaProcess
 
+    if cluster_core() is not None:
+        return ClusterReplica("env_runner", cls, args, {}, False,
+                              sync_workers=1, control_slots=0,
+                              actor_options={"num_cpus": 1},
+                              num_threads=1)
     return ReplicaProcess("env_runner", cls, args, {}, False,
                           sync_workers=1, env={"CUDA_VISIBLE_DEVICES": ""},
                           num_threads=1)

@@ -6,13 +6,19 @@ hold a replica of the module; every update computes gradients on a shard
 of the batch, allreduces them, and applies locally, so weights stay bit
 for bit the same across learners without a broadcast.
 
-The JAX package hosts each learner in an actor. The port hosts it in a
+The JAX package hosts each learner in an actor. On a cluster
+(``ray_tpu_torch.init(address=...)``) so does the port: an actor of the
+cluster runtime with ``num_gpus=1`` (``0`` with ``use_gpu=False``) that
+the GCS places and its node gives its card
+(:class:`~ray_tpu_torch.runtime.cluster_replica.ClusterReplica`).
+Otherwise each learner lives in a
 :class:`~ray_tpu_torch.runtime.replica.ReplicaProcess`, forked from the
-runtime's fork server as train workers are, each on its card
+runtime's fork server as train workers are, each on a card of this host
 (``CUDA_VISIBLE_DEVICES``; an empty one with ``use_gpu=False``). The
 allreduce runs on a named collective group
 (:mod:`ray_tpu_torch.util.collective`) whose rendezvous is a ``TCPStore``
-this process hosts: NCCL over the learners' cards, the fp32 gradient
+this process hosts, on its host's address as the cluster runtime knows
+it: NCCL over the learners' cards, the fp32 gradient
 bucket reduced where the grads lie, or gloo for CPU learners. The learner builder crosses by
 ``(module, qualname)``, so it must be defined at module level; JAX's
 closures become a module-level builder (a learner class) and its
@@ -230,9 +236,10 @@ class LearnerGroup:
                  builder_kwargs=None):
         import torch.distributed as dist
 
-        from ray_tpu_torch.runtime.controller import _place
+        from ray_tpu_torch.runtime.cluster_replica import (ClusterReplica,
+                                                           cluster_core,
+                                                           driver_host)
         from ray_tpu_torch.runtime.replica import ReplicaProcess, reference
-        from ray_tpu_torch.train.backend_executor import visible_cards
 
         try:
             ref = reference(learner_builder)
@@ -244,36 +251,29 @@ class LearnerGroup:
         self.num_learners = max(int(num_learners), 1)
         n = self.num_learners
         group_name = f"learner_group_{uuid.uuid4().hex[:8]}"
-        envs: List[Dict[str, str]] = []
-        if use_gpu:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "LearnerGroup(use_gpu=True) but this host has no CUDA "
-                    "card; pass use_gpu=False (and a builder whose learner "
-                    "asks for the CPU) to learn in CPU processes")
-            cards, use = visible_cards(), {}
-            for _ in range(n):
-                got = _place(use, cards, 1.0)
-                if got is None:
-                    raise RuntimeError(
-                        f"{n} learners of a card each do not fit the "
-                        f"host's cards {cards}")
-                envs.append({"CUDA_VISIBLE_DEVICES": ",".join(got)})
-        else:
-            envs = [{"CUDA_VISIBLE_DEVICES": ""} for _ in range(n)]
+        on_cluster = cluster_core() is not None
+        envs = [] if on_cluster else self._host_envs(n, use_gpu)
         # The allreduce's rendezvous, hosted here for the group's life.
-        self._store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+        host = driver_host()
+        self._store = dist.TCPStore(host, 0, is_master=True,
                                     wait_for_workers=False)
-        address = f"127.0.0.1:{self._store.port}"
+        address = f"{host}:{self._store.port}"
         self.learners: List[ReplicaProcess] = []
         try:
             for rank in range(n):
-                self.learners.append(ReplicaProcess(
-                    "learner", _LearnerActor,
-                    (ref, rank, n, group_name, address,
-                     "nccl" if use_gpu else "gloo", tuple(builder_args),
-                     dict(builder_kwargs or {})), {}, False,
-                    sync_workers=2, env=envs[rank]))
+                args = (ref, rank, n, group_name, address,
+                        "nccl" if use_gpu else "gloo", tuple(builder_args),
+                        dict(builder_kwargs or {}))
+                if on_cluster:
+                    self.learners.append(ClusterReplica(
+                        "learner", _LearnerActor, args, {}, False,
+                        sync_workers=2, control_slots=0, actor_options={
+                            "num_cpus": 1, "num_gpus": 1 if use_gpu
+                            else 0}))
+                else:
+                    self.learners.append(ReplicaProcess(
+                        "learner", _LearnerActor, args, {}, False,
+                        sync_workers=2, env=envs[rank]))
             for w in self.learners:
                 w.wait_ready(LEARNER_START_S)
         except BaseException:
@@ -281,6 +281,30 @@ class LearnerGroup:
             raise
         self._push_chaos()
         chaos.subscribe(self._push_chaos)
+
+    @staticmethod
+    def _host_envs(n: int, use_gpu: bool) -> List[Dict[str, str]]:
+        """Each forked learner's ``CUDA_VISIBLE_DEVICES``: a card of this
+        host each, or none."""
+        from ray_tpu_torch.runtime.controller import _place
+        from ray_tpu_torch.train.backend_executor import visible_cards
+
+        if not use_gpu:
+            return [{"CUDA_VISIBLE_DEVICES": ""} for _ in range(n)]
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "LearnerGroup(use_gpu=True) but this host has no CUDA "
+                "card; pass use_gpu=False (and a builder whose learner "
+                "asks for the CPU) to learn in CPU processes")
+        cards, use, envs = visible_cards(), {}, []
+        for _ in range(n):
+            got = _place(use, cards, 1.0)
+            if got is None:
+                raise RuntimeError(
+                    f"{n} learners of a card each do not fit the "
+                    f"host's cards {cards}")
+            envs.append({"CUDA_VISIBLE_DEVICES": ",".join(got)})
+        return envs
 
     def _push_chaos(self) -> None:
         shared = chaos.state()

@@ -1,26 +1,35 @@
-"""Serve replicas as actors of the cluster runtime (JAX's replicas are
-actors of its runtime: ``ray_tpu/serve/api.py:1098-1101``, ``:1147-1152``).
+"""Processes of a group as actors of the cluster runtime: serve's
+replicas (JAX's replicas are actors of its runtime:
+``ray_tpu/serve/api.py:1098-1101``, ``:1147-1152``), the trainer's
+workers (``ray_tpu/train/backend_executor.py:249-265``) and RLlib's
+learners and env runners.
 
-When the serving process is a driver connected to a cluster
-(``ray_tpu_torch.init(address=...)``), the serve controller
-(:mod:`ray_tpu_torch.runtime.controller`) creates each replica as an actor
-of :class:`~ray_tpu_torch.runtime.replica.Replica` that the GCS places
-(:class:`ClusterReplica`), instead of forking a replica process of its
-own. The actor asks the cluster for the deployment's ``num_cpus`` and
-``num_gpus``: the node that hosts it books its cards and sets its
-``CUDA_VISIBLE_DEVICES``, and nothing comes out of the serving process's
-card book. A COMPACT deployment's replicas go into its PACK placement
-group, a SPREAD one's take the ``SPREAD`` strategy.
+When the process is a driver connected to a cluster
+(``ray_tpu_torch.init(address=...)``), each of those groups creates its
+members as actors of :class:`~ray_tpu_torch.runtime.replica.Replica`
+that the GCS places (:class:`ClusterReplica`), instead of forking
+replica processes of its own: the serve controller
+(:mod:`ray_tpu_torch.runtime.controller`), the trainer's ``WorkerGroup``
+(:mod:`ray_tpu_torch.train.backend_executor`), the learner group and
+``start_runner`` (:mod:`ray_tpu_torch.rllib`). The actor asks the cluster
+for its ``num_cpus``, ``num_gpus`` and other resources: the node that
+hosts it books its cards and sets its ``CUDA_VISIBLE_DEVICES``, and
+nothing comes out of the driver's card book. A COMPACT deployment's
+replicas go into its PACK placement group, a SPREAD one's take the
+``SPREAD`` strategy.
 
 :class:`ClusterReplica` has the interface of
 :class:`~ray_tpu_torch.runtime.replica.ReplicaProcess` that the
-controller and the handles use (``call``, ``stream``, ``control``,
-``ready``, ``wait_ready``, ``alive``, ``dead``, ``kill``, ``stop``,
-``pid``, ``info``, ``replica_id``), so the routing table, the drains,
-health and the autoscaler read one interface for both backends. A call is
+controller, the handles and the groups use (``call``, ``stream``,
+``control``, ``ready``, ``wait_ready``, ``alive``, ``dead``, ``kill``,
+``stop``, ``pid``, ``info``, ``replica_id``), so the routing table, the
+drains, health, the autoscaler, the trainer's liveness checks and the
+learner calls read one interface for both backends. A call is
 ``handle_request.remote``, a stream ``handle_request_streaming`` as an
 ``ObjectRefGenerator`` (JAX ``:1734``), a control op the method of the
-same name.
+same name. The objects these leave in the node stores go with their last
+reference (the runtime's reference counts): a call's result once its
+future resolved, a streamed item once its reader dropped it.
 
 The routing table also lives in the GCS (JAX ``:60-95``): on every change
 the controller writes each deployment's replicas (their ids and actor
@@ -35,7 +44,7 @@ routes from the replica's own worker over that table
 (:class:`GcsRoutes`), not through the serving process.
 
 The chaos plan (:mod:`ray_tpu_torch._private.chaos`) reaches replica
-processes over their pipe; a cluster replica has none, so
+processes over their pipe; a cluster actor has none, so
 :meth:`ClusterReplica.push_chaos` sends nothing (ROADMAP.md §C).
 """
 
@@ -74,23 +83,15 @@ class _ClusterStream:
     the call's ``ObjectRefGenerator``: ``next(timeout)`` raises
     ``StopIteration`` at the end, the replica's error, or
     ``ActorDiedError``; :meth:`close` of an unfinished stream cancels the
-    replica's task, which closes the user's generator.
+    replica's task, which closes the user's generator. Each item is a
+    node-store object whose one reference is the one read here: it goes
+    from the stores when that reference does; the items a stream that
+    ended early never read are the generator's to reap
+    (``release_stream_tail``)."""
 
-    Each item is a node-store object with this stream as its one reader,
-    so the items read are freed, FREE_BATCH at a time and the rest when
-    the stream is over; the end marker (the generator's length) once the
-    stream was read to its end and ``ended`` (the future of that marker,
-    whose callbacks read it) has resolved. The items a stream that ended
-    early never read are the generator's to reap
-    (``release_stream_tail``, which reads the marker)."""
-
-    FREE_BATCH = 16
-
-    def __init__(self, owner: "ClusterReplica", gen, ended: Future):
+    def __init__(self, owner: "ClusterReplica", gen):
         self._owner = owner
         self._gen = gen
-        self._ended = ended
-        self._read: List[Any] = []
         self._done = False
 
     def next(self, timeout: Optional[float] = None):
@@ -99,28 +100,13 @@ class _ClusterStream:
         core = _worker.global_worker().core
         try:
             ref = self._gen._next_internal(timeout)
-            value = core.get([ref], timeout)[0]
+            return core.get([ref], timeout)[0]
         except exceptions.GetTimeoutError:
             raise TimeoutError(f"no streamed item from {self._owner.peer} "
                                f"within {timeout} s") from None
         except BaseException:
-            self._finish()
+            self._done = True
             raise
-        self._read.append(ref)
-        if len(self._read) >= self.FREE_BATCH:
-            self._free_read()
-        return value
-
-    def _free_read(self) -> None:
-        read, self._read = self._read, []
-        _free_later(read)
-
-    def _finish(self) -> None:
-        self._done = True
-        self._free_read()
-        if self._gen._exhausted:
-            marker = self._gen.completed()
-            self._ended.add_done_callback(lambda _f: _free_later([marker]))
 
     def close(self) -> None:
         if not self._done:
@@ -128,24 +114,30 @@ class _ClusterStream:
                 _worker.cancel(self._gen.completed())
             except Exception:  # noqa: BLE001 — the task ended meanwhile
                 pass
-            self._finish()
+            self._done = True
 
 
-def _free_later(refs: List[Any]) -> None:
-    """Free ``refs`` from the cluster's stores, off the caller's thread;
-    nothing when the cluster is gone."""
+def driver_host() -> str:
+    """The host of this process as the cluster runtime knows it (its
+    node's address), where a group's rendezvous or store is hosted;
+    loopback without a cluster."""
     core = cluster_core()
-    if core is not None and refs:
-        core.free_later(refs)
+    if core is None:
+        return "127.0.0.1"
+    return core.node_address.rsplit(":", 1)[0]
 
 
 class ClusterReplica:
-    """One serve replica as an actor the GCS placed (module docstring).
-    ``actor`` attaches to a replica another process created (a handle's
-    view of the routing table); otherwise the actor is created now with
-    ``actor_options`` (``num_cpus``, ``num_gpus``, ``max_restarts``;
-    ``max_concurrency`` is ``sync_workers`` plus the control slots) and
-    ``strategy`` (a placement group strategy, ``"SPREAD"`` or None)."""
+    """One member of a group as an actor the GCS placed (module
+    docstring). ``actor`` attaches to a replica another process created
+    (a handle's view of the routing table); otherwise the actor is
+    created now with ``actor_options`` (``num_cpus``, ``num_gpus``,
+    ``resources``, ``max_restarts``; ``max_concurrency`` is
+    ``sync_workers`` plus ``control_slots``, the slots a serve replica
+    keeps for its control ops and a train worker or runner does not) and
+    ``strategy`` (a placement group strategy, ``"SPREAD"`` or None).
+    ``num_threads`` sets the actor's torch intra-op threads, as a replica
+    process's ``num_threads``."""
 
     _seq = itertools.count()
 
@@ -154,7 +146,9 @@ class ClusterReplica:
                  sync_workers: int = 8,
                  actor_options: Optional[Dict[str, Any]] = None,
                  strategy: Any = None, actor=None,
-                 replica_id: Optional[str] = None):
+                 replica_id: Optional[str] = None,
+                 control_slots: int = CONTROL_SLOTS,
+                 num_threads: Optional[int] = None):
         self.name = name
         self.replica_id = replica_id or \
             f"{name}-{_worker.global_worker().core.worker_id[:6]}-" \
@@ -166,7 +160,8 @@ class ClusterReplica:
             from ray_tpu_torch.runtime.replica import Replica
 
             opts = dict(actor_options or {})
-            options = {"max_concurrency": int(sync_workers) + CONTROL_SLOTS,
+            options = {"max_concurrency": int(sync_workers)
+                       + int(control_slots),
                        "max_restarts": int(opts.get("max_restarts", 0)),
                        "num_cpus": float(opts.get("num_cpus", 1) or 1)}
             if opts.get("num_gpus"):
@@ -177,7 +172,7 @@ class ClusterReplica:
                 options["scheduling_strategy"] = strategy
             actor = ray_tpu_torch.remote(Replica).options(**options).remote(
                 cls_or_fn, init_args, init_kwargs, is_function,
-                sync_workers)
+                sync_workers, num_threads)
             self._ready: Future = self._future(actor.info.remote())
             self._ready.add_done_callback(self._on_ready)
         else:
@@ -237,11 +232,9 @@ class ClusterReplica:
     # --------------------------------------------------------- requests
     @staticmethod
     def _future(ref) -> Future:
-        """The future of ``ref``'s value, its one reader: the store object
-        is freed once the future resolves."""
-        fut = _worker.global_worker().core.as_future(ref)
-        fut.add_done_callback(lambda _f: _free_later([ref]))
-        return fut
+        """The future of ``ref``'s value (it holds the reference until it
+        resolves)."""
+        return _worker.global_worker().core.as_future(ref)
 
     def call(self, method: Optional[str], args, kwargs,
              model_id: str = "", request_ctx=None) -> Future:
@@ -256,12 +249,10 @@ class ClusterReplica:
         gen = self.actor.handle_request_streaming.options(
             num_returns="streaming").remote(method, args, kwargs, model_id,
                                             request_ctx)
-        # Not _future: the stream frees the end marker once its reader
-        # is done with it too.
-        ended = _worker.global_worker().core.as_future(gen.completed())
         if on_done is not None:
-            ended.add_done_callback(lambda _f: on_done())
-        return _ClusterStream(self, gen, ended)
+            self._future(gen.completed()).add_done_callback(
+                lambda _f: on_done())
+        return _ClusterStream(self, gen)
 
     def control(self, op: str, *args) -> Future:
         from ray_tpu_torch.runtime.replica import CONTROL_OPS
@@ -278,14 +269,16 @@ class ClusterReplica:
     # ---------------------------------------------------------- lifetime
     def kill(self) -> None:
         """Kill the actor without restart (its node reaps the worker and
-        frees what it held)."""
+        the references it held)."""
         self._killed = True
         try:
             _worker.kill(self.actor, no_restart=True)
         except Exception:  # noqa: BLE001 — the cluster is already gone
             pass
 
-    stop = kill
+    def stop(self, timeout_s: float = 10.0) -> None:
+        """As :meth:`kill`: an actor's worker ends with its actor."""
+        self.kill()
 
 
 # ------------------------------------------------------------ the routes

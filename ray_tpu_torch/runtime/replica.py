@@ -107,7 +107,9 @@ class Replica:
     wait their turn."""
 
     def __init__(self, cls_or_fn, init_args, init_kwargs, is_function: bool,
-                 sync_workers: int = 8):
+                 sync_workers: int = 8, num_threads: Optional[int] = None):
+        if num_threads:           # a cluster actor's (a process's is set)
+            torch.set_num_threads(max(1, int(num_threads)))
         self.is_function = is_function
         t0 = time.perf_counter()
         if is_function:

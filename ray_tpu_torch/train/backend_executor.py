@@ -6,19 +6,29 @@ Reference call stack (SURVEY.md §3.4): ``BackendExecutor.start``
 shares accelerator visibility among colocated workers, assigns ranks,
 runs ``train_loop_per_worker`` and polls a session queue for results.
 
-The port has no actor core. Each :class:`TrainWorker` lives in a process
-of its own, hosted the way a serve replica is
-(:class:`~ray_tpu_torch.runtime.replica.ReplicaProcess`: one duplex pipe,
-calls answered on a pool of threads, so ``run``, ``poll`` and ``stop``
-run concurrently as ``max_concurrency=3`` gives the JAX actor). The
-processes fork from the replicas' fork server, which imported torch
-once, so a restart costs no torch import. Each worker sees
-its cards through ``CUDA_VISIBLE_DEVICES``, and an empty one when
-``use_gpu`` is off. A ``use_gpu`` group takes its cards from the serving
-process's one card book (``runtime/controller.py::CARDS``), where the
-serve replicas take theirs, so a worker never lands on a card a replica
-holds; a group that does not fit waits for shares to come back up to
-``WORKER_START_S`` and gives its own back when it stops.
+Each :class:`TrainWorker` is hosted one of two ways, both answering
+the interface of :class:`~ray_tpu_torch.runtime.replica.ReplicaProcess`
+(calls answered on a pool of three threads, so ``run``, ``poll`` and
+``stop`` run concurrently as ``max_concurrency=3`` gives the JAX actor):
+
+* **on a cluster** (the driver ran ``ray_tpu_torch.init(address=...)``),
+  as JAX's: an actor of the cluster runtime
+  (:class:`~ray_tpu_torch.runtime.cluster_replica.ClusterReplica`) with
+  ``num_cpus=cpus_per_worker``, ``num_gpus=gpus_per_worker`` when
+  ``use_gpu``, the other resources of ``worker_resources()`` and
+  ``max_concurrency=3``, which the GCS places. The node that hosts it
+  books its cards and sets its ``CUDA_VISIBLE_DEVICES``; nothing comes
+  out of the driver's card book, and a placement the cluster can never
+  make fails the start with the runtime's error at once;
+* **otherwise**, in a process of its own forked from the replicas' fork
+  server (which imported torch once, so a restart costs no torch
+  import), seeing its cards through ``CUDA_VISIBLE_DEVICES`` (an empty
+  one when ``use_gpu`` is off). A ``use_gpu`` group takes its cards from
+  the serving process's one card book (``runtime/controller.py::CARDS``),
+  where the serve replicas take theirs, so a worker never lands on a
+  card a replica holds; a group that does not fit waits for shares to
+  come back up to ``WORKER_START_S`` and gives its own back when it
+  stops.
 
 ``TorchBackend.on_start`` forms the ``torch.distributed`` group from
 worker 0 (the JAX package's ``jax.distributed`` bootstrap): worker 0
@@ -47,7 +57,9 @@ feed it:
 
 The chaos harness (``_private/chaos.py``) can kill a worker at a step
 boundary, drop/delay heartbeats, or wedge a step — each detection path
-above is exercised by a real injected fault in tests.
+above is exercised by a real injected fault in tests. The plan reaches a
+forked worker over its pipe; a cluster actor has none, so chaos runs in
+local mode only (ROADMAP.md §C).
 """
 
 from __future__ import annotations
@@ -129,9 +141,12 @@ class TrainWorker:
         return True
 
     def node_ip(self) -> str:
-        """Address of this worker's host for the rendezvous. The port's
-        workers share the controller's host, so loopback."""
-        return "127.0.0.1"
+        """Address of this worker's host for the rendezvous: its cluster
+        node's host, or loopback for a forked worker (on the controller's
+        host)."""
+        from ray_tpu_torch.runtime.cluster_replica import driver_host
+
+        return driver_host()
 
     def reserve_port(self) -> int:
         """Free port on this worker's host for the rendezvous store."""
@@ -286,21 +301,60 @@ def visible_cards() -> List[str]:
 
 
 class WorkerGroup:
-    """Reference: ``train/_internal/worker_group.py``. Spawns
-    ``scaling.num_workers`` worker processes (each on its cards), waits
-    until each is up, and pushes the chaos plan to them."""
+    """Reference: ``train/_internal/worker_group.py``. Starts
+    ``scaling.num_workers`` workers (cluster actors on a cluster, else
+    processes each on its cards: module docstring), waits until each is
+    up, and pushes the chaos plan to them."""
 
     def __init__(self, scaling: ScalingConfig, group_id: str = "",
                  store_address: Optional[str] = None):
-        from ray_tpu_torch.runtime.controller import CARDS, _place
+        from ray_tpu_torch.runtime.cluster_replica import cluster_core
 
         self.scaling = scaling
         self.group_id = group_id or uuid.uuid4().hex[:8]
-        n = scaling.num_workers
         # The shares this group holds in the card book: (cards, share).
         self._held: List[Tuple[List[str], float]] = []
         self.workers: List[ReplicaProcess] = []
-        envs: List[Dict[str, str]] = []
+        n = scaling.num_workers
+        kwargs = {"group_id": self.group_id, "store_address": store_address}
+        threads = max(1, int(scaling.cpus_per_worker))
+        try:
+            if cluster_core() is not None:
+                self._start_actors(kwargs, threads)
+            else:
+                self._fork(kwargs, threads)
+            for w in self.workers:
+                w.wait_ready(WORKER_START_S)
+        except BaseException:
+            self.shutdown()
+            raise
+        self._push_chaos()
+        chaos.subscribe(self._push_chaos)
+
+    def _start_actors(self, kwargs: Dict[str, Any], threads: int) -> None:
+        """The workers as actors the GCS places (JAX ``:249-265``)."""
+        from ray_tpu_torch.runtime.cluster_replica import ClusterReplica
+
+        scaling, n = self.scaling, self.scaling.num_workers
+        res = scaling.worker_resources()
+        opts: Dict[str, Any] = {
+            "num_cpus": res.get("CPU", 1),
+            "resources": {k: v for k, v in res.items()
+                          if k not in ("CPU", "GPU")}}
+        if scaling.use_gpu:
+            opts["num_gpus"] = float(scaling.gpus_per_worker or 1.0)
+        for rank in range(n):
+            self.workers.append(ClusterReplica(
+                "train", TrainWorker, (rank, n, rank, n), kwargs, False,
+                sync_workers=3, actor_options=opts, control_slots=0,
+                num_threads=threads))
+
+    def _fork(self, kwargs: Dict[str, Any], threads: int) -> None:
+        """The workers as processes forked here, on cards of this
+        process's card book."""
+        from ray_tpu_torch.runtime.controller import CARDS, _place
+
+        scaling, n = self.scaling, self.scaling.num_workers
         if scaling.use_gpu:
             cards = visible_cards()
             per = float(scaling.gpus_per_worker or 1.0)
@@ -318,22 +372,11 @@ class WorkerGroup:
             envs = [{"CUDA_VISIBLE_DEVICES": ",".join(c)} for c in got]
         else:
             envs = [{"CUDA_VISIBLE_DEVICES": ""} for _ in range(n)]
-        threads = max(1, int(scaling.cpus_per_worker))
-        try:
-            for rank in range(n):
-                self.workers.append(ReplicaProcess(
-                    "train", TrainWorker, (rank, n, rank, n),
-                    {"group_id": self.group_id,
-                     "store_address": store_address},
-                    False, sync_workers=3, env=envs[rank],
-                    num_threads=threads))
-            for w in self.workers:
-                w.wait_ready(WORKER_START_S)
-        except BaseException:
-            self.shutdown()
-            raise
-        self._push_chaos()
-        chaos.subscribe(self._push_chaos)
+        for rank in range(n):
+            self.workers.append(ReplicaProcess(
+                "train", TrainWorker, (rank, n, rank, n), kwargs,
+                False, sync_workers=3, env=envs[rank],
+                num_threads=threads))
 
     def _push_chaos(self) -> None:
         shared = chaos.state()
@@ -408,9 +451,9 @@ class WorkerGroup:
         return self.execute(method, *args, timeout_s=timeout_s, **kwargs)
 
     def shutdown(self, graceful: bool = False):
-        """Kill the worker processes (``graceful``: ask each to exit
-        first, as at the end of a finished run), then give the group's
-        card shares back to the book."""
+        """Kill the workers (``graceful``: ask each to exit first, as at
+        the end of a finished run), then give the group's card shares
+        back to the book (a cluster group holds none)."""
         from ray_tpu_torch.runtime.controller import CARDS
 
         chaos.unsubscribe(self._push_chaos)

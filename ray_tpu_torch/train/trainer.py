@@ -50,11 +50,14 @@ plane, ``ray_tpu/train/goodput.py``):
   a ``train.recovery`` tree per elastic recovery whose duration equals
   the recovery metric.
 
-The controller hosts one ``TCPStore`` a run: the workers' heartbeats,
-the checkpoint plane's commit records, the straggler records and the
-preemption channel go through it (the JAX package's GCS KV and pubsub).
-Capacity is the host's: visible cards over ``gpus_per_worker`` with
-``use_gpu``, else CPUs over ``cpus_per_worker``. The train loop crosses
+The controller hosts one ``TCPStore`` a run, on its host's address as
+the cluster runtime knows it (loopback without a cluster): the workers'
+heartbeats, the checkpoint plane's commit records, the straggler records
+and the preemption channel go through it (the JAX package's GCS KV and
+pubsub). On a cluster the workers are actors of the cluster runtime and
+capacity is the cluster's available resources, as JAX's; otherwise it
+is the host's: visible cards over ``gpus_per_worker`` with ``use_gpu``,
+else CPUs over ``cpus_per_worker``. The train loop crosses
 to the worker processes by reference, so it must be a module-level
 function. ``datasets={name: Dataset}`` gives each rank a disjoint
 ``streaming_split`` shard (``train.get_dataset_shard(name)``): the
@@ -123,13 +126,17 @@ class ControllerState:
 
 
 def _available() -> Dict[str, float]:
-    """What this host can give workers: its CPUs and the cards no serve
-    replica or train worker holds a share of (JAX's
-    ``available_resources()``)."""
+    """What can be given to workers (JAX's ``available_resources()``): on
+    a cluster, the cluster's available resources; else this host's CPUs
+    and the cards no serve replica or train worker holds a share of."""
     import torch
 
+    from ray_tpu_torch.runtime.cluster_replica import cluster_core
     from ray_tpu_torch.runtime.controller import CARDS
 
+    core = cluster_core()
+    if core is not None:
+        return {"CPU": 0.0, "GPU": 0.0, **core.available_resources()}
     gpus = CARDS.free_cards() if torch.cuda.is_available() else 0
     return {"CPU": float(os.cpu_count() or 1), "GPU": float(gpus)}
 
@@ -235,7 +242,10 @@ class TorchTrainer:
         from ray_tpu_torch._private import metrics_defs as mdefs
         from ray_tpu_torch.util import tracing
 
-        if self.scaling_config.use_gpu:
+        from ray_tpu_torch.runtime.cluster_replica import (cluster_core,
+                                                           driver_host)
+
+        if self.scaling_config.use_gpu and cluster_core() is None:
             visible_cards()  # raises on a host with no card
         rc = self.run_config
         storage_path = rc.storage_path or os.path.join(
@@ -287,7 +297,7 @@ class TorchTrainer:
         mtags = {"trainer": type(self).__name__}
         # The run's store: the workers' heartbeats, checkpoint commits,
         # straggler records and the preemption channel.
-        store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+        store = dist.TCPStore(driver_host(), 0, is_master=True,
                               wait_for_workers=False,
                               timeout=timedelta(seconds=60))
         address = f"{store.host}:{store.port}"

@@ -1,5 +1,7 @@
-"""Node death, actor restart across nodes, placement groups and RPC chaos
-on the port's cluster runtime, held to ``tests/test_cluster_failures.py``.
+"""Node death, actor restart across nodes, a lost result rebuilt from its
+lineage, an actor killed while its node builds it, placement groups and
+RPC chaos on the port's cluster runtime, held to
+``tests/test_cluster_failures.py``.
 
 Each case starts a fresh port cluster (a 4-CPU head); the cases are
 module-level (``tests/torch_cluster_cases.py``). Placement groups go
@@ -89,20 +91,68 @@ def test_actor_restarts_on_surviving_node(fresh_cluster):
 
 
 def test_a_lost_object_raises_object_lost_naming_item_20b(fresh_cluster):
-    """A result whose only copy died with its node raises
-    ``ObjectLostError`` naming item 20b (JAX rebuilds it from lineage)."""
+    """(Named for what it checked before lineage was ported.) A result
+    whose only copy died with its node is rebuilt from its lineage: the
+    driver runs its task again (JAX's ``_maybe_reconstruct``), here on
+    the head, since the task's affinity to the dead node is soft; a
+    result nobody holds the lineage of raises ``ObjectLostError``."""
+    import numpy as np
+
+    from ray_tpu_torch._private import worker as worker_mod
     from ray_tpu_torch.exceptions import ObjectLostError
+    from ray_tpu_torch.util.scheduling_strategies import \
+        NodeAffinitySchedulingStrategy
 
     c = fresh_cluster
     second = c.add_node(num_cpus=2, resources={"pin": 1.0})
     c.wait_for_nodes()
     rt.init(address=c.address)
-    big = rt.remote(resources={"pin": 1.0})(cases.make_big)
+    big = rt.remote(cases.make_big).options(
+        scheduling_strategy=NodeAffinitySchedulingStrategy(
+            second.node_id, soft=True))
     ref = big.remote(500_000)          # 4 MB: left in the node's store
     rt.wait([ref], num_returns=1, timeout=60, fetch_local=False)
+    gcs = rpc.get_stub("GcsService", c.address)
+    assert list(gcs.GetObjectLocations(pb.GetObjectLocationsRequest(
+        object_id=ref.binary())).node_ids) == [second.node_id]
     c.remove_node(second, allow_graceful=False)
-    with pytest.raises(ObjectLostError, match="item 20b"):
-        rt.get(ref, timeout=60)
+    assert np.array_equal(rt.get(ref, timeout=60), np.arange(500_000))
+    # The same loss where this process holds no lineage of the result.
+    third = c.add_node(num_cpus=2)
+    c.wait_for_nodes()
+    ref2 = big.options(scheduling_strategy=NodeAffinitySchedulingStrategy(
+        third.node_id, soft=False)).remote(400_000)
+    rt.wait([ref2], num_returns=1, timeout=60, fetch_local=False)
+    core = worker_mod.global_worker().core
+    assert list(core.gcs.GetObjectLocations(pb.GetObjectLocationsRequest(
+        object_id=ref2.binary())).node_ids) == [third.node_id]
+    with core._lineage_lock:
+        core._lineage.pop(ref2.binary())
+    c.remove_node(third, allow_graceful=False)
+    with pytest.raises(ObjectLostError, match="cannot be reconstructed"):
+        rt.get(ref2, timeout=60)
+
+
+def test_an_actor_killed_while_it_is_built_stays_dead(fresh_cluster):
+    """A kill that lands while the actor's node is still building it (the
+    GCS placing it) leaves it DEAD: the worker built after the kill is
+    stopped and the node's resources come back (the GCS marked such an
+    actor ALIVE again, holding its resources for ever)."""
+    c = fresh_cluster
+    rt.init(address=c.address)
+    a = rt.remote(num_cpus=2)(cases.SlowInit).remote(2.0)
+    time.sleep(0.5)                   # placed; its constructor running
+    rt.kill(a)
+    gcs = rpc.get_stub("GcsService", c.address)
+    deadline = time.monotonic() + 20
+    while time.monotonic() < deadline and \
+            rt.available_resources().get("CPU") != 4.0:
+        time.sleep(0.1)
+    assert rt.available_resources().get("CPU") == 4.0
+    info = gcs.GetActor(pb.GetActorRequest(actor_id=a._actor_id.binary()))
+    assert info.found and info.info.state == "DEAD"
+    with pytest.raises(rt.exceptions.ActorDiedError):
+        rt.get(a.pid.remote(), timeout=30)
 
 
 def _make_pg(gcs_address, group_id, strategy, bundles):

@@ -113,9 +113,11 @@ def test_cluster_replica_death_retry():
 
 
 def test_streamed_items_are_freed(serve_cluster):
-    """A streamed item is a node-store object whose one reader is the
-    handle's stream: streams of many items, their end markers and unary
-    results leave the node stores' object counts where they were."""
+    """A streamed item is a node-store object whose one reference is the
+    one the handle's stream reads: with no explicit free anywhere, the
+    reference counts alone take streams of many items, their end markers
+    and unary results out of the node stores, whose object counts go
+    back to where they were."""
     def objects():
         return sum(n.store_stats()[1] for n in serve_cluster.nodes)
 

@@ -421,3 +421,84 @@ class Adder:
 
     def ident(self, x):
         return x
+
+
+# ------------------------------------- the object plane (refcounts, lineage,
+# spilling, locality, transfers): the cases of tests/test_refcount_lineage.py,
+# test_spilling.py, test_locality.py and test_object_transfer.py.
+def produce(tag):
+    # Big enough to live in the node's store (not inline).
+    return np.full(300_000, 7, np.uint8)
+
+
+class RefHolder:
+    def __init__(self):
+        self.held = None
+
+    def hold(self, ref_list):
+        self.held = ref_list  # keeps the borrow alive in this process
+        return True
+
+    def pid(self):
+        return os.getpid()
+
+
+def sum_nested(lst):
+    import ray_tpu_torch as rt
+
+    return int(rt.get(lst[0]).sum())
+
+
+class CtorConsumer:
+    def __init__(self, lst):
+        import ray_tpu_torch as rt
+
+        self.total = int(rt.get(lst[0]).sum())
+
+    def total_(self):
+        return self.total
+
+
+def make_floats(i, n):
+    return np.full(n, i, dtype=np.float64)
+
+
+def slow_first_attempt(marker_dir):
+    # The first attempt hangs until the memory monitor kills its worker.
+    mk = os.path.join(marker_dir, "attempt")
+    if not os.path.exists(mk):
+        open(mk, "w").close()
+        time.sleep(30)
+    return "done"
+
+
+def produce_here(n):
+    import ray_tpu_torch as rt
+
+    return (rt.get_runtime_context().get_node_id(),
+            np.zeros(n, dtype=np.uint8))
+
+
+def where_pair(pair):
+    import ray_tpu_torch as rt
+
+    return pair[0], rt.get_runtime_context().get_node_id()
+
+
+def zero_bytes(n):
+    return bytes(n)
+
+
+def hold_for(seconds):
+    time.sleep(seconds)
+    return 1
+
+
+class SlowInit:
+    """An actor whose constructor takes ``seconds``."""
+
+    def __init__(self, seconds):
+        time.sleep(seconds)
+
+    def pid(self):
+        return os.getpid()

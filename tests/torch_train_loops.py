@@ -380,3 +380,35 @@ def pool_loop(config):
                          "world": ctx.get_world_size()})
         steps_this_attempt += 1
     return float(w.sum())
+
+
+def where_loop(config):
+    """Reports, ``config["steps"]`` times, the cluster node its worker
+    runs on (empty outside a cluster worker), the worker's pid and its
+    ``CUDA_VISIBLE_DEVICES``, holding each step ``config["hold_s"]``."""
+    from ray_tpu_torch._private import worker as worker_mod
+
+    w = worker_mod.global_worker_or_none()
+    node = w.core.node_id.hex() if w is not None and w.mode == "worker" \
+        else ""
+    ctx = rt_train.get_context()
+    for step in range(config.get("steps", 1)):
+        time.sleep(config.get("hold_s", 0.0))
+        rt_train.report({"step": step, "rank": ctx.get_world_rank(),
+                         "node_id": node, "pid": os.getpid(),
+                         "cuda_visible_devices":
+                             os.environ.get("CUDA_VISIBLE_DEVICES")})
+    return ctx.get_world_rank()
+
+
+def card_loop(config):
+    """One step on the worker's card: reports the card's name and a sum
+    computed there."""
+    ctx = rt_train.get_context()
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    rt_train.report({"step": 0, "rank": ctx.get_world_rank(),
+                     "sum": float(x.sum()), "pid": os.getpid(),
+                     "device": torch.cuda.get_device_name(0),
+                     "cuda_visible_devices":
+                         os.environ.get("CUDA_VISIBLE_DEVICES")})
+    return ctx.get_world_rank()
